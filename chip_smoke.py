@@ -7,10 +7,13 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every kernel of the traj_ball path from csrc/ with nvcc;
+  2. build the kernels (one source, three kernels) from csrc/ with nvcc;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
-     seeded soups at 1920x1080 and one traj_ball frame: depth bits and
-     winner index must be equal;
+     seeded soups at 1920x1080 and one traj_ball frame, and the two
+     disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
+     seeded soups and a disc scene with exact depth ties and two wide
+     discs on the big list: depth bits, winner index and the (u, v) bits
+     with their +inf markers must be equal;
   4. the soup built on the card must equal the soup built on the CPU;
   5. write seeded binary 1M-point PLYs (positions + velocities, the
      traffic of bench.py's flagship lane) and render frames 10, 120 and
@@ -22,9 +25,24 @@ Phases (any failure exits non-zero and prints no result line):
      tail (frames 200-219) and self-heal at its peak; at frames 120, 205
      and that peak, time warm frames, the frames' stages, a profiler trace
      of warm frames (device busy share and the top device kernels), and
-     the kernel beside its plain version.
+     the kernel beside its plain version;
+  7. the disc lane of bench.py (ground + 1M sphere splats of radius 0.002,
+     discs_only, uniform_look, max_big 256): both disc kernels equal their
+     plain versions on the 1M-point cloud at frames 0, 120 and 219; the
+     fused shade equals shade_by_id(uniform_look) bit for bit; then the
+     220-frame flythrough through TrajectoryScanRenderer at 1920x1080 in
+     chunks of 8: certificate 0 on every chunk, one csr6_disc8_uv launch
+     per frame, frames equal to the plain backend's, frames/s, ms/frame,
+     the stages of one warm frame and a trace of one warm chunk (device
+     idle share, host synchronisations); 8 frames without uniform_look
+     (csr6_disc8) and 8 advected traj_ball frames with trails
+     (csr6_raster) show the loop drives those kernels too.
 The last two lines are the card line and {"ok": true, "device": {...}};
-before them a {"kernels": [...]} line with each kernel's numbers.
+before them a {"kernels": [...]} line with each kernel's numbers: launches
+on its main path, time beside its plain version and its bound (the pairs
+the walk must evaluate times the float32 operations per pair, over the
+card's float32 rate without multiply-add fusion; or its bytes over the
+memory rate if that is larger).
 """
 
 from __future__ import annotations
@@ -41,7 +59,30 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = (10, 120, 205)
 KERNEL_SOURCE = "pointcloud_render_tpu_torch/csrc/csr6_raster.cu"
-REPLACES = "pointcloud_render_tpu/raster/pallas_csr6.py:601"
+REPLACES = {
+    "csr6_raster": "pointcloud_render_tpu/raster/pallas_csr6.py:601",
+    "csr6_disc8": "pointcloud_render_tpu/raster/pallas_csr6.py:268",
+    "csr6_disc8_uv": "pointcloud_render_tpu/raster/pallas_csr6.py:505",
+}
+LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
+SCAN_FRAMES = 220
+SCAN_CHUNK = 8
+# The card's peaks (NVIDIA's H100 SXM data sheet): 67 TFLOP/s float32
+# counts a fused multiply-add as two; the walks are IEEE per operation
+# (no fusion), so they retire at most half of that in operations.
+F32_OPS_PER_S = 67e12 / 2
+BYTES_PER_S = 3.35e12
+# float32 operations that every (row, pixel) pair must execute.  What is
+# the same for a whole pixel column of a row (dx, dx * dx, dx * sdx, the
+# qx products of the edge functions) is not a pair's, and the three
+# compares of the (depth, id) merge run only at covered pairs, a small
+# share with splats of a few pixels in 1024-pixel tiles: both are left out.
+#   disc row:     dy, dy * dy, + dx2, <= r2                              4
+#   capsule row:  dy, the projection t (3), its clip (2), cx and cy (4),
+#                 rad (2), z (2), cx * cx + cy * cy <= rad * rad (5)    19
+#   triangle row: three edge functions (3 each), 1/z interpolation (5),
+#                 four compares, the select, the division (6)           20
+OPS_CAPSULE16, OPS_TRIANGLE16, OPS_DISC8 = 19, 20, 4
 
 
 class SmokeFailure(Exception):
@@ -74,6 +115,44 @@ def flagship_cloud(n, seed):
     return pos, vel
 
 
+def soup_camera(device):
+    """The fixed camera of the seeded soups."""
+    import torch
+
+    from pointcloud_render_tpu_torch.scene.camera import Camera
+
+    return Camera(origin=torch.tensor([2.0, 2.0, 2.0], device=device),
+                  target=torch.tensor([0.0, 0.0, -0.05], device=device))
+
+
+def disc_lane_soup(device):
+    """A two-tone disc scene at 1920x1080: the white ground, two wide gray
+    discs that ride the big list, and 20k gray discs three times over
+    (exact depth ties between the copies)."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.raster.primitives import (
+        ScreenPrimitives,
+        discs_from_points,
+    )
+    from pointcloud_render_tpu_torch.raster.render import ground_plane
+
+    cam = soup_camera(device)
+    rng = np.random.default_rng(2027)
+    dup = rng.uniform(-0.5, 0.5, (20000, 3)).astype(np.float32)
+
+    def discs(pos, r):
+        return discs_from_points(
+            torch.tensor(pos, device=device), cam,
+            torch.full((pos.shape[0],), r, device=device),
+            np.asarray(LOOK[0], np.float32))
+
+    return ScreenPrimitives.concatenate(
+        [ground_plane(cam, 10.0, (0.0, 0.0, -0.5)), discs(dup[:2] * 0.2, 0.15),
+         discs(dup, 0.012), discs(dup, 0.012), discs(dup[::-1].copy(), 0.012)])
+
+
 def soups(device):
     """Six seeded soups at 1920x1080 covering ties, a dense tile, big-list
     prims, edge tiles, invalid rows and near-clipped triangles."""
@@ -87,10 +166,8 @@ def soups(device):
         triangles_from_mesh,
     )
     from pointcloud_render_tpu_torch.raster.render import ground_plane
-    from pointcloud_render_tpu_torch.scene.camera import Camera
 
-    cam = Camera(origin=torch.tensor([2.0, 2.0, 2.0], device=device),
-                 target=torch.tensor([0.0, 0.0, -0.05], device=device))
+    cam = soup_camera(device)
     gray = np.array([0.3, 0.3, 0.3], np.float32)
     green = np.array([0.2, 1.0, 0.4], np.float32)
 
@@ -158,8 +235,65 @@ def soups(device):
     return out
 
 
+def time_ms(fn, reps):
+    """Median of ``reps`` CUDA-event-timed calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def walk_bound(b, soup, width, height, row_bytes, ops_binned, n_images):
+    """(bound ms, "operations" | "bytes") of one tile walk on this soup:
+    the least time the card could take for the pairs the walk must
+    evaluate (1024 pixels x tile entries of binned rows, every pixel x
+    every live big row, each at its body's float32 operations) and for
+    its bytes (each row it evaluates read once with its sorted id, the
+    range starts, the output images written once)."""
+    entries = int(b["diag"]["true_entries"])
+    nb = int(b["big_n"][0])
+    n_small = int(b["starts"][-1])
+    n_tri = int((soup.kind[b["big_ids"][:nb].long()] == 2).sum())
+    pixels = width * height
+    ops = (1024 * entries * ops_binned
+           + pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16))
+    nbytes = (n_small * (row_bytes + 4) + nb * (64 + 4)
+              + b["starts"].numel() * 4 + pixels * 4 * n_images)
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_equal_bits(got, want, what):
+    """Every image of ``got`` equals ``want`` bit for bit -> max |err| of
+    the finite depths (0.0 when equal; kept for the kernels line)."""
+    import torch
+
+    check(len(got) == len(want), f"{what}: output count differs")
+    for k, (a, b) in enumerate(zip(got, want)):
+        a32 = a if a.dtype == torch.int32 else a.view(torch.int32)
+        b32 = b if b.dtype == torch.int32 else b.view(torch.int32)
+        check(torch.equal(a32, b32),
+              f"{what}: output {k} differs from the plain version on "
+              f"{int((a32 != b32).sum())} pixels")
+    check(bool((got[1] >= 0).any()), f"{what}: empty render, nothing compared")
+    fin = torch.isfinite(want[0])
+    return (float((got[0][fin] - want[0][fin]).abs().max())
+            if bool(fin.any()) else 0.0)
+
+
 def compare(soup, width, height, csr6, max_big, timing=False):
-    """Kernel vs plain on one soup -> (max_abs_err, kernel_ms, plain_ms)."""
+    """csr6_raster vs plain on one soup -> dict(err, ms, plain_ms, bound_ms,
+    bound_by); the times and the bound only with ``timing``."""
     import torch
 
     b = csr6.bin_csr6(soup, width, height, max_big)
@@ -168,37 +302,52 @@ def compare(soup, width, height, csr6, max_big, timing=False):
     table = csr6.build_table16(soup, zeros, zeros[:, 0])
     args = (table, b["order"], b["starts"], b["big_ids"], b["big_n"],
             width, height)
-    d_k, i_k = csr6.raster_tiles(*args)
+    got = csr6.raster_tiles(*args)
     torch.cuda.synchronize()
-    d_p, i_p = csr6.raster_tiles_plain(*args)
+    want = csr6.raster_tiles_plain(*args)
     torch.cuda.synchronize()
-    check(torch.equal(i_k, i_p), "kernel index differs from the plain "
-          f"version on {int((i_k != i_p).sum())} pixels")
-    check(torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)),
-          "kernel depth bits differ from the plain version")
-    check(bool((i_k >= 0).any()), "empty render: nothing compared")
-    fin = torch.isfinite(d_p)
-    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if not timing:
-        return err, None, None
+    out = dict(err=check_equal_bits(got, want, "csr6_raster"))
+    if timing:
+        bound_ms, bound_by = walk_bound(b, soup, width, height, 64,
+                                        OPS_CAPSULE16, 2)
+        out.update(ms=time_ms(lambda: csr6.raster_tiles(*args), 11),
+                   plain_ms=time_ms(lambda: csr6.raster_tiles_plain(*args), 2),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
-    def time_ms(fn, reps):
-        """Median of ``reps`` CUDA-event-timed calls after a warm-up."""
-        fn()
+
+def compare_disc(soup, flag, width, height, csr6, max_big, timing=False):
+    """csr6_disc8 and csr6_disc8_uv vs their plain versions on one soup ->
+    {kernel name: dict(err, ms, plain_ms, bound_ms, bound_by)}; ``flag``
+    is preshade's disc flag (lane 5 of the disc rows, lane 13 of the big
+    rows), which the (u, v) walk multiplies by."""
+    import torch
+
+    b = csr6.bin_csr6(soup, width, height, max_big, discs_only=True)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    args = (csr6.build_table8(soup, flag),
+            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["order"], b["starts"], b["big_n"], width, height)
+    out = {}
+    for name, kernel, plain, images in (
+            ("csr6_disc8", csr6.raster_tiles_disc8,
+             csr6.raster_tiles_disc8_plain, 2),
+            ("csr6_disc8_uv", csr6.raster_tiles_disc8_uv,
+             csr6.raster_tiles_disc8_uv_plain, 4)):
+        got = kernel(*args)
         torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop))
-        return statistics.median(times)
-
-    return (err, time_ms(lambda: csr6.raster_tiles(*args), 11),
-            time_ms(lambda: csr6.raster_tiles_plain(*args), 3))
+        want = plain(*args)
+        torch.cuda.synchronize()
+        out[name] = dict(err=check_equal_bits(got, want, name))
+        if timing:
+            bound_ms, bound_by = walk_bound(b, soup, width, height, 32,
+                                            OPS_DISC8, images)
+            out[name].update(
+                ms=time_ms(lambda k=kernel: k(*args), 11),
+                plain_ms=time_ms(lambda f=plain: f(*args), 2),
+                bound_ms=bound_ms, bound_by=bound_by)
+    return out, b
 
 
 def stage_breakdown(pipeline, csr6, preset, pcl, fi, dev, max_big, reps=3):
@@ -245,10 +394,11 @@ def stage_breakdown(pipeline, csr6, preset, pcl, fi, dev, max_big, reps=3):
 
 def device_profile(render, frames, trace_dir):
     """torch.profiler trace of ``frames`` warm calls of ``render`` ->
-    (device busy us, wall us, [(kernel name, device us)] by time).  Busy
-    is the union of the intervals of device kernels, copies and memsets;
-    wall is the host clock around the traced calls, profiler cost
-    included."""
+    (device busy us, wall us, [(kernel name, device us)] by time, {CUDA
+    runtime call: count} for the launches, copies and synchronisations the
+    host made).  Busy is the union of the
+    intervals of device kernels, copies and memsets; wall is the host
+    clock around the traced calls, profiler cost included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,7 +424,291 @@ def device_profile(render, frames, trace_dir):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-    return busy, wall, sorted(by_name.items(), key=lambda kv: -kv[1])
+    calls = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime" and (
+                "Synchronize" in name or "Launch" in name
+                or "Memcpy" in name):
+            calls[name] = calls.get(name, 0) + 1
+    return busy, wall, sorted(by_name.items(), key=lambda kv: -kv[1]), calls
+
+
+def scan_stage_breakdown(pipeline, csr6, trajectory, preset, pos, fi, dev,
+                         max_big, reps=3):
+    """Stream time per stage of one disc-lane frame (CUDA events between
+    stages, mean of ``reps`` runs after a warm-up), in the order the scan
+    runs them.  An interval also holds any time the stream waited for the
+    host to launch its next op."""
+    import torch
+
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    names = ("camera+soup build", "preshade", "binning (sort, starts, "
+             "big list)", "table8 + big rows", "csr6_disc8_uv kernel",
+             "shade_uv", "srgb_encode_u8")
+    totals = dict.fromkeys(names, 0.0)
+    shading = ShadingConfig()
+    fi_dev = torch.tensor(float(fi), device=dev)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        cam = pipeline.frame_camera(preset, fi_dev, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pos, None, fi_dev)
+        ev[1].record()
+        rgb, flag = csr6.preshade(soup, cam, shading)
+        ev[2].record()
+        b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, discs_only=True)
+        ev[3].record()
+        table8 = csr6.build_table8(soup, flag)
+        big_rows = csr6.build_table16_rows(soup, rgb, flag, b["big_ids"])
+        ev[4].record()
+        depth, _, u, v = csr6.raster_tiles_disc8_uv(
+            table8, big_rows, b["order"], b["starts"], b["big_n"], WIDTH,
+            HEIGHT)
+        ev[5].record()
+        lit = csr6.shade_uv(cam, shading, depth, u, v, LOOK)
+        ev[6].record()
+        trajectory.srgb_encode_u8(lit)
+        ev[7].record()
+        torch.cuda.synchronize()
+        if rep:
+            for k, name in enumerate(names):
+                totals[name] += ev[k].elapsed_time(ev[k + 1]) / reps
+    return totals
+
+
+def disc_lane(card, dev, max_err) -> dict:
+    """Phase 7 -> {kernel name: dict(launches, ms, plain_ms, bound_ms,
+    bound_by)} for csr6_disc8 and csr6_disc8_uv (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr6
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    n = 1_000_000
+    max_big = 256
+    # bench.py:383-398, :903: positions uniform in [-0.5, 0.5)^3 from seed
+    # 0, gray splats of radius 0.002, the ground at z = -0.5, no trails.
+    pos_host = np.random.default_rng(0).uniform(
+        -0.5, 0.5, (n, 3)).astype(np.float32)
+    pos = torch.tensor(pos_host, device=dev)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.002,
+                                 point_color=LOOK[0])
+    cfg = RasterConfig(discs_only=True, max_big=max_big, uniform_look=LOOK)
+    shading = ShadingConfig()
+    counters = (csr6.raster_tiles, csr6.raster_tiles_disc8,
+                csr6.raster_tiles_disc8_uv)
+
+    def reset_counts():
+        for c in counters:
+            c.launches = 0
+
+    # Both kernels against their plain versions at the lane's own shapes,
+    # and the two shade epilogues against each other.
+    timed = {}
+    for fi in (0, 120, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pos, None, fi)
+        rgb_p, flag = csr6.preshade(soup, cam, shading)
+        res, b = compare_disc(soup, flag, WIDTH, HEIGHT, csr6, max_big,
+                              timing=fi == 120)
+        for kernel, r in res.items():
+            max_err[kernel] = max(max_err[kernel], r["err"])
+        print(f"[disc] frame {fi}: {soup.count} prims, "
+              f"{int(b['starts'][-1])} binned, true_entries "
+              f"{int(b['diag']['true_entries'])}, big list "
+              f"{int(b['big_count'])} of max_big {max_big}; csr6_disc8 and "
+              "csr6_disc8_uv == plain bit for bit", flush=True)
+        if fi == 120:
+            timed = res
+            for kernel, r in res.items():
+                print(f"[time] {kernel} kernel {r['ms']:.3f} ms (median of "
+                      f"11), plain {r['plain_ms']:.1f} ms (median of 2), "
+                      f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} at "
+                      f"the disc lane's frame-120 shape ({card})", flush=True)
+        zeros = torch.zeros((soup.count, 3), device=dev)
+        depth, index, u, v = csr6.raster_tiles_disc8_uv(
+            csr6.build_table8(soup, flag),
+            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["order"], b["starts"], b["big_n"], WIDTH, HEIGHT)
+        fused = csr6.shade_uv(cam, shading, depth, u, v, LOOK)
+        by_id = csr6.shade_by_id(soup, cam, shading, depth, index, rgb_p,
+                                 flag, uniform_look=LOOK)
+        check(torch.equal(fused.view(torch.int32), by_id.view(torch.int32)),
+              f"frame {fi}: shade_uv differs from shade_by_id(uniform_look)")
+        generic = csr6.shade_by_id(soup, cam, shading, depth, index, rgb_p,
+                                   flag)
+        print(f"[disc] frame {fi}: shade_uv == shade_by_id(uniform_look) bit "
+              "for bit; max |rgb| difference from the generic shade "
+              f"{float((fused - generic).abs().max()):.3g}", flush=True)
+
+    # The big list at the frames the scan's probe samples: the lane runs
+    # at max_big 256 and its certificate fails the run on any overflow.
+    probed = {}
+    for fi in (0, 55, 110, 165, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pos, None, fi)
+        probed[fi] = int(csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big,
+                                       discs_only=True)["big_count"])
+    print(f"[scan] big list at the probed frames: {probed}", flush=True)
+    check(max(probed.values()) <= max_big,
+          f"the disc lane's big list exceeds max_big {max_big}: {probed}")
+
+    # The flythrough: warm-up chunk (the probe, first launches), then the
+    # whole trajectory as the main path with the counts reset.
+    film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
+                device="cuda")
+    scan = trajectory.TrajectoryScanRenderer(preset, cfg, **film)
+    scan.render_frames(pos_host, None, range(SCAN_CHUNK))
+    check(scan.raster_config.max_big == max_big,
+          f"the probe raised max_big to {scan.raster_config.max_big}: the "
+          "lane's big list does not fit")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames, final = scan.render_frames(pos, None, range(SCAN_FRAMES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    uv_launches = csr6.raster_tiles_disc8_uv.launches
+    check(uv_launches == SCAN_FRAMES and csr6.raster_tiles.launches == 0
+          and csr6.raster_tiles_disc8.launches == 0,
+          f"{SCAN_FRAMES}-frame scan: csr6_disc8_uv launched {uv_launches} "
+          "times, want one per frame and no other kernel")
+    check(len(frames) == SCAN_FRAMES and all(
+        f.shape == (HEIGHT, WIDTH, 3) and f.dtype == np.uint8
+        for f in frames), "scan frames malformed")
+    check(torch.equal(final, pos), "a static scan moved the cloud")
+    cover = [float((f.min(axis=2) < 250).mean()) for f in frames]
+    check(min(cover) > 0.01 and cover[199] > cover[0],
+          f"scan frames look empty: coverage {min(cover):.4f}.."
+          f"{max(cover):.4f}")
+    print(f"[scan] {SCAN_FRAMES} frames, {n} points, {WIDTH}x{HEIGHT}, chunks "
+          f"of {SCAN_CHUNK}: certificate 0 on every chunk (max_big {max_big})"
+          f", csr6_disc8_uv launches {uv_launches}, {wall:.3f} s wall, "
+          f"{SCAN_FRAMES / wall:.2f} frames/s warm ({card})", flush=True)
+    # The same three frames through the plain backend on the card.
+    check_ids = (0, 120, SCAN_FRAMES - 1)
+    plain_frames, _ = trajectory.TrajectoryScanRenderer(
+        preset, dataclasses.replace(cfg, backend="cpu"), **film
+    ).render_frames(pos, None, check_ids)
+    for fi, want in zip(check_ids, plain_frames):
+        check(np.array_equal(frames[fi], want),
+              f"scan frame {fi} differs from the plain backend's")
+    print("[scan] frames 0, 120, 219 equal the plain backend's bit for bit",
+          flush=True)
+    del frames
+    per_frame = []
+    for lo in range(0, SCAN_FRAMES, SCAN_CHUNK):
+        ids = range(lo, min(lo + SCAN_CHUNK, SCAN_FRAMES))
+        t0 = time.perf_counter()
+        scan.render_frames(pos, None, ids)
+        torch.cuda.synchronize()
+        per_frame.append((time.perf_counter() - t0) * 1e3 / len(ids))
+    q1, med, q3 = statistics.quantiles(per_frame, n=4)
+    print(f"[scan] ms/frame over {len(per_frame)} chunks rendered one call "
+          f"each: median {med:.3f}, quartiles {q1:.3f}-{q3:.3f} ({card})",
+          flush=True)
+    for stage, ms in scan_stage_breakdown(pipeline, csr6, trajectory, preset,
+                                          pos, 120, dev, max_big).items():
+        print(f"[stage] disc lane frame 120 {stage}: {ms:.3f} ms ({card})",
+              flush=True)
+    for line in host_profile(
+            lambda: scan.render_frames(pos, None, range(104, 120))):
+        print(f"[host] 16 warm frames: {line} ({card})", flush=True)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        busy, wall_us, top, calls = device_profile(
+            lambda: scan.render_frames(pos, None, range(104, 112)), 1, tmp)
+    if top:
+        syncs = {k: v for k, v in calls.items() if "Synchronize" in k}
+        print(f"[trace] one warm chunk (frames 104-111): device busy "
+              f"{busy / 1e3:.2f} of {wall_us / 1e3:.2f} ms wall, idle share "
+              f"{1 - busy / wall_us:.3f}; host calls in the chunk {calls} "
+              f"({card})", flush=True)
+        for name, us in top[:8]:
+            print(f"[trace] scan {us / 8e3:9.3f} ms/frame  {name[:90]}",
+                  flush=True)
+        waits = sum(syncs.values())
+        check(waits < SCAN_CHUNK, f"the chunk synchronised {waits} times: "
+              "the frame loop waits for the device inside a chunk")
+    else:
+        print("[trace] scan: the profiler saw no device activity; device "
+              "busy share not measured", flush=True)
+
+    # The non-fused disc walk on the same loop (no uniform_look).
+    reset_counts()
+    plain_look, _ = trajectory.TrajectoryScanRenderer(
+        preset, RasterConfig(discs_only=True, max_big=max_big), **film
+    ).render_frames(pos, None, range(116, 124))
+    torch.cuda.synchronize()
+    disc8_launches = csr6.raster_tiles_disc8.launches
+    check(disc8_launches == 8 and csr6.raster_tiles_disc8_uv.launches == 0,
+          f"discs_only scan: csr6_disc8 launched {disc8_launches} times, "
+          "want 8")
+    fused_look, _ = scan.render_frames(pos, None, range(116, 124))
+    diff = np.abs(np.stack(plain_look).astype(np.int16)
+                  - np.stack(fused_look).astype(np.int16))
+    print(f"[scan] 8 frames without uniform_look: csr6_disc8 launches "
+          f"{disc8_launches}; u8 frames differ from the fused look's by at "
+          f"most {int(diff.max())} level(s) on {int((diff > 0).sum())} of "
+          f"{diff.size} values", flush=True)
+
+    # The same loop on the traj_ball preset with trails, advected.
+    _, vel_host = flagship_cloud(n, seed=11)
+    dt = 0.002
+    reset_counts()
+    trail = trajectory.TrajectoryScanRenderer(PRESETS["traj_ball"], dt=dt,
+                                              **film)
+    trail_frames, moved = trail.render_frames(pos_host, vel_host,
+                                              range(100, 108))
+    torch.cuda.synchronize()
+    check(csr6.raster_tiles.launches == 8,
+          f"trail scan: csr6_raster launched {csr6.raster_tiles.launches} "
+          "times, want 8")
+    drift = float((moved.cpu() - torch.tensor(pos_host + vel_host * (dt * 8))
+                   ).abs().max())
+    check(drift < 1e-5, f"advected positions off by {drift}")
+    check(all((f.min(axis=2) < 250).mean() > 0.01 for f in trail_frames),
+          "trail scan frames look empty")
+    print(f"[scan] 8 advected traj_ball frames (trails, dt {dt}): csr6_raster "
+          f"launches {csr6.raster_tiles.launches}, max_big "
+          f"{trail.raster_config.max_big}, certificate 0", flush=True)
+    return dict(
+        csr6_disc8=dict(timed["csr6_disc8"], launches=disc8_launches),
+        csr6_disc8_uv=dict(timed["csr6_disc8_uv"], launches=uv_launches))
+
+
+def host_profile(render, top=10):
+    """cProfile of one call of ``render`` (ending in a synchronise) ->
+    lines "cumulative s, calls, function" of the port's own functions and
+    the array copies that take the most host time."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    render()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = []
+    for (path, line, name), (_, calls, _, cum, _) in pstats.Stats(
+            prof).stats.items():
+        if "pointcloud_render_tpu_torch" in path or name.startswith(
+                "<method 'copy'"):
+            rows.append((cum, calls, f"{os.path.basename(path)}:{line} {name}"
+                         if line else name))
+    rows.sort(reverse=True)
+    return [f"{cum:.4f} s cumulative, {calls} calls, {what}"
+            for cum, calls, what in rows[:top]]
 
 
 def run() -> dict:
@@ -290,6 +724,7 @@ def run() -> dict:
         from pointcloud_render_tpu_torch.raster import csr6
         from pointcloud_render_tpu_torch.run import pipeline
         from pointcloud_render_tpu_torch.scene import normalize
+        from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
         from pointcloud_render_tpu_torch.utils import convert, kernels
     except ImportError as e:
         raise SmokeFailure(f"the port is not importable here: {e}") from e
@@ -303,18 +738,37 @@ def run() -> dict:
     # Phase 2: build from the checkout's sources.
     t0 = time.perf_counter()
     kernels.load("csr6_raster")
-    print(f"[build] csr6_raster {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, csr6_disc8_uv) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in kernels.build_log("csr6_raster").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "Compiling entry" in line):
             print(f"[build] {line.strip()}", flush=True)
 
     # Phase 3: kernel vs plain on seeded soups.
     default_big = csr6.DEFAULT_MAX_BIG
-    max_err = 0.0
-    for name, soup in soups(dev).items():
-        err, _, _ = compare(soup, WIDTH, HEIGHT, csr6, default_big)
-        max_err = max(max_err, err)
-        print(f"[kernel==plain] {name}: {soup.count} prims ok", flush=True)
+    max_err = dict.fromkeys(REPLACES, 0.0)
+    shading = ShadingConfig()
+    seeded = soups(dev)
+    for name, soup in seeded.items():
+        err = compare(soup, WIDTH, HEIGHT, csr6, default_big)["err"]
+        max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
+        print(f"[kernel==plain] csr6_raster {name}: {soup.count} prims ok",
+              flush=True)
+    # The disc-row kernels on the same soups (their capsules ride the big
+    # list; "mixed" is left to "invalid_nearclip", the same rows with
+    # holes) and on a two-tone disc scene: exact ties, two wide discs.
+    del seeded["mixed"]
+    seeded["disc_ties_wide"] = disc_lane_soup(dev)
+    cam = soup_camera(dev)
+    for name, soup in seeded.items():
+        _, flag = csr6.preshade(soup, cam, shading)
+        res, b = compare_disc(soup, flag, WIDTH, HEIGHT, csr6, 1 << 16)
+        for kernel, r in res.items():
+            max_err[kernel] = max(max_err[kernel], r["err"])
+        print(f"[kernel==plain] csr6_disc8, csr6_disc8_uv {name}: "
+              f"{soup.count} prims, big list {int(b['big_count'])} ok",
+              flush=True)
     preset = PRESETS["traj_ball"]
     pos, vel = flagship_cloud(20000, seed=7)
     pcl = normalize.transform_coordinates(normalize.standardize_point_cloud(
@@ -322,8 +776,8 @@ def run() -> dict:
     cam = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
     small = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
                                       120)
-    err, _, _ = compare(small, WIDTH, HEIGHT, csr6, default_big)
-    max_err = max(max_err, err)
+    err = compare(small, WIDTH, HEIGHT, csr6, default_big)["err"]
+    max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
     print(f"[kernel==plain] traj_ball 20k frame 120: {small.count} prims ok",
           flush=True)
 
@@ -435,21 +889,21 @@ def run() -> dict:
                       "big_overflow 0 after self-heal", flush=True)
             max_big = pipe.raster_config.max_big
             times = []
-            for _ in range(7):
+            for _ in range(5):
                 t0 = time.perf_counter()
                 pipe.render_array(clouds[fi], fi)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             q1, med, q3 = statistics.quantiles(times, n=4)
             print(f"[time] frame {fi} render_array warm: median {med:.2f} "
-                  f"ms, quartiles {q1:.2f}-{q3:.2f} ms over 7 frames ({n} "
+                  f"ms, quartiles {q1:.2f}-{q3:.2f} ms over 5 frames ({n} "
                   f"points, max_big {max_big}) ({card})", flush=True)
             for stage, ms in stage_breakdown(pipeline, csr6, preset,
                                              clouds[fi], fi, dev,
                                              max_big).items():
                 print(f"[stage] frame {fi} {stage}: {ms:.2f} ms ({card})",
                       flush=True)
-            busy, wall, top = device_profile(
+            busy, wall, top, _ = device_profile(
                 lambda fi=fi: pipe.render_array(clouds[fi], fi), 3, tmp)
             if top:
                 print(f"[trace] frame {fi}, 3 warm frames: device busy "
@@ -464,23 +918,30 @@ def run() -> dict:
             cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
             soup = pipeline.build_primitives(preset, cam, clouds[fi][:, :3],
                                              clouds[fi][:, 3:], fi)
-            err, kernel_ms, plain_ms = compare(soup, WIDTH, HEIGHT, csr6,
-                                               max_big, timing=True)
-            max_err = max(max_err, err)
-            timed[fi] = (kernel_ms, plain_ms)
+            res = compare(soup, WIDTH, HEIGHT, csr6, max_big, timing=True)
+            max_err["csr6_raster"] = max(max_err["csr6_raster"], res["err"])
+            timed[fi] = res
+            kernel_ms, plain_ms = res["ms"], res["plain_ms"]
             b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big)
             print(f"[time] frame {fi} shape: {n} points, {soup.count} prims, "
                   f"{int(b['starts'][-1])} binned, true_entries "
                   f"{int(b['diag']['true_entries'])}, big list "
                   f"{int(b['big_count'])}", flush=True)
             print(f"[time] csr6_raster kernel {kernel_ms:.3f} ms (median of "
-                  f"11), plain {plain_ms:.1f} ms (median of 3) at the frame-"
-                  f"{fi} shape ({card})", flush=True)
-    kernel_ms, plain_ms = timed[120]
+                  f"11), plain {plain_ms:.1f} ms (median of 2), bound "
+                  f"{res['bound_ms']:.3f} ms by {res['bound_by']} at the "
+                  f"frame-{fi} shape ({card})", flush=True)
+    # Phase 7: bench.py's disc lane and the flythrough loop.
+    disc = disc_lane(card, dev, max_err)
+    numbers = dict(csr6_raster=dict(timed[120], launches=launches), **disc)
     return dict(card=card, kernels=[dict(
-        name="csr6_raster", route="cuda", source=KERNEL_SOURCE,
-        replaces=REPLACES, launches=launches, max_abs_err=max_err,
-        ms=kernel_ms, plain_ms=plain_ms)])
+        name=name, route="cuda", source=KERNEL_SOURCE,
+        replaces=REPLACES[name], launches=numbers[name]["launches"],
+        max_abs_err=max_err[name], ms=numbers[name]["ms"],
+        plain_ms=numbers[name]["plain_ms"],
+        bound_ms=numbers[name]["bound_ms"],
+        bound_by=numbers[name]["bound_by"], library_ms=None)
+        for name in REPLACES])
 
 
 def main() -> int:

@@ -1,6 +1,10 @@
-// v6 tile rasterizer for Hopper (sm_90a): one CTA per 32x32 pixel tile.
+// v6 tile rasterizers for Hopper (sm_90a): one CTA per 32x32 pixel tile.
+// Three kernels share the walk: csr6_raster (16-float binned rows),
+// csr6_disc8 (8-float disc rows) and csr6_disc8_uv (disc rows, with the
+// winner's lambert plane coordinates carried through the merge).
 //
-// Replaces three Pallas TPU pieces of pointcloud_render_tpu/raster:
+// csr6_raster replaces three Pallas TPU pieces of
+// pointcloud_render_tpu/raster:
 //   * pallas_csr6._make_kernel6 / _make_tile_body — the per-tile walk over
 //     the tile's four merged CSR ranges of the anchor-sorted soup: its own
 //     anchor (classes 0..3), the left neighbour's x-spill classes {1, 2},
@@ -13,21 +17,38 @@
 //     _make_tile_body — every tile merges every big-list row through the
 //     triangle-aware evaluation.
 //
+// csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk:
+// binned rows are [px, py, z, r*r, idf, flag, 0, 0], covered where
+// dx*dx + dy*dy <= r*r) and csr6_disc8_uv replaces
+// pallas_csr6._make_row_body8_uv with _make_big_body16_uv: the same walk,
+// every pixel also keeping u = dx * flag and v = -dy * flag of its
+// winning pair (flag = 1/r; lane 5 of a disc row, lane 13 of a big row),
+// +inf when the winner is a triangle or a capsule.  u and v change under
+// the very predicate that changes depth and id, so they are a function
+// of the winning pair alone and the walk order cannot show.  Both reuse
+// the big-list phase below over a dense array of 16-float big rows.
+//
 // Winner per pixel = lexicographic min of (depth, primitive id) with
 // strict compares, so the walk order does not matter.  Exactness needs
 // IEEE float32 per operation: build with -fmad=false (no multiply-add
 // contraction) and without --use_fast_math (correctly rounded 1/iz).
 //
-// What bounds it on an H100: per-pair arithmetic.  Each (row, pixel)
-// pair is ~25 float32 operations and a tile evaluates every row of its
-// ranges at all 1024 pixels, so the work is 1024 x (binned entries) +
-// pixels x (big rows) pairs; row bytes (64 B per row, read once per tile
-// it touches) are small beside that.  Design: rows are staged through
-// shared memory in chunks of 256 (one row per thread, gathered by sorted
-// id), every thread keeps the (depth, id) minima of its 4 pixels in
-// registers, and all threads read the same staged row (a shared-memory
-// broadcast).  Not done yet: the z-bucket early exit, load balancing of
-// dense tiles, and asynchronous (TMA / cp.async) staging.
+// What bounds it on an H100: per-pair arithmetic.  Every (row, pixel)
+// pair of a 16-float row must execute 19 float32 operations in the
+// capsule body and 20 in the triangle body (per-row and per-pixel-column
+// terms such as dx and dx * sdx hoisted; the three merge compares run
+// only at covered pairs), and a tile evaluates every row of its ranges at
+// all 1024 pixels, so the work is 1024 x (binned entries) + pixels x (big
+// rows) pairs; row bytes (64 B per row, read once per tile it touches)
+// are small beside that.  Design: rows are staged through shared memory
+// in chunks of 256 (one row per thread, gathered by sorted id), every
+// thread keeps the (depth, id) minima of its 4 pixels in registers, and
+// all threads read the same staged row (a shared-memory broadcast).  A
+// disc pair must execute 4 operations (dy, dy * dy, + dx * dx, <= r * r;
+// dx and dx * dx are per row and thread, not per pixel) and a disc row is
+// 32 B, staged 512 at a time.
+// Not done yet: the z-bucket early exit, load balancing of dense tiles,
+// and asynchronous (TMA / cp.async) staging.
 
 #include <cuda_runtime.h>
 
@@ -58,11 +79,15 @@ __device__ __forceinline__ void stage_row(float4* sh, int slot,
 
 // Evaluate staged rows [0, count) at this thread's pixels.  kTri selects
 // the dual (triangle-aware) body used for the big list; binned rows are
-// discs/capsules and take the capsule body alone, as on the TPU.
-template <bool kTri>
+// discs/capsules and take the capsule body alone, as on the TPU.  kUV
+// also keeps the winner's (u, v): a big-list disc (no triangle, lane 13
+// > 0) gives dx * flag and -dy * flag, any other row +inf.
+template <bool kTri, bool kUV>
 __device__ __forceinline__ void eval_rows(const float4* sh, int count,
                                           float qx, const float* qy,
-                                          float* d, float* di) {
+                                          float* d, float* di, float* u,
+                                          float* v) {
+  const float inf = __int_as_float(0x7f800000);
   for (int r = 0; r < count; ++r) {
     const float4 a = sh[r * 4 + 0];  // x0, y0, z0, r0
     const float4 b = sh[r * 4 + 1];  // sdx, sdy, sdz, sdr
@@ -75,9 +100,10 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
     // the branch does not diverge: a big-list capsule skips the triangle
     // body and its division.
     const bool is_tri = kTri && e.w > 0.0f;
+    const bool is_disc = !is_tri && e.y > 0.0f;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      float z;
+      float z, uc = inf, vc = inf;
       bool cov;
       if (is_tri) {
         const float e0 = x0 * qy[k] - y0 * qx + z0;
@@ -95,10 +121,47 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
         const float rad = r0 + sdr * t;
         z = z0 + sdz * t;
         cov = cx * cx + cy * cy <= rad * rad;
+        if (kUV && is_disc) {
+          uc = dx * e.y;
+          vc = -dy * e.y;
+        }
       }
       if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
         d[k] = z;
         di[k] = idf;
+        if (kUV) {
+          u[k] = uc;
+          v[k] = vc;
+        }
+      }
+    }
+  }
+}
+
+// Evaluate staged 8-float disc rows [0, count) (2 x float4 each) at this
+// thread's pixels: pallas_csr6._make_row_body8 / _make_row_body8_uv.
+template <bool kUV>
+__device__ __forceinline__ void eval_disc_rows(const float4* sh, int count,
+                                               float qx, const float* qy,
+                                               float* d, float* di, float* u,
+                                               float* v) {
+  for (int r = 0; r < count; ++r) {
+    const float4 a = sh[r * 2 + 0];  // px, py, z, r*r
+    const float4 b = sh[r * 2 + 1];  // idf, flag (1/r), 0, 0
+    const float z = a.z, r2 = a.w, idf = b.x;
+    const float dx = qx - a.x;
+    const float dx2 = dx * dx;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const float dy = qy[k] - a.y;
+      const bool cov = dx2 + dy * dy <= r2;
+      if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
+        d[k] = z;
+        di[k] = idf;
+        if (kUV) {
+          u[k] = dx * b.y;
+          v[k] = -dy * b.y;
+        }
       }
     }
   }
@@ -135,7 +198,7 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
     __syncthreads();
     if (tid < cnt) stage_row(sh, tid, table, big_ids[base + tid]);
     __syncthreads();
-    eval_rows<true>(sh, cnt, qx, qy, d, di);
+    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
   }
 
   // The four merged CSR ranges of the anchor-sorted order (span 2,
@@ -156,7 +219,7 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
       __syncthreads();
       if (tid < cnt) stage_row(sh, tid, table, order[s + base + tid]);
       __syncthreads();
-      eval_rows<false>(sh, cnt, qx, qy, d, di);
+      eval_rows<false, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
     }
   }
 
@@ -168,6 +231,92 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
       const long long o = static_cast<long long>(py) * width + px;
       depth_out[o] = d[k];
       index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+    }
+  }
+}
+
+// The discs_only walk: the big list is the dense (big_cap, 16) array
+// big_rows (its first *big_n rows live), binned rows are 8-float rows of
+// table8 gathered by sorted id.  kUV also writes the winner's (u, v).
+template <bool kUV>
+__global__ void __launch_bounds__(kThreads)
+csr6_disc_kernel(const float* __restrict__ table8,
+                 const float* __restrict__ big_rows,
+                 const int* __restrict__ order, const int* __restrict__ starts,
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 float* __restrict__ depth_out, int* __restrict__ index_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out,
+                 int width, int height, int tiles_x) {
+  __shared__ float4 sh[kChunk * 4];
+  constexpr int kDiscChunk = kChunk * 2;  // 2 x float4 per disc row
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int tid = threadIdx.x;
+  const int lx = tid & (kTile - 1);
+  const int ly = tid >> 5;
+  const float inf = __int_as_float(0x7f800000);
+
+  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
+  float qy[kPix], d[kPix], di[kPix], u[kPix], v[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
+    d[k] = inf;
+    di[k] = kEmpty;
+    u[k] = inf;
+    v[k] = inf;
+  }
+
+  // Big list: the ground, capsules and wide discs, merged at every tile.
+  const int big_n = min(*big_n_ptr, big_cap);
+  for (int base = 0; base < big_n; base += kChunk) {
+    const int cnt = min(kChunk, big_n - base);
+    __syncthreads();
+    if (tid < cnt) stage_row(sh, tid, big_rows, base + tid);
+    __syncthreads();
+    eval_rows<true, kUV>(sh, cnt, qx, qy, d, di, u, v);
+  }
+
+  // The four merged CSR ranges, as in csr6_tile_kernel.
+  const bool left = tx >= 1, up = ty >= 1;
+  const int anchors[4] = {tile, tile - 1, tile - tiles_x, tile - tiles_x - 1};
+  const int lo[4] = {0, 1, 2, 2};
+  const int hi[4] = {4, 3, 4, 3};
+  const bool ok[4] = {true, left, up, left && up};
+  const float4* rows8 = reinterpret_cast<const float4*>(table8);
+#pragma unroll 1
+  for (int g = 0; g < 4; ++g) {
+    if (!ok[g]) continue;
+    const int a = anchors[g];
+    const int s = starts[4 * a + lo[g]];
+    const int n = starts[4 * a + hi[g]] - s;
+    for (int base = 0; base < n; base += kDiscChunk) {
+      const int cnt = min(kDiscChunk, n - base);
+      __syncthreads();
+      for (int i = tid; i < cnt; i += kThreads) {
+        const float4* src =
+            rows8 + static_cast<long long>(order[s + base + i]) * 2;
+        sh[i * 2 + 0] = src[0];
+        sh[i * 2 + 1] = src[1];
+      }
+      __syncthreads();
+      eval_disc_rows<kUV>(sh, cnt, qx, qy, d, di, u, v);
+    }
+  }
+
+  const int px = tx * kTile + lx;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int py = ty * kTile + ly + 8 * k;
+    if (px < width && py < height) {
+      const long long o = static_cast<long long>(py) * width + px;
+      depth_out[o] = d[k];
+      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+      if (kUV) {
+        u_out[o] = u[k];
+        v_out[o] = v[k];
+      }
     }
   }
 }
@@ -189,6 +338,40 @@ extern "C" int csr6_raster(const float* table, const int* order,
                      static_cast<cudaStream_t>(stream)>>>(
       table, order, starts, big_ids, big_n, depth, index, width, height,
       tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The discs_only walk.  table8 (P+1, 8) f32 with row P all zero; big_rows
+// (big_cap, 16) f32, the first *big_n rows live; order, starts, big_n as
+// above; depth (H, W) f32; index (H, W) i32.
+extern "C" int csr6_disc8(const float* table8, const float* big_rows,
+                          const int* order, const int* starts,
+                          const int* big_n, float* depth, int* index,
+                          int big_cap, int width, int height, int tiles_x,
+                          int tiles_y, void* stream) {
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  csr6_disc_kernel<false><<<num_tiles, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      table8, big_rows, order, starts, big_n, big_cap, depth, index, nullptr,
+      nullptr, width, height, tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// csr6_disc8 that also writes the winner's lambert (u, v) images (H, W)
+// f32: +inf where empty or where the winner is no disc.
+extern "C" int csr6_disc8_uv(const float* table8, const float* big_rows,
+                             const int* order, const int* starts,
+                             const int* big_n, float* depth, int* index,
+                             float* u, float* v, int big_cap, int width,
+                             int height, int tiles_x, int tiles_y,
+                             void* stream) {
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  csr6_disc_kernel<true><<<num_tiles, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      table8, big_rows, order, starts, big_n, big_cap, depth, index, u, v,
+      width, height, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 

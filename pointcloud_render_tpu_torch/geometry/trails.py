@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pointcloud_render_tpu_torch.utils.consts import as_f32
 from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 
 VELOCITY_EPS = 1e-6  # reference: traj_ball_renderer.py:112
@@ -34,21 +35,17 @@ LAST_MOTION_FRAME = 199
 FADE_FRAMES = 20
 
 
-def _f32(value, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(value, np.float32), device=device)
-
-
 def trail_length_scale(schedule: str, frame_index, device=None) -> torch.Tensor:
     """Length-scale factor for a frame as a float32 scalar tensor."""
-    f = _f32(frame_index, device)
+    f = as_f32(frame_index, device)
     if schedule == "fixed":
         return torch.ones_like(f)
-    ramp = f / _f32(19.0, device)
+    ramp = f / as_f32(19.0, device)
     one = torch.ones_like(f)
     if schedule == "ball":
         return torch.where(f <= 19, ramp, one)
     if schedule == "vel":
-        fade = 1.0 - (f - LAST_MOTION_FRAME) / _f32(FADE_FRAMES, device)
+        fade = 1.0 - (f - LAST_MOTION_FRAME) / as_f32(FADE_FRAMES, device)
         return torch.where(f <= 19, ramp,
                            torch.where(f <= LAST_MOTION_FRAME, one, fade))
     raise ValueError(f"unknown schedule {schedule!r}")
@@ -83,7 +80,7 @@ def _trail_terms(positions, velocities, frame_index, schedule):
     vel_norm = sqrt_rn(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]
                        + v[:, 2] * v[:, 2])
     valid = (vel_norm >= VELOCITY_EPS) & (scale > 0)
-    vel_normalized = torch.minimum(vel_norm / _f32(VEL_NORMALIZER, dev),
+    vel_normalized = torch.minimum(vel_norm / as_f32(VEL_NORMALIZER, dev),
                                    torch.ones_like(vel_norm))
     trail_length = (BASE_TRAIL_LENGTH
                     + (MAX_TRAIL_LENGTH - BASE_TRAIL_LENGTH) * vel_normalized
@@ -108,7 +105,7 @@ def velocity_trails(positions, velocities, frame_index, schedule: str = "ball"):
     """
     p, direction, trail_length, valid = _trail_terms(
         positions, velocities, frame_index, schedule)
-    ts = _f32(_ts_full(), p.device)
+    ts = as_f32(_ts_full(), p.device)
     offsets = direction[:, None, :] * (trail_length[:, None] * ts[None, :])[..., None]
     pts = torch.cat([p[:, None, :] + offsets, p[:, None, :]], dim=1)
     valid = valid & torch.isfinite(pts.reshape(pts.shape[0], -1)).all(dim=1)

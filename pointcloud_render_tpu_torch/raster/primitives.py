@@ -31,6 +31,7 @@ from pointcloud_render_tpu_torch.raster.project import (
     apply_world_to_camera,
     project_points,
 )
+from pointcloud_render_tpu_torch.utils.consts import as_f32
 from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 
 KIND_DISC = 0
@@ -81,9 +82,7 @@ def _pad_params(cols) -> torch.Tensor:
 
 
 def _broadcast_color(colors, n, device) -> torch.Tensor:
-    colors = torch.as_tensor(np.asarray(colors, np.float32) if not
-                             isinstance(colors, torch.Tensor) else colors,
-                             dtype=torch.float32, device=device)
+    colors = as_f32(colors, device)
     return colors.expand(n, 3).contiguous() if colors.ndim == 1 else colors
 
 
@@ -218,11 +217,11 @@ def triangles_from_mesh(vertices, faces, camera, colors,
     is the per-face cross product (normalized by its length).
     """
     dev = camera.device
-    verts = torch.as_tensor(np.asarray(vertices, np.float32), device=dev)
+    verts = torch.as_tensor(vertices, dtype=torch.float32, device=dev)
     wm = camera.world_to_camera_matrix()
     wx, wy, wz = apply_world_to_camera(verts, wm)
     cam_pts = torch.stack([wx, wy, wz], dim=1)
-    f0 = torch.as_tensor(np.asarray(faces, np.int64), device=dev)
+    f0 = torch.as_tensor(faces, dtype=torch.int64, device=dev)
     cam_tris = cam_pts[f0]  # (F, 3, 3)
 
     clipped, cvalid, src = _near_clip_triangles(cam_tris, camera.near)

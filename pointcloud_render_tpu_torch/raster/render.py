@@ -3,8 +3,8 @@
 The PyTorch twin of ``pointcloud_render_tpu.raster.render``.  Backends:
 
   "auto", "pallas6" — the v6 tile rasterizer (``raster/csr6.py``): the
-                      CUDA kernel for CUDA tensors, its plain PyTorch
-                      version for CPU tensors;
+                      CUDA kernels for CUDA tensors, their plain PyTorch
+                      versions for CPU tensors;
   "cpu", "tiled", "bruteforce" — the plain PyTorch version explicitly, on
                       any device (the JAX package's exact reference
                       backends; one plain rasterizer serves all three).
@@ -16,9 +16,13 @@ compatible.  The TPU performance knobs (``tiles_per_program``,
 ``dma_slots``, ``chunk_rows``, ``unroll``, ``starts_method``, the
 ``*_carry`` build variants, ``chunk``, ``tile_h``/``tile_w``,
 ``max_per_tile``, ``max_tiles_per_prim``, ``entry_capacity``,
-``row_budget``, ``no_triangles``, ``allow_exit``) are accepted and have
-no effect here.  Semantic knobs outside this slice raise
-``NotImplementedError`` naming their ROADMAP item.
+``row_budget``, ``no_triangles``) are accepted and have no effect here;
+``allow_exit`` only decides, as in the JAX package, whether a two-tone
+disc scene may take the fused (u, v) shade (forced on, it may not).
+``discs_only`` walks 8-float disc rows (capsules ride the big list) and
+``uniform_look`` shades two-tone scenes from two constant colors.
+Semantic knobs outside the ported slices raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from pointcloud_render_tpu_torch.raster.primitives import (
     triangles_from_mesh,
 )
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+from pointcloud_render_tpu_torch.utils.consts import const
 
 KERNEL_BACKENDS = ("auto", "pallas6")
 PLAIN_BACKENDS = ("cpu", "tiled", "bruteforce")
@@ -92,10 +97,9 @@ def check_config(config: RasterConfig) -> None:
             + UNPORTED_BACKENDS[config.backend])
     if config.backend not in KERNEL_BACKENDS + PLAIN_BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}")
+    if config.three_tone is not None and config.uniform_look is not None:
+        raise ValueError("three_tone and uniform_look are exclusive")
     unported = [
-        (config.discs_only, "discs_only", "ROADMAP queue B item 4"),
-        (config.uniform_look is not None, "uniform_look",
-         "ROADMAP queue B item 4"),
         (config.three_tone is not None, "three_tone",
          "ROADMAP queue B item 6"),
         (config.rows8, "rows8", "ROADMAP queue B item 12"),
@@ -125,7 +129,8 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
     check_config(config)
     depth, index, _ = csr6.rasterize_csr6(
         prims, width, height, max_big=config.max_big,
-        plain=config.backend in PLAIN_BACKENDS)
+        plain=config.backend in PLAIN_BACKENDS,
+        discs_only=config.discs_only)
     return depth, index
 
 
@@ -141,7 +146,9 @@ def render(prims: ScreenPrimitives, camera,
     check_config(config)
     rgb, depth, index, diag = csr6.render_shaded_csr6(
         prims, camera, config.shading, max_big=config.max_big,
-        plain=config.backend in PLAIN_BACKENDS)
+        plain=config.backend in PLAIN_BACKENDS,
+        discs_only=config.discs_only, uniform_look=config.uniform_look,
+        allow_exit=config.allow_exit)
     fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
     return (fb, diag) if return_diag else fb
 
@@ -166,7 +173,10 @@ def ground_plane(camera, half_extent: float, center=(0.0, 0.0, -0.5),
         [cx + e, cy + e, cz],
         [cx - e, cy + e, cz],
     ], np.float32)
-    faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-    return triangles_from_mesh(verts, faces, camera, np.asarray(color),
+    faces = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
+    # Four vertices, the same every frame: uploaded once.
+    return triangles_from_mesh(const(verts, np.float32, camera.device),
+                               const(faces, np.int64, camera.device),
+                               camera, np.asarray(color),
                                face_normal=(0.0, 0.0, 1.0))
 

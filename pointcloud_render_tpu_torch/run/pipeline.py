@@ -6,7 +6,8 @@ transform); the device side is float32 on ``FramePipeline.device``.
 PyTorch runs eagerly, so there is no compiled-step cache.
 
 Ported: the sphere splats and the fixed-segment velocity trails (the
-traj_ball frame and the other sphere + velocity presets).  Droplets,
+traj_ball frame, the other sphere + velocity presets and the example
+preset's static cloud, whose 3-D stacks ``process`` iterates).  Droplets,
 history trails and the adaptive trail segmentation raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
@@ -44,6 +45,7 @@ from pointcloud_render_tpu_torch.scene.camera import (
     camera_origin_torch,
 )
 from pointcloud_render_tpu_torch.shading.shade import check_supported
+from pointcloud_render_tpu_torch.utils.consts import const
 
 # Straight velocity trails render as this many collinear capsules (the
 # reference's 20-segment union, subsampled; see the JAX pipeline).
@@ -55,11 +57,15 @@ MAX_RENDER_ATTEMPTS = 5
 
 def build_primitives(preset: ScenePreset, camera: Camera, positions,
                      velocities=None, frame_index=0,
-                     trail_segments: Optional[int] = None) -> ScreenPrimitives:
+                     trail_segments: Optional[int] = None,
+                     return_layout: bool = False):
     """Assemble the frame's primitive soup on the camera's device.
 
     Primitive order (= depth-tie priority): ground, splats, trails.
     ``trail_segments`` overrides VEL_TRAIL_RENDER_SEGMENTS (1..20).
+    ``return_layout=True`` also returns the soup's part layout as a list
+    of ``(rows, rows_per_point)`` (0 for fixed furniture like the ground);
+    every per-point part is row-major in point index.
     """
     if preset.splat != "sphere":
         raise NotImplementedError(
@@ -72,11 +78,13 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
     positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
     parts = [ground_plane(camera, preset.ground_half_extent,
                           preset.ground_center)]
+    per_point = [0]
     n = positions.shape[0]
     parts.append(discs_from_points(
         positions, camera,
         torch.full((n,), preset.point_radius, dtype=torch.float32, device=dev),
         np.asarray(preset.point_color, np.float32)))
+    per_point.append(1)
 
     if preset.trail == "velocity" and velocities is not None:
         segs = (VEL_TRAIL_RENDER_SEGMENTS if trail_segments is None
@@ -97,7 +105,11 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
         parts.append(capsules_from_vertex_columns(
             vcols, [valid] * len(vcols), camera, preset.trail_radius,
             np.asarray(preset.trail_color, np.float32)))
-    return ScreenPrimitives.concatenate(parts)
+        per_point.append(len(vcols) - 1)
+    soup = ScreenPrimitives.concatenate(parts)
+    if not return_layout:
+        return soup
+    return soup, [(part.count, c) for part, c in zip(parts, per_point)]
 
 
 def frame_camera(preset: ScenePreset, frame_index: int, width: int,
@@ -105,8 +117,7 @@ def frame_camera(preset: ScenePreset, frame_index: int, width: int,
     """The preset's camera at a frame (the float32 origin schedule)."""
     origin = camera_origin_torch(preset.camera_preset, frame_index,
                                  preset.total_frames, device=device)
-    target = torch.as_tensor(np.asarray(TARGETS[preset.camera_preset],
-                                        np.float32), device=device)
+    target = const(TARGETS[preset.camera_preset], np.float32, device)
     return Camera(origin=origin, target=target,
                   fov_x_degrees=preset.fov_x_degrees, width=width,
                   height=height)
@@ -143,6 +154,16 @@ class FramePipeline:
         pcl = normalize.standardize_point_cloud(pcl)
         return normalize.transform_coordinates(pcl, flip_x=self.preset.flip_x)
 
+    def load_stack(self, file_path: str) -> list:
+        """All frames of a (possibly stacked) file, prepared: the example
+        renderer iterates every frame of a 3-D stack
+        (example_renderer.py:165-169)."""
+        pcl = loaders.load_point_cloud(
+            file_path, positions_only=self.preset.positions_only)
+        if pcl.ndim == 2:
+            pcl = pcl[None]
+        return [self._prepare(f) for f in pcl]
+
     # -- device layer -------------------------------------------------------
     def render_array(self, pcl: np.ndarray, frame_index: int) -> FrameBuffers:
         """Render a prepared (N, 3|6) array on ``self.device``.
@@ -175,6 +196,25 @@ class FramePipeline:
             f"overflow ({ovf} primitives) at frame {frame_index} after "
             f"capacity retries — the render dropped them.  Reduce "
             f"primitive screen extents.")
+
+    # -- full frame ----------------------------------------------------------
+    def process(self, file_path: str, frame_index: int = 0,
+                output_folder: Optional[str] = None,
+                write_depth: bool = False) -> str:
+        """The reference's process(): load, render, save; returns the
+        written PNG path.  For ``iterate_stack`` presets every frame of a
+        3-D stack renders in turn to the same output name, as in the
+        reference (example_renderer.py:165-199: the last frame's PNG
+        survives)."""
+        if self.preset.iterate_stack:
+            for pcl in self.load_stack(file_path):
+                fb = self.render_array(pcl, frame_index)
+        else:
+            fb = self.render_array(self.load_and_prepare(file_path),
+                                   frame_index)
+        return self.save_outputs(
+            fb, file_path, frame_index,
+            output_folder or self.preset.output_folder, write_depth)
 
     def save_outputs(self, fb: FrameBuffers, file_path: str,
                      frame_index: int, folder: str,

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pointcloud_render_tpu_torch.utils.consts import as_f32
 from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 
 # --- fixed sensor constants of the reference ------------------------------
@@ -95,27 +96,23 @@ def camera_origin(
     return tuple(a[i] + (b[i] - a[i]) * p for i in range(3))
 
 
-def _f32(value, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(value, np.float32), device=device)
-
-
 def camera_origin_torch(preset: str, frame_index, total_frames: int = TOTAL_FRAMES,
                         device=None) -> torch.Tensor:
     """(3,) float32 twin of ``camera_origin_jax``: the same f32 expression
     (progress = f / divisor, then start + (mid - start) * progress)."""
-    f = _f32(frame_index, device)
+    f = as_f32(frame_index, device)
     if preset == "example":
-        return _f32([2.2, 2.2, 4.2], device)
+        return as_f32([2.2, 2.2, 4.2], device)
     if preset == "traj":
-        p = f / _f32(max(total_frames - 1, 1), device)
-        return _f32([2.8, 2.8, 3.0], device) - 2.0 * p
+        p = f / as_f32(max(total_frames - 1, 1), device)
+        return as_f32([2.8, 2.8, 3.0], device) - 2.0 * p
     if preset == "traj_original":
-        return _f32([-1.8, -1.8, 1.8], device)
+        return as_f32([-1.8, -1.8, 1.8], device)
     start, mid, final = (np.array(w, np.float32) for w in _WAYPOINTS[preset])
-    p1 = f / _f32(LAST_MOTION_FRAME, device)
-    p2 = (f - LAST_MOTION_FRAME) / _f32(FADE_FRAMES, device)
-    phase1 = _f32(start, device) + _f32(mid - start, device) * p1
-    phase2 = _f32(mid, device) + _f32(final - mid, device) * p2
+    p1 = f / as_f32(LAST_MOTION_FRAME, device)
+    p2 = (f - LAST_MOTION_FRAME) / as_f32(FADE_FRAMES, device)
+    phase1 = as_f32(start, device) + as_f32(mid - start, device) * p1
+    phase2 = as_f32(mid, device) + as_f32(final - mid, device) * p2
     return torch.where(f <= LAST_MOTION_FRAME, phase1, phase2)
 
 
@@ -140,7 +137,7 @@ def look_at_axes(origin, target, up=UP, device=None):
         device = origin.device
     origin = torch.as_tensor(origin, dtype=torch.float32, device=device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
-    up = torch.as_tensor(up, dtype=torch.float32, device=device)
+    up = as_f32(up, device)
     forward = target - origin
     forward = forward / _norm3(forward)
     right = _cross3(forward, up)
@@ -174,12 +171,18 @@ class Camera:
     def world_to_camera_matrix(self) -> torch.Tensor:
         """(3, 4) float32 matrix mapping world points to camera space
         (+x image-right, +y image-up, +z depth); the translation uses
-        explicit multiply-adds, as in the JAX package."""
+        explicit multiply-adds, as in the JAX package.  Computed once per
+        camera (the pose never changes) and not to be written into."""
+        cached = self.__dict__.get("_w2c")
+        if cached is not None:
+            return cached
         dev = self.device
         right, cam_up, forward = look_at_axes(self.origin, self.target,
                                               self.up, device=dev)
         rot = torch.stack([right, cam_up, forward])
         o = torch.as_tensor(self.origin, dtype=torch.float32, device=dev)
         trans = -(rot[:, 0] * o[0] + rot[:, 1] * o[1] + rot[:, 2] * o[2])
-        return torch.cat([rot, trans[:, None]], dim=1)
+        w2c = torch.cat([rot, trans[:, None]], dim=1)
+        self.__dict__["_w2c"] = w2c
+        return w2c
 

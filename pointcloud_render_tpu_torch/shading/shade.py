@@ -16,6 +16,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from pointcloud_render_tpu_torch.raster.primitives import (
     KIND_CAPSULE,
     KIND_DISC,
 )
+from pointcloud_render_tpu_torch.utils.consts import const, device_key
 from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 
 LOOK_ITEM = "ROADMAP queue A item 13 (shading/shadow.py, GGX and GI terms)"
@@ -70,18 +72,22 @@ def key_light(camera) -> torch.Tensor:
     return torch.stack([m[0, 2], m[1, 2], m[2, 2]])
 
 
+@functools.lru_cache(maxsize=8)
+def _pixel_centers(width: int, height: int, device: torch.device):
+    half = np.float32(0.5)
+    qx = torch.arange(width, dtype=torch.float32, device=device) + half
+    qy = torch.arange(height, dtype=torch.float32, device=device) + half
+    return qx[None, :], qy[:, None]
+
+
 def pixel_centers(width: int, height: int, device):
-    """(1, W) and (H, 1) float32 pixel-center coordinates."""
-    qx = torch.as_tensor(np.arange(width, dtype=np.float32) + np.float32(0.5),
-                         device=device)[None, :]
-    qy = torch.as_tensor(np.arange(height, dtype=np.float32) + np.float32(0.5),
-                         device=device)[:, None]
-    return qx, qy
+    """(1, W) and (H, 1) float32 pixel-center coordinates, made on the
+    device and kept for the last few film sizes (shared: read only)."""
+    return _pixel_centers(width, height, device_key(device))
 
 
 def background(config: ShadingConfig, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(config.background, np.float32),
-                           device=device)
+    return const(config.background, np.float32, device)
 
 
 def shade_framebuffer(prims, camera, depth, index,

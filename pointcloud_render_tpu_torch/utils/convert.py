@@ -56,6 +56,10 @@ def shading_from_fields(shading) -> ShadingConfig:
 
 
 def raster_config_from_fields(config) -> RasterConfig:
-    """A RasterConfig with the same field values (shading converted)."""
-    return _copy_fields(RasterConfig, config,
+    """A RasterConfig with the same field values (shading converted; the
+    ``uniform_look`` tones as plain float tuples, so the config hashes)."""
+    look = config.uniform_look
+    if look is not None:
+        look = tuple(tuple(float(c) for c in tone) for tone in look)
+    return _copy_fields(RasterConfig, config, uniform_look=look,
                         shading=shading_from_fields(config.shading))

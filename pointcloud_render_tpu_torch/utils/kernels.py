@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At
-first use it is compiled with ``nvcc`` for Hopper into a shared library
+Each library is one ``csrc/<name>.cu`` file (one kernel or a few that
+share code) with a plain C interface.  At first use it is compiled with ``nvcc`` for Hopper into a shared library
 under ``build/kernels/`` beside the package (a directory git ignores) and
 bound with ``ctypes``.  The library name carries a hash of the source and
 the flags, so an edited source rebuilds and a finished build is reused.

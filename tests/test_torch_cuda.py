@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the csr6 CUDA kernel against its plain
-PyTorch version, and a frame rendered on the card against the same frame
-on the CPU.  Every test here needs a card (marker ``cuda``) and skips
+"""The port on an NVIDIA GPU: the csr6 CUDA kernels (16-float rows, 8-float
+disc rows, disc rows with the fused (u, v)) against their plain PyTorch
+versions, and a frame and a flythrough rendered on the card against the
+same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
 without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -10,14 +11,23 @@ The seeded soups are ``tests/torch_soups.py``'s, the ones
 ``test_torch_raster.py`` holds against the NumPy oracle.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
 from pointcloud_render_tpu_torch.raster import csr6
+from pointcloud_render_tpu_torch.raster.render import RasterConfig
 from pointcloud_render_tpu_torch.run import pipeline
-from tests.torch_soups import CASES, H, W, cloud, make_soup
+from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
+from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+# By file name (pytest puts this directory on sys.path): an installed
+# regular package named ``tests`` would shadow ``tests.torch_soups``.
+from torch_soups import CASES, H, W, cloud, disc_soup, make_soup, tcam
+
+LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
 
 
 @pytest.fixture()
@@ -52,3 +62,60 @@ def test_frame_on_card_equals_cpu(cuda_device):
             np.testing.assert_array_equal(
                 getattr(fbs[0], field).numpy(),
                 getattr(fbs[1], field).cpu().numpy())
+
+
+def _bits(t):
+    return t.cpu().numpy().view(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES + ["disc_ties"])
+def test_disc8_kernels_match_plain_on_card(cuda_device, case):
+    """csr6_disc8 and csr6_disc8_uv against their plain versions: depth
+    bits, index, and the (u, v) bits with their +inf markers."""
+    soup = (disc_soup(tcam()) if case == "disc_ties"
+            else make_soup(case)).to(cuda_device)
+    _, flag = csr6.preshade(soup, tcam(device=cuda_device), ShadingConfig())
+    b = csr6.bin_csr6(soup, W, H, 256, discs_only=True)
+    assert int(b["diag"]["big_overflow"]) == 0
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args = (csr6.build_table8(soup, flag),
+            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["order"], b["starts"], b["big_n"], W, H)
+    for wrapper, plain in (
+            (csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain),
+            (csr6.raster_tiles_disc8_uv, csr6.raster_tiles_disc8_uv_plain)):
+        before = wrapper.launches
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert len(got) == len(want)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(w))
+        assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_disc_lane_scan_on_card_equals_cpu(cuda_device):
+    """The flythrough on the bench's disc lane: the card's frames are the
+    CPU's within 1 level (torch.pow differs between the devices), the
+    linear frame bit for bit, one fused-kernel launch per frame."""
+    pos, _ = cloud(n=400)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.01,
+                                 point_color=LOOK[0])
+    cfg = RasterConfig(discs_only=True, max_big=256, uniform_look=LOOK)
+    ids = [0, 60, 120, 199, 219]
+    before = csr6.raster_tiles_disc8_uv.launches
+    runs = [TrajectoryScanRenderer(preset, cfg, frames_per_chunk=2,
+                                   width=160, height=96, device=dev)
+            .render_frames(pos, None, ids) for dev in ("cpu", cuda_device)]
+    assert csr6.raster_tiles_disc8_uv.launches == before + len(ids)
+    for a, b in zip(*(frames for frames, _ in runs)):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    fbs = [pipeline.FramePipeline(preset, cfg, width=160, height=96,
+                                  device=dev).render_array(pos, 120)
+           for dev in ("cpu", cuda_device)]
+    for field in ("index", "depth", "rgb"):
+        np.testing.assert_array_equal(getattr(fbs[0], field).numpy(),
+                                      getattr(fbs[1], field).cpu().numpy())

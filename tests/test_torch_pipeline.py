@@ -13,6 +13,7 @@ package on the CPU.
 * The CLI writes the expected PNG names; the package imports without jax.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -25,6 +26,7 @@ import torch
 
 from pointcloud_render_tpu.configs import PRESETS as JAX_PRESETS
 from pointcloud_render_tpu.raster import cpu_reference
+from pointcloud_render_tpu.raster.render import RasterConfig as JRasterConfig
 from pointcloud_render_tpu.run import pipeline as jpipe
 from pointcloud_render_tpu.scene.camera import TARGETS
 from pointcloud_render_tpu.scene.camera import Camera as JCamera
@@ -63,6 +65,19 @@ def _jax_build(pos, vel, fi):
     return jpipe.build_primitives(preset, cam, pos, vel, fi), cam
 
 
+# One compile serves every frame (the frame index is traced).
+_jax_build_jitted = jax.jit(lambda p, v, f: _jax_build(p, v, f)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_build_eager(fi):
+    """The JAX soup and camera of ``cloud()`` at a frame, evaluated op by
+    op; shared by the soup test and the frame test."""
+    pos, vel = cloud()
+    with jax.disable_jit():
+        return _jax_build(jnp.asarray(pos), jnp.asarray(vel), jnp.int32(fi))
+
+
 def _port_build(pos, vel, fi):
     cam = pipeline.frame_camera(PRESETS["traj_ball"], fi, W, H, "cpu")
     return pipeline.build_primitives(PRESETS["traj_ball"], cam,
@@ -78,11 +93,9 @@ def _ulp(a, b):
 def test_soup_matches_jax_build_primitives(fi):
     pos, vel = cloud()
     ours = convert.soup_to_numpy(_port_build(pos, vel, fi))
-    with jax.disable_jit():
-        eager, _ = _jax_build(jnp.asarray(pos), jnp.asarray(vel),
-                              jnp.int32(fi))
-    jitted = jax.jit(lambda p, v, f: _jax_build(p, v, f)[0])(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.int32(fi))
+    eager, _ = _jax_build_eager(fi)
+    jitted = _jax_build_jitted(jnp.asarray(pos), jnp.asarray(vel),
+                               jnp.int32(fi))
     assert ours["valid"].sum() > 300  # discs and trail capsules render
     for name, arr in ours.items():
         np.testing.assert_array_equal(arr, np.asarray(getattr(eager, name)),
@@ -107,16 +120,19 @@ def test_soup_matches_jax_build_primitives(fi):
 def test_frame_matches_jax_pipeline():
     pos, vel = cloud()
     pcl = np.concatenate([pos, vel], axis=1)
-    jp = jpipe.FramePipeline(JAX_PRESETS["traj_ball"], width=W, height=H)
+    # max_per_tile sized for this scene: the default overflows at frame 10
+    # and the JAX pipeline would heal it by compiling a second time.
+    jp = jpipe.FramePipeline(JAX_PRESETS["traj_ball"],
+                             JRasterConfig(max_per_tile=2048), width=W,
+                             height=H)
     tp = pipeline.FramePipeline(PRESETS["traj_ball"], width=W, height=H,
                                 device="cpu")
     for fi in FRAMES:
         fb = tp.render_array(pcl, fi)
         index, depth, rgb = fb.index.numpy(), fb.depth.numpy(), fb.rgb.numpy()
         # Bit for bit against the op-by-op JAX composition.
+        soup, cam = _jax_build_eager(fi)
         with jax.disable_jit():
-            soup, cam = _jax_build(jnp.asarray(pos), jnp.asarray(vel),
-                                   jnp.int32(fi))
             host = jax.tree_util.tree_map(np.asarray, soup)
             d_o, i_o = cpu_reference.rasterize_reference(host, W, H)
             rgb_o = shade_framebuffer(soup, cam, jnp.asarray(d_o),
@@ -187,7 +203,7 @@ def test_unported_paths_raise():
                                RasterConfig(backend="pallas4"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(discs_only=True), device="cpu")
+                               RasterConfig(rows9=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.FramePipeline(
             PRESETS["traj_ball"],
@@ -208,6 +224,8 @@ def test_cuda_device_without_card_raises():
 def test_package_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import pointcloud_render_tpu_torch.cli.traj_ball_renderer\n"
+            "import pointcloud_render_tpu_torch.cli.example_renderer\n"
+            "import pointcloud_render_tpu_torch.run.trajectory\n"
             "import pointcloud_render_tpu_torch.utils.convert\n"
             "import pointcloud_render_tpu_torch.utils.kernels\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "

@@ -14,8 +14,6 @@ package.
 * The CUDA kernel itself runs only on a card: ``test_torch_cuda.py``.
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,10 +24,6 @@ from pointcloud_render_tpu.raster import cpu_reference
 from pointcloud_render_tpu.raster import pallas_csr3 as jcsr3
 from pointcloud_render_tpu.raster import pallas_csr4 as jcsr4
 from pointcloud_render_tpu.raster import pallas_csr6 as jcsr6
-from pointcloud_render_tpu.raster.primitives import (
-    ScreenPrimitives as JScreenPrimitives,
-)
-from pointcloud_render_tpu.scene.camera import Camera as JCamera
 from pointcloud_render_tpu.shading.shade import ShadingConfig as JShading
 from pointcloud_render_tpu.shading.shade import (
     shade_framebuffer as jshade_framebuffer,
@@ -42,32 +36,15 @@ from pointcloud_render_tpu_torch.shading.shade import (
 )
 from pointcloud_render_tpu_torch.utils import convert
 
-from tests.torch_soups import (
-    CASES,
-    H,
-    ORIGIN,
-    TARGET,
-    W,
-    make_soup,
-    mixed_soup,
-    tcam,
-)
+from tests.torch_jax import jax_soup, jcam, numpy_soup
+from tests.torch_soups import CASES, H, W, make_soup, mixed_soup, tcam
 
 
-def jcam(w=W, h=H):
-    return JCamera(origin=jnp.array(ORIGIN, jnp.float32),
-                   target=jnp.array(TARGET, jnp.float32), width=w, height=h)
+SMALL = 64  # film edge of the scene two tests below share (2x2 tiles)
 
 
-def numpy_soup(soup):
-    """The port's soup as a namespace of NumPy arrays (the oracle's input)."""
-    return types.SimpleNamespace(**convert.soup_to_numpy(soup))
-
-
-def jax_soup(soup):
-    """The port's soup as the JAX package's ScreenPrimitives."""
-    return JScreenPrimitives(**{k: jnp.asarray(v) for k, v in
-                                convert.soup_to_numpy(soup).items()})
+def small_mixed_soup():
+    return mixed_soup(tcam(SMALL, SMALL), n=80, trails=8, seed=23)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -110,8 +87,8 @@ def test_plain_chunking_is_invisible(monkeypatch):
 @pytest.mark.parametrize("max_big", [4, 8, 64])
 def test_big_overflow_matches_jax(max_big):
     soup = make_soup("wide_big")
-    theirs = int(np.asarray(jcsr6.bin_diagnostics6(jax_soup(soup), W, H,
-                                                   max_big=max_big)))
+    theirs = int(np.asarray(jax.jit(lambda s: jcsr6.bin_diagnostics6(
+        s, W, H, max_big=max_big))(jax_soup(soup))))
     ours = int(csr6.bin_diagnostics6(soup, W, H, max_big=max_big))
     assert ours == theirs
     if max_big < 40:
@@ -142,10 +119,14 @@ def test_binning_layout():
 
 def test_tables_and_shading_match_jax():
     """table16, preshade and the shade epilogue bit-equal to the JAX
-    functions evaluated op by op; the epilogue equals shade_framebuffer."""
-    soup = make_soup("mixed")
+    functions evaluated op by op; the epilogue equals shade_framebuffer.
+    The 64x64 scene of the interpret-mode test below: elementwise
+    functions show the same on it, and that test then finds JAX's
+    op-by-op programs for these shapes compiled."""
+    soup = small_mixed_soup()
     jsoup = jax_soup(soup)
-    jc, tc = jcam(), tcam()
+    w = h = SMALL
+    jc, tc = jcam(w, h), tcam(w, h)
     shading = ShadingConfig()
     for mode in ("lambert", "flat"):
         shading = ShadingConfig(mode=mode)
@@ -158,7 +139,7 @@ def test_tables_and_shading_match_jax():
         np.testing.assert_array_equal(flag.numpy(), np.asarray(jflag))
         np.testing.assert_array_equal(
             csr6.build_table16(soup, rgb, flag).numpy(), np.asarray(jtable))
-        depth, index, _ = csr6.rasterize_csr6(soup, W, H)
+        depth, index, _ = csr6.rasterize_csr6(soup, w, h)
         ours = csr6.shade_by_id(soup, tc, shading, depth, index, rgb, flag)
         with jax.disable_jit():
             jours, jindex = jcsr4._shade_by_id(
@@ -181,9 +162,9 @@ def test_shaded_v6_matches_pallas_interpret():
     interpreted kernel body runs as XLA CPU code, which contracts the
     capsule and triangle multiply-adds into FMAs, so their depths may
     differ by a few ulp (measured: capsules 1, triangles 3; bound 4)."""
-    w = h = 64
+    w = h = SMALL
     jc = jcam(w, h)
-    jsoup = jax_soup(mixed_soup(tcam(w, h), n=80, trails=8, seed=23))
+    jsoup = jax_soup(small_mixed_soup())
     jrgb, jdepth, jindex, jdiag = jcsr6.render_shaded_csr6(
         jsoup, jc, JShading(), interpret=True, return_diag=True)
     soup = convert.soup_from_fields(jsoup)

@@ -211,3 +211,19 @@ class TestTrails:
                                          50, "ball")
         np.testing.assert_allclose(full.numpy()[0], oracles.ref_velocity_trail(
             pos[0], vel[0], 1.0), atol=1e-5)
+
+
+def test_const_cache_keeps_shape_and_shares_uploads():
+    """utils.consts.const: scalars stay 0-d, arrays keep shape and dtype,
+    equal values share one tensor per device."""
+    from pointcloud_render_tpu_torch.utils.consts import const
+
+    a = const(19.0, np.float32, "cpu")
+    assert a.shape == () and a.dtype == torch.float32 and float(a) == 19.0
+    assert const(19.0, np.float32, None) is a
+    b = const(np.arange(6).reshape(2, 3).T, np.int32, "cpu")
+    assert b.shape == (3, 2) and b.dtype == torch.int32
+    np.testing.assert_array_equal(b.numpy(), np.arange(6).reshape(2, 3).T)
+    assert const((1.0, 2.0), np.float32, "cpu") is not const(
+        (1.0, 2.0), np.float64, "cpu")
+

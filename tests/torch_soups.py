@@ -25,9 +25,10 @@ ORIGIN = (2.0, 2.0, 2.0)
 TARGET = (0.0, 0.0, -0.05)
 
 
-def tcam(w=W, h=H):
-    return Camera(origin=torch.tensor(ORIGIN), target=torch.tensor(TARGET),
-                  width=w, height=h)
+def tcam(w=W, h=H, device=None):
+    return Camera(origin=torch.tensor(ORIGIN, device=device),
+                  target=torch.tensor(TARGET, device=device), width=w,
+                  height=h)
 
 
 def _discs(cam, pos, radius, color=(0.3, 0.3, 0.3)):
@@ -125,6 +126,19 @@ def make_soup(case):
         z = np.round(rng.uniform(1.0, 3.0, n), 1)  # many exact ties
         return _screen_discs(px, py, z, rng.uniform(0.5, 6.0, n))
     raise ValueError(case)
+
+
+def disc_soup(cam, ties=40, wide=2, n=300, radius=0.03, ground=True):
+    """A two-tone disc scene: gray discs with ``ties`` exact depth ties,
+    ``wide`` wide gray discs that ride the big list, and the white ground."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    pos[ties:2 * ties] = pos[:ties]
+    parts = [ground_plane(cam, 10.0, (0, 0, -0.5))] if ground else []
+    if wide:
+        parts.append(_discs(cam, pos[:wide] * 0.2, 0.4))
+    parts.append(_discs(cam, pos, radius))
+    return ScreenPrimitives.concatenate(parts)
 
 
 CASES = ["mixed", "spill", "ties", "wide_big", "invalid", "near_clip",
