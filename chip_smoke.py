@@ -36,7 +36,22 @@ Phases (any failure exits non-zero and prints no result line):
      the stages of one warm frame and a trace of one warm chunk (device
      idle share, host synchronisations); 8 frames without uniform_look
      (csr6_disc8) and 8 advected traj_ball frames with trails
-     (csr6_raster) show the loop drives those kernels too.
+     (csr6_raster) show the loop drives those kernels too;
+  8. the droplet slice: (a) the kind-split kernel csr6_rows9 against its
+     plain version at spans 2, 4 and 8 on seeded 1080p traj_vel soups
+     (head discs, tapered tail capsules, trail capsules, exact depth ties,
+     long capsules past each span, invalid rows) and on the seeded soups of
+     phase 3; (b) the traj_vel CLI on phase 5's PLYs, frames 10, 120 and
+     205, default config (csr6_raster over the droplet soup); (c) the
+     droplet lane of bench.py: 1M droplets with 4-segment velocity
+     trails, span and max_big by bench.py's probe, the four-tone reps of
+     frame 20 with their certificate, rows9: certificate 0 and one
+     csr6_rows9 launch on each of the 12 frames, the kernel equal to its
+     plain version and rows8 equal to rows9 at frames 20, 120 and 219,
+     the four-tone shade beside the generic one, the kernel's time,
+     plain time and bound, the stages of one warm frame, warm ms/frame,
+     a trace of one warm frame, and 8 frames of the scan on the lane's
+     config (one csr6_rows9 launch each).
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
@@ -63,6 +78,7 @@ REPLACES = {
     "csr6_raster": "pointcloud_render_tpu/raster/pallas_csr6.py:601",
     "csr6_disc8": "pointcloud_render_tpu/raster/pallas_csr6.py:268",
     "csr6_disc8_uv": "pointcloud_render_tpu/raster/pallas_csr6.py:505",
+    "csr6_rows9": "pointcloud_render_tpu/raster/pallas_csr6.py:435",
 }
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
 SCAN_FRAMES = 220
@@ -74,15 +90,29 @@ F32_OPS_PER_S = 67e12 / 2
 BYTES_PER_S = 3.35e12
 # float32 operations that every (row, pixel) pair must execute.  What is
 # the same for a whole pixel column of a row (dx, dx * dx, dx * sdx, the
-# qx products of the edge functions) is not a pair's, and the three
-# compares of the (depth, id) merge run only at covered pairs, a small
-# share with splats of a few pixels in 1024-pixel tiles: both are left out.
+# qx products of the edge functions) is not a pair's, and what is read
+# only at covered pairs (the three compares of the (depth, id) merge, and
+# a capsule's depth z = z0 + sdz * t and a triangle's 1 / iz with its
+# select, which the compiler may sink into the covered branch) is a small
+# share with splats of a few pixels in 1024-pixel tiles: both are left
+# out.
 #   disc row:     dy, dy * dy, + dx2, <= r2                              4
 #   capsule row:  dy, the projection t (3), its clip (2), cx and cy (4),
-#                 rad (2), z (2), cx * cx + cy * cy <= rad * rad (5)    19
-#   triangle row: three edge functions (3 each), 1/z interpolation (5),
-#                 four compares, the select, the division (6)           20
-OPS_CAPSULE16, OPS_TRIANGLE16, OPS_DISC8 = 19, 20, 4
+#                 rad (2), cx * cx + cy * cy <= rad * rad (5)           17
+#   triangle row: three edge functions (3 each), the 1/z plane (5),
+#                 four compares                                         18
+#   rows9 capsule row (renormalized): dy, a and g (2 each; dx * ux and
+#                 dx * uy are per column), the clip (2), a - t,
+#                 am * am + g * g (3), rad (2), d2 <= rad * rad (2),
+#                 rad > 0                                               16
+#   rows9 disc row: as the disc row                                      4
+OPS_CAPSULE16, OPS_TRIANGLE16, OPS_DISC8 = 17, 18, 4
+OPS_DISC9, OPS_CAPSULE9 = 4, 16
+# bench.py's droplet lane (bench.py:624-659, :913, tuned_defaults.json
+# "droplet"): 12 frames over linspace(20, 219), 4 capsules per trail.
+DROPLET_POINTS = 1_000_000
+DROPLET_FRAMES = 12
+DROPLET_SEGMENTS = 4
 
 
 class SmokeFailure(Exception):
@@ -253,21 +283,42 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def walk_bound(b, soup, width, height, row_bytes, ops_binned, n_images):
+def region_entries(b, span, regions):
+    """Tile entries of the binned rows per ordinal region (one region, or
+    discs then capsules under a kind split): each sorted position counts
+    the tiles its class covers."""
+    import numpy as np
+
+    from pointcloud_render_tpu_torch.raster import csr6
+
+    k2 = span * span
+    counts = (b["starts"][1:] - b["starts"][:-1]).reshape(
+        regions, -1, k2).sum(dim=1).cpu().numpy().astype(np.int64)
+    spill_x, spill_y = csr6.class_spill(span)
+    weights = (np.array(spill_x) + 1) * (np.array(spill_y) + 1)
+    return [int(c @ weights) for c in counts]
+
+
+def walk_bound(b, soup, width, height, row_bytes, ops_binned, n_images,
+               span=2, id_bytes=4):
     """(bound ms, "operations" | "bytes") of one tile walk on this soup:
     the least time the card could take for the pairs the walk must
     evaluate (1024 pixels x tile entries of binned rows, every pixel x
     every live big row, each at its body's float32 operations) and for
     its bytes (each row it evaluates read once with its sorted id, the
-    range starts, the output images written once)."""
-    entries = int(b["diag"]["true_entries"])
+    range starts, the output images written once).  ``ops_binned`` is one
+    count, or (disc, capsule) counts for a kind-split binning, whose rows
+    sit in sorted order (``id_bytes`` 0)."""
+    if isinstance(ops_binned, int):
+        ops_binned = (ops_binned,)
+    entries = region_entries(b, span, len(ops_binned))
     nb = int(b["big_n"][0])
     n_small = int(b["starts"][-1])
     n_tri = int((soup.kind[b["big_ids"][:nb].long()] == 2).sum())
     pixels = width * height
-    ops = (1024 * entries * ops_binned
+    ops = (1024 * sum(e * o for e, o in zip(entries, ops_binned))
            + pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16))
-    nbytes = (n_small * (row_bytes + 4) + nb * (64 + 4)
+    nbytes = (n_small * (row_bytes + id_bytes) + nb * (64 + 4)
               + b["starts"].numel() * 4 + pixels * 4 * n_images)
     t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -350,46 +401,362 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False):
     return out, b
 
 
-def stage_breakdown(pipeline, csr6, preset, pcl, fi, dev, max_big, reps=3):
-    """Stream time per stage of one frame (CUDA events between stages,
-    mean of ``reps`` runs after a warm-up): the frame's layers in the
-    order render_shaded_csr6 runs them.  An interval also holds any time
-    the stream waited for the host to launch its next op."""
+def compare_rows9(soup, width, height, csr6, max_big, span, timing=False):
+    """csr6_rows9 vs its plain version on one soup at ``span`` -> (dict(err,
+    ms, plain_ms, bound_ms, bound_by), binning); the times and the bound
+    only with ``timing``."""
     import torch
 
-    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+    b = csr6.bin_csr6(soup, width, height, max_big, span=span,
+                      kind_split=True)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    args = (csr6.build_table9(soup, b["order"], b["starts"][-1]),
+            csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
+            b["starts"], b["big_n"], width, height, span)
+    got = csr6.raster_tiles_rows9(*args)
+    torch.cuda.synchronize()
+    want = csr6.raster_tiles_rows9_plain(*args)
+    torch.cuda.synchronize()
+    out = dict(err=check_equal_bits(got, want, f"csr6_rows9 span {span}"))
+    if timing:
+        bound_ms, bound_by = walk_bound(b, soup, width, height, 36,
+                                        (OPS_DISC9, OPS_CAPSULE9), 2,
+                                        span=span, id_bytes=0)
+        out.update(ms=time_ms(lambda: csr6.raster_tiles_rows9(*args), 11),
+                   plain_ms=time_ms(
+                       lambda: csr6.raster_tiles_rows9_plain(*args), 1),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    return out, b
 
-    names = ("camera+soup build", "preshade", "binning (sort, starts, "
-             "big list)", "table16", "csr6_raster kernel", "shade_by_id",
-             "overflow read-back")
-    totals = dict.fromkeys(names, 0.0)
-    shading = ShadingConfig()
+
+def droplet_soups(device):
+    """Seeded traj_vel soups at 1920x1080 for csr6_rows9, at frames 120 and
+    205: ``tests/torch_soups.droplet_soup`` of 30k droplets (ties, every
+    7th row invalid) with 400 long straight capsules, which at this film
+    pass 2x2, 4x4 and 8x8 tiles (the big list at each span) and reach 5-8
+    tiles on both axes (binned only at span 8)."""
+    import importlib.util
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.run import pipeline
+
+    # By file name: an installed package named ``tests`` may shadow the
+    # checkout's.
+    spec = importlib.util.spec_from_file_location(
+        "torch_soups", os.path.join(REPO, "tests", "torch_soups.py"))
+    torch_soups = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_soups)
+    preset = PRESETS["traj_vel"]
+    return {f"droplets_f{fi}": torch_soups.droplet_soup(
+        pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, device), n=30000,
+        seed=2028, frame=fi, long_caps=400) for fi in (120, 205)}
+
+
+def stage_times(stages, reps=3):
+    """Stream time per stage of one frame -> {name: ms}: ``stages`` is a
+    list of (name, fn), run in order, each fn reading and filling one dict
+    of the frame's values; CUDA events between stages, mean of ``reps``
+    runs after a warm-up.  An interval also holds any time the stream
+    waited for the host to launch its next op."""
+    import torch
+
+    totals = dict.fromkeys((name for name, _ in stages), 0.0)
     for rep in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(stages) + 1)]
         ev[0].record()
-        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
-        soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
-                                         fi)
-        ev[1].record()
-        rgb, flag = csr6.preshade(soup, cam, shading)
-        ev[2].record()
-        b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big)
-        ev[3].record()
-        table = csr6.build_table16(soup, rgb, flag)
-        ev[4].record()
-        depth, index = csr6.raster_tiles(table, b["order"], b["starts"],
-                                         b["big_ids"], b["big_n"], WIDTH,
-                                         HEIGHT)
-        ev[5].record()
-        csr6.shade_by_id(soup, cam, shading, depth, index, rgb, flag)
-        ev[6].record()
-        int(b["diag"]["big_overflow"])
-        ev[7].record()
+        frame = {}
+        for k, (_, fn) in enumerate(stages):
+            fn(frame)
+            ev[k + 1].record()
         torch.cuda.synchronize()
         if rep:
-            for k, name in enumerate(names):
+            for k, name in enumerate(totals):
                 totals[name] += ev[k].elapsed_time(ev[k + 1]) / reps
     return totals
+
+
+def lane_stages(csr6, trajectory, soup_fn, cfg, fi):
+    """The stages of one droplet-lane frame, in the order
+    render_shaded_csr6 runs them under rows9 + three_tone (no preshade)."""
+    import torch
+
+    w, h, span = WIDTH, HEIGHT, cfg.span
+
+    def build(f):
+        f["soup"], f["cam"] = soup_fn(fi)
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], w, h, cfg.max_big, span=span,
+                               kind_split=True)
+
+    def tables(f):
+        soup, b = f["soup"], f["b"]
+        f["zeros"] = torch.zeros((soup.count, 3), device=soup.device)
+        f["rows9"] = csr6.build_table9(soup, b["order"], b["starts"][-1])
+        f["big"] = csr6.build_table16_rows(soup, f["zeros"],
+                                           f["zeros"][:, 0], b["big_ids"])
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], f["index"] = csr6.raster_tiles_rows9(
+            f["rows9"], f["big"], b["starts"], b["big_n"], w, h, span)
+
+    def shade(f):
+        f["rgb"] = csr6.shade_by_id(f["soup"], f["cam"], cfg.shading,
+                                    f["depth"], f["index"], f["zeros"],
+                                    f["zeros"][:, 0],
+                                    three_tone=cfg.three_tone)
+
+    return [("camera+soup build", build), ("binning (kind split)", binning),
+            ("table9 + big rows", tables), ("csr6_rows9 kernel", kernel),
+            ("shade_by_id (four-tone)", shade),
+            ("srgb_encode_u8", lambda f: trajectory.srgb_encode_u8(f["rgb"])),
+            ("overflow read-back",
+             lambda f: int(f["b"]["diag"]["big_overflow"]))]
+
+
+def droplet_cli(card, inp, out, counters):
+    """Phase 8 (b): the traj_vel CLI on phase 5's PLYs (frames 10, 120,
+    205, default config: csr6_raster over the droplet soup) -> its
+    csr6_raster launches."""
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_vel_renderer
+
+    for c in counters:
+        c.launches = 0
+    sink = traj_vel_renderer.main(
+        ["--input-folder", inp, "--output-folder", out,
+         "--frames", ",".join(map(str, FRAMES)), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = counters[0].launches
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == 3 and all(s == "ok" for _, s, _ in statuses),
+          f"traj_vel frame records not all ok: {statuses}")
+    for fi in FRAMES:
+        check(os.path.getsize(os.path.join(out, f"frame_{fi:04d}_b0.png"))
+              > 1000, f"traj_vel frame_{fi:04d}_b0.png missing")
+    check(launches >= 3 and sum(c.launches for c in counters[1:]) == 0,
+          f"traj_vel CLI: csr6_raster launched {launches} times, want >= 3 "
+          "and no other kernel")
+    for r in sink.records:
+        t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
+        print(f"[droplet cli] frame {r.frame_index}: {r.points} points {t} "
+              f"({card})", flush=True)
+    print(f"[droplet cli] traj_vel frames 10, 120, 205 ok, PNGs written; "
+          f"csr6_raster launches {launches}", flush=True)
+    return launches
+
+
+def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
+    """Phase 8 (c): bench.py's droplet lane -> dict(launches, ms, plain_ms,
+    bound_ms, bound_by) of csr6_rows9 (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr6
+    from pointcloud_render_tpu_torch.raster.render import (
+        RasterConfig,
+        render,
+    )
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+
+    n = DROPLET_POINTS
+    preset = PRESETS["traj_vel"]
+    # bench.py:383-384, :698-699: positions uniform in [-0.5, 0.5)^3 from
+    # seed 0, velocities normal(0, 2) from seed 1.
+    pos_host = np.random.default_rng(0).uniform(
+        -0.5, 0.5, (n, 3)).astype(np.float32)
+    vel_host = np.random.default_rng(1).normal(0, 2, (n, 3)).astype(
+        np.float32)
+    pos = torch.tensor(pos_host, device=dev)
+    vel = torch.tensor(vel_host, device=dev)
+    frames = np.linspace(20, 219, DROPLET_FRAMES).astype(np.int32).tolist()
+
+    def soup_fn(fi):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        return pipeline.build_primitives(
+            preset, cam, pos, vel, fi,
+            trail_segments=DROPLET_SEGMENTS), cam
+
+    # Span and max_big by bench.py's rules (:727-760): the big count at
+    # each span over the probe frames; the smallest span whose worst
+    # frame has at most 2048 big rows; 1.5x that plus 64, rounded.
+    probe = list(dict.fromkeys([frames[0], frames[len(frames) // 2],
+                                frames[-2], frames[-1]]))
+    bigs = {s: [] for s in csr6.SPANS}
+    for fi in probe:
+        soup, _ = soup_fn(fi)
+        for s in csr6.SPANS:
+            bigs[s].append(int(csr6.bin_csr6(soup, WIDTH, HEIGHT,
+                                             span=s)["big_count"]))
+    span = next((s for s in csr6.SPANS if max(bigs[s]) <= 2048), 8)
+    need = int(max(bigs[span]) * 1.5) + 64
+    max_big = 384 if need <= 384 else ((need + 255) // 256) * 256
+    check(max_big <= 65536, f"droplet lane: probed big list {bigs}")
+    print(f"[droplet] {n} droplets, {DROPLET_SEGMENTS}-segment trails, "
+          f"{soup.count} prims; big list at probe frames {probe} by span "
+          f"{bigs}: span {span}, max_big {max_big}", flush=True)
+    # The four-tone reps of frame 20 and their certificate (:780-804).
+    soup, cam = soup_fn(frames[0])
+    reps3, ok3 = csr6.derive_three_tone(soup)
+    reps4, ok4 = csr6.derive_four_tone(soup)
+    check(not bool(ok3) and bool(ok4), f"droplet soup tone certificates: "
+          f"three-tone {bool(ok3)}, four-tone {bool(ok4)}; want False, True")
+    tones = tuple(int(r) for r in reps4.cpu())
+    cfg = RasterConfig(rows9=True, span=span, max_big=max_big,
+                       three_tone=tones)
+    print(f"[droplet] four-tone reps {tones}, certificate ok; config rows9, "
+          f"span {span}, max_big {max_big}", flush=True)
+
+    # The kernel against its plain version, rows8 against rows9, and the
+    # four-tone shade against the generic one at three frames.
+    timed = {}
+    for fi in (20, 120, 219):
+        soup, cam = soup_fn(fi)
+        res, b = compare_rows9(soup, WIDTH, HEIGHT, csr6, max_big, span,
+                               timing=fi == 120)
+        max_err["csr6_rows9"] = max(max_err["csr6_rows9"], res["err"])
+        fb8 = render(soup, cam, dataclasses.replace(cfg, rows9=False,
+                                                    rows8=True))
+        fb9 = render(soup, cam, cfg)
+        for field in ("depth", "index", "rgb"):
+            a, c = getattr(fb8, field), getattr(fb9, field)
+            check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+                  f"droplet frame {fi}: rows8 {field} differs from rows9")
+        rgb_p, flag = csr6.preshade(soup, cam, cfg.shading)
+        generic = csr6.shade_by_id(soup, cam, cfg.shading, fb9.depth,
+                                   fb9.index, rgb_p, flag)
+        gap = float((generic - fb9.rgb).abs().max())
+        u8 = int((trajectory.srgb_encode_u8(generic)
+                  != trajectory.srgb_encode_u8(fb9.rgb)).sum())
+        check(gap <= 1e-6, f"droplet frame {fi}: four-tone shade {gap} from "
+              "the generic shade")
+        region = region_entries(b, span, 2)
+        print(f"[droplet] frame {fi}: {soup.count} prims, "
+              f"{int(b['starts'][-1])} binned, tile entries discs "
+              f"{region[0]} capsules {region[1]}, big list "
+              f"{int(b['big_count'])}; csr6_rows9 == plain bit for bit, "
+              f"rows8 == rows9, four-tone rgb within {gap:.3g} of the "
+              f"generic shade, {u8} u8 values differ", flush=True)
+        if fi == 120:
+            timed = res
+            print(f"[time] csr6_rows9 kernel {res['ms']:.3f} ms (median of "
+                  f"11), plain {res['plain_ms']:.1f} ms (median of 1), "
+                  f"bound {res['bound_ms']:.3f} ms by {res['bound_by']} at "
+                  f"the droplet lane's frame-120 shape ({card})", flush=True)
+
+    # The main path: the lane's 12 frames through build_primitives +
+    # render, certificate read once at the end.
+    for c in counters:
+        c.launches = 0
+    ovf, cover = [], []
+    for fi in frames:
+        soup, cam = soup_fn(fi)
+        fb, diag = render(soup, cam, cfg, return_diag=True)
+        ovf.append(diag["big_overflow"])
+        cover.append((fb.index >= 0).float().mean())
+    torch.cuda.synchronize()
+    launches = csr6.raster_tiles_rows9.launches
+    others = {c.__name__: c.launches for c in counters if c.launches}
+    check(launches == len(frames) and set(others) == {"raster_tiles_rows9"},
+          f"droplet lane: csr6_rows9 launched {launches} times over "
+          f"{len(frames)} frames; launches {others}")
+    ovf = torch.stack(ovf).cpu().tolist()
+    cover = torch.stack(cover).cpu().tolist()
+    check(not any(ovf), f"droplet lane certificates {ovf}")
+    check(min(cover) > 0.05, f"droplet lane frames look empty: {cover}")
+    print(f"[droplet] lane frames {frames}: certificate 0 on every frame, "
+          f"csr6_rows9 launches {launches}, covered share "
+          f"{min(cover):.3f}..{max(cover):.3f}", flush=True)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for fi in frames:
+            soup, cam = soup_fn(fi)
+            render(soup, cam, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    print(f"[droplet] warm ms/frame over the lane's {len(frames)} frames "
+          f"(soup build + render, one synchronisation per pass): "
+          f"{times[0]:.3f}, {times[1]:.3f} ({card})", flush=True)
+    for stage, ms in stage_times(lane_stages(csr6, trajectory, soup_fn,
+                                             cfg, 120)).items():
+        print(f"[stage] droplet lane frame 120 {stage}: {ms:.3f} ms "
+              f"({card})", flush=True)
+    busy, wall_us, top, _ = device_profile(
+        lambda: render(*soup_fn(120), cfg), 1, tmp)
+    if top:
+        print(f"[trace] droplet lane frame 120: device busy "
+              f"{busy / 1e3:.2f} of {wall_us / 1e3:.2f} ms wall, idle share "
+              f"{1 - busy / wall_us:.3f} ({card})", flush=True)
+        for name, us in top[:6]:
+            print(f"[trace] droplet {us / 1e3:9.3f} ms  {name[:90]}",
+                  flush=True)
+    else:
+        print("[trace] droplet lane: the profiler saw no device activity; "
+              "device busy share not measured", flush=True)
+
+    # The scan on the lane's config (its own 8-segment trails).
+    before = csr6.raster_tiles_rows9.launches
+    scan = trajectory.TrajectoryScanRenderer(
+        preset, cfg, frames_per_chunk=8, width=WIDTH, height=HEIGHT,
+        device=dev)
+    scan_frames, _ = scan.render_frames(pos_host, vel_host, range(116, 124))
+    torch.cuda.synchronize()
+    scan_launches = csr6.raster_tiles_rows9.launches - before
+    check(scan_launches == 8, f"droplet scan: csr6_rows9 launched "
+          f"{scan_launches} times, want 8")
+    check(all((f.min(axis=2) < 250).mean() > 0.01 for f in scan_frames),
+          "droplet scan frames look empty")
+    print(f"[droplet] scan of traj_vel frames 116-123 on the lane's config: "
+          f"csr6_rows9 launches {scan_launches}, max_big "
+          f"{scan.raster_config.max_big}, certificate 0", flush=True)
+    return dict(timed, launches=launches)
+
+
+def frame_stages(pipeline, csr6, preset, pcl, fi, dev, max_big):
+    """The stages of one traj_ball frame, in the order render_shaded_csr6
+    runs them."""
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    shading = ShadingConfig()
+
+    def build(f):
+        f["cam"] = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        f["soup"] = pipeline.build_primitives(preset, f["cam"], pcl[:, :3],
+                                              pcl[:, 3:], fi)
+
+    def preshade(f):
+        f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big)
+
+    def table(f):
+        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"])
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], f["index"] = csr6.raster_tiles(
+            f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
+            WIDTH, HEIGHT)
+
+    def shade(f):
+        csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
+                         f["index"], f["rgb"], f["flag"])
+
+    return [("camera+soup build", build), ("preshade", preshade),
+            ("binning (sort, starts, big list)", binning),
+            ("table16", table), ("csr6_raster kernel", kernel),
+            ("shade_by_id", shade),
+            ("overflow read-back",
+             lambda f: int(f["b"]["diag"]["big_overflow"]))]
 
 
 def device_profile(render, frames, trace_dir):
@@ -434,48 +801,48 @@ def device_profile(render, frames, trace_dir):
     return busy, wall, sorted(by_name.items(), key=lambda kv: -kv[1]), calls
 
 
-def scan_stage_breakdown(pipeline, csr6, trajectory, preset, pos, fi, dev,
-                         max_big, reps=3):
-    """Stream time per stage of one disc-lane frame (CUDA events between
-    stages, mean of ``reps`` runs after a warm-up), in the order the scan
-    runs them.  An interval also holds any time the stream waited for the
-    host to launch its next op."""
+def scan_stages(pipeline, csr6, trajectory, preset, pos, fi, dev, max_big):
+    """The stages of one disc-lane frame, in the order the scan runs
+    them."""
     import torch
 
     from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 
-    names = ("camera+soup build", "preshade", "binning (sort, starts, "
-             "big list)", "table8 + big rows", "csr6_disc8_uv kernel",
-             "shade_uv", "srgb_encode_u8")
-    totals = dict.fromkeys(names, 0.0)
     shading = ShadingConfig()
     fi_dev = torch.tensor(float(fi), device=dev)
-    for rep in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-        ev[0].record()
-        cam = pipeline.frame_camera(preset, fi_dev, WIDTH, HEIGHT, dev)
-        soup = pipeline.build_primitives(preset, cam, pos, None, fi_dev)
-        ev[1].record()
-        rgb, flag = csr6.preshade(soup, cam, shading)
-        ev[2].record()
-        b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, discs_only=True)
-        ev[3].record()
-        table8 = csr6.build_table8(soup, flag)
-        big_rows = csr6.build_table16_rows(soup, rgb, flag, b["big_ids"])
-        ev[4].record()
-        depth, _, u, v = csr6.raster_tiles_disc8_uv(
-            table8, big_rows, b["order"], b["starts"], b["big_n"], WIDTH,
-            HEIGHT)
-        ev[5].record()
-        lit = csr6.shade_uv(cam, shading, depth, u, v, LOOK)
-        ev[6].record()
-        trajectory.srgb_encode_u8(lit)
-        ev[7].record()
-        torch.cuda.synchronize()
-        if rep:
-            for k, name in enumerate(names):
-                totals[name] += ev[k].elapsed_time(ev[k + 1]) / reps
-    return totals
+
+    def build(f):
+        f["cam"] = pipeline.frame_camera(preset, fi_dev, WIDTH, HEIGHT, dev)
+        f["soup"] = pipeline.build_primitives(preset, f["cam"], pos, None,
+                                              fi_dev)
+
+    def preshade(f):
+        f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big,
+                               discs_only=True)
+
+    def tables(f):
+        f["table8"] = csr6.build_table8(f["soup"], f["flag"])
+        f["big"] = csr6.build_table16_rows(f["soup"], f["rgb"], f["flag"],
+                                           f["b"]["big_ids"])
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], _, f["u"], f["v"] = csr6.raster_tiles_disc8_uv(
+            f["table8"], f["big"], b["order"], b["starts"], b["big_n"],
+            WIDTH, HEIGHT)
+
+    def shade(f):
+        f["lit"] = csr6.shade_uv(f["cam"], shading, f["depth"], f["u"],
+                                 f["v"], LOOK)
+
+    return [("camera+soup build", build), ("preshade", preshade),
+            ("binning (sort, starts, big list)", binning),
+            ("table8 + big rows", tables), ("csr6_disc8_uv kernel", kernel),
+            ("shade_uv", shade),
+            ("srgb_encode_u8", lambda f: trajectory.srgb_encode_u8(f["lit"]))]
 
 
 def disc_lane(card, dev, max_err) -> dict:
@@ -504,7 +871,7 @@ def disc_lane(card, dev, max_err) -> dict:
     cfg = RasterConfig(discs_only=True, max_big=max_big, uniform_look=LOOK)
     shading = ShadingConfig()
     counters = (csr6.raster_tiles, csr6.raster_tiles_disc8,
-                csr6.raster_tiles_disc8_uv)
+                csr6.raster_tiles_disc8_uv, csr6.raster_tiles_rows9)
 
     def reset_counts():
         for c in counters:
@@ -578,7 +945,8 @@ def disc_lane(card, dev, max_err) -> dict:
     wall = time.perf_counter() - t0
     uv_launches = csr6.raster_tiles_disc8_uv.launches
     check(uv_launches == SCAN_FRAMES and csr6.raster_tiles.launches == 0
-          and csr6.raster_tiles_disc8.launches == 0,
+          and csr6.raster_tiles_disc8.launches == 0
+          and csr6.raster_tiles_rows9.launches == 0,
           f"{SCAN_FRAMES}-frame scan: csr6_disc8_uv launched {uv_launches} "
           "times, want one per frame and no other kernel")
     check(len(frames) == SCAN_FRAMES and all(
@@ -615,8 +983,9 @@ def disc_lane(card, dev, max_err) -> dict:
     print(f"[scan] ms/frame over {len(per_frame)} chunks rendered one call "
           f"each: median {med:.3f}, quartiles {q1:.3f}-{q3:.3f} ({card})",
           flush=True)
-    for stage, ms in scan_stage_breakdown(pipeline, csr6, trajectory, preset,
-                                          pos, 120, dev, max_big).items():
+    for stage, ms in stage_times(scan_stages(pipeline, csr6, trajectory,
+                                             preset, pos, 120, dev,
+                                             max_big)).items():
         print(f"[stage] disc lane frame 120 {stage}: {ms:.3f} ms ({card})",
               flush=True)
     for line in host_profile(
@@ -735,11 +1104,14 @@ def run() -> dict:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}", flush=True)
 
+    counters = (csr6.raster_tiles, csr6.raster_tiles_disc8,
+                csr6.raster_tiles_disc8_uv, csr6.raster_tiles_rows9)
+
     # Phase 2: build from the checkout's sources.
     t0 = time.perf_counter()
     kernels.load("csr6_raster")
-    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, csr6_disc8_uv) "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, csr6_disc8_uv, "
+          f"csr6_rows9) {time.perf_counter() - t0:.1f} s", flush=True)
     for line in kernels.build_log("csr6_raster").splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "Compiling entry" in line):
@@ -769,6 +1141,17 @@ def run() -> dict:
         print(f"[kernel==plain] csr6_disc8, csr6_disc8_uv {name}: "
               f"{soup.count} prims, big list {int(b['big_count'])} ok",
               flush=True)
+    # Phase 8 (a): the kind-split kernel at spans 2, 4 and 8 on the same
+    # soups and on seeded traj_vel soups.
+    seeded.update(droplet_soups(dev))
+    for name, soup in seeded.items():
+        for span in csr6.SPANS:
+            res, b = compare_rows9(soup, WIDTH, HEIGHT, csr6, 1 << 16, span)
+            max_err["csr6_rows9"] = max(max_err["csr6_rows9"], res["err"])
+            print(f"[kernel==plain] csr6_rows9 span {span} {name}: "
+                  f"{soup.count} prims, {int(b['starts'][-1])} binned, big "
+                  f"list {int(b['big_count'])} ok", flush=True)
+    del seeded
     preset = PRESETS["traj_ball"]
     pos, vel = flagship_cloud(20000, seed=7)
     pcl = normalize.transform_coordinates(normalize.standardize_point_cloud(
@@ -805,7 +1188,8 @@ def run() -> dict:
             drift = (0.01 * k * vel).astype(np.float32)
             ply.write_ply(os.path.join(inp, f"frame_{fi:04d}_b0.ply"),
                           pos + drift, velocities=vel)
-        csr6.raster_tiles.launches = 0
+        for c in counters:
+            c.launches = 0
         sink = traj_ball_renderer.main(
             ["--input-folder", inp, "--output-folder", out,
              "--frames", ",".join(map(str, FRAMES)), "--device", "cuda"])
@@ -898,9 +1282,9 @@ def run() -> dict:
             print(f"[time] frame {fi} render_array warm: median {med:.2f} "
                   f"ms, quartiles {q1:.2f}-{q3:.2f} ms over 5 frames ({n} "
                   f"points, max_big {max_big}) ({card})", flush=True)
-            for stage, ms in stage_breakdown(pipeline, csr6, preset,
-                                             clouds[fi], fi, dev,
-                                             max_big).items():
+            for stage, ms in stage_times(frame_stages(
+                    pipeline, csr6, preset, clouds[fi], fi, dev,
+                    max_big)).items():
                 print(f"[stage] frame {fi} {stage}: {ms:.2f} ms ({card})",
                       flush=True)
             busy, wall, top, _ = device_profile(
@@ -931,9 +1315,16 @@ def run() -> dict:
                   f"11), plain {plain_ms:.1f} ms (median of 2), bound "
                   f"{res['bound_ms']:.3f} ms by {res['bound_by']} at the "
                   f"frame-{fi} shape ({card})", flush=True)
+        del clouds, soup
+        # Phase 8 (b): the traj_vel CLI on the same PLYs.
+        droplet_cli(card, inp, os.path.join(tmp, "out_vel"), counters)
     # Phase 7: bench.py's disc lane and the flythrough loop.
     disc = disc_lane(card, dev, max_err)
-    numbers = dict(csr6_raster=dict(timed[120], launches=launches), **disc)
+    # Phase 8 (c): bench.py's droplet lane.
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        droplet = droplet_lane(card, dev, max_err, counters, tmp)
+    numbers = dict(csr6_raster=dict(timed[120], launches=launches), **disc,
+                   csr6_rows9=droplet)
     return dict(card=card, kernels=[dict(
         name=name, route="cuda", source=KERNEL_SOURCE,
         replaces=REPLACES[name], launches=numbers[name]["launches"],

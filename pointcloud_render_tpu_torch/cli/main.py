@@ -3,14 +3,15 @@
 Usage:
   python -m pointcloud_render_tpu_torch.cli.main --preset traj_ball \
       [--input-folder trajectory_ply] [--output-folder render] \
-      [--frames 0:220] [--backend auto] [--device cuda] \
-      [--no-resume] [--metrics-jsonl path]
+      [--frames 0:220] [--backend auto] [--droplet-lod capsule|mesh] \
+      [--device cuda] [--no-resume] [--metrics-jsonl path]
 
 The PyTorch twin of ``pointcloud_render_tpu.cli.main``.  ``--device``
 defaults to ``cuda`` and never falls back to the CPU; ``--device cpu``
-runs the plain PyTorch rasterizer.  The per-script entry point
-``cli.traj_ball_renderer`` is a thin wrapper with the reference's
-defaults.
+runs the plain PyTorch rasterizer.  ``--droplet-lod mesh`` raises
+``NotImplementedError`` (ROADMAP queue A item 12).  The per-script entry
+points ``cli.traj_ball_renderer``, ``cli.traj_vel_renderer`` and
+``cli.example_renderer`` are thin wrappers with the reference's defaults.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def build_parser(preset_name=None):
     p.add_argument("--backend", default="auto",
                    choices=["auto", "bruteforce", "tiled", "pallas",
                             "pallas3", "pallas4", "pallas6", "cpu"])
+    p.add_argument("--droplet-lod", default="capsule",
+                   choices=["capsule", "mesh"])
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     p.add_argument("--no-resume", action="store_true")
@@ -63,7 +66,8 @@ def run(args, preset_name=None) -> MetricsSink:
     pipeline = FramePipeline(
         preset,
         raster_config=RasterConfig(backend=args.backend),
-        width=args.width, height=args.height, device=args.device,
+        droplet_lod=args.droplet_lod, width=args.width, height=args.height,
+        device=args.device,
     )
     sink = MetricsSink(jsonl_path=args.metrics_jsonl)
     run_batch(

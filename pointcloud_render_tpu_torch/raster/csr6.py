@@ -60,17 +60,19 @@ from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 TILE = 32
 SPAN = 2
 K2 = SPAN * SPAN
+# Binning spans: prims whose bbox covers at most span x span tiles are
+# binned.  The 16- and 8-float walks take span 2 only (ROADMAP queue B
+# item 1); the kind-split rows9 walk takes all three.
+SPANS = (2, 4, 8)
 ROW_F = 16
 ROW_F_DISC = 8
+ROW_F9 = 9
 DEFAULT_MAX_BIG = 1024
 # The fused (u, v) walk keeps the JAX package's precondition: a big list
 # of at most FUSED_MAX_BIG rows (its resident big-list chunk, less the pad
 # row).
 FUSED_MAX_BIG = 511
 F_EMPTY = float(1 << 24)  # > every representable prim id
-# Class ordinals (0 = none, 1 = x-spill, 2 = both, 3 = y-spill) -> how
-# many tiles a prim of that class covers (true_entries weights).
-_CLASS_TILES = (1, 2, 4, 2)
 # Pair budget of one chunk of the plain rasterizer (bounds its memory).
 PLAIN_PAIR_CHUNK = 1 << 23
 
@@ -80,22 +82,40 @@ def grid_shape(width: int, height: int):
     return -(-width // TILE), -(-height // TILE)
 
 
+def class_spill(span: int):
+    """(spill_x, spill_y) per class ordinal: how many tiles past its
+    anchor a prim of that class reaches.  Span 2 uses the reordered
+    ordinals (0 = none, 1 = x-spill, 2 = both, 3 = y-spill); wider spans
+    the row-major sy * span + sx."""
+    if span == 2:
+        return (0, 1, 1, 0), (0, 0, 1, 1)
+    return (tuple(c % span for c in range(span * span)),
+            tuple(c // span for c in range(span * span)))
+
+
 # ---------------------------------------------------------------------------
-# Binning (pallas_csr6._bin_csr6 with span 2, no z-buckets)
+# Binning (pallas_csr6._bin_csr6 without z-buckets)
 # ---------------------------------------------------------------------------
 
 def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
              max_big: int = DEFAULT_MAX_BIG,
-             discs_only: bool = False) -> dict:
+             discs_only: bool = False, span: int = SPAN,
+             kind_split: bool = False) -> dict:
     """Per-prim (anchor, class) keys, one unstable sort, CSR range starts.
 
     ``discs_only`` bins discs alone: capsules join the triangles and the
-    wide discs on the big list (the 8-float row mode).
+    wide discs on the big list (the 8-float row mode).  ``span`` (2, 4 or
+    8) bins prims that cover at most span x span tiles.  ``kind_split``
+    (the rows8/rows9 walk) puts every binned capsule in a second ordinal
+    region past the discs', so a tile walks its disc ranges and its
+    capsule ranges separately.
 
-    Returns a dict of device tensors:
+    Returns a dict of device tensors (k2 = span * span, F = 2 under
+    ``kind_split``, else 1):
       order      (P,) int32 prim ids in key order (binned prims first);
-      starts     (4T+1,) int32 — starts[4a+c] is the first sorted position
-                 with key >= 4a+c; starts[4T] = number of binned prims;
+      starts     (F*k2*T+1,) int32 — starts[j] is the first sorted
+                 position with key >= j, j = region*k2*T + k2*anchor +
+                 class; starts[F*k2*T] = number of binned prims;
       big_ids    (max_big,) int32 big-list prim ids (P = empty slot);
       big_n      (1,) int32 live big-list length min(big_count, max_big);
       big_count  () int32 number of big prims (valid, not binnable);
@@ -103,10 +123,18 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     """
     if prims.count >= (1 << 24):
         raise ValueError("float id encoding supports < 2^24 primitives")
+    if span not in SPANS:
+        raise ValueError(f"span must be one of {SPANS}, got {span}")
+    if kind_split and discs_only:
+        raise ValueError("kind_split serves the mixed disc + capsule soup: "
+                         "not with discs_only")
     dev = prims.device
     p = prims.count
     tiles_x, tiles_y = grid_shape(width, height)
     num_tiles = tiles_x * tiles_y
+    k2 = span * span
+    factor = 2 if kind_split else 1
+    n_keys = factor * num_tiles * k2
     tw = const(TILE, np.float32, dev)
     xmin, xmax = prims.bbox[:, 0], prims.bbox[:, 1]
     ymin, ymax = prims.bbox[:, 2], prims.bbox[:, 3]
@@ -120,30 +148,35 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
 
     tx0, tx1 = tile_of(xmin, tiles_x), tile_of(xmax, tiles_x)
     ty0, ty1 = tile_of(ymin, tiles_y), tile_of(ymax, tiles_y)
+    is_cap = prims.kind == KIND_CAPSULE
     binnable = prims.kind == KIND_DISC
     if not discs_only:
-        binnable = binnable | (prims.kind == KIND_CAPSULE)
+        binnable = binnable | is_cap
     sx, sy = tx1 - tx0, ty1 - ty0
-    fits = (sx < SPAN) & (sy < SPAN) & binnable
+    fits = (sx < span) & (sy < span) & binnable
     is_small = prims.valid & fits
     is_big = prims.valid & ~fits
-    # Ordinals chosen so every neighbour's class subset is contiguous:
-    # left needs {1, 2}, up needs {2, 3}, diagonal {2}.
-    cls = sx + 3 * sy - 2 * (sx * sy)
+    if span == 2:
+        # Ordinals chosen so every neighbour's class subset is contiguous:
+        # left needs {1, 2}, up needs {2, 3}, diagonal {2}.
+        cls = sx + 3 * sy - 2 * (sx * sy)
+    else:
+        cls = sy * span + sx
     anchor = ty0 * tiles_x + tx0
-    sent_big = num_tiles * K2
-    sent_invalid = sent_big + 1
-    key = torch.where(is_small, anchor * K2 + cls,
-                      torch.where(is_big, sent_big, sent_invalid))
+    base = anchor * k2 + cls
+    if kind_split:
+        base = base + is_cap.to(torch.int32) * (num_tiles * k2)
+    key = torch.where(is_small, base,
+                      torch.where(is_big, n_keys, n_keys + 1))
     key = key.to(torch.int32)
     sorted_keys, order = torch.sort(key, stable=False)
     order = order.to(torch.int32)
 
-    bounds = torch.arange(num_tiles * K2 + 2, dtype=torch.int32, device=dev)
+    bounds = torch.arange(n_keys + 2, dtype=torch.int32, device=dev)
     edges = torch.searchsorted(sorted_keys, bounds).to(torch.int32)
-    starts = edges[:num_tiles * K2 + 1]
-    n_small = edges[num_tiles * K2]
-    big_count = edges[num_tiles * K2 + 1] - n_small
+    starts = edges[:n_keys + 1]
+    n_small = edges[n_keys]
+    big_count = edges[n_keys + 1] - n_small
     # The big list is the sorted tail past the binned prefix; empty slots
     # point at the all-zero pad row P.
     tail = torch.cat([order, torch.full((max_big,), p, dtype=torch.int32,
@@ -152,8 +185,11 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     big_n = torch.clamp(big_count, max=max_big)
     big_ids = torch.where(slot < big_n, tail[(n_small + slot).long()],
                           torch.full_like(slot, p))
-    cls_counts = (starts[1:] - starts[:-1]).reshape(num_tiles, K2)
-    w_cls = const(_CLASS_TILES, np.int32, dev)
+    # true_entries: the tiles each binned prim covers, summed by class.
+    cls_counts = (starts[1:] - starts[:-1]).reshape(factor * num_tiles, k2)
+    spill_x, spill_y = class_spill(span)
+    w_cls = const([(a + 1) * (b + 1) for a, b in zip(spill_x, spill_y)],
+                  np.int32, dev)
     true_entries = (cls_counts.sum(dim=0) * w_cls).sum().to(torch.int32)
     diag = dict(
         true_entries=true_entries,
@@ -165,14 +201,16 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
 
 def bin_diagnostics6(prims: ScreenPrimitives, width: int, height: int,
                      max_big: int = DEFAULT_MAX_BIG,
-                     discs_only: bool = False) -> torch.Tensor:
+                     discs_only: bool = False, span: int = SPAN,
+                     kind_split: bool = False) -> torch.Tensor:
     """Big-list overflow count under the v6 binning (0 = exact).
 
-    ``discs_only`` must mirror the render being certified: it sends every
-    capsule to the big list, so a probe without it under-counts and can
-    certify a truncating run as exact."""
-    return bin_csr6(prims, width, height, max_big,
-                    discs_only)["diag"]["big_overflow"]
+    ``discs_only`` and ``span`` must mirror the render being certified:
+    ``discs_only`` sends every capsule to the big list and a narrower
+    span sends more prims there, so a probe without them can certify a
+    truncating run as exact."""
+    return bin_csr6(prims, width, height, max_big, discs_only, span,
+                    kind_split)["diag"]["big_overflow"]
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +319,47 @@ def build_table8(prims: ScreenPrimitives, shade_flag) -> torch.Tensor:
     table = torch.where(prims.valid[:, None], table, torch.zeros_like(table))
     return torch.cat([table, torch.zeros((1, ROW_F_DISC), dtype=torch.float32,
                                          device=dev)]).contiguous()
+
+
+def build_table9(prims: ScreenPrimitives, order, n_small) -> torch.Tensor:
+    """(P, 9) float32 kind-split rows in sorted order (the rows9 walk;
+    ``pallas_csr6._rows9_columns`` gathered as ``_raster_core6`` does):
+
+      disc     [px, py, z, r*r, idf, 0, 0, 0, 0]
+      capsule  [x0, y0, ux, -rho0, uy, rhod, z0, sdz, idf]
+
+    with ux = sdx * il2, uy = sdy * il2, rho0 = r0 * sqrt(il2) and rhod =
+    dr * sqrt(il2): the point-to-segment test divided through by the
+    axis length.  Row i is prim ``order[i]``'s; invalid prims and sorted
+    positions past the binned prefix (``n_small``) are NaN rows, inert
+    under both bodies (every compare fails).  The two encodings are also
+    inert read as each other: a capsule's lane 3 (-rho0 < 0) fails the
+    disc's r*r test, a disc's lane 5 (0) makes the capsule radius
+    -r*r <= 0, which fails its strict rad > 0."""
+    p = prims.count
+    dev = prims.device
+    pk = prims.params
+    iscap = prims.kind == KIND_CAPSULE
+    il2 = pk[:, 8]
+    il = sqrt_rn(torch.where(iscap, il2, torch.zeros_like(il2)))
+    r = pk[:, 3]
+    idf = torch.arange(p, dtype=torch.float32, device=dev)
+    zero = torch.zeros_like(r)
+    cols = (pk[:, 0], pk[:, 1],
+            torch.where(iscap, pk[:, 4] * il2, pk[:, 2]),
+            torch.where(iscap, -(r * il), r * r),
+            torch.where(iscap, pk[:, 5] * il2, idf),
+            torch.where(iscap, pk[:, 7] * il, zero),
+            torch.where(iscap, pk[:, 2], zero),
+            torch.where(iscap, pk[:, 6], zero),
+            torch.where(iscap, idf, zero))
+    nan = torch.full((p + 1, ROW_F9), float("nan"), dtype=torch.float32,
+                     device=dev)
+    table = torch.where(prims.valid[:, None], torch.stack(cols, dim=1),
+                        nan[:p])
+    table = torch.cat([table, nan[p:]])
+    pos = torch.arange(p, dtype=torch.int32, device=dev)
+    return table[torch.where(pos < n_small, order, p).long()].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -523,22 +602,33 @@ def _windows8(rows, rect):
                     rect)
 
 
-def _binned_rects(order, starts, width, height):
-    """(sorted prim ids, pixel rectangle) of the binned rows: each sorted
-    position below ``starts[4T]`` covers the tiles its (anchor, class)
-    names."""
-    tiles_x, _ = grid_shape(width, height)
+def _binned_layout(starts, width, height, span=SPAN):
+    """(kind region, pixel rectangle) of every binned sorted position
+    (those below ``starts[-1]``): each covers the tiles its (anchor,
+    class) names.  The region is 1 for the capsule half of a kind-split
+    binning, else 0."""
+    tiles_x, tiles_y = grid_shape(width, height)
+    k2 = span * span
     dev = starts.device
     n_small = int(starts[-1])
     pos = torch.arange(n_small, dtype=torch.int64, device=dev)
     j = torch.searchsorted(starts.to(torch.int64), pos, right=True) - 1
-    anchor, cls = j // K2, j % K2
+    region, j = j // (k2 * tiles_x * tiles_y), j % (k2 * tiles_x * tiles_y)
+    anchor, cls = j // k2, j % k2
     ax, ay = anchor % tiles_x, anchor // tiles_x
-    spill_x = ((cls == 1) | (cls == 2)).to(torch.int64)
-    spill_y = ((cls == 2) | (cls == 3)).to(torch.int64)
+    spills = class_spill(span)
+    spill_x, spill_y = (torch.tensor(c, dtype=torch.int64, device=dev)[cls]
+                        for c in spills)
     rect = (ax * TILE, torch.clamp((ax + 1 + spill_x) * TILE, max=width),
             ay * TILE, torch.clamp((ay + 1 + spill_y) * TILE, max=height))
-    return order[:n_small].to(torch.int64), rect
+    return region, rect
+
+
+def _binned_rects(order, starts, width, height):
+    """(sorted prim ids, pixel rectangle) of the binned rows of a span-2
+    binning."""
+    _, rect = _binned_layout(starts, width, height)
+    return order[:int(starts[-1])].to(torch.int64), rect
 
 
 def _full_rect(n, width, height, device):
@@ -673,28 +763,164 @@ def raster_tiles_disc8_uv_plain(table8, big_rows, order, starts, big_n,
                         height)
 
 
+def _check_inputs_rows9(rows9, big_rows, starts, big_n, width, height,
+                        span):
+    if span not in SPANS:
+        raise ValueError(f"span must be one of {SPANS}, got {span}")
+    if (rows9.dtype != torch.float32 or rows9.ndim != 2
+            or rows9.shape[1] != ROW_F9):
+        raise ValueError("rows9 must be (P, 9) float32")
+    if (big_rows.dtype != torch.float32 or big_rows.ndim != 2
+            or big_rows.shape[1] != ROW_F):
+        raise ValueError("big_rows must be (B, 16) float32")
+    for name, t in (("starts", starts), ("big_n", big_n)):
+        if t.dtype != torch.int32 or t.ndim != 1:
+            raise ValueError(f"{name} must be a 1-D int32 tensor")
+    tiles_x, tiles_y = grid_shape(width, height)
+    if starts.shape[0] != 2 * tiles_x * tiles_y * span * span + 1:
+        raise ValueError("starts does not match a kind-split binning of "
+                         "the tile grid at this span")
+    if big_n.shape[0] != 1:
+        raise ValueError("big_n must hold one element")
+    _check_one_device(rows9, big_rows, starts, big_n)
+    return tiles_x, tiles_y
+
+
+def raster_tiles_rows9(rows9, big_rows, starts, big_n, width: int,
+                       height: int, span: int = SPAN):
+    """The kind-split walk (rows9 and rows8) -> (depth, index): per tile,
+    its disc ranges through the exact disc body, its capsule ranges
+    through the renormalized segment-frame body, then the dense 16-float
+    ``big_rows`` (the first ``big_n`` live) through the exact 16-float
+    body.  ``rows9`` are :func:`build_table9`'s rows in sorted order,
+    ``starts`` a ``kind_split`` binning's at ``span``.  CUDA tensors
+    launch the ``csr6_rows9`` kernel of ``csrc/csr6_raster.cu``; CPU
+    tensors take :func:`raster_tiles_rows9_plain`.  ``.launches`` counts
+    launches."""
+    tiles_x, tiles_y = _check_inputs_rows9(rows9, big_rows, starts, big_n,
+                                           width, height, span)
+    if rows9.device.type == "cpu":
+        return raster_tiles_rows9_plain(rows9, big_rows, starts, big_n,
+                                        width, height, span)
+    if rows9.device.type != "cuda":
+        raise ValueError(f"no csr6 kernel for device {rows9.device}")
+    rows9, big_rows, starts, big_n = (
+        t.contiguous() for t in (rows9, big_rows, starts, big_n))
+    dev = rows9.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    index = torch.empty((height, width), dtype=torch.int32, device=dev)
+    _launch("csr6_rows9", (rows9, big_rows, starts, big_n, depth, index),
+            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
+    raster_tiles_rows9.launches += 1
+    return depth, index
+
+
+raster_tiles_rows9.launches = 0
+
+
+def _eval9d(rows, rid, qx, qy, with_uv):
+    """The rows9 disc body (pallas_csr6._make_row_body9d) -> (covered,
+    depth, idf, u, v)."""
+    px, py, z, r2, idf = (rows[rid, k] for k in range(5))
+    dx = qx - px
+    dy = qy - py
+    return dx * dx + dy * dy <= r2, z, idf, None, None
+
+
+def _eval9c(rows, rid, qx, qy, with_uv):
+    """The rows9 capsule body (pallas_csr6._make_row_body9c, the
+    renormalized segment-frame evaluation) -> (covered, depth, idf, u,
+    v)."""
+    x0, y0, ux, nr0, uy, rhod, z0, sdz, idf = (rows[rid, k]
+                                               for k in range(ROW_F9))
+    dx = qx - x0
+    dy = qy - y0
+    a = dx * ux + dy * uy
+    g = dy * ux - dx * uy
+    t = torch.clamp(a, 0.0, 1.0)
+    am = a - t
+    d2 = am * am + g * g
+    rad = rhod * t - nr0
+    z = z0 + sdz * t
+    return (d2 <= rad * rad) & (rad > 0), z, idf, None, None
+
+
+def _windows9c(rows, rect):
+    """Windows of rows9 capsule rows: the segment and radii recovered in
+    float64 from the renormalized lanes (sdx = ux / (ux^2 + uy^2), r =
+    rho * length); rows without a positive finite axis keep the whole
+    rectangle."""
+    r64 = rows.to(torch.float64)
+    x0, y0, ux, nr0, uy, rhod = (r64[:, k] for k in range(6))
+    s2 = ux * ux + uy * uy
+    ok = (s2 > 0) & torch.isfinite(s2)
+    l2 = 1.0 / torch.where(ok, s2, torch.ones_like(s2))
+    length = torch.sqrt(l2)
+    r0 = -nr0 * length
+    rad = torch.maximum(r0.abs(), (r0 + rhod * length).abs())
+    return _windows(x0, y0, x0 + ux * l2, y0 + uy * l2, rad, ~ok, rect)
+
+
+def raster_tiles_rows9_plain(rows9, big_rows, starts, big_n, width: int,
+                             height: int, span: int = SPAN):
+    """Plain PyTorch version of :func:`raster_tiles_rows9`, on any device:
+    each binned row through its kind's body over the window of its
+    (anchor, class) tiles, the live big rows through the 16-float body
+    over the image, merged as in :func:`raster_tiles_plain`."""
+    _check_inputs_rows9(rows9, big_rows, starts, big_n, width, height, span)
+    dev = rows9.device
+    region, rect = _binned_layout(starts, width, height, span)
+    binned = rows9[:region.shape[0]]
+    nb = int(big_n[0])
+    big = big_rows[:nb]
+    groups = [_pair_group(big, _windows16(big, _full_rect(nb, width, height,
+                                                          dev)),
+                          _eval16, width, False)]
+    for kind, evaluate, windows in ((0, _eval9d, _windows8),
+                                    (1, _eval9c, _windows9c)):
+        sel = region == kind
+        rows = binned[sel]
+        groups.append(_pair_group(
+            rows, windows(rows, tuple(r[sel] for r in rect)), evaluate,
+            width, False))
+    return _merge_plain(groups, width, height, dev, False)
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
 def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   max_big: int, shade_rgb, shade_flag, plain: bool = False,
-                  discs_only: bool = False, fused_uv: bool = False):
+                  discs_only: bool = False, fused_uv: bool = False,
+                  span: int = SPAN, kind_split: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, uv, diag);
     ``uv`` is None unless ``fused_uv`` (then the winner's lambert (u, v)
-    images, +inf where the winner is no disc).  Under ``discs_only`` no
-    (P+1, 16) table exists: the binned rows are 8 floats and the big rows
-    are built at the big ids."""
+    images, +inf where the winner is no disc).  Under ``discs_only`` and
+    ``kind_split`` no (P+1, 16) table exists: the binned rows are 8 or 9
+    floats and the big rows are built at the big ids."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
         raise ValueError(
             f"fused_uv requires a resident big list (max_big <= "
             f"{FUSED_MAX_BIG})")
-    binned = bin_csr6(prims, width, height, max_big, discs_only)
+    if span != SPAN and not kind_split:
+        raise NotImplementedError(
+            f"span={span} is ported for the rows8/rows9 walk only; the "
+            "16- and 8-float walks take span 2: ROADMAP queue B item 1")
+    binned = bin_csr6(prims, width, height, max_big, discs_only, span,
+                      kind_split)
     ranges = (binned["order"], binned["starts"])
     uv = None
-    if discs_only:
+    if kind_split:
+        rows9 = build_table9(prims, binned["order"], binned["starts"][-1])
+        big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
+                                      binned["big_ids"])
+        walk = raster_tiles_rows9_plain if plain else raster_tiles_rows9
+        depth, index = walk(rows9, big_rows, binned["starts"],
+                            binned["big_n"], width, height, span)
+    elif discs_only:
         table8 = build_table8(prims, shade_flag)
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
                                       binned["big_ids"])
@@ -715,15 +941,35 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
     return depth, index, uv, binned["diag"]
 
 
+def _kind_split(rows8: bool, rows9: bool, discs_only: bool,
+                allow_exit) -> bool:
+    """Whether the rows8/rows9 kind-split walk runs; raises for the
+    combinations the JAX package rejects (``_raster_core6``)."""
+    if not (rows8 or rows9):
+        return False
+    if (rows8 and rows9) or discs_only:
+        raise ValueError(
+            "rows8/rows9 are kind-split narrow-row modes for mixed disc + "
+            "capsule soups: mutually exclusive with each other and with "
+            "discs_only")
+    if allow_exit:
+        raise ValueError("rows8/rows9 rows carry no zlb lane: allow_exit "
+                         "must be off")
+    return True
+
+
 def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                    max_big: int = DEFAULT_MAX_BIG, shade_rgb=None,
                    shade_flag=None, plain: bool = False,
-                   discs_only: bool = False):
+                   discs_only: bool = False, span: int = SPAN,
+                   rows8: bool = False, rows9: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, diag).
 
     ``plain=True`` runs the plain tile walk on any device (the reference
     the CUDA kernels are held against); otherwise the device decides.
-    ``discs_only`` takes the 8-float disc rows (same winners).
+    ``discs_only`` takes the 8-float disc rows (same winners); ``rows8``
+    or ``rows9`` the kind-split 9-float rows at ``span`` (binned capsules
+    through the renormalized evaluation).
     """
     if shade_rgb is None:
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
@@ -732,8 +978,74 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                                  device=prims.device)
     depth, index, _, diag = _raster_core6(
         prims, width, height, max_big, shade_rgb, shade_flag, plain=plain,
-        discs_only=discs_only)
+        discs_only=discs_only, span=span,
+        kind_split=_kind_split(rows8, rows9, discs_only, None))
     return depth, index, diag
+
+
+def derive_three_tone(prims: ScreenPrimitives):
+    """Representative prim ids per kind and the exactness certificate of
+    the ``three_tone`` shade (``pallas_csr6.derive_three_tone``).
+
+    Returns ``(reps, ok)``: ``reps`` (3,) int32 (disc, capsule, triangle)
+    representative ids (the first valid prim of each kind; 0 when a kind
+    is absent) and ``ok`` a bool tensor, True iff every valid prim of a
+    kind shares its representative's color and every valid triangle its
+    normal: the precondition under which the three-tone shade equals the
+    per-prim ``preshade`` bit for bit.  Callers fall back to the preshade
+    path when ``ok`` is False."""
+    reps = []
+    ok = torch.ones((), dtype=torch.bool, device=prims.device)
+    for k in (KIND_DISC, KIND_CAPSULE, KIND_TRIANGLE):
+        mask = (prims.kind == k) & prims.valid
+        rep = torch.argmax(mask.to(torch.int32))
+        reps.append(rep)
+        ok = ok & _all_where(mask, prims.color == prims.color[rep])
+    tri = (prims.kind == KIND_TRIANGLE) & prims.valid
+    ok = ok & _all_where(tri, prims.normal == prims.normal[reps[2]])
+    return torch.stack(reps).to(torch.int32), ok
+
+
+def derive_four_tone(prims: ScreenPrimitives):
+    """Like :func:`derive_three_tone`, for soups whose capsules carry two
+    colors in two contiguous id runs: the droplet presets (tail capsules
+    in the point color, then trails in the trail color;
+    ``pallas_csr6.derive_four_tone``).
+
+    Returns ``(vals, ok)``: ``vals`` (5,) int32 = (disc_rep, capA_rep,
+    capB_rep, cap_split, tri_rep), where capsules with id < cap_split
+    shade from capA_rep and the rest from capB_rep, and ``ok`` True iff
+    discs and triangles are per-kind constant (triangles also in their
+    normal) and each capsule run is color-constant.  A one-color capsule
+    soup gives capB == capA with the split past the last prim."""
+    n = prims.count
+    dev = prims.device
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    reps = {}
+    for k in (KIND_DISC, KIND_TRIANGLE):
+        mask = (prims.kind == k) & prims.valid
+        reps[k] = torch.argmax(mask.to(torch.int32))
+        ok = ok & _all_where(mask, prims.color == prims.color[reps[k]])
+    tri = (prims.kind == KIND_TRIANGLE) & prims.valid
+    ok = ok & _all_where(tri,
+                         prims.normal == prims.normal[reps[KIND_TRIANGLE]])
+    cap = (prims.kind == KIND_CAPSULE) & prims.valid
+    cap_a = torch.argmax(cap.to(torch.int32))  # first valid capsule
+    differs = cap & (prims.color != prims.color[cap_a][None, :]).any(dim=1)
+    has_b = differs.any()
+    first_b = torch.argmax(differs.to(torch.int32))
+    split = torch.where(has_b, first_b, torch.full_like(first_b, n))
+    cap_b = torch.where(has_b, first_b, cap_a)
+    ids = torch.arange(n, device=dev)
+    ok = ok & _all_where(cap & (ids >= split),
+                         prims.color == prims.color[cap_b])
+    return (torch.stack([reps[KIND_DISC], cap_a, cap_b, split,
+                         reps[KIND_TRIANGLE]]).to(torch.int32), ok)
+
+
+def _all_where(mask, same):
+    """Every row of ``same`` (P, C) is all True where ``mask`` (P,)."""
+    return (same | ~mask[:, None]).all()
 
 
 def _lambert(u, v, l_cam, shading):
@@ -749,7 +1061,8 @@ def _tones(uniform_look, device):
 
 
 def shade_by_id(prims: ScreenPrimitives, camera, shading, depth, index,
-                shade_rgb, shade_flag, uniform_look=None) -> torch.Tensor:
+                shade_rgb, shade_flag, uniform_look=None,
+                three_tone=None) -> torch.Tensor:
     """Per-pixel winner-id shade epilogue -> (H, W, 3) rgb; bit-equal to
     ``shade_framebuffer`` (lambert and flat) through one compact 8-float
     per-pixel gather [x0, y0, c0, c1, c2, flag, 0, 0].
@@ -757,33 +1070,55 @@ def shade_by_id(prims: ScreenPrimitives, camera, shading, depth, index,
     ``uniform_look`` = ((disc rgb), (preshaded rgb)) for two-tone scenes
     (lambert only) narrows the gather to 4 floats [x0, y0, flag, 0] and
     injects the two colors as constants: the same image exactly when the
-    scene's colors really are these two."""
+    scene's colors really are these two.
+
+    ``three_tone`` (lambert only) = (disc, capsule, triangle)
+    representative prim ids for per-kind-constant soups, or the four-tone
+    (disc, capsule A, capsule B, capsule split, triangle), whose capsules
+    below the split id take A's color and the rest B's (the droplet
+    presets; :func:`derive_four_tone`).  The tones come from the
+    representatives by ``preshade``'s formulas, and the gather narrows to
+    4 floats [x0, y0, flag, is_capsule]; ``shade_rgb`` and ``shade_flag``
+    are not read (``pallas_csr4._shade_by_id``)."""
     h, w = depth.shape
     dev = depth.device
     hit = torch.isfinite(depth)
     safe = torch.where(hit, index, prims.count).long()
-    two_tone = uniform_look is not None and shading.mode != "flat"
-    if two_tone:
-        cols = [prims.params[:, 0:2], shade_flag[:, None],
-                torch.zeros((prims.count, 1), dtype=torch.float32,
-                            device=dev)]
+    flat = shading.mode == "flat"
+    two_tone = uniform_look is not None and not flat
+    three = three_tone is not None and not flat
+    zeros = torch.zeros((prims.count, 1), dtype=torch.float32, device=dev)
+    if three:
+        is_disc = prims.kind == KIND_DISC
+        inv_r = 1.0 / torch.clamp(prims.params[:, 3], min=1e-6)
+        flag_p = torch.where(is_disc, inv_r, torch.full_like(inv_r, -1.0))
+        cols = [prims.params[:, 0:2], flag_p[:, None],
+                (prims.kind == KIND_CAPSULE).to(torch.float32)[:, None]]
+    elif two_tone:
+        cols = [prims.params[:, 0:2], shade_flag[:, None], zeros]
     else:
-        cols = [prims.params[:, 0:2], shade_rgb, shade_flag[:, None],
-                torch.zeros((prims.count, 2), dtype=torch.float32,
-                            device=dev)]
+        cols = [prims.params[:, 0:2], shade_rgb, shade_flag[:, None], zeros,
+                zeros]
     table = torch.cat(cols, dim=1)
     table = torch.cat([table, torch.zeros((1, table.shape[1]),
                                           dtype=torch.float32, device=dev)])
     a = table[safe]  # (H, W, 4 | 8)
-    if shading.mode == "flat":
+    if flat:
         rgb = a[..., 2:5]
     else:
-        inv_r = a[..., 2 if two_tone else 5]
+        inv_r = a[..., 2 if (two_tone or three) else 5]
         qx, qy = pixel_centers(w, h, dev)
         u = (qx - a[..., 0]) * inv_r
         v = -(qy - a[..., 1]) * inv_r
-        lit = _lambert(u, v, key_light(camera), shading)
-        if two_tone:
+        l_cam = key_light(camera)
+        lit = _lambert(u, v, l_cam, shading)
+        if three:
+            uc, cap_rgb, ug = _three_tones(prims, shading, l_cam, index,
+                                           three_tone)
+            rgb = torch.where((inv_r > 0)[..., None], uc * lit[..., None],
+                              torch.where((a[..., 3] > 0)[..., None],
+                                          cap_rgb, ug))
+        elif two_tone:
             uc, ub = _tones(uniform_look, dev)
             rgb = torch.where((inv_r > 0)[..., None], uc * lit[..., None], ub)
         else:
@@ -791,6 +1126,31 @@ def shade_by_id(prims: ScreenPrimitives, camera, shading, depth, index,
                               a[..., 2:5] * lit[..., None], a[..., 2:5])
     rgb = torch.where(hit[..., None], rgb, background(shading, dev))
     return torch.clamp(rgb, 0.0, 1.0)
+
+
+def _three_tones(prims, shading, l_cam, index, three_tone):
+    """(disc color, per-pixel capsule color, triangle color) of the
+    three/four-tone shade, by ``preshade``'s formulas on the
+    representative prims (the same float32 inputs and operations, so the
+    same results whenever the reps' kinds are constant)."""
+    reps = [int(r) for r in three_tone]
+    if len(reps) == 5:
+        d_rep, c_rep, c_rep2, cap_split, t_rep = reps
+    elif len(reps) == 3:
+        d_rep, c_rep, t_rep = reps
+        c_rep2 = cap_split = None
+    else:
+        raise ValueError("three_tone takes 3 or 5 prim ids")
+    boost = const(shading.trail_boost, np.float32, prims.device)
+    ut = torch.clamp(prims.color[c_rep] * boost, 0.0, 1.0)
+    if cap_split is not None:
+        ut2 = torch.clamp(prims.color[c_rep2] * boost, 0.0, 1.0)
+        ut = torch.where((index < cap_split)[..., None], ut, ut2)
+    nrm = prims.normal[t_rep]
+    ndotl = nrm[0] * l_cam[0] + nrm[1] * l_cam[1] + nrm[2] * l_cam[2]
+    lit_g = shading.ambient + shading.diffuse * torch.clamp(ndotl, min=0.0)
+    ug = torch.clamp(prims.color[t_rep] * lit_g, 0.0, 1.0)
+    return prims.color[d_rep], ut, ug
 
 
 def shade_uv(camera, shading, depth, u, v, uniform_look) -> torch.Tensor:
@@ -813,26 +1173,43 @@ def shade_uv(camera, shading, depth, u, v, uniform_look) -> torch.Tensor:
 def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
                        max_big: int = DEFAULT_MAX_BIG, plain: bool = False,
                        discs_only: bool = False, uniform_look=None,
-                       allow_exit=None):
+                       allow_exit=None, span: int = SPAN,
+                       rows8: bool = False, rows9: bool = False,
+                       three_tone=None):
     """Rasterize + shade in one pass -> (rgb, depth, index, diag).
 
     Two-tone disc scenes (``uniform_look`` with ``discs_only``, lambert,
     ``allow_exit`` not forced on, ``max_big`` <= 511: the JAX package's
     condition) take the fused path: the walk carries the winner's (u, v)
     and :func:`shade_uv` shades without a gather.  Every other case
-    shades through :func:`shade_by_id`.  ``allow_exit`` has no other
-    effect here (the kernels have no depth early exit yet)."""
+    shades through :func:`shade_by_id`; under ``three_tone`` (lambert)
+    ``preshade`` is skipped, its outputs being read by nothing else.
+    ``rows8`` and ``rows9`` take the kind-split walk at ``span`` (one
+    kernel for both: they evaluate the same float32 expressions).
+    ``allow_exit`` has no other effect here (the kernels have no depth
+    early exit yet)."""
     check_supported(shading)
-    shade_rgb, shade_flag = preshade(prims, camera, shading)
+    if three_tone is not None and uniform_look is not None:
+        raise ValueError("three_tone and uniform_look are exclusive")
+    kind_split = _kind_split(rows8, rows9, discs_only, allow_exit)
+    if three_tone is not None and shading.mode != "flat":
+        shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
+                                device=prims.device)
+        shade_flag = torch.zeros((prims.count,), dtype=torch.float32,
+                                 device=prims.device)
+    else:
+        shade_rgb, shade_flag = preshade(prims, camera, shading)
     fused = (uniform_look is not None and discs_only
              and shading.mode != "flat" and allow_exit is not True
              and max_big <= FUSED_MAX_BIG)
     depth, index, uv, diag = _raster_core6(
         prims, camera.width, camera.height, max_big, shade_rgb, shade_flag,
-        plain=plain, discs_only=discs_only, fused_uv=fused)
+        plain=plain, discs_only=discs_only, fused_uv=fused, span=span,
+        kind_split=kind_split)
     if fused:
         rgb = shade_uv(camera, shading, depth, uv[0], uv[1], uniform_look)
     else:
         rgb = shade_by_id(prims, camera, shading, depth, index, shade_rgb,
-                          shade_flag, uniform_look=uniform_look)
+                          shade_flag, uniform_look=uniform_look,
+                          three_tone=three_tone)
     return rgb, depth, index, diag

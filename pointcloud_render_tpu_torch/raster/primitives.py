@@ -110,15 +110,21 @@ def capsules_from_vertex_columns(vertex_cols, valid_cols, camera,
     A segment is valid iff both endpoints pass the near/far cull and their
     ``valid_cols`` masks, it has nonzero screen length, and its bbox touches
     the film.  ``radius_world`` is a Python scalar (the constant trail
-    radius); per-vertex radii belong to the droplet slice.
+    radius) or (N, V) per-vertex radii (the droplets' tapered tails).
     """
     v = len(vertex_cols)
     n = vertex_cols[0].shape[0]
     dev = vertex_cols[0].device
-    rw = torch.full((n,), float(radius_world), dtype=torch.float32, device=dev)
+    if np.ndim(radius_world) == 0:
+        rw = torch.full((n,), float(radius_world), dtype=torch.float32,
+                        device=dev)
+        radii = [rw] * v
+    else:
+        rw = torch.as_tensor(radius_world, dtype=torch.float32, device=dev)
+        radii = [rw[:, j] for j in range(v)]
     projs, pvalid = [], []
     for j in range(v):
-        proj = project_points(vertex_cols[j], camera, radii=rw)
+        proj = project_points(vertex_cols[j], camera, radii=radii[j])
         projs.append(proj)
         zok = (proj["z"] > camera.near) & (proj["z"] < camera.far)
         pvalid.append(zok & valid_cols[j])

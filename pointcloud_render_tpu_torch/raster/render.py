@@ -21,8 +21,13 @@ compatible.  The TPU performance knobs (``tiles_per_program``,
 disc scene may take the fused (u, v) shade (forced on, it may not).
 ``discs_only`` walks 8-float disc rows (capsules ride the big list) and
 ``uniform_look`` shades two-tone scenes from two constant colors.
-Semantic knobs outside the ported slices raise ``NotImplementedError``
-naming their ROADMAP item.
+``rows9`` and ``rows8`` walk the kind-split 9-float rows (binned capsules
+through the renormalized segment-frame evaluation; one kernel serves
+both), at ``span`` 2, 4 or 8; ``three_tone`` shades per-kind-constant
+soups from three or four representative colors.  The plain backends run
+the plain version of the same walk, so a rows9 config renders the rows9
+winners there too.  Semantic knobs outside the ported slices raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -90,7 +95,8 @@ class RasterConfig:
 
 
 def check_config(config: RasterConfig) -> None:
-    """Raise for backends and semantic knobs the port does not have yet."""
+    """Raise for backends and semantic knobs the port does not have yet,
+    and (ValueError) for the combinations the JAX package rejects."""
     if config.backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend {config.backend!r} is not ported yet: "
@@ -99,14 +105,29 @@ def check_config(config: RasterConfig) -> None:
         raise ValueError(f"unknown backend {config.backend!r}")
     if config.three_tone is not None and config.uniform_look is not None:
         raise ValueError("three_tone and uniform_look are exclusive")
+    if config.three_tone is not None and len(config.three_tone) not in (3, 5):
+        raise ValueError("three_tone takes 3 or 5 prim ids")
+    if config.span not in csr6.SPANS:
+        raise ValueError(f"span must be one of {csr6.SPANS}")
+    if config.rows8_carry and not config.rows8:
+        raise ValueError("rows8_carry is a rows8 build variant: requires "
+                         "rows8=True")
+    if config.rows9_carry and not config.rows9:
+        raise ValueError("rows9_carry is a rows9 build variant: requires "
+                         "rows9=True")
+    if config.allow_exit and config.span != 2:
+        raise ValueError("allow_exit requires span=2")
+    kind_split = csr6._kind_split(config.rows8, config.rows9,
+                                  config.discs_only, config.allow_exit)
+    if kind_split and (config.cap_rows10 or config.bin_triangles):
+        raise ValueError("rows8/rows9 are exclusive with cap_rows10 and "
+                         "bin_triangles")
     unported = [
-        (config.three_tone is not None, "three_tone",
-         "ROADMAP queue B item 6"),
-        (config.rows8, "rows8", "ROADMAP queue B item 12"),
-        (config.rows9, "rows9", "ROADMAP queue B item 5"),
         (config.cap_rows10, "cap_rows10", "ROADMAP queue B item 8"),
         (config.bin_triangles, "bin_triangles", "ROADMAP queue B item 7"),
-        (config.span != 2, f"span={config.span}", "ROADMAP queue B item 1"),
+        (config.span != 2 and not kind_split,
+         f"span={config.span} on the 16- and 8-float walks",
+         "ROADMAP queue B item 1"),
         (config.supersample != 1, f"supersample={config.supersample}",
          "ROADMAP queue A item 13 (shading/aa.py)"),
     ]
@@ -130,7 +151,8 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
     depth, index, _ = csr6.rasterize_csr6(
         prims, width, height, max_big=config.max_big,
         plain=config.backend in PLAIN_BACKENDS,
-        discs_only=config.discs_only)
+        discs_only=config.discs_only, span=config.span, rows8=config.rows8,
+        rows9=config.rows9)
     return depth, index
 
 
@@ -148,7 +170,8 @@ def render(prims: ScreenPrimitives, camera,
         prims, camera, config.shading, max_big=config.max_big,
         plain=config.backend in PLAIN_BACKENDS,
         discs_only=config.discs_only, uniform_look=config.uniform_look,
-        allow_exit=config.allow_exit)
+        allow_exit=config.allow_exit, span=config.span, rows8=config.rows8,
+        rows9=config.rows9, three_tone=config.three_tone)
     fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
     return (fb, diag) if return_diag else fb
 

@@ -5,11 +5,13 @@ keeps the reference's exact state semantics (float64 NumPy standardize and
 transform); the device side is float32 on ``FramePipeline.device``.
 PyTorch runs eagerly, so there is no compiled-step cache.
 
-Ported: the sphere splats and the fixed-segment velocity trails (the
-traj_ball frame, the other sphere + velocity presets and the example
-preset's static cloud, whose 3-D stacks ``process`` iterates).  Droplets,
-history trails and the adaptive trail segmentation raise
-``NotImplementedError`` naming their ROADMAP entry.
+Ported: the sphere splats, the droplets' capsule LOD (head disc and
+tapered tail capsule, velocity-aligned) and the fixed-segment velocity
+trails (the traj_ball and traj_vel frames, the other sphere + velocity
+presets and the example preset's static cloud, whose 3-D stacks
+``process`` iterates).  The droplets' mesh LOD, history trails and the
+adaptive trail segmentation raise ``NotImplementedError`` naming their
+ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from pointcloud_render_tpu_torch.configs import ScenePreset
+from pointcloud_render_tpu_torch.geometry import droplet as droplet_mod
+from pointcloud_render_tpu_torch.geometry import rotation as rotation_mod
 from pointcloud_render_tpu_torch.geometry import trails as trails_mod
 from pointcloud_render_tpu_torch.io import loaders, png
 from pointcloud_render_tpu_torch.raster.primitives import (
@@ -55,36 +59,77 @@ VEL_TRAIL_RENDER_SEGMENTS = 8
 MAX_RENDER_ATTEMPTS = 5
 
 
+def check_droplet_lod(droplet_lod: str) -> None:
+    """Raise for a droplet LOD the port does not render."""
+    if droplet_lod == "mesh":
+        raise NotImplementedError(
+            "mesh-LOD droplets are not ported yet: they need the binned "
+            "triangle walk, ROADMAP queue A item 12 and queue B item 7")
+    if droplet_lod != "capsule":
+        raise ValueError(f"unknown droplet_lod {droplet_lod!r}")
+
+
 def build_primitives(preset: ScenePreset, camera: Camera, positions,
-                     velocities=None, frame_index=0,
+                     velocities=None, frame_index=0, rotations=None,
+                     droplet_lod: str = "capsule",
                      trail_segments: Optional[int] = None,
                      return_layout: bool = False):
     """Assemble the frame's primitive soup on the camera's device.
 
-    Primitive order (= depth-tie priority): ground, splats, trails.
-    ``trail_segments`` overrides VEL_TRAIL_RENDER_SEGMENTS (1..20).
-    ``return_layout=True`` also returns the soup's part layout as a list
-    of ``(rows, rows_per_point)`` (0 for fixed furniture like the ground);
-    every per-point part is row-major in point index.
+    Primitive order (= depth-tie priority): ground, splats (droplets: head
+    discs, then tail capsules), trails.  Droplets take their orientation
+    from ``rotations`` ((N, 4, 4)), else from the velocities, else the
+    identity.  ``trail_segments`` overrides VEL_TRAIL_RENDER_SEGMENTS
+    (1..20).  ``return_layout=True`` also returns the soup's part layout
+    as a list of ``(rows, rows_per_point)`` (0 for fixed furniture like
+    the ground); every per-point part is row-major in point index.
     """
-    if preset.splat != "sphere":
-        raise NotImplementedError(
-            f"splat {preset.splat!r} is not ported yet: ROADMAP queue A "
-            "item 8 (droplets)")
     if preset.trail == "history":
         raise NotImplementedError(
             "history trails are not ported yet: ROADMAP queue A item 11")
     dev = camera.device
     positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
+    if velocities is not None:
+        velocities = torch.as_tensor(velocities, dtype=torch.float32,
+                                     device=dev)
     parts = [ground_plane(camera, preset.ground_half_extent,
                           preset.ground_center)]
     per_point = [0]
     n = positions.shape[0]
-    parts.append(discs_from_points(
-        positions, camera,
-        torch.full((n,), preset.point_radius, dtype=torch.float32, device=dev),
-        np.asarray(preset.point_color, np.float32)))
-    per_point.append(1)
+    color = np.asarray(preset.point_color, np.float32)
+    if preset.splat == "sphere":
+        parts.append(discs_from_points(
+            positions, camera,
+            torch.full((n,), preset.point_radius, dtype=torch.float32,
+                       device=dev), color))
+        per_point.append(1)
+    elif preset.splat == "droplet":
+        check_droplet_lod(droplet_lod)
+        if rotations is None:
+            if velocities is None:
+                rotations = torch.eye(4, dtype=torch.float32,
+                                      device=dev).expand(n, 4, 4)
+            else:
+                rotations = rotation_mod.rotation_matrices_from_velocities(
+                    velocities, positions)
+        rotations = torch.as_tensor(rotations, dtype=torch.float32,
+                                    device=dev)
+        # Capsule LOD: head sphere + tapering tail along the rotated -z
+        # axis (column 2 of R gives R @ (0,0,-1) = tail direction).
+        tail_dir = -rotations[:, :3, 2]
+        tip = positions + tail_dir * droplet_mod.TAIL_TIP_OFFSET
+        parts.append(discs_from_points(
+            positions, camera,
+            torch.full((n,), droplet_mod.BASE_RADIUS, dtype=torch.float32,
+                       device=dev), color))
+        per_point.append(1)
+        taper = const(droplet_mod.TAIL_RADII, np.float32, dev).expand(n, 2)
+        ones = torch.ones((n,), dtype=torch.bool, device=dev)
+        parts.append(capsules_from_vertex_columns(
+            [positions, tip], [ones, ones], camera, taper, color))
+        per_point.append(1)
+    else:
+        raise ValueError(f"unknown splat kind {preset.splat!r}")
 
     if preset.trail == "velocity" and velocities is not None:
         segs = (VEL_TRAIL_RENDER_SEGMENTS if trail_segments is None
@@ -98,8 +143,6 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
                 f"trail_segments must be in 1..{trails_mod.N_TRAIL_POINTS}")
         sub = np.round(np.linspace(0, trails_mod.N_TRAIL_POINTS,
                                    segs + 1)).astype(np.int32)
-        velocities = torch.as_tensor(velocities, dtype=torch.float32,
-                                     device=dev)
         vcols, valid = trails_mod.velocity_trail_vertex_columns(
             positions, velocities, frame_index, sub, preset.trail_schedule)
         parts.append(capsules_from_vertex_columns(
@@ -128,11 +171,14 @@ class FramePipeline:
 
     def __init__(self, preset: ScenePreset,
                  raster_config: Optional[RasterConfig] = None,
-                 width: Optional[int] = None, height: Optional[int] = None,
-                 device="cuda"):
+                 droplet_lod: str = "capsule", width: Optional[int] = None,
+                 height: Optional[int] = None, device="cuda"):
         self.preset = preset
         self.raster_config = raster_config or RasterConfig()
         check_config(self.raster_config)
+        if preset.splat == "droplet":
+            check_droplet_lod(droplet_lod)
+        self.droplet_lod = droplet_lod
         check_supported(self.raster_config.shading)
         self.film = (width or IMAGE_WIDTH, height or IMAGE_HEIGHT)
         self.device = torch.device(device)
@@ -179,7 +225,7 @@ class FramePipeline:
         w, h = self.film
         camera = frame_camera(self.preset, frame_index, w, h, self.device)
         prims = build_primitives(self.preset, camera, positions, velocities,
-                                 frame_index)
+                                 frame_index, droplet_lod=self.droplet_lod)
         for _attempt in range(MAX_RENDER_ATTEMPTS):
             fb, diag = render(prims, camera, self.raster_config,
                               return_diag=True)

@@ -17,8 +17,10 @@ while the device already renders chunk c + 1 (two buffers in turn).
 
 Static clouds use dt=0 (a pure camera flythrough); dynamic clouds advect
 by their velocities each frame, with optional motion coloring.  Sphere
-presets only: droplets and history trails raise ``NotImplementedError``
-naming their ROADMAP item, as ``build_primitives`` does.
+and droplet presets (capsule LOD, oriented by the velocities, with
+velocity trails: traj_vel); the droplets' mesh LOD and history trails
+raise ``NotImplementedError`` naming their ROADMAP item, as
+``build_primitives`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from pointcloud_render_tpu_torch.raster.render import (
 )
 from pointcloud_render_tpu_torch.run.pipeline import (
     build_primitives,
+    check_droplet_lod,
     frame_camera,
 )
 from pointcloud_render_tpu_torch.scene import dynamics
@@ -61,12 +64,11 @@ class TrajectoryScanRenderer:
     def __init__(self, preset: ScenePreset,
                  raster_config: Optional[RasterConfig] = None,
                  dt: float = 0.0, motion_color: bool = False,
-                 frames_per_chunk: int = 8, width: Optional[int] = None,
-                 height: Optional[int] = None, device="cuda"):
-        if preset.splat != "sphere":
-            raise NotImplementedError(
-                f"splat {preset.splat!r} is not ported yet: ROADMAP queue A "
-                "item 8 (droplets)")
+                 droplet_lod: str = "capsule", frames_per_chunk: int = 8,
+                 width: Optional[int] = None, height: Optional[int] = None,
+                 device="cuda"):
+        if preset.splat == "droplet":
+            check_droplet_lod(droplet_lod)
         if preset.trail == "history":
             raise NotImplementedError(
                 "history trails are not ported yet: ROADMAP queue A item 11")
@@ -76,6 +78,7 @@ class TrajectoryScanRenderer:
         check_supported(self.raster_config.shading)
         self.dt = float(dt)
         self.motion_color = motion_color
+        self.droplet_lod = droplet_lod
         self.frames_per_chunk = int(frames_per_chunk)
         self.film = (width or IMAGE_WIDTH, height or IMAGE_HEIGHT)
         self.device = torch.device(device)
@@ -90,12 +93,15 @@ class TrajectoryScanRenderer:
         camera = frame_camera(self.preset, frame_index, w, h, self.device)
         if not self.motion_color:
             return camera, build_primitives(self.preset, camera, positions,
-                                            velocities, frame_index)
+                                            velocities, frame_index,
+                                            droplet_lod=self.droplet_lod)
         prims, layout = build_primitives(self.preset, camera, positions,
                                          velocities, frame_index,
+                                         droplet_lod=self.droplet_lod,
                                          return_layout=True)
         # Recolor the splats by speed: the first per-point block of the
-        # soup layout, not a hardcoded offset past the ground's rows.
+        # soup layout (head discs for droplets), not a hardcoded offset
+        # past the ground's rows.
         off = 0
         for count, per in layout:
             if per == 1:
@@ -116,7 +122,7 @@ class TrajectoryScanRenderer:
         big list past the default.  The per-chunk certificate still checks
         every frame afterwards: this probe only avoids a wasted first
         render.  Advects the cloud to each sampled frame when dt != 0, and
-        bins with the render's own ``discs_only``."""
+        bins with the render's own ``discs_only``, span and kind split."""
         ids = sorted(frame_indices)
         if not ids:
             return
@@ -128,10 +134,12 @@ class TrajectoryScanRenderer:
             p = (dynamics.advect(positions, velocities, self.dt * fi)
                  if self.dt else positions)
             camera = frame_camera(self.preset, fi, w, h, self.device)
-            prims = build_primitives(self.preset, camera, p, velocities, fi)
+            prims = build_primitives(self.preset, camera, p, velocities, fi,
+                                     droplet_lod=self.droplet_lod)
+            cfg = self.raster_config
             worst = max(worst, int(csr6.bin_diagnostics6(
-                prims, w, h, max_big=self.raster_config.max_big,
-                discs_only=self.raster_config.discs_only)))
+                prims, w, h, max_big=cfg.max_big, discs_only=cfg.discs_only,
+                span=cfg.span, kind_split=cfg.rows8 or cfg.rows9)))
         if worst > 0:
             mb = self.raster_config.max_big + int(worst * 1.5)
             self.raster_config = dataclasses.replace(

@@ -306,8 +306,9 @@ def test_disc_lane_knob_errors():
                            discs_only=True, fused_uv=True)
     with pytest.raises(ValueError, match="exclusive"):
         check_config(RasterConfig(three_tone=(0, 1, 2), uniform_look=LOOK))
-    with pytest.raises(NotImplementedError, match="queue B item 6"):
-        check_config(RasterConfig(three_tone=(0, 1, 2)))
+    with pytest.raises(ValueError, match="3 or 5"):
+        check_config(RasterConfig(three_tone=(0, 1)))
+    check_config(RasterConfig(three_tone=(0, 1, 2)))  # ported with droplets
     # A JAX config with array tones converts to a hashable port config.
     cfg = convert.raster_config_from_fields(JRasterConfig(
         discs_only=True, max_big=256,

@@ -201,16 +201,22 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="queue B item 9"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
                                RasterConfig(backend="pallas4"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue B item 8"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(rows9=True), device="cpu")
+                               RasterConfig(cap_rows10=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue B item 1"):
+        pipeline.FramePipeline(PRESETS["traj_ball"], RasterConfig(span=4),
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.FramePipeline(
             PRESETS["traj_ball"],
             RasterConfig(shading=ShadingConfig(shadows=True)), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="mesh",
+                               device="cpu")
     pos, vel = cloud(n=10)
-    with pytest.raises(NotImplementedError, match="droplets"):
-        pipeline.FramePipeline(PRESETS["traj_vel"], device="cpu") \
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
+        pipeline.FramePipeline(PRESETS["traj"], device="cpu") \
             .render_array(np.concatenate([pos, vel], axis=1), 10)
 
 
@@ -224,6 +230,7 @@ def test_cuda_device_without_card_raises():
 def test_package_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import pointcloud_render_tpu_torch.cli.traj_ball_renderer\n"
+            "import pointcloud_render_tpu_torch.cli.traj_vel_renderer\n"
             "import pointcloud_render_tpu_torch.cli.example_renderer\n"
             "import pointcloud_render_tpu_torch.run.trajectory\n"
             "import pointcloud_render_tpu_torch.utils.convert\n"

@@ -213,8 +213,9 @@ def test_certificate_raises_on_overflow():
 
 
 def test_scan_refusals():
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        TrajectoryScanRenderer(PRESETS["traj_vel"], device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        TrajectoryScanRenderer(PRESETS["traj_vel"], droplet_lod="mesh",
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         TrajectoryScanRenderer(dataclasses.replace(
             PRESETS["traj"], splat="sphere"), device="cpu")

@@ -25,8 +25,14 @@ ORIGIN = (2.0, 2.0, 2.0)
 TARGET = (0.0, 0.0, -0.05)
 
 
-def tcam(w=W, h=H, device=None):
-    return Camera(origin=torch.tensor(ORIGIN, device=device),
+NEAR_ORIGIN = (1.2, 1.2, 1.0)  # long capsules span 2-4 tiles
+# 10x8 tiles: from NEAR_ORIGIN some long capsules of droplet_soup reach 5-8
+# tiles, binned only at span 8.
+SPAN8_FILM = (320, 256)
+
+
+def tcam(w=W, h=H, device=None, origin=ORIGIN):
+    return Camera(origin=torch.tensor(origin, device=device),
                   target=torch.tensor(TARGET, device=device), width=w,
                   height=h)
 
@@ -143,6 +149,38 @@ def disc_soup(cam, ties=40, wide=2, n=300, radius=0.03, ground=True):
 
 CASES = ["mixed", "spill", "ties", "wide_big", "invalid", "near_clip",
          "dense_tile"]
+
+
+def droplet_soup(cam, n=160, seed=13, frame=120, long_caps=12):
+    """A traj_vel soup (ground, head discs, tapered tail capsules, 2-segment
+    velocity trails) at ``cam`` with exact depth ties (40 droplets twice),
+    invalid rows (every 7th) and ``long_caps`` long straight trail
+    capsules after the trails: seen from ``tcam(origin=NEAR_ORIGIN)``
+    they span 2 to 4 tiles, so some ride the big list at span 2 and are
+    binned at span 4."""
+    from pointcloud_render_tpu_torch.configs import PRESETS  # noqa: PLC0415
+    from pointcloud_render_tpu_torch.run import pipeline  # noqa: PLC0415
+
+    pos, vel = cloud(n, seed)
+    pos[40:80], vel[40:80] = pos[:40], vel[:40]
+    preset = PRESETS["traj_vel"]
+    soup = pipeline.build_primitives(
+        preset, cam, torch.tensor(pos, device=cam.device),
+        torch.tensor(vel, device=cam.device), frame, trail_segments=2)
+    rng = np.random.default_rng(seed + 1)
+    a = rng.uniform(-0.4, 0.4, (long_caps, 3)).astype(np.float32)
+    b = (a + rng.uniform(-0.7, 0.7, (long_caps, 3))).astype(np.float32)
+    ones = torch.ones(long_caps, dtype=torch.bool, device=cam.device)
+    caps = capsules_from_vertex_columns(
+        [torch.tensor(a, device=cam.device),
+         torch.tensor(b, device=cam.device)], [ones, ones], cam,
+        preset.trail_radius, np.asarray(preset.trail_color, np.float32))
+    soup = ScreenPrimitives.concatenate([soup, caps])
+    valid = soup.valid.clone()
+    valid[::7] = False
+    return ScreenPrimitives(kind=soup.kind, params=soup.params,
+                            color=soup.color, valid=valid, bbox=soup.bbox,
+                            normal=soup.normal)
 
 
 def cloud(n=300, seed=0):
