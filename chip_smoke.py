@@ -7,7 +7,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels (one source, three kernels) from csrc/ with nvcc;
+  2. build the kernels (one source, six kernels) from csrc/ with nvcc;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
      seeded soups at 1920x1080 and one traj_ball frame, and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
@@ -51,13 +51,37 @@ Phases (any failure exits non-zero and prints no result line):
      the four-tone shade beside the generic one, the kernel's time,
      plain time and bound, the stages of one warm frame, warm ms/frame,
      a trace of one warm frame, and 8 frames of the scan on the lane's
-     config (one csr6_rows9 launch each).
+     config (one csr6_rows9 launch each);
+  9. the mesh-LOD slice: (a) csr6_raster[bin_triangles] (binned triangles
+     through the dual evaluation) and csr4_raster (the v4 walk, with its
+     z-bucket early exit), each with and without bin_triangles, against
+     their plain versions bit for bit on seeded 1080p mesh-LOD soups
+     (3,000 droplets, 300 of them twice for exact ties, a dozen near the
+     camera whose triangles ride the big list and whose near clip leaves
+     invalid rows, the ground, 8-capsule trails) and on phase 3's soups,
+     csr4_raster also on entries truncated by an entry_capacity below
+     true_entries; (b) seeded 10,000-point PLYs through the traj_vel CLI
+     with --droplet-lod mesh (frames 10, 120, 205: records ok, PNGs,
+     csr6_raster[bin_triangles] launched), FramePipeline's auto frames
+     equal to pallas4 + bin_triangles frames in depth bits, index and rgb
+     at those frames, both kernels equal to their plain versions at frame
+     120 with their times, plain times and bounds, the stages of one warm
+     frame, warm ms/frame, a trace, and 8 scan frames (certificate 0, one
+     launch each); (c) the traj_ball CLI with --backend pallas4 on phase
+     5's 1M-point PLYs: its PNGs equal phase 5's (pallas6) byte for byte,
+     FramePipeline's buffers equal at frames 120 and 205 (205 through the
+     max_big self-heal), csr4_raster's time and bound with the exit on
+     (the bound counts the entries its tiles walked before their exits,
+     which the kernel reports) and off, and its plain time, at frames 120
+     and 205, and a mesh-LOD soup of 13,026
+     droplets (one past the 2^24-row id limit) must raise ValueError.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
 the walk must evaluate times the float32 operations per pair, over the
 card's float32 rate without multiply-add fusion; or its bytes over the
-memory rate if that is larger).
+memory rate if that is larger); csr4_raster's entry adds ms_exit_off
+and bound_ms_exit_off, the walk of every entry.
 """
 
 from __future__ import annotations
@@ -79,6 +103,9 @@ REPLACES = {
     "csr6_disc8": "pointcloud_render_tpu/raster/pallas_csr6.py:268",
     "csr6_disc8_uv": "pointcloud_render_tpu/raster/pallas_csr6.py:505",
     "csr6_rows9": "pointcloud_render_tpu/raster/pallas_csr6.py:435",
+    "csr6_raster[bin_triangles]":
+        "pointcloud_render_tpu/raster/pallas_csr6.py:904",
+    "csr4_raster": "pointcloud_render_tpu/raster/pallas_csr4.py:385",
 }
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
 SCAN_FRAMES = 220
@@ -113,6 +140,12 @@ OPS_DISC9, OPS_CAPSULE9 = 4, 16
 DROPLET_POINTS = 1_000_000
 DROPLET_FRAMES = 12
 DROPLET_SEGMENTS = 4
+# The mesh-LOD slice: a traj_vel frame holds the ground's 4 rows and 1,288
+# per droplet (two near-clip blocks of the 640-face teardrop, 8 trail
+# capsules); ids ride the rows as float32, so at most 13,025 droplets.
+MESH_DROPLETS = 10_000
+MESH_ROWS_PER_DROPLET = 1288
+MESH_MAX_DROPLETS = ((1 << 24) - 4 - 1) // MESH_ROWS_PER_DROPLET
 
 
 class SmokeFailure(Exception):
@@ -265,6 +298,18 @@ def soups(device):
     return out
 
 
+def reset_counts(counters):
+    """Set every kernel wrapper's launch count to 0."""
+    for c in counters:
+        c.launches = 0
+
+
+def launch_counts(counters) -> dict:
+    """{kernel wrapper: launches} of the kernels launched since the last
+    reset."""
+    return {c.__name__: c.launches for c in counters if c.launches}
+
+
 def time_ms(fn, reps):
     """Median of ``reps`` CUDA-event-timed calls after a warm-up."""
     import torch
@@ -342,29 +387,132 @@ def check_equal_bits(got, want, what):
             if bool(fin.any()) else 0.0)
 
 
-def compare(soup, width, height, csr6, max_big, timing=False):
-    """csr6_raster vs plain on one soup -> dict(err, ms, plain_ms, bound_ms,
-    bound_by); the times and the bound only with ``timing``."""
+def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
+                 height, bin_triangles):
+    """(bound ms, "operations" | "bytes") of a 16-float walk (v6 or v4)
+    whose tiles evaluate entries of prim kinds ``kinds`` (one per (tile,
+    prim) pair; the v4 entries, which the v6 class weights count too) at
+    1024 pixels each, 18 operations for a triangle under
+    ``bin_triangles`` (the dual) and 17 otherwise, and every pixel x every
+    live big row; bytes: ``n_rows`` rows read once with their ids, the big
+    rows, ``n_starts`` range bounds, two output images."""
+    n_tri = int((kinds == 2).sum()) if bin_triangles else 0
+    n_ent = int(kinds.numel())
+    nb = int(big_n[0])
+    nb_tri = int((soup.kind[big_ids[:nb].long()] == 2).sum())
+    pixels = width * height
+    ops = (1024 * (n_tri * OPS_TRIANGLE16 + (n_ent - n_tri) * OPS_CAPSULE16)
+           + pixels * (nb_tri * OPS_TRIANGLE16
+                       + (nb - nb_tri) * OPS_CAPSULE16))
+    nbytes = (n_rows + nb) * (64 + 4) + n_starts * 4 + pixels * 4 * 2
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
+            timing=False):
+    """csr6_raster (with ``bin_triangles`` or without) vs its plain
+    version on one soup -> (dict(err, ms, plain_ms, bound_ms, bound_by),
+    (depth, index)); times and bound only with ``timing``."""
     import torch
 
-    b = csr6.bin_csr6(soup, width, height, max_big)
+    b = csr6.bin_csr6(soup, width, height, max_big,
+                      bin_triangles=bin_triangles)
     check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
     zeros = torch.zeros((soup.count, 3), device=soup.device)
-    table = csr6.build_table16(soup, zeros, zeros[:, 0])
+    table = csr6.build_table16(soup, zeros, zeros[:, 0],
+                               bin_triangles=bin_triangles)
     args = (table, b["order"], b["starts"], b["big_ids"], b["big_n"],
-            width, height)
+            width, height, bin_triangles)
     got = csr6.raster_tiles(*args)
     torch.cuda.synchronize()
     want = csr6.raster_tiles_plain(*args)
     torch.cuda.synchronize()
-    out = dict(err=check_equal_bits(got, want, "csr6_raster"))
+    name = "csr6_raster" + ("[bin_triangles]" if bin_triangles else "")
+    out = dict(err=check_equal_bits(got, want, name))
     if timing:
-        bound_ms, bound_by = walk_bound(b, soup, width, height, 64,
-                                        OPS_CAPSULE16, 2)
+        b4 = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
+        n = int(b4["starts"][-1])
+        kinds = soup.kind[b4["entries"][:n].long()]
+        bound_ms, bound_by = walk16_bound(
+            soup, kinds, int(b["starts"][-1]), b["big_ids"], b["big_n"],
+            b["starts"].numel(), width, height, bin_triangles)
         out.update(ms=time_ms(lambda: csr6.raster_tiles(*args), 11),
-                   plain_ms=time_ms(lambda: csr6.raster_tiles_plain(*args), 2),
-                   bound_ms=bound_ms, bound_by=bound_by)
-    return out
+                   plain_ms=time_ms(lambda: csr6.raster_tiles_plain(*args),
+                                    1),
+                   bound_ms=bound_ms, bound_by=bound_by, entries=n)
+    return out, got
+
+
+def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
+               cap=None, timing=False):
+    """csr4_raster vs its plain version on one soup (entries past ``cap``
+    dropped) -> (dict(err, ms, plain_ms, bound_ms, bound_by, ms_exit_off,
+    bound_ms_exit_off), (depth, index)); the kernel runs with its z-bucket
+    exit (the plain version has none).  With ``timing``, ``ms`` and
+    ``bound_ms`` are the exit-on walk's (the bound counts the entries the
+    tiles evaluated before their exits, as the kernel reports them), and
+    ``ms_exit_off`` and ``bound_ms_exit_off`` the walk of every entry."""
+    import torch
+
+    b = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    entries, starts = b["entries"], b["starts"]
+    if cap is not None:
+        entries, starts = entries[:cap], torch.clamp(starts, max=cap)
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    table = csr6.build_table16(soup, zeros, zeros[:, 0],
+                               bin_triangles=bin_triangles)
+    args = (table, entries, starts, b["big_ids"], b["big_n"], b["zmeta"],
+            width, height, b["zq_bits"], bin_triangles)
+    check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
+    got = csr4.raster_tiles4(*args)
+    torch.cuda.synchronize()
+    want = csr4.raster_tiles4_plain(*args)
+    torch.cuda.synchronize()
+    what = "csr4_raster" + (" bin_triangles" if bin_triangles else "") + (
+        f" entry_capacity {cap}" if cap is not None else "")
+    out = dict(err=check_equal_bits(got, want, what))
+    if timing:
+        n = int(starts[-1])
+        off = args[:8] + (0, bin_triangles)
+        lengths = starts[1:] - starts[:-1]
+        walked = torch.empty_like(lengths)
+        csr4.raster_tiles4(*off, walked=walked)
+        check(torch.equal(walked, lengths),
+              f"{what}: the walk without the exit skipped entries")
+        csr4.raster_tiles4(*args, walked=walked)
+        check(bool((walked <= lengths).all()),
+              f"{what}: a tile walked past its range")
+        # The entries each tile evaluated: the first walked[t] of its range.
+        s64 = starts.long()
+        pos = torch.arange(n, device=soup.device)
+        tile = torch.searchsorted(s64, pos, right=True) - 1
+        keep = (pos - s64[tile]) < walked.long()[tile]
+        n_walked = int(keep.sum())
+        bounds = [walk16_bound(soup, soup.kind[ids.long()], rows,
+                               b["big_ids"], b["big_n"], starts.numel(),
+                               width, height, bin_triangles)
+                  for ids, rows in ((entries[:n][keep], n_walked),
+                                    (entries[:n], n))]
+        out.update(ms=time_ms(lambda: csr4.raster_tiles4(*args), 11),
+                   ms_exit_off=time_ms(lambda: csr4.raster_tiles4(*off), 11),
+                   plain_ms=time_ms(lambda: csr4.raster_tiles4_plain(*args),
+                                    1),
+                   bound_ms=bounds[0][0], bound_by=bounds[0][1],
+                   bound_ms_exit_off=bounds[1][0], entries=n,
+                   walked=n_walked)
+    return out, got
+
+
+def print_v4_times(what, r, shape, card):
+    """One [time] line of compare_v4's numbers."""
+    print(f"[time] {what} kernel {r['ms']:.3f} ms (median of 11), bound "
+          f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']} of "
+          f"{r['entries']} tile entries walked before the exits); exit off "
+          f"{r['ms_exit_off']:.3f} ms, bound {r['bound_ms_exit_off']:.3f} "
+          f"ms; plain {r['plain_ms']:.1f} ms, at the {shape} shape "
+          f"({card})", flush=True)
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False):
@@ -524,23 +672,23 @@ def droplet_cli(card, inp, out, counters):
     import torch
 
     from pointcloud_render_tpu_torch.cli import traj_vel_renderer
+    from pointcloud_render_tpu_torch.raster import csr6
 
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     sink = traj_vel_renderer.main(
         ["--input-folder", inp, "--output-folder", out,
          "--frames", ",".join(map(str, FRAMES)), "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = counters[0].launches
+    launches = csr6.raster_tiles.launches
     statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
     check(len(statuses) == 3 and all(s == "ok" for _, s, _ in statuses),
           f"traj_vel frame records not all ok: {statuses}")
     for fi in FRAMES:
         check(os.path.getsize(os.path.join(out, f"frame_{fi:04d}_b0.png"))
               > 1000, f"traj_vel frame_{fi:04d}_b0.png missing")
-    check(launches >= 3 and sum(c.launches for c in counters[1:]) == 0,
+    check(launches >= 3 and set(launch_counts(counters)) == {"raster_tiles"},
           f"traj_vel CLI: csr6_raster launched {launches} times, want >= 3 "
-          "and no other kernel")
+          f"and no other kernel ({launch_counts(counters)})")
     for r in sink.records:
         t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
         print(f"[droplet cli] frame {r.frame_index}: {r.points} points {t} "
@@ -653,8 +801,7 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
 
     # The main path: the lane's 12 frames through build_primitives +
     # render, certificate read once at the end.
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     ovf, cover = [], []
     for fi in frames:
         soup, cam = soup_fn(fi)
@@ -663,7 +810,7 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
         cover.append((fb.index >= 0).float().mean())
     torch.cuda.synchronize()
     launches = csr6.raster_tiles_rows9.launches
-    others = {c.__name__: c.launches for c in counters if c.launches}
+    others = launch_counts(counters)
     check(launches == len(frames) and set(others) == {"raster_tiles_rows9"},
           f"droplet lane: csr6_rows9 launched {launches} times over "
           f"{len(frames)} frames; launches {others}")
@@ -845,7 +992,7 @@ def scan_stages(pipeline, csr6, trajectory, preset, pos, fi, dev, max_big):
             ("srgb_encode_u8", lambda f: trajectory.srgb_encode_u8(f["lit"]))]
 
 
-def disc_lane(card, dev, max_err) -> dict:
+def disc_lane(card, dev, max_err, counters) -> dict:
     """Phase 7 -> {kernel name: dict(launches, ms, plain_ms, bound_ms,
     bound_by)} for csr6_disc8 and csr6_disc8_uv (see the module docstring)."""
     import dataclasses
@@ -870,13 +1017,6 @@ def disc_lane(card, dev, max_err) -> dict:
                                  point_color=LOOK[0])
     cfg = RasterConfig(discs_only=True, max_big=max_big, uniform_look=LOOK)
     shading = ShadingConfig()
-    counters = (csr6.raster_tiles, csr6.raster_tiles_disc8,
-                csr6.raster_tiles_disc8_uv, csr6.raster_tiles_rows9)
-
-    def reset_counts():
-        for c in counters:
-            c.launches = 0
-
     # Both kernels against their plain versions at the lane's own shapes,
     # and the two shade epilogues against each other.
     timed = {}
@@ -938,17 +1078,15 @@ def disc_lane(card, dev, max_err) -> dict:
           f"the probe raised max_big to {scan.raster_config.max_big}: the "
           "lane's big list does not fit")
     torch.cuda.synchronize()
-    reset_counts()
+    reset_counts(counters)
     t0 = time.perf_counter()
     frames, final = scan.render_frames(pos, None, range(SCAN_FRAMES))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     uv_launches = csr6.raster_tiles_disc8_uv.launches
-    check(uv_launches == SCAN_FRAMES and csr6.raster_tiles.launches == 0
-          and csr6.raster_tiles_disc8.launches == 0
-          and csr6.raster_tiles_rows9.launches == 0,
-          f"{SCAN_FRAMES}-frame scan: csr6_disc8_uv launched {uv_launches} "
-          "times, want one per frame and no other kernel")
+    check(launch_counts(counters) == {"raster_tiles_disc8_uv": SCAN_FRAMES},
+          f"{SCAN_FRAMES}-frame scan: launches {launch_counts(counters)}, "
+          "want csr6_disc8_uv once per frame and no other kernel")
     check(len(frames) == SCAN_FRAMES and all(
         f.shape == (HEIGHT, WIDTH, 3) and f.dtype == np.uint8
         for f in frames), "scan frames malformed")
@@ -1012,7 +1150,7 @@ def disc_lane(card, dev, max_err) -> dict:
               "busy share not measured", flush=True)
 
     # The non-fused disc walk on the same loop (no uniform_look).
-    reset_counts()
+    reset_counts(counters)
     plain_look, _ = trajectory.TrajectoryScanRenderer(
         preset, RasterConfig(discs_only=True, max_big=max_big), **film
     ).render_frames(pos, None, range(116, 124))
@@ -1032,7 +1170,7 @@ def disc_lane(card, dev, max_err) -> dict:
     # The same loop on the traj_ball preset with trails, advected.
     _, vel_host = flagship_cloud(n, seed=11)
     dt = 0.002
-    reset_counts()
+    reset_counts(counters)
     trail = trajectory.TrajectoryScanRenderer(PRESETS["traj_ball"], dt=dt,
                                               **film)
     trail_frames, moved = trail.render_frames(pos_host, vel_host,
@@ -1080,6 +1218,353 @@ def host_profile(render, top=10):
             for cum, calls, what in rows[:top]]
 
 
+def mesh_soups(device):
+    """Seeded mesh-LOD traj_vel soups at 1920x1080, at frames 120 and 205:
+    3,000 droplets uniform in [-0.5, 0.5)^3 with velocities normal(0, 2),
+    the first 300 of them twice (exact depth ties between ids, trails
+    included), and 12 droplets 0.09-0.35 from the eye inside the view
+    (triangles past 2x2 tiles ride the big list; the near clip splits some
+    and leaves invalid rows), with 8-capsule trails and the ground; and
+    "mesh_small_f120", 40 droplets (4 twice, 3 near) at frame 120, small
+    enough for the walks without bin_triangles, whose big list takes
+    every droplet triangle."""
+    import numpy as np
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.run import pipeline
+
+    preset = PRESETS["traj_vel"]
+    rng = np.random.default_rng(2029)
+    out = {}
+    for name, fi, n, ties, n_near in (("mesh_f120", 120, 3000, 300, 12),
+                                      ("mesh_f205", 205, 3000, 300, 12),
+                                      ("mesh_small_f120", 120, 40, 4, 3)):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, device)
+        eye = cam.origin.cpu().numpy().astype(np.float64)
+        fwd = cam.target.cpu().numpy() - eye
+        fwd /= np.linalg.norm(fwd)
+        side = np.cross(fwd, [0.0, 0.0, 1.0])
+        side /= np.linalg.norm(side)
+        up = np.cross(side, fwd)
+        pos, vel = flagship_cloud(n, seed=2029 + fi + n)
+        d = rng.uniform(0.09, 0.35, (n_near, 1))
+        near = (eye + fwd * d
+                + side * d * rng.uniform(-0.25, 0.25, (n_near, 1))
+                + up * d * rng.uniform(-0.12, 0.12, (n_near, 1)))
+        pos = np.concatenate([pos, pos[:ties], near.astype(np.float32)])
+        vel = np.concatenate([vel, vel[:ties], rng.normal(
+            0.0, 2.0, (n_near, 3)).astype(np.float32)])
+        out[name] = pipeline.build_primitives(preset, cam, pos, vel, fi,
+                                              droplet_lod="mesh")
+    return out
+
+
+def mesh_kernels_vs_plain(dev, csr6, csr4, max_err):
+    """Phase 9 (a): both kernels against their plain versions, with and
+    without bin_triangles, on the seeded mesh-LOD soups and phase 3's
+    soups, and csr4_raster on truncated entries."""
+    seeded = mesh_soups(dev)
+    seeded.update(soups(dev))
+    for name, soup in seeded.items():
+        # Without bin_triangles every droplet triangle rides the big list:
+        # the 3,000-droplet soups take the binned walks only.
+        large_mesh = name in ("mesh_f120", "mesh_f205")
+        for bt in (True,) if large_mesh else (False, True):
+            res6, got6 = compare(soup, WIDTH, HEIGHT, csr6, csr4,
+                                       1 << 16, bt)
+            key = "csr6_raster[bin_triangles]" if bt else "csr6_raster"
+            max_err[key] = max(max_err[key], res6["err"])
+            res4, got4 = compare_v4(soup, WIDTH, HEIGHT, csr6, csr4, 1 << 16,
+                                    bt)
+            max_err["csr4_raster"] = max(max_err["csr4_raster"], res4["err"])
+            check_equal_bits(got4, got6, f"csr4_raster == {key} on {name}")
+            b = csr4.bin_csr4(soup, WIDTH, HEIGHT, 1 << 16, bt)
+            print(f"[kernel==plain] {key}, csr4_raster (bin_triangles={bt}) "
+                  f"{name}: {soup.count} prims, "
+                  f"{int(b['diag']['true_entries'])} tile entries, big list "
+                  f"{int(b['big_count'])} ok; v4 == v6", flush=True)
+    soup = seeded["mesh_f120"]
+    true = int(csr4.true_entry_count4(soup, WIDTH, HEIGHT, True))
+    cap = true * 2 // 3
+    res, _ = compare_v4(soup, WIDTH, HEIGHT, csr6, csr4, 1 << 16, True,
+                        cap=cap)
+    max_err["csr4_raster"] = max(max_err["csr4_raster"], res["err"])
+    print(f"[kernel==plain] csr4_raster mesh_f120 entry_capacity {cap} of "
+          f"{true} true entries ok", flush=True)
+
+
+def mesh_stages(csr6, pipeline, preset, pcl, fi, dev, max_big):
+    """The stages of one mesh-LOD frame, in the order render_shaded_csr6
+    runs them under bin_triangles."""
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    shading = ShadingConfig()
+
+    def build(f):
+        f["cam"] = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        f["soup"] = pipeline.build_primitives(
+            preset, f["cam"], pcl[:, :3], pcl[:, 3:], fi, droplet_lod="mesh")
+
+    def preshade(f):
+        f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big,
+                               bin_triangles=True)
+
+    def table(f):
+        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"],
+                                        bin_triangles=True)
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], f["index"] = csr6.raster_tiles(
+            f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
+            WIDTH, HEIGHT, True)
+
+    def shade(f):
+        csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
+                         f["index"], f["rgb"], f["flag"])
+
+    return [("camera+soup build (mesh LOD)", build), ("preshade", preshade),
+            ("binning (bin_triangles)", binning), ("table16 (zlb)", table),
+            ("csr6_raster[bin_triangles] kernel", kernel),
+            ("shade_by_id", shade),
+            ("overflow read-back",
+             lambda f: int(f["b"]["diag"]["big_overflow"]))]
+
+
+def equal_buffers(a, b, what):
+    """Two FrameBuffers equal bit for bit (depth, index, rgb)."""
+    import torch
+
+    for field in ("index", "depth", "rgb"):
+        x, y = getattr(a, field), getattr(b, field)
+        check(torch.equal(x.contiguous().view(torch.int32),
+                          y.contiguous().view(torch.int32)),
+              f"{what}: {field} differs")
+
+
+def mesh_lane(card, dev, max_err, counters, tmp) -> dict:
+    """Phase 9 (b): 10,000 mesh-LOD droplets at 1080p -> dict(launches, ms,
+    plain_ms, bound_ms, bound_by) of csr6_raster[bin_triangles]."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_vel_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.io import ply
+    from pointcloud_render_tpu_torch.raster import csr4, csr6
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+
+    preset = PRESETS["traj_vel"]
+    pos, vel = flagship_cloud(MESH_DROPLETS, seed=13)
+    inp, out = os.path.join(tmp, "in_mesh"), os.path.join(tmp, "out_mesh")
+    os.makedirs(inp)
+    for k, fi in enumerate((10, 120, 199)):
+        drift = (0.01 * k * vel).astype(np.float32)
+        ply.write_ply(os.path.join(inp, f"frame_{fi:04d}_b0.ply"),
+                      pos + drift, velocities=vel)
+    reset_counts(counters)
+    sink = traj_vel_renderer.main(
+        ["--input-folder", inp, "--output-folder", out, "--frames",
+         ",".join(map(str, FRAMES)), "--device", "cuda", "--droplet-lod",
+         "mesh"])
+    torch.cuda.synchronize()
+    launches = csr6.raster_tiles_tri.launches
+    counts = launch_counts(counters)
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == 3 and all(s == "ok" for _, s, _ in statuses),
+          f"mesh-LOD frame records not all ok: {statuses}")
+    for fi in FRAMES:
+        check(os.path.getsize(os.path.join(out, f"frame_{fi:04d}_b0.png"))
+              > 1000, f"mesh-LOD frame_{fi:04d}_b0.png missing")
+    check(launches >= 3 and set(counts) == {"raster_tiles_tri"},
+          f"mesh-LOD CLI: launches {counts}, want csr6_raster[bin_triangles] "
+          ">= 3 and no other kernel")
+    for r in sink.records:
+        t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
+        print(f"[mesh cli] frame {r.frame_index}: {r.points} points {t} "
+              f"({card})", flush=True)
+    print(f"[mesh cli] traj_vel --droplet-lod mesh frames 10, 120, 205 ok, "
+          f"PNGs written; csr6_raster[bin_triangles] launches {launches}",
+          flush=True)
+
+    auto = pipeline.FramePipeline(preset, droplet_lod="mesh", device=dev)
+    v4 = pipeline.FramePipeline(
+        preset, RasterConfig(backend="pallas4", bin_triangles=True),
+        droplet_lod="mesh", device=dev)
+    clouds = {}
+    for fi, name in ((10, 10), (120, 120), (205, 199)):
+        pcl = auto.load_and_prepare(
+            os.path.join(inp, f"frame_{name:04d}_b0.ply"))
+        clouds[fi] = pcl
+        fa = auto.render_array(pcl, fi)
+        f4 = v4.render_array(pcl, fi)
+        equal_buffers(fa, f4, f"mesh-LOD frame {fi}: auto vs pallas4")
+        check(bool(torch.isfinite(fa.rgb).all())
+              and bool((fa.index >= 0).any()), f"frame {fi} malformed")
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
+                                         fi, droplet_lod="mesh")
+        b = csr6.bin_csr6(soup, WIDTH, HEIGHT, bin_triangles=True)
+        tri_px = int((soup.kind[fa.index.clamp(min=0).long()] == 2).sum()
+                     - (fa.index.clamp(min=0) < 4).sum())
+        print(f"[mesh] frame {fi}: {soup.count} prims "
+              f"({int(soup.valid.sum())} valid), big list "
+              f"{int(b['big_count'])}, {int(b['starts'][-1])} binned, tile "
+              f"entries {int(b['diag']['true_entries'])}, droplet-triangle "
+              f"pixels {tri_px}; auto == pallas4 (depth bits, index, rgb)",
+              flush=True)
+        if fi == 120:
+            res6, got6 = compare(soup, WIDTH, HEIGHT, csr6, csr4,
+                                       auto.raster_config.max_big, True,
+                                       timing=True)
+            res4, got4 = compare_v4(soup, WIDTH, HEIGHT, csr6, csr4,
+                                    v4.raster_config.max_big, True,
+                                    timing=True)
+            check_equal_bits(got4, got6, "mesh frame 120: csr4 == csr6")
+            max_err["csr6_raster[bin_triangles]"] = max(
+                max_err["csr6_raster[bin_triangles]"], res6["err"])
+            max_err["csr4_raster"] = max(max_err["csr4_raster"], res4["err"])
+            timed = res6
+            print(f"[time] csr6_raster[bin_triangles] kernel "
+                  f"{res6['ms']:.3f} ms (median of 11), plain "
+                  f"{res6['plain_ms']:.1f} ms, bound {res6['bound_ms']:.3f} "
+                  f"ms by {res6['bound_by']} ({res6['entries']} tile "
+                  f"entries) at the mesh frame-120 shape ({card})",
+                  flush=True)
+            print_v4_times("csr4_raster bin_triangles", res4,
+                           "mesh frame-120", card)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        auto.render_array(clouds[120], 120)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    print(f"[time] mesh frame 120 render_array warm: median {med:.2f} ms, "
+          f"quartiles {q1:.2f}-{q3:.2f} ms over 5 frames ({MESH_DROPLETS} "
+          f"droplets) ({card})", flush=True)
+    for stage, ms in stage_times(mesh_stages(
+            csr6, pipeline, preset, clouds[120], 120, dev,
+            auto.raster_config.max_big)).items():
+        print(f"[stage] mesh frame 120 {stage}: {ms:.3f} ms ({card})",
+              flush=True)
+    busy, wall, top, _ = device_profile(
+        lambda: auto.render_array(clouds[120], 120), 1, tmp)
+    if top:
+        print(f"[trace] mesh frame 120: device busy {busy / 1e3:.2f} of "
+              f"{wall / 1e3:.2f} ms wall, idle share {1 - busy / wall:.3f} "
+              f"({card})", flush=True)
+        for name, us in top[:6]:
+            print(f"[trace] mesh {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
+    else:
+        print("[trace] mesh frame: the profiler saw no device activity; "
+              "device busy share not measured", flush=True)
+    before = csr6.raster_tiles_tri.launches
+    scan = trajectory.TrajectoryScanRenderer(
+        preset, droplet_lod="mesh", frames_per_chunk=8, device=dev)
+    pcl = clouds[120]
+    frames, _ = scan.render_frames(pcl[:, :3], pcl[:, 3:], range(116, 124))
+    torch.cuda.synchronize()
+    scan_launches = csr6.raster_tiles_tri.launches - before
+    check(scan_launches == 8, f"mesh scan: csr6_raster[bin_triangles] "
+          f"launched {scan_launches} times, want 8")
+    check(len(frames) == 8 and all(f.shape == (HEIGHT, WIDTH, 3)
+                                   for f in frames), "mesh scan frames")
+    print(f"[mesh] scan of traj_vel frames 116-123, mesh LOD: certificate 0, "
+          f"csr6_raster[bin_triangles] launches {scan_launches}, max_big "
+          f"{scan.raster_config.max_big}", flush=True)
+    return dict(timed, launches=launches)
+
+
+def v4_flagship(card, dev, inp, out_default, out_v4, counters, max_err):
+    """Phase 9 (c): the traj_ball CLI with --backend pallas4 on phase 5's
+    PLYs -> dict(launches, ms, plain_ms, bound_ms, bound_by) of
+    csr4_raster; then the 2^24 guard at 13,026 mesh-LOD droplets."""
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_ball_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr4, csr6
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
+    from pointcloud_render_tpu_torch.run import pipeline
+
+    reset_counts(counters)
+    sink = traj_ball_renderer.main(
+        ["--input-folder", inp, "--output-folder", out_v4, "--frames",
+         ",".join(map(str, FRAMES)), "--device", "cuda", "--backend",
+         "pallas4"])
+    torch.cuda.synchronize()
+    launches = csr4.raster_tiles4.launches
+    counts = launch_counts(counters)
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == 3 and all(s == "ok" for _, s, _ in statuses),
+          f"pallas4 frame records not all ok: {statuses}")
+    check(launches >= 3 and set(counts) == {"raster_tiles4"},
+          f"pallas4 CLI: launches {counts}, want csr4_raster >= 3 and no "
+          "other kernel")
+    for fi in FRAMES:
+        name = f"frame_{fi:04d}_b0.png"
+        with open(os.path.join(out_default, name), "rb") as f, \
+                open(os.path.join(out_v4, name), "rb") as g:
+            check(f.read() == g.read(),
+                  f"pallas4 {name} differs from the pallas6 frame")
+    for r in sink.records:
+        t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
+        print(f"[v4 cli] frame {r.frame_index}: {r.points} points {t} "
+              f"({card})", flush=True)
+    print(f"[v4 cli] traj_ball --backend pallas4 frames 10, 120, 205: PNGs "
+          f"equal the pallas6 run's byte for byte; csr4_raster launches "
+          f"{launches}", flush=True)
+    preset = PRESETS["traj_ball"]
+    p6 = pipeline.FramePipeline(preset, device=dev)
+    p4 = pipeline.FramePipeline(preset, RasterConfig(backend="pallas4"),
+                                device=dev)
+    timed4 = {}
+    for fi, name in ((120, 120), (205, 199)):
+        pcl = p6.load_and_prepare(os.path.join(inp,
+                                               f"frame_{name:04d}_b0.ply"))
+        equal_buffers(p6.render_array(pcl, fi), p4.render_array(pcl, fi),
+                      f"traj_ball frame {fi}: pallas6 vs pallas4")
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
+                                         fi)
+        r, _ = compare_v4(soup, WIDTH, HEIGHT, csr6, csr4,
+                          p4.raster_config.max_big, False, timing=True)
+        max_err["csr4_raster"] = max(max_err["csr4_raster"], r["err"])
+        timed4[fi] = r
+        print_v4_times("csr4_raster", r, f"traj_ball frame-{fi}", card)
+    print(f"[v4] traj_ball frames 120, 205: pallas4 == pallas6 (depth bits, "
+          f"index, rgb); max_big after self-heal "
+          f"{p4.raster_config.max_big}", flush=True)
+    # One droplet past the id limit must raise, as in the JAX package.
+    n = MESH_MAX_DROPLETS + 1
+    pos, vel = flagship_cloud(n, seed=17)
+    vel_preset = PRESETS["traj_vel"]
+    cam = pipeline.frame_camera(vel_preset, 120, WIDTH, HEIGHT, dev)
+    soup = pipeline.build_primitives(vel_preset, cam, pos, vel, 120,
+                                     droplet_lod="mesh")
+    check(soup.count == 4 + n * MESH_ROWS_PER_DROPLET >= 1 << 24,
+          f"{n} mesh droplets gave {soup.count} rows")
+    for cfg in (RasterConfig(bin_triangles=True),
+                RasterConfig(backend="pallas4", bin_triangles=True)):
+        try:
+            render(soup, cam, cfg)
+        except ValueError as e:
+            check("2^24" in str(e), f"unexpected ValueError: {e}")
+        else:
+            raise SmokeFailure(f"{n} mesh droplets ({soup.count} rows) "
+                               f"rendered through {cfg.backend}")
+    print(f"[limit] {n} mesh droplets = {soup.count} rows raise the 2^24 "
+          f"ValueError (auto and pallas4); {MESH_MAX_DROPLETS} is the most "
+          f"a frame holds", flush=True)
+    del soup
+    return dict(timed4[120], launches=launches)
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -1090,7 +1575,7 @@ def run() -> dict:
         from pointcloud_render_tpu_torch.cli import traj_ball_renderer
         from pointcloud_render_tpu_torch.configs import PRESETS
         from pointcloud_render_tpu_torch.io import ply
-        from pointcloud_render_tpu_torch.raster import csr6
+        from pointcloud_render_tpu_torch.raster import csr4, csr6
         from pointcloud_render_tpu_torch.run import pipeline
         from pointcloud_render_tpu_torch.scene import normalize
         from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
@@ -1104,14 +1589,16 @@ def run() -> dict:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}", flush=True)
 
-    counters = (csr6.raster_tiles, csr6.raster_tiles_disc8,
-                csr6.raster_tiles_disc8_uv, csr6.raster_tiles_rows9)
+    counters = (csr6.raster_tiles, csr6.raster_tiles_tri,
+                csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_uv,
+                csr6.raster_tiles_rows9, csr4.raster_tiles4)
 
     # Phase 2: build from the checkout's sources.
     t0 = time.perf_counter()
     kernels.load("csr6_raster")
-    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, csr6_disc8_uv, "
-          f"csr6_rows9) {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, "
+          f"csr6_disc8_uv, csr6_rows9, csr4_raster) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in kernels.build_log("csr6_raster").splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "Compiling entry" in line):
@@ -1123,7 +1610,7 @@ def run() -> dict:
     shading = ShadingConfig()
     seeded = soups(dev)
     for name, soup in seeded.items():
-        err = compare(soup, WIDTH, HEIGHT, csr6, default_big)["err"]
+        err = compare(soup, WIDTH, HEIGHT, csr6, csr4, default_big)[0]["err"]
         max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
         print(f"[kernel==plain] csr6_raster {name}: {soup.count} prims ok",
               flush=True)
@@ -1159,10 +1646,12 @@ def run() -> dict:
     cam = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
     small = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
                                       120)
-    err = compare(small, WIDTH, HEIGHT, csr6, default_big)["err"]
+    err = compare(small, WIDTH, HEIGHT, csr6, csr4, default_big)[0]["err"]
     max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
     print(f"[kernel==plain] traj_ball 20k frame 120: {small.count} prims ok",
           flush=True)
+    # Phase 9 (a): the binned-triangle walk and the v4 walk.
+    mesh_kernels_vs_plain(dev, csr6, csr4, max_err)
 
     # Phase 4: the soup built on the card equals the CPU build.
     for fi in FRAMES:
@@ -1188,8 +1677,7 @@ def run() -> dict:
             drift = (0.01 * k * vel).astype(np.float32)
             ply.write_ply(os.path.join(inp, f"frame_{fi:04d}_b0.ply"),
                           pos + drift, velocities=vel)
-        for c in counters:
-            c.launches = 0
+        reset_counts(counters)
         sink = traj_ball_renderer.main(
             ["--input-folder", inp, "--output-folder", out,
              "--frames", ",".join(map(str, FRAMES)), "--device", "cuda"])
@@ -1302,7 +1790,8 @@ def run() -> dict:
             cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
             soup = pipeline.build_primitives(preset, cam, clouds[fi][:, :3],
                                              clouds[fi][:, 3:], fi)
-            res = compare(soup, WIDTH, HEIGHT, csr6, max_big, timing=True)
+            res, _ = compare(soup, WIDTH, HEIGHT, csr6, csr4, max_big,
+                             timing=True)
             max_err["csr6_raster"] = max(max_err["csr6_raster"], res["err"])
             timed[fi] = res
             kernel_ms, plain_ms = res["ms"], res["plain_ms"]
@@ -1318,20 +1807,29 @@ def run() -> dict:
         del clouds, soup
         # Phase 8 (b): the traj_vel CLI on the same PLYs.
         droplet_cli(card, inp, os.path.join(tmp, "out_vel"), counters)
+        # Phase 9 (c): the same PLYs through --backend pallas4.
+        v4 = v4_flagship(card, dev, inp, out, os.path.join(tmp, "out_v4"),
+                         counters, max_err)
     # Phase 7: bench.py's disc lane and the flythrough loop.
-    disc = disc_lane(card, dev, max_err)
+    disc = disc_lane(card, dev, max_err, counters)
     # Phase 8 (c): bench.py's droplet lane.
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         droplet = droplet_lane(card, dev, max_err, counters, tmp)
-    numbers = dict(csr6_raster=dict(timed[120], launches=launches), **disc,
-                   csr6_rows9=droplet)
+    # Phase 9 (b): 10,000 mesh-LOD droplets.
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        mesh = mesh_lane(card, dev, max_err, counters, tmp)
+    numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
+               "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
+               "csr4_raster": v4}
     return dict(card=card, kernels=[dict(
         name=name, route="cuda", source=KERNEL_SOURCE,
         replaces=REPLACES[name], launches=numbers[name]["launches"],
         max_abs_err=max_err[name], ms=numbers[name]["ms"],
         plain_ms=numbers[name]["plain_ms"],
         bound_ms=numbers[name]["bound_ms"],
-        bound_by=numbers[name]["bound_by"], library_ms=None)
+        bound_by=numbers[name]["bound_by"], library_ms=None,
+        **{k: numbers[name][k] for k in ("ms_exit_off", "bound_ms_exit_off")
+           if k in numbers[name]})
         for name in REPLACES])
 
 

@@ -8,10 +8,13 @@ Usage:
 
 The PyTorch twin of ``pointcloud_render_tpu.cli.main``.  ``--device``
 defaults to ``cuda`` and never falls back to the CPU; ``--device cpu``
-runs the plain PyTorch rasterizer.  ``--droplet-lod mesh`` raises
-``NotImplementedError`` (ROADMAP queue A item 12).  The per-script entry
-points ``cli.traj_ball_renderer``, ``cli.traj_vel_renderer`` and
-``cli.example_renderer`` are thin wrappers with the reference's defaults.
+runs the plain PyTorch rasterizer.  ``--droplet-lod mesh`` renders the
+droplets as the instanced teardrop mesh (binned triangles);
+``--backend pallas4`` takes the v4 walk with its z-bucket early exit;
+``pallas`` and ``pallas3`` raise ``NotImplementedError`` (ROADMAP queue
+B items 10-11).  The per-script entry points ``cli.traj_ball_renderer``,
+``cli.traj_vel_renderer`` and ``cli.example_renderer`` are thin wrappers
+with the reference's defaults.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
-// v6 tile rasterizers for Hopper (sm_90a): one CTA per 32x32 pixel tile.
-// Four kernels share the walk: csr6_raster (16-float binned rows),
-// csr6_disc8 (8-float disc rows), csr6_disc8_uv (disc rows, with the
-// winner's lambert plane coordinates carried through the merge) and
-// csr6_rows9 (kind-split 9-float disc and capsule rows, any span).
+// v6 and v4 tile rasterizers for Hopper (sm_90a): one CTA per 32x32
+// pixel tile.  Five kernels share the walk: csr6_raster (16-float binned
+// rows; with bin_triangles, binned triangles too), csr6_disc8
+// (8-float disc rows), csr6_disc8_uv (disc rows, with the winner's
+// lambert plane coordinates carried through the merge), csr6_rows9
+// (kind-split 9-float disc and capsule rows, any span) and csr4_raster
+// (the v4 walk over per-tile entries with the z-bucket early exit).
 //
 // csr6_raster replaces three Pallas TPU pieces of
 // pointcloud_render_tpu/raster:
@@ -17,6 +19,27 @@
 //   * pallas_csr4._stream_big and the resident big-list branch of
 //     _make_tile_body — every tile merges every big-list row through the
 //     triangle-aware evaluation.
+//
+// csr6_raster with bin_triangles (the mesh-LOD droplets; the kBinTri
+// instance of its tile kernel): small triangles are binned like discs and capsules, and the
+// binned ranges go through the triangle-aware dual evaluation as the big
+// list does (pallas_csr6._make_tile_body's binned stream with
+// _make_row_body16(with_triangles=True)).  Every thread reads the same
+// staged row, so the per-row kind branch does not diverge.
+//
+// csr4_raster replaces pallas_csr4._make_kernel4 (v4): every binned prim
+// is expanded into the up-to-four (tile, z-bucket) entries its 2x2 tile
+// bbox covers, so a tile's rows are one contiguous entry range
+// [starts[t], starts[t+1]) of prim ids, ascending in the bucket of their
+// depth lower bound zlb (lane 14).  After the big list, the CTA stages
+// its range in chunks of 256 rows; after each chunk it takes dmax, the
+// largest running minimum depth over all 1024 pixels of the tile (edge
+// tiles included, as the TPU block), and stops when
+// zmin + max(floor((zlb_last - zmin) * s) - 1, 0) * thr_scale > dmax,
+// zlb_last being the chunk's last real entry's: every later entry's depth
+// is at least its zlb, which is past that floor, so none can change a
+// winner (strict >: at equality a later entry with a lower id could).
+// The exit is the TPU kernel's rule, per CTA instead of per grid step.
 //
 // csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk:
 // binned rows are [px, py, z, r*r, idf, flag, 0, 0], covered where
@@ -70,8 +93,12 @@
 // a and g (2 each, with dx * ux and dx * uy per column), the clip (2),
 // a - t, d2 (3), rad (2), d2 <= rad * rad (2), rad > 0; its depth z is
 // read only at covered pairs).
-// Not done yet: the z-bucket early exit, load balancing of dense tiles,
-// and asynchronous (TMA / cp.async) staging.
+// A binned triangle pair (csr6_raster or csr4_raster with bin_triangles)
+// costs 18 operations, as a big-list one.  csr4_raster's bound counts
+// 1024 x (the entries its tiles evaluated before their exits, which the
+// kernel reports through `walked`) + pixels x (big rows) pairs.
+// Not done yet: the z-bucket early exit in the v6 walks, load balancing
+// of dense tiles, and asynchronous (TMA / cp.async) staging.
 
 #include <cuda_runtime.h>
 
@@ -101,7 +128,8 @@ __device__ __forceinline__ void stage_row(float4* sh, int slot,
 }
 
 // Evaluate staged rows [0, count) at this thread's pixels.  kTri selects
-// the dual (triangle-aware) body used for the big list; binned rows are
+// the dual (triangle-aware) body used for the big list and, under
+// bin_triangles, for binned rows; otherwise binned rows are
 // discs/capsules and take the capsule body alone, as on the TPU.  kUV
 // also keeps the winner's (u, v): a big-list disc (no triangle, lane 13
 // > 0) gives dx * flag and -dy * flag, any other row +inf.
@@ -399,6 +427,8 @@ csr6_rows9_kernel(const float* __restrict__ rows9,
   }
 }
 
+// kBinTri: binned rows through the triangle-aware dual (bin_triangles).
+template <bool kBinTri>
 __global__ void __launch_bounds__(kThreads)
 csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
                  const int* __restrict__ starts,
@@ -451,9 +481,96 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
       __syncthreads();
       if (tid < cnt) stage_row(sh, tid, table, order[s + base + tid]);
       __syncthreads();
-      eval_rows<false, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
+      eval_rows<kBinTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
     }
   }
+
+  const int px = tx * kTile + lx;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int py = ty * kTile + ly + 8 * k;
+    if (px < width && py < height) {
+      const long long o = static_cast<long long>(py) * width + px;
+      depth_out[o] = d[k];
+      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+    }
+  }
+}
+
+// The v4 walk: big list first, then the tile's entry range in chunks of
+// kChunk rows gathered by prim id, with the z-bucket early exit when the
+// keys carry buckets (zq_bits > 0).  zmeta = (zmin, s, thr_scale).
+template <bool kTri>
+__global__ void __launch_bounds__(kThreads)
+csr4_tile_kernel(const float* __restrict__ table,
+                 const int* __restrict__ entries,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ big_ids,
+                 const int* __restrict__ big_n_ptr,
+                 const float* __restrict__ zmeta,
+                 float* __restrict__ depth_out, int* __restrict__ index_out,
+                 int* __restrict__ walked, int width, int height, int tiles_x,
+                 int zq_bits) {
+  __shared__ float4 sh[kChunk * 4];
+  __shared__ float warp_max[kThreads / 32];
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int lx = tid & (kTile - 1);
+  const int ly = tid >> 5;
+
+  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
+  float qy[kPix], d[kPix], di[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
+    d[k] = __int_as_float(0x7f800000);  // +inf
+    di[k] = kEmpty;
+  }
+
+  const int big_n = *big_n_ptr;
+  for (int base = 0; base < big_n; base += kChunk) {
+    const int cnt = min(kChunk, big_n - base);
+    __syncthreads();
+    if (tid < cnt) stage_row(sh, tid, table, big_ids[base + tid]);
+    __syncthreads();
+    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
+  }
+
+  const float zmin = zmeta[0], zs = zmeta[1], thr_scale = zmeta[2];
+  const int s = starts[tile];
+  const int n = starts[tile + 1] - s;
+  int done = n;  // entries evaluated before the exit
+  for (int base = 0; base < n; base += kChunk) {
+    const int cnt = min(kChunk, n - base);
+    __syncthreads();
+    if (tid < cnt) stage_row(sh, tid, table, entries[s + base + tid]);
+    __syncthreads();
+    eval_rows<kTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
+    if (zq_bits > 0) {
+      // dmax over the tile's 1024 pixels (depths are never NaN: a NaN
+      // depth fails both merge compares).
+      float m = fmaxf(fmaxf(d[0], d[1]), fmaxf(d[2], d[3]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) warp_max[warp] = m;
+      __syncthreads();
+      float dmax = warp_max[0];
+#pragma unroll
+      for (int w = 1; w < kThreads / 32; ++w) dmax = fmaxf(dmax, warp_max[w]);
+      const float zlb_last = sh[(cnt - 1) * 4 + 3].z;
+      float qz = floorf((zlb_last - zmin) * zs) - 1.0f;
+      qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN (jnp.maximum), no exit
+      if (zmin + qz * thr_scale > dmax) {  // the same for every thread
+        done = base + cnt;
+        break;
+      }
+    }
+  }
+  if (walked != nullptr && tid == 0) walked[tile] = done;
 
   const int px = tx * kTile + lx;
 #pragma unroll
@@ -558,18 +675,51 @@ csr6_disc_kernel(const float* __restrict__ table8,
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // table (P+1, 16) f32 with row P all zero; order (>= starts[4T]) i32 sorted
 // prim ids; starts (4T+1) i32 range bounds; big_ids (>= *big_n) i32;
-// big_n one i32 on the device; depth (H, W) f32; index (H, W) i32.
+// big_n one i32 on the device; depth (H, W) f32; index (H, W) i32;
+// bin_triangles != 0 evaluates the binned rows through the dual.
 extern "C" int csr6_raster(const float* table, const int* order,
                            const int* starts, const int* big_ids,
                            const int* big_n, float* depth, int* index,
                            int width, int height, int tiles_x, int tiles_y,
-                           void* stream) {
+                           int bin_triangles, void* stream) {
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles <= 0) return 0;
-  csr6_tile_kernel<<<num_tiles, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      table, order, starts, big_ids, big_n, depth, index, width, height,
-      tiles_x);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bin_triangles)
+    csr6_tile_kernel<true><<<num_tiles, kThreads, 0, st>>>(
+        table, order, starts, big_ids, big_n, depth, index, width, height,
+        tiles_x);
+  else
+    csr6_tile_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+        table, order, starts, big_ids, big_n, depth, index, width, height,
+        tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The v4 walk.  table (P+1, 16) f32 with row P all zero; entries (>=
+// starts[T]) i32 prim ids in (tile, z-bucket) key order; starts (T+1) i32
+// per-tile entry ranges; big_ids (>= *big_n) i32; big_n one i32 on the
+// device; zmeta (3) f32 (zmin, s, thr_scale); depth (H, W) f32; index
+// (H, W) i32; walked null or (T) i32, each tile's count of entries
+// evaluated before its exit.  zq_bits > 0 turns the z-bucket early exit
+// on; bin_triangles != 0 evaluates the entries through the dual.
+extern "C" int csr4_raster(const float* table, const int* entries,
+                           const int* starts, const int* big_ids,
+                           const int* big_n, const float* zmeta, float* depth,
+                           int* index, int* walked, int width, int height,
+                           int tiles_x, int tiles_y, int zq_bits,
+                           int bin_triangles, void* stream) {
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bin_triangles)
+    csr4_tile_kernel<true><<<num_tiles, kThreads, 0, st>>>(
+        table, entries, starts, big_ids, big_n, zmeta, depth, index, walked,
+        width, height, tiles_x, zq_bits);
+  else
+    csr4_tile_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+        table, entries, starts, big_ids, big_n, zmeta, depth, index, walked,
+        width, height, tiles_x, zq_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

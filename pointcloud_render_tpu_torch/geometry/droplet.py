@@ -9,8 +9,8 @@ theta <= pi/3, then a tail tapering as r*(1-t)^2 with a z offset of
 winding.  ``droplet_mesh`` and ``write_droplet_obj`` are host NumPy
 (bit-equal to the JAX package's); ``instance_droplets`` and
 ``droplet_capsule_lod`` are float32 tensor builds on the inputs' device.
-Rendering the mesh LOD needs the binned-triangle walk (ROADMAP queue A
-item 12, queue B item 7); the capsule LOD is what the pipeline renders.
+The pipeline renders both LODs: the mesh through the binned-triangle walk
+(``bin_triangles``), the capsule LOD as a head disc and a tail capsule.
 """
 
 from __future__ import annotations
@@ -72,9 +72,10 @@ def droplet_mesh(dtype=np.float32):
 
 def instance_droplets(rotations, translations=None):
     """Instance the droplet mesh per point: (N,4,4) | (N,3,3) + (N,3) ->
-    world vertices (N*V, 3) float32 on the rotations' device and faces
-    (N*F, 3) int32 (host).  The per-vertex transform is explicit broadcast
-    multiply-adds in the JAX expression order, no matmul."""
+    world vertices (N*V, 3) float32 and faces (N*F, 3) int32, both on the
+    rotations' device (the faces from the mesh's, uploaded once).  The
+    per-vertex transform is explicit broadcast multiply-adds in the JAX
+    expression order, no matmul."""
     rot = torch.as_tensor(rotations, dtype=torch.float32)
     dev = rot.device
     if rot.ndim == 3 and rot.shape[1:] == (4, 4):
@@ -91,8 +92,9 @@ def instance_droplets(rotations, translations=None):
              + rot[:, None, :, 2] * v[None, :, None, 2]
              + t[:, None, :])  # (N, V, 3)
     nv = v.shape[0]
-    faces = (mesh_f[None, :, :]
-             + (np.arange(n, dtype=np.int32) * nv)[:, None, None])
+    faces = (const(mesh_f, np.int32, dev)[None, :, :]
+             + (torch.arange(n, dtype=torch.int32, device=dev)
+                * nv)[:, None, None])
     return world.reshape(n * nv, 3), faces.reshape(-1, 3)
 
 

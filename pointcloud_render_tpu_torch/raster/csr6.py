@@ -3,10 +3,12 @@ wrapper and its plain PyTorch version, and the shade epilogue.
 
 The counterpart of ``pointcloud_render_tpu.raster.pallas_csr6`` at span 2
 with the big list for wide prims and the ground, in its two row modes:
-the generic 16-float rows (discs and capsules binned) and the
-``discs_only`` 8-float disc rows (capsules and triangles ride the big
-list), the latter also with the winner's lambert (u, v) carried through
-the merge for the gather-free two-tone shade.  The stages around the
+the generic 16-float rows (discs and capsules binned, and under
+``bin_triangles`` small triangles too, through the triangle-aware dual
+evaluation: the mesh-LOD droplets) and the ``discs_only`` 8-float disc
+rows (capsules and triangles ride the big list), the latter also with
+the winner's lambert (u, v) carried through the merge for the
+gather-free two-tone shade.  The stages around the
 kernels were XLA in the JAX package and are torch ops here:
 
 1. ``preshade``      — ``pallas_csr3._preshade``: per-prim rgb and flag;
@@ -27,8 +29,8 @@ kernels were XLA in the JAX package and are torch ops here:
    ``pallas_csr6._shade_uv`` epilogue over the fused (u, v) images.
 
 The z-bucket early exit of the TPU kernel never changes a winner and is
-not part of this kernel yet (ROADMAP queue B item 1); keys carry no
-z-bucket.
+not part of the v6 walks yet (ROADMAP queue B item 1); their keys carry
+no z-bucket.  The v4 walk (``raster/csr4.py``) has it.
 
 Contract: winner per pixel = lexicographic min of (depth, primitive id);
 depth +inf and index -1 where empty.  Ids ride the rows as float32, so a
@@ -38,6 +40,7 @@ soup must hold fewer than 2^24 primitives.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -97,10 +100,46 @@ def class_spill(span: int):
 # Binning (pallas_csr6._bin_csr6 without z-buckets)
 # ---------------------------------------------------------------------------
 
+def check_id_range(prims: ScreenPrimitives) -> None:
+    """Ids ride the rows as float32: a soup must hold < 2^24 prims."""
+    if prims.count >= (1 << 24):
+        raise ValueError("float id encoding supports < 2^24 primitives")
+
+
+def tile_span(prims: ScreenPrimitives, tiles_x: int, tiles_y: int):
+    """(tx0, tx1, ty0, ty1) int32: the first and last tile column and row
+    of each prim's bbox, clipped to the grid."""
+    tw = const(TILE, np.float32, prims.device)
+
+    def tile_of(v, n):
+        # Saturate before the int cast (XLA's float->int convert saturates
+        # and maps NaN to 0; torch's cast of an out-of-range float does not).
+        f = torch.nan_to_num(torch.floor(v / tw), nan=0.0)
+        f = torch.clamp(f, -1.0, float(n))
+        return torch.clamp(f.to(torch.int32), 0, n - 1)
+
+    return (tile_of(prims.bbox[:, 0], tiles_x),
+            tile_of(prims.bbox[:, 1], tiles_x),
+            tile_of(prims.bbox[:, 2], tiles_y),
+            tile_of(prims.bbox[:, 3], tiles_y))
+
+
+def binnable_kinds(prims: ScreenPrimitives, discs_only: bool = False,
+                   bin_triangles: bool = False) -> torch.Tensor:
+    """Which prims may bin: discs; capsules unless ``discs_only``;
+    triangles too under ``bin_triangles`` (the mesh-LOD droplet mode)."""
+    binnable = prims.kind == KIND_DISC
+    if not discs_only:
+        binnable = binnable | (prims.kind == KIND_CAPSULE)
+        if bin_triangles:
+            binnable = binnable | (prims.kind == KIND_TRIANGLE)
+    return binnable
+
+
 def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
              max_big: int = DEFAULT_MAX_BIG,
              discs_only: bool = False, span: int = SPAN,
-             kind_split: bool = False) -> dict:
+             kind_split: bool = False, bin_triangles: bool = False) -> dict:
     """Per-prim (anchor, class) keys, one unstable sort, CSR range starts.
 
     ``discs_only`` bins discs alone: capsules join the triangles and the
@@ -108,7 +147,8 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     8) bins prims that cover at most span x span tiles.  ``kind_split``
     (the rows8/rows9 walk) puts every binned capsule in a second ordinal
     region past the discs', so a tile walks its disc ranges and its
-    capsule ranges separately.
+    capsule ranges separately.  ``bin_triangles`` bins small triangles
+    too (the mesh-LOD droplets; only the ground stays big).
 
     Returns a dict of device tensors (k2 = span * span, F = 2 under
     ``kind_split``, else 1):
@@ -121,13 +161,12 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
       big_count  () int32 number of big prims (valid, not binnable);
       diag       {"big_overflow", "true_entries"} () int32 tensors.
     """
-    if prims.count >= (1 << 24):
-        raise ValueError("float id encoding supports < 2^24 primitives")
+    check_id_range(prims)
     if span not in SPANS:
         raise ValueError(f"span must be one of {SPANS}, got {span}")
-    if kind_split and discs_only:
+    if kind_split and (discs_only or bin_triangles):
         raise ValueError("kind_split serves the mixed disc + capsule soup: "
-                         "not with discs_only")
+                         "not with discs_only or bin_triangles")
     dev = prims.device
     p = prims.count
     tiles_x, tiles_y = grid_shape(width, height)
@@ -135,23 +174,9 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     k2 = span * span
     factor = 2 if kind_split else 1
     n_keys = factor * num_tiles * k2
-    tw = const(TILE, np.float32, dev)
-    xmin, xmax = prims.bbox[:, 0], prims.bbox[:, 1]
-    ymin, ymax = prims.bbox[:, 2], prims.bbox[:, 3]
-
-    def tile_of(v, n):
-        # Saturate before the int cast (XLA's float->int convert saturates
-        # and maps NaN to 0; torch's cast of an out-of-range float does not).
-        f = torch.nan_to_num(torch.floor(v / tw), nan=0.0)
-        f = torch.clamp(f, -1.0, float(n))
-        return torch.clamp(f.to(torch.int32), 0, n - 1)
-
-    tx0, tx1 = tile_of(xmin, tiles_x), tile_of(xmax, tiles_x)
-    ty0, ty1 = tile_of(ymin, tiles_y), tile_of(ymax, tiles_y)
+    tx0, tx1, ty0, ty1 = tile_span(prims, tiles_x, tiles_y)
     is_cap = prims.kind == KIND_CAPSULE
-    binnable = prims.kind == KIND_DISC
-    if not discs_only:
-        binnable = binnable | is_cap
+    binnable = binnable_kinds(prims, discs_only, bin_triangles)
     sx, sy = tx1 - tx0, ty1 - ty0
     fits = (sx < span) & (sy < span) & binnable
     is_small = prims.valid & fits
@@ -202,15 +227,17 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
 def bin_diagnostics6(prims: ScreenPrimitives, width: int, height: int,
                      max_big: int = DEFAULT_MAX_BIG,
                      discs_only: bool = False, span: int = SPAN,
-                     kind_split: bool = False) -> torch.Tensor:
+                     kind_split: bool = False,
+                     bin_triangles: bool = False) -> torch.Tensor:
     """Big-list overflow count under the v6 binning (0 = exact).
 
-    ``discs_only`` and ``span`` must mirror the render being certified:
-    ``discs_only`` sends every capsule to the big list and a narrower
-    span sends more prims there, so a probe without them can certify a
-    truncating run as exact."""
+    ``discs_only``, ``span`` and ``bin_triangles`` must mirror the render
+    being certified: ``discs_only`` sends every capsule to the big list, a
+    narrower span sends more prims there and ``bin_triangles`` keeps small
+    triangles off it, so a mismatched probe can certify a truncating run
+    as exact."""
     return bin_csr6(prims, width, height, max_big, discs_only, span,
-                    kind_split)["diag"]["big_overflow"]
+                    kind_split, bin_triangles)["diag"]["big_overflow"]
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +272,39 @@ def preshade(prims: ScreenPrimitives, camera, shading):
     return rgb, flag
 
 
+def z_lower_bound(prims: ScreenPrimitives,
+                  with_triangles: bool = False) -> torch.Tensor:
+    """(P,) sound per-prim lower bound of the evaluated depth
+    (``pallas_csr4._z_lower_bound``): min(z0, z0 + dz) for discs and
+    capsules (z0 + dz * t, t in [0, 1]); with ``with_triangles``, a
+    triangle's 1 / max(iz) over its bbox corners (iz is linear in screen
+    space, so its maximum over the triangle is at most that), 0 where the
+    bound degenerates."""
+    p = prims.params
+    z0 = p[:, 2]
+    zlb = torch.minimum(z0, z0 + p[:, 6])
+    if not with_triangles:
+        return zlb
+    izmax = None
+    for cx in (0, 1):
+        for cy in (2, 3):
+            qx = prims.bbox[:, cx]
+            qy = prims.bbox[:, cy]
+            e0 = p[:, 0] * qy - p[:, 1] * qx + p[:, 2]
+            e1 = p[:, 3] * qy - p[:, 4] * qx + p[:, 5]
+            e2 = p[:, 6] * qy - p[:, 7] * qx + p[:, 8]
+            iz = e0 * p[:, 9] + e1 * p[:, 10] + e2 * p[:, 11]
+            izmax = iz if izmax is None else torch.maximum(izmax, iz)
+    pos = izmax > 0
+    zlb_tri = torch.where(
+        pos, 1.0 / torch.where(pos, izmax, torch.ones_like(izmax)),
+        torch.zeros_like(izmax))
+    return torch.where(prims.kind == KIND_TRIANGLE, zlb_tri, zlb)
+
+
 def build_table16(prims: ScreenPrimitives, shade_rgb, shade_flag, idf=None,
-                  pad: bool = True) -> torch.Tensor:
+                  pad: bool = True, bin_triangles: bool = False,
+                  zlb=None) -> torch.Tensor:
     """(P+1, 16) float32 kernel rows; row P is the all-zero pad.
 
       [0:9]   params 0..8
@@ -254,18 +312,20 @@ def build_table16(prims: ScreenPrimitives, shade_rgb, shade_flag, idf=None,
       [10:13] triangles: the inverse-depth plane (params 9..11);
               else the shade rgb
       [13]    triangles: 0; else the shade flag
-      [14]    zlb = min(z0, z0 + dz) (the early exit's depth floor)
+      [14]    zlb = :func:`z_lower_bound` (the v4 early exit's depth
+              floor; triangles get theirs under ``bin_triangles``)
       [15]    1.0 for triangles (the dual eval's kind flag), else 0
     Invalid prims' rows are zero (inert under both evaluations).
     ``idf`` / ``pad=False`` serve :func:`build_table16_rows` (a gathered
-    sub-soup whose id lane carries the original prim ids, unpadded).
+    sub-soup whose id lane carries the original prim ids, unpadded);
+    ``zlb`` is lane 14 when the caller has it already.
     """
     p = prims.count
     dev = prims.device
     if idf is None:
         idf = torch.arange(p, dtype=torch.float32, device=dev)
-    z0 = prims.params[:, 2]
-    zlb = torch.minimum(z0, z0 + prims.params[:, 6])
+    if zlb is None:
+        zlb = z_lower_bound(prims, with_triangles=bin_triangles)
     is_tri = (prims.kind == KIND_TRIANGLE)[:, None]
     zero = torch.zeros((p, 1), dtype=torch.float32, device=dev)
     mid = torch.where(is_tri, torch.cat([prims.params[:, 9:12], zero], dim=1),
@@ -280,7 +340,7 @@ def build_table16(prims: ScreenPrimitives, shade_rgb, shade_flag, idf=None,
 
 
 def build_table16_rows(prims: ScreenPrimitives, shade_rgb, shade_flag,
-                       ids) -> torch.Tensor:
+                       ids, bin_triangles: bool = False) -> torch.Tensor:
     """The rows ``build_table16(...)[ids]`` without the (P+1, 16) table
     (``pallas_csr4._build_table16_rows``): gather the per-prim inputs at
     ``ids`` first, then lay the few rows out.  Bit-equal per row, since
@@ -298,7 +358,8 @@ def build_table16_rows(prims: ScreenPrimitives, shade_rgb, shade_flag,
         valid=prims.valid[safe] & (ids >= 0) & (ids < p),
         bbox=prims.bbox[safe], normal=zeros3)
     return build_table16(sub, shade_rgb[safe], shade_flag[safe],
-                         idf=ids.to(torch.float32), pad=False)
+                         idf=ids.to(torch.float32), pad=False,
+                         bin_triangles=bin_triangles)
 
 
 def build_table8(prims: ScreenPrimitives, shade_flag) -> torch.Tensor:
@@ -409,7 +470,8 @@ def _check_inputs_disc8(table8, big_rows, order, starts, big_n, width,
 
 def _launch(symbol, ptr_args, int_args, device):
     """Call ``symbol`` of the csr6 kernel library on the current stream of
-    ``device``; pointers first, then ints, then the stream.  Raises on a
+    ``device``; pointers first (None passes a null pointer), then ints,
+    then the stream.  Raises on a
     refused launch: nothing falls back to a plain version."""
     from pointcloud_render_tpu_torch.utils import kernels  # noqa: PLC0415
 
@@ -420,7 +482,8 @@ def _launch(symbol, ptr_args, int_args, device):
                    + [ctypes.c_int] * len(int_args) + [ctypes.c_void_p])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptr_args), *int_args, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in ptr_args),
+                 *int_args, stream)
     if err != 0:
         lib.csr6_error_string.restype = ctypes.c_char_p
         lib.csr6_error_string.argtypes = [ctypes.c_int]
@@ -428,19 +491,13 @@ def _launch(symbol, ptr_args, int_args, device):
                            + lib.csr6_error_string(err).decode())
 
 
-def raster_tiles(table, order, starts, big_ids, big_n, width: int,
-                 height: int):
-    """(depth (H, W) f32 +inf-empty, index (H, W) i32 -1-empty).
-
-    CUDA tensors launch the ``csr6_raster`` kernel of
-    ``csrc/csr6_raster.cu``; CPU tensors take :func:`raster_tiles_plain`.
-    ``raster_tiles.launches`` counts kernel launches.
-    """
+def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
+               width, height):
     tiles_x, tiles_y = _check_inputs(table, order, starts, big_ids, big_n,
                                      width, height)
     if table.device.type == "cpu":
         return raster_tiles_plain(table, order, starts, big_ids, big_n,
-                                  width, height)
+                                  width, height, bin_triangles)
     if table.device.type != "cuda":
         raise ValueError(f"no csr6 kernel for device {table.device}")
     table, order, starts, big_ids, big_n = (
@@ -449,12 +506,40 @@ def raster_tiles(table, order, starts, big_ids, big_n, width: int,
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     index = torch.empty((height, width), dtype=torch.int32, device=dev)
     _launch("csr6_raster", (table, order, starts, big_ids, big_n, depth,
-                            index), (width, height, tiles_x, tiles_y), dev)
-    raster_tiles.launches += 1
+                            index),
+            (width, height, tiles_x, tiles_y, int(bin_triangles)), dev)
+    wrapper.launches += 1
     return depth, index
 
 
+def raster_tiles(table, order, starts, big_ids, big_n, width: int,
+                 height: int, bin_triangles: bool = False):
+    """(depth (H, W) f32 +inf-empty, index (H, W) i32 -1-empty).
+
+    CUDA tensors launch the ``csr6_raster`` kernel of
+    ``csrc/csr6_raster.cu``; CPU tensors take :func:`raster_tiles_plain`.
+    ``bin_triangles`` hands the call to :func:`raster_tiles_tri`.
+    ``.launches`` counts launches without ``bin_triangles``."""
+    if bin_triangles:
+        return raster_tiles_tri(table, order, starts, big_ids, big_n, width,
+                                height)
+    return _raster16(raster_tiles, False, table, order, starts, big_ids,
+                     big_n, width, height)
+
+
 raster_tiles.launches = 0
+
+
+def raster_tiles_tri(table, order, starts, big_ids, big_n, width: int,
+                     height: int):
+    """:func:`raster_tiles` with ``bin_triangles``: binned rows through the
+    triangle-aware dual evaluation, as the big list always is (the
+    mesh-LOD droplets).  ``.launches`` counts launches."""
+    return _raster16(raster_tiles_tri, True, table, order, starts, big_ids,
+                     big_n, width, height)
+
+
+raster_tiles_tri.launches = 0
 
 
 def _raster_disc8(wrapper, with_uv, table8, big_rows, order, starts, big_n,
@@ -511,11 +596,13 @@ def raster_tiles_disc8_uv(table8, big_rows, order, starts, big_n, width: int,
 raster_tiles_disc8_uv.launches = 0
 
 
-def _eval16(rows, rid, qx, qy, with_uv):
+def _eval16(rows, rid, qx, qy, with_uv, tri=True):
     """The 16-float row evaluation (pallas_csr4._make_row_body16 with the
-    triangle dual), in its exact expression order -> (covered, depth,
-    idf, u, v); (u, v) as pallas_csr6._make_big_body16_uv carries them
-    (None unless ``with_uv``)."""
+    triangle dual; ``tri=False`` the capsule body alone, as the binned
+    stream of a walk without ``bin_triangles``), in its exact expression
+    order -> (covered, depth, idf, u, v); (u, v) as
+    pallas_csr6._make_big_body16_uv carries them (None unless
+    ``with_uv``)."""
     x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2, idf, t9, t10, t11, flag, _, kf \
         = (rows[rid, k] for k in range(ROW_F))
     dx = qx - x0
@@ -532,7 +619,7 @@ def _eval16(rows, rid, qx, qy, with_uv):
     iz = e0 * t9 + e1 * t10 + e2 * t11
     cov_t = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (iz > 0)
     z_t = 1.0 / torch.where(iz > 0, iz, torch.ones_like(iz))
-    is_tri = kf > 0
+    is_tri = (kf > 0) & tri
     u = v = None
     if with_uv:
         is_disc = ~is_tri & (flag > 0)
@@ -586,12 +673,65 @@ def _windows(x0, y0, x1, y1, rad, tri, rect):
     return c0, c1, r0_, r1_
 
 
-def _windows16(rows, rect):
+# Unit roundoff of float32: a float32 edge function a*qy - b*qx + c is
+# within 3u(|a qy| + |b qx| + |c|) of its exact value (taken as 8u).
+F32_U = 2.0 ** -24
+
+
+def _tri_window(rows, rect):
+    """Windows of triangle rows.  Edge k's function e_k = a_k * qy - b_k *
+    qx + c_k (lanes 3k..3k+2) evaluated in float32 is within delta = 8u
+    (|qx| + |qy| + |v|) of its exact value in distance units (|c_k| /
+    |(a_k, b_k)| is at most a vertex's distance |v| from the origin), so a
+    covered pixel centre lies in the triangle grown by delta on each
+    edge, whose vertex at interior angle theta moves out by delta /
+    sin(theta / 2): the window is the bbox of the vertices (recovered in
+    float64 from the edge lines) grown by the largest such move, plus
+    :func:`_windows`' margin.  Rows whose lines do not bound a triangle
+    (parallel edges, a vertex outside its opposite edge, non-finite
+    lanes) keep the whole rectangle."""
+    r64 = rows.to(torch.float64)
+    a, b, c = (r64[:, k::3][:, :3] for k in range(3))
+    vx, vy = [], []
+    for i, j in ((1, 2), (0, 2), (0, 1)):  # vertex k: opposite edge k
+        det = a[:, i] * b[:, j] - b[:, i] * a[:, j]
+        safe = torch.where(det == 0, torch.ones_like(det), det)
+        vx.append((a[:, i] * c[:, j] - c[:, i] * a[:, j]) / safe)
+        vy.append((b[:, i] * c[:, j] - c[:, i] * b[:, j]) / safe)
+    vx, vy = torch.stack(vx, 1), torch.stack(vy, 1)
+    inside = a * vy - b * vx + c  # each vertex against its opposite edge
+    ok = (torch.isfinite(vx).all(1) & torch.isfinite(vy).all(1)
+          & (inside > 0).all(1))
+    reach = torch.maximum(vx.abs().amax(1), vy.abs().amax(1))
+    q = (rect[1] + rect[3]).to(torch.float64)
+    delta = 8.0 * F32_U * (q + reach)
+    grow = torch.zeros_like(delta)
+    for k in range(3):
+        ux, uy = vx[:, k - 1] - vx[:, k], vy[:, k - 1] - vy[:, k]
+        wx, wy = vx[:, k - 2] - vx[:, k], vy[:, k - 2] - vy[:, k]
+        cos = (ux * wx + uy * wy) / (torch.hypot(ux, uy)
+                                     * torch.hypot(wx, wy))
+        sin_half = torch.sqrt(torch.clamp((1.0 - cos) / 2.0, min=0.0))
+        grow = torch.maximum(grow, delta / sin_half)
+    ok = ok & torch.isfinite(grow)
+    return _windows(vx.amin(1), vy.amin(1), vx.amax(1), vy.amax(1),
+                    torch.where(ok, grow, torch.zeros_like(grow)), ~ok, rect)
+
+
+def _windows16(rows, rect, tri=True):
+    """Windows of 16-float rows; rows flagged as triangles (lane 15) take
+    :func:`_tri_window` when ``tri`` (the dual evaluation), else the
+    capsule window as every other row."""
     r64 = rows.to(torch.float64)
     x0, y0, r0 = r64[:, 0], r64[:, 1], r64[:, 3]
     rad = torch.maximum(r0.abs(), (r0 + r64[:, 7]).abs())
-    return _windows(x0, y0, x0 + r64[:, 4], y0 + r64[:, 5], rad,
-                    rows[:, 15] > 0, rect)
+    win = _windows(x0, y0, x0 + r64[:, 4], y0 + r64[:, 5], rad,
+                   torch.zeros_like(rows[:, 15], dtype=torch.bool), rect)
+    is_tri = (rows[:, 15] > 0) & tri
+    if not bool(is_tri.any()):
+        return win
+    twin = _tri_window(rows, rect)
+    return tuple(torch.where(is_tri, t, w) for t, w in zip(twin, win))
 
 
 def _windows8(rows, rect):
@@ -706,29 +846,45 @@ def _merge_plain(groups, width, height, dev, with_uv):
             uv[1].reshape(height, width))
 
 
+def plain_walk16(table, binned_ids, rect, big_ids, big_n, width, height,
+                 bin_triangles):
+    """The plain 16-float walk shared by the v6 and v4 plain versions:
+    each binned row ``table[binned_ids]`` over its pixel rectangle
+    ``rect``, each live big row over the image, both clipped to the row's
+    window, merged by the two-step lexicographic min.  Binned rows take
+    the dual body under ``bin_triangles``, else the capsule body alone
+    (as the kernels); big rows always the dual."""
+    dev = table.device
+    binned = table[binned_ids]
+    nb = int(big_n[0])
+    big = table[big_ids[:nb].to(torch.int64)]
+    groups = [
+        _pair_group(binned, _windows16(binned, rect, bin_triangles),
+                    functools.partial(_eval16, tri=bin_triangles), width,
+                    False),
+        _pair_group(big, _windows16(big, _full_rect(nb, width, height, dev)),
+                    _eval16, width, False)]
+    return _merge_plain(groups, width, height, dev, False)
+
+
 def raster_tiles_plain(table, order, starts, big_ids, big_n, width: int,
-                       height: int):
+                       height: int, bin_triangles: bool = False):
     """Plain PyTorch version of the 16-float tile walk, on any device.
 
     Evaluates the same rows as the kernel: each binned row (sorted
     position below ``starts[4T]``) over the pixels of the tiles its
     (anchor, class) covers, each live big-list row over the whole image —
     both clipped to a window around the row's extent that provably holds
-    every covered pixel.  The pairs are enumerated in chunks of at most
+    every covered pixel.  Binned rows take the capsule body, or the
+    triangle-aware dual under ``bin_triangles``; big rows always the
+    dual.  The pairs are enumerated in chunks of at most
     ``PLAIN_PAIR_CHUNK`` and merged with a two-step lexicographic min, so
     the result is exact and order-independent.
     """
     _check_inputs(table, order, starts, big_ids, big_n, width, height)
-    dev = table.device
     ids, rect = _binned_rects(order, starts, width, height)
-    binned = table[ids]
-    nb = int(big_n[0])
-    big = table[big_ids[:nb].to(torch.int64)]
-    groups = [
-        _pair_group(binned, _windows16(binned, rect), _eval16, width, False),
-        _pair_group(big, _windows16(big, _full_rect(nb, width, height, dev)),
-                    _eval16, width, False)]
-    return _merge_plain(groups, width, height, dev, False)
+    return plain_walk16(table, ids, rect, big_ids, big_n, width, height,
+                        bin_triangles)
 
 
 def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
@@ -893,12 +1049,14 @@ def raster_tiles_rows9_plain(rows9, big_rows, starts, big_n, width: int,
 def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   max_big: int, shade_rgb, shade_flag, plain: bool = False,
                   discs_only: bool = False, fused_uv: bool = False,
-                  span: int = SPAN, kind_split: bool = False):
+                  span: int = SPAN, kind_split: bool = False,
+                  bin_triangles: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, uv, diag);
     ``uv`` is None unless ``fused_uv`` (then the winner's lambert (u, v)
     images, +inf where the winner is no disc).  Under ``discs_only`` and
     ``kind_split`` no (P+1, 16) table exists: the binned rows are 8 or 9
-    floats and the big rows are built at the big ids."""
+    floats and the big rows are built at the big ids.  ``bin_triangles``
+    bins small triangles into the 16-float walk (mesh-LOD droplets)."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
@@ -910,7 +1068,7 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
             f"span={span} is ported for the rows8/rows9 walk only; the "
             "16- and 8-float walks take span 2: ROADMAP queue B item 1")
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
-                      kind_split)
+                      kind_split, bin_triangles)
     ranges = (binned["order"], binned["starts"])
     uv = None
     if kind_split:
@@ -934,24 +1092,25 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
             depth, index = walk(table8, big_rows, *ranges, binned["big_n"],
                                 width, height)
     else:
-        table = build_table16(prims, shade_rgb, shade_flag)
+        table = build_table16(prims, shade_rgb, shade_flag,
+                              bin_triangles=bin_triangles)
         walk = raster_tiles_plain if plain else raster_tiles
         depth, index = walk(table, *ranges, binned["big_ids"],
-                            binned["big_n"], width, height)
+                            binned["big_n"], width, height, bin_triangles)
     return depth, index, uv, binned["diag"]
 
 
 def _kind_split(rows8: bool, rows9: bool, discs_only: bool,
-                allow_exit) -> bool:
+                allow_exit, bin_triangles: bool = False) -> bool:
     """Whether the rows8/rows9 kind-split walk runs; raises for the
     combinations the JAX package rejects (``_raster_core6``)."""
     if not (rows8 or rows9):
         return False
-    if (rows8 and rows9) or discs_only:
+    if (rows8 and rows9) or discs_only or bin_triangles:
         raise ValueError(
             "rows8/rows9 are kind-split narrow-row modes for mixed disc + "
             "capsule soups: mutually exclusive with each other and with "
-            "discs_only")
+            "discs_only and bin_triangles")
     if allow_exit:
         raise ValueError("rows8/rows9 rows carry no zlb lane: allow_exit "
                          "must be off")
@@ -962,14 +1121,16 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                    max_big: int = DEFAULT_MAX_BIG, shade_rgb=None,
                    shade_flag=None, plain: bool = False,
                    discs_only: bool = False, span: int = SPAN,
-                   rows8: bool = False, rows9: bool = False):
+                   rows8: bool = False, rows9: bool = False,
+                   bin_triangles: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, diag).
 
     ``plain=True`` runs the plain tile walk on any device (the reference
     the CUDA kernels are held against); otherwise the device decides.
     ``discs_only`` takes the 8-float disc rows (same winners); ``rows8``
     or ``rows9`` the kind-split 9-float rows at ``span`` (binned capsules
-    through the renormalized evaluation).
+    through the renormalized evaluation); ``bin_triangles`` bins small
+    triangles through the dual evaluation (same winners).
     """
     if shade_rgb is None:
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
@@ -979,7 +1140,8 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
     depth, index, _, diag = _raster_core6(
         prims, width, height, max_big, shade_rgb, shade_flag, plain=plain,
         discs_only=discs_only, span=span,
-        kind_split=_kind_split(rows8, rows9, discs_only, None))
+        kind_split=_kind_split(rows8, rows9, discs_only, None, bin_triangles),
+        bin_triangles=bin_triangles)
     return depth, index, diag
 
 
@@ -1175,7 +1337,7 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
                        discs_only: bool = False, uniform_look=None,
                        allow_exit=None, span: int = SPAN,
                        rows8: bool = False, rows9: bool = False,
-                       three_tone=None):
+                       three_tone=None, bin_triangles: bool = False):
     """Rasterize + shade in one pass -> (rgb, depth, index, diag).
 
     Two-tone disc scenes (``uniform_look`` with ``discs_only``, lambert,
@@ -1185,13 +1347,14 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     shades through :func:`shade_by_id`; under ``three_tone`` (lambert)
     ``preshade`` is skipped, its outputs being read by nothing else.
     ``rows8`` and ``rows9`` take the kind-split walk at ``span`` (one
-    kernel for both: they evaluate the same float32 expressions).
-    ``allow_exit`` has no other effect here (the kernels have no depth
-    early exit yet)."""
+    kernel for both: they evaluate the same float32 expressions);
+    ``bin_triangles`` the binned-triangle 16-float walk.  ``allow_exit``
+    has no other effect here (the v6 walks have no depth early exit)."""
     check_supported(shading)
     if three_tone is not None and uniform_look is not None:
         raise ValueError("three_tone and uniform_look are exclusive")
-    kind_split = _kind_split(rows8, rows9, discs_only, allow_exit)
+    kind_split = _kind_split(rows8, rows9, discs_only, allow_exit,
+                             bin_triangles)
     if three_tone is not None and shading.mode != "flat":
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
                                 device=prims.device)
@@ -1205,7 +1368,7 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     depth, index, uv, diag = _raster_core6(
         prims, camera.width, camera.height, max_big, shade_rgb, shade_flag,
         plain=plain, discs_only=discs_only, fused_uv=fused, span=span,
-        kind_split=kind_split)
+        kind_split=kind_split, bin_triangles=bin_triangles)
     if fused:
         rgb = shade_uv(camera, shading, depth, uv[0], uv[1], uniform_look)
     else:

@@ -5,22 +5,31 @@ The PyTorch twin of ``pointcloud_render_tpu.raster.render``.  Backends:
   "auto", "pallas6" — the v6 tile rasterizer (``raster/csr6.py``): the
                       CUDA kernels for CUDA tensors, their plain PyTorch
                       versions for CPU tensors;
-  "cpu", "tiled", "bruteforce" — the plain PyTorch version explicitly, on
-                      any device (the JAX package's exact reference
-                      backends; one plain rasterizer serves all three).
-  "pallas", "pallas3", "pallas4" — older kernel generations, not ported
-                      yet (ROADMAP queue B items 9-11): NotImplementedError.
+  "pallas4"         — the v4 tile rasterizer (``raster/csr4.py``: 2x2
+                      entry binning, the z-bucket early exit, a semantic
+                      ``entry_capacity``), kernel or plain likewise;
+  "cpu", "tiled", "bruteforce" — the plain PyTorch version of the v6 walk
+                      explicitly, on any device (the JAX package's exact
+                      reference backends; one plain rasterizer serves all
+                      three).
+  "pallas", "pallas3" — older kernel generations, not ported yet (ROADMAP
+                      queue B items 10-11): NotImplementedError.
 
 ``RasterConfig`` keeps every field of the JAX package's so configs stay
 compatible.  The TPU performance knobs (``tiles_per_program``,
 ``dma_slots``, ``chunk_rows``, ``unroll``, ``starts_method``, the
 ``*_carry`` build variants, ``chunk``, ``tile_h``/``tile_w``,
-``max_per_tile``, ``max_tiles_per_prim``, ``entry_capacity``,
-``row_budget``, ``no_triangles``) are accepted and have no effect here;
+``max_per_tile``, ``max_tiles_per_prim``, ``row_budget``,
+``no_triangles``) are accepted and have no effect here; ``entry_capacity``
+drops entries under ``pallas4`` and is checked against the frame's
+``true_entries`` by the pipelines;
 ``allow_exit`` only decides, as in the JAX package, whether a two-tone
 disc scene may take the fused (u, v) shade (forced on, it may not).
 ``discs_only`` walks 8-float disc rows (capsules ride the big list) and
 ``uniform_look`` shades two-tone scenes from two constant colors.
+``bin_triangles`` bins small triangles (the mesh-LOD droplets) into the
+16-float walk of ``pallas6`` and ``pallas4``, as the JAX package does;
+``pallas4`` shades generically, as ``render_shaded_csr4`` does.
 ``rows9`` and ``rows8`` walk the kind-split 9-float rows (binned capsules
 through the renormalized segment-frame evaluation; one kernel serves
 both), at ``span`` 2, 4 or 8; ``three_tone`` shades per-kind-constant
@@ -38,7 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pointcloud_render_tpu_torch.raster import csr6
+from pointcloud_render_tpu_torch.raster import csr4, csr6
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
     triangles_from_mesh,
@@ -46,12 +55,11 @@ from pointcloud_render_tpu_torch.raster.primitives import (
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils.consts import const
 
-KERNEL_BACKENDS = ("auto", "pallas6")
+KERNEL_BACKENDS = ("auto", "pallas6", "pallas4")
 PLAIN_BACKENDS = ("cpu", "tiled", "bruteforce")
 UNPORTED_BACKENDS = {
     "pallas": "ROADMAP queue B item 11 (pallas_csr2, v2)",
     "pallas3": "ROADMAP queue B item 10 (pallas_csr3, v3)",
-    "pallas4": "ROADMAP queue B item 9 (pallas_csr4, v4)",
 }
 
 
@@ -118,13 +126,15 @@ def check_config(config: RasterConfig) -> None:
     if config.allow_exit and config.span != 2:
         raise ValueError("allow_exit requires span=2")
     kind_split = csr6._kind_split(config.rows8, config.rows9,
-                                  config.discs_only, config.allow_exit)
-    if kind_split and (config.cap_rows10 or config.bin_triangles):
-        raise ValueError("rows8/rows9 are exclusive with cap_rows10 and "
-                         "bin_triangles")
+                                  config.discs_only, config.allow_exit,
+                                  config.bin_triangles)
+    if kind_split and config.cap_rows10:
+        raise ValueError("rows8/rows9 are exclusive with cap_rows10")
+    if config.cap_rows10 and config.bin_triangles:
+        raise ValueError("cap_rows10 rows have no triangle lanes: triangles "
+                         "must ride the big list (bin_triangles=False)")
     unported = [
         (config.cap_rows10, "cap_rows10", "ROADMAP queue B item 8"),
-        (config.bin_triangles, "bin_triangles", "ROADMAP queue B item 7"),
         (config.span != 2 and not kind_split,
          f"span={config.span} on the 16- and 8-float walks",
          "ROADMAP queue B item 1"),
@@ -148,11 +158,16 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
     """Run the configured backend -> (depth, index) buffers."""
     config = config or RasterConfig()
     check_config(config)
+    if config.backend == "pallas4":
+        depth, index, _ = csr4.rasterize_csr4(
+            prims, width, height, entry_capacity=config.entry_capacity,
+            max_big=config.max_big, bin_triangles=config.bin_triangles)
+        return depth, index
     depth, index, _ = csr6.rasterize_csr6(
         prims, width, height, max_big=config.max_big,
         plain=config.backend in PLAIN_BACKENDS,
         discs_only=config.discs_only, span=config.span, rows8=config.rows8,
-        rows9=config.rows9)
+        rows9=config.rows9, bin_triangles=config.bin_triangles)
     return depth, index
 
 
@@ -162,16 +177,25 @@ def render(prims: ScreenPrimitives, camera,
     """Rasterize + shade a primitive soup through a Camera -> FrameBuffers.
 
     ``return_diag=True`` also returns ``{"true_entries", "big_overflow"}``
-    (int32 device scalars); ``big_overflow`` must be 0 for an exact frame.
+    (int32 device scalars); ``big_overflow`` must be 0 for an exact frame,
+    and ``true_entries`` at most a finite ``entry_capacity``.
     """
     config = config or RasterConfig()
     check_config(config)
-    rgb, depth, index, diag = csr6.render_shaded_csr6(
-        prims, camera, config.shading, max_big=config.max_big,
-        plain=config.backend in PLAIN_BACKENDS,
-        discs_only=config.discs_only, uniform_look=config.uniform_look,
-        allow_exit=config.allow_exit, span=config.span, rows8=config.rows8,
-        rows9=config.rows9, three_tone=config.three_tone)
+    if config.backend == "pallas4":
+        rgb, depth, index, diag = csr4.render_shaded_csr4(
+            prims, camera, config.shading,
+            entry_capacity=config.entry_capacity, max_big=config.max_big,
+            bin_triangles=config.bin_triangles)
+    else:
+        rgb, depth, index, diag = csr6.render_shaded_csr6(
+            prims, camera, config.shading, max_big=config.max_big,
+            plain=config.backend in PLAIN_BACKENDS,
+            discs_only=config.discs_only, uniform_look=config.uniform_look,
+            allow_exit=config.allow_exit, span=config.span,
+            rows8=config.rows8, rows9=config.rows9,
+            three_tone=config.three_tone,
+            bin_triangles=config.bin_triangles)
     fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
     return (fb, diag) if return_diag else fb
 

@@ -6,12 +6,12 @@ transform); the device side is float32 on ``FramePipeline.device``.
 PyTorch runs eagerly, so there is no compiled-step cache.
 
 Ported: the sphere splats, the droplets' capsule LOD (head disc and
-tapered tail capsule, velocity-aligned) and the fixed-segment velocity
-trails (the traj_ball and traj_vel frames, the other sphere + velocity
-presets and the example preset's static cloud, whose 3-D stacks
-``process`` iterates).  The droplets' mesh LOD, history trails and the
-adaptive trail segmentation raise ``NotImplementedError`` naming their
-ROADMAP entry.
+tapered tail capsule, velocity-aligned) and mesh LOD (the reference's
+16x20 teardrop instanced per point, as triangles), and the fixed-segment
+velocity trails (the traj_ball and traj_vel frames, the other sphere +
+velocity presets and the example preset's static cloud, whose 3-D stacks
+``process`` iterates).  History trails and the adaptive trail
+segmentation raise ``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
     capsules_from_vertex_columns,
     discs_from_points,
+    triangles_from_mesh,
 )
 from pointcloud_render_tpu_torch.raster.render import (
     FrameBuffers,
@@ -60,13 +61,24 @@ MAX_RENDER_ATTEMPTS = 5
 
 
 def check_droplet_lod(droplet_lod: str) -> None:
-    """Raise for a droplet LOD the port does not render."""
-    if droplet_lod == "mesh":
-        raise NotImplementedError(
-            "mesh-LOD droplets are not ported yet: they need the binned "
-            "triangle walk, ROADMAP queue A item 12 and queue B item 7")
-    if droplet_lod != "capsule":
+    """Raise for a droplet LOD that does not exist."""
+    if droplet_lod not in ("capsule", "mesh"):
         raise ValueError(f"unknown droplet_lod {droplet_lod!r}")
+
+
+def scene_config(preset: ScenePreset, config: RasterConfig,
+                 droplet_lod: str) -> RasterConfig:
+    """The per-scene config policy of the JAX pipeline's ``_make_step``:
+    disc and capsule soups (spheres, capsule-LOD droplets) get
+    ``no_triangles``; mesh-LOD droplets under ``auto`` get
+    ``bin_triangles`` (the v6 walk bins the droplets' small triangles, and
+    only the ground rides the big list; on the CPU its plain version does
+    the same).  An explicit backend keeps its config as given."""
+    if preset.splat == "sphere" or droplet_lod != "mesh":
+        return dataclasses.replace(config, no_triangles=True)
+    if config.backend == "auto":
+        return dataclasses.replace(config, bin_triangles=True)
+    return config
 
 
 def build_primitives(preset: ScenePreset, camera: Camera, positions,
@@ -76,13 +88,16 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
                      return_layout: bool = False):
     """Assemble the frame's primitive soup on the camera's device.
 
-    Primitive order (= depth-tie priority): ground, splats (droplets: head
-    discs, then tail capsules), trails.  Droplets take their orientation
-    from ``rotations`` ((N, 4, 4)), else from the velocities, else the
-    identity.  ``trail_segments`` overrides VEL_TRAIL_RENDER_SEGMENTS
-    (1..20).  ``return_layout=True`` also returns the soup's part layout
-    as a list of ``(rows, rows_per_point)`` (0 for fixed furniture like
-    the ground); every per-point part is row-major in point index.
+    Primitive order (= depth-tie priority): ground, splats (capsule-LOD
+    droplets: head discs, then tail capsules; mesh-LOD droplets: the
+    instanced teardrops' triangles), trails.  Droplets take their
+    orientation from ``rotations`` ((N, 4, 4)), else from the velocities,
+    else the identity.  ``trail_segments`` overrides
+    VEL_TRAIL_RENDER_SEGMENTS (1..20).  ``return_layout=True`` also
+    returns the soup's part layout as a list of ``(rows, rows_per_point)``
+    (0 for fixed furniture like the ground); every per-point part is
+    row-major in point index.  The near clip emits the mesh's triangles in
+    two blocks of F rows per point, recorded as two entries.
     """
     if preset.trail == "history":
         raise NotImplementedError(
@@ -114,20 +129,28 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
                     velocities, positions)
         rotations = torch.as_tensor(rotations, dtype=torch.float32,
                                     device=dev)
-        # Capsule LOD: head sphere + tapering tail along the rotated -z
-        # axis (column 2 of R gives R @ (0,0,-1) = tail direction).
-        tail_dir = -rotations[:, :3, 2]
-        tip = positions + tail_dir * droplet_mod.TAIL_TIP_OFFSET
-        parts.append(discs_from_points(
-            positions, camera,
-            torch.full((n,), droplet_mod.BASE_RADIUS, dtype=torch.float32,
-                       device=dev), color))
-        per_point.append(1)
-        taper = const(droplet_mod.TAIL_RADII, np.float32, dev).expand(n, 2)
-        ones = torch.ones((n,), dtype=torch.bool, device=dev)
-        parts.append(capsules_from_vertex_columns(
-            [positions, tip], [ones, ones], camera, taper, color))
-        per_point.append(1)
+        if droplet_lod == "mesh":
+            verts, faces = droplet_mod.instance_droplets(rotations,
+                                                         positions)
+            tris = triangles_from_mesh(verts, faces, camera, color)
+            parts.append(tris)
+            per_point.append(("split2", tris.count // (2 * n) if n else 0))
+        else:
+            # Capsule LOD: head sphere + tapering tail along the rotated
+            # -z axis (column 2 of R gives R @ (0,0,-1) = tail direction).
+            tail_dir = -rotations[:, :3, 2]
+            tip = positions + tail_dir * droplet_mod.TAIL_TIP_OFFSET
+            parts.append(discs_from_points(
+                positions, camera,
+                torch.full((n,), droplet_mod.BASE_RADIUS,
+                           dtype=torch.float32, device=dev), color))
+            per_point.append(1)
+            taper = const(droplet_mod.TAIL_RADII, np.float32,
+                          dev).expand(n, 2)
+            ones = torch.ones((n,), dtype=torch.bool, device=dev)
+            parts.append(capsules_from_vertex_columns(
+                [positions, tip], [ones, ones], camera, taper, color))
+            per_point.append(1)
     else:
         raise ValueError(f"unknown splat kind {preset.splat!r}")
 
@@ -152,7 +175,13 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
     soup = ScreenPrimitives.concatenate(parts)
     if not return_layout:
         return soup
-    return soup, [(part.count, c) for part, c in zip(parts, per_point)]
+    layout = []
+    for part, c in zip(parts, per_point):
+        if isinstance(c, tuple):  # ("split2", faces per point)
+            layout += [(part.count // 2, c[1])] * 2
+        else:
+            layout.append((part.count, c))
+    return soup, layout
 
 
 def frame_camera(preset: ScenePreset, frame_index: int, width: int,
@@ -214,8 +243,11 @@ class FramePipeline:
     def render_array(self, pcl: np.ndarray, frame_index: int) -> FrameBuffers:
         """Render a prepared (N, 3|6) array on ``self.device``.
 
-        The frame's big-list overflow certificate is read back every frame;
-        on overflow the big list grows and the frame renders again.
+        The frame's certificate is read back every frame: on big-list
+        overflow the big list grows and the frame renders again; binned
+        entries past a finite ``entry_capacity`` raise.  The config goes
+        through :func:`scene_config` first (mesh-LOD droplets under
+        ``auto`` bin their triangles).
         """
         pcl = np.asarray(pcl, np.float32)
         has_vel = pcl.shape[1] == 6
@@ -227,10 +259,13 @@ class FramePipeline:
         prims = build_primitives(self.preset, camera, positions, velocities,
                                  frame_index, droplet_lod=self.droplet_lod)
         for _attempt in range(MAX_RENDER_ATTEMPTS):
-            fb, diag = render(prims, camera, self.raster_config,
+            fb, diag = render(prims, camera,
+                              scene_config(self.preset, self.raster_config,
+                                           self.droplet_lod),
                               return_diag=True)
             ovf = int(diag["big_overflow"])
             if ovf == 0:
+                self._check_capacity(int(diag["true_entries"]), frame_index)
                 return fb
             new = max(self.raster_config.max_big * 4,
                       self.raster_config.max_big + ovf)
@@ -242,6 +277,13 @@ class FramePipeline:
             f"overflow ({ovf} primitives) at frame {frame_index} after "
             f"capacity retries — the render dropped them.  Reduce "
             f"primitive screen extents.")
+
+    def _check_capacity(self, true_entries: int, frame_index) -> None:
+        cap = self.raster_config.entry_capacity
+        if cap is not None and true_entries > cap:
+            raise RuntimeError(
+                f"entry capacity violated at frame {frame_index}: "
+                f"true_entry_count {true_entries} > capacity {cap}.")
 
     # -- full frame ----------------------------------------------------------
     def process(self, file_path: str, frame_index: int = 0,

@@ -17,9 +17,10 @@ while the device already renders chunk c + 1 (two buffers in turn).
 
 Static clouds use dt=0 (a pure camera flythrough); dynamic clouds advect
 by their velocities each frame, with optional motion coloring.  Sphere
-and droplet presets (capsule LOD, oriented by the velocities, with
-velocity trails: traj_vel); the droplets' mesh LOD and history trails
-raise ``NotImplementedError`` naming their ROADMAP item, as
+and droplet presets (capsule or mesh LOD, oriented by the velocities,
+with velocity trails: traj_vel; mesh-LOD droplets under ``auto`` bin their
+triangles, as in ``FramePipeline``); history trails raise
+``NotImplementedError`` naming their ROADMAP item, as
 ``build_primitives`` does.
 """
 
@@ -41,6 +42,7 @@ from pointcloud_render_tpu_torch.run.pipeline import (
     build_primitives,
     check_droplet_lod,
     frame_camera,
+    scene_config,
 )
 from pointcloud_render_tpu_torch.scene import dynamics
 from pointcloud_render_tpu_torch.scene.camera import IMAGE_HEIGHT, IMAGE_WIDTH
@@ -109,7 +111,7 @@ class TrajectoryScanRenderer:
             off += count
         else:
             raise ValueError("motion_color needs a per-point splat block "
-                             f"(layout {layout})")
+                             f"(layout {layout}): mesh LOD unsupported")
         color = prims.color.clone()
         color[off:off + positions.shape[0]] = dynamics.motion_colors(
             velocities)
@@ -122,7 +124,8 @@ class TrajectoryScanRenderer:
         big list past the default.  The per-chunk certificate still checks
         every frame afterwards: this probe only avoids a wasted first
         render.  Advects the cloud to each sampled frame when dt != 0, and
-        bins with the render's own ``discs_only``, span and kind split."""
+        bins with the render's own ``discs_only``, span, kind split and
+        ``bin_triangles``."""
         ids = sorted(frame_indices)
         if not ids:
             return
@@ -136,14 +139,20 @@ class TrajectoryScanRenderer:
             camera = frame_camera(self.preset, fi, w, h, self.device)
             prims = build_primitives(self.preset, camera, p, velocities, fi,
                                      droplet_lod=self.droplet_lod)
-            cfg = self.raster_config
+            cfg = self._config()
             worst = max(worst, int(csr6.bin_diagnostics6(
                 prims, w, h, max_big=cfg.max_big, discs_only=cfg.discs_only,
-                span=cfg.span, kind_split=cfg.rows8 or cfg.rows9)))
+                span=cfg.span, kind_split=cfg.rows8 or cfg.rows9,
+                bin_triangles=cfg.bin_triangles)))
         if worst > 0:
             mb = self.raster_config.max_big + int(worst * 1.5)
             self.raster_config = dataclasses.replace(
                 self.raster_config, max_big=((mb + 511) // 512) * 512)
+
+    def _config(self) -> RasterConfig:
+        """The render's config: :func:`scene_config` of the given one."""
+        return scene_config(self.preset, self.raster_config,
+                            self.droplet_lod)
 
     def _chunk_buffers(self):
         """(device frames, host frames, host certificate) of one chunk;
@@ -178,6 +187,7 @@ class TrajectoryScanRenderer:
         buffers = [self._chunk_buffers()
                    for _ in range(min(2, -(-len(ids) // fpc)))]
         zero = torch.zeros((), dtype=torch.int32, device=dev)
+        cfg = self._config()
         out, pending = [], None
         for c, lo in enumerate(range(0, len(ids), fpc)):
             # A short last chunk renders its own frames only: an eager loop
@@ -188,8 +198,7 @@ class TrajectoryScanRenderer:
             tc_max, ovf_max = zero, zero
             for k in range(len(chunk_ids)):
                 camera, prims = self._soup(pos, vel, ids_dev[lo + k])
-                fb, diag = render(prims, camera, self.raster_config,
-                                  return_diag=True)
+                fb, diag = render(prims, camera, cfg, return_diag=True)
                 # The certificate's running maxima over every frame of the
                 # chunk stay on the device.
                 tc_max = torch.maximum(tc_max, diag["true_entries"])

@@ -57,14 +57,18 @@ def shading_from_fields(shading) -> ShadingConfig:
 
 def raster_config_from_fields(config) -> RasterConfig:
     """A RasterConfig with the same field values (shading converted; the
-    ``uniform_look`` tones as plain float tuples and the ``three_tone``
-    prim ids as plain ints, so the config hashes)."""
+    ``uniform_look`` tones as plain float tuples, the ``three_tone`` prim
+    ids and a finite ``entry_capacity`` as plain ints and
+    ``bin_triangles`` as a bool, so the config hashes)."""
     look = config.uniform_look
     if look is not None:
         look = tuple(tuple(float(c) for c in tone) for tone in look)
     tones = config.three_tone
     if tones is not None:
         tones = tuple(int(r) for r in np.asarray(tones).reshape(-1))
+    cap = config.entry_capacity
     return _copy_fields(RasterConfig, config, uniform_look=look,
                         three_tone=tones,
+                        entry_capacity=None if cap is None else int(cap),
+                        bin_triangles=bool(config.bin_triangles),
                         shading=shading_from_fields(config.shading))

@@ -1,7 +1,8 @@
-"""The port on an NVIDIA GPU: the csr6 CUDA kernels (16-float rows, 8-float
-disc rows, disc rows with the fused (u, v), kind-split 9-float rows)
-against their plain PyTorch versions, and a frame and a flythrough
-rendered on the card against the same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
+"""The port on an NVIDIA GPU: the CUDA kernels (csr6 16-float rows, with
+and without binned triangles, 8-float disc rows, disc rows with the fused
+(u, v), kind-split 9-float rows; the v4 walk with and without its
+z-bucket early exit) against their plain PyTorch versions, and frames and
+a flythrough rendered on the card against the same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
 without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
-from pointcloud_render_tpu_torch.raster import csr6
+from pointcloud_render_tpu_torch.raster import csr4, csr6
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -35,6 +36,7 @@ from torch_soups import (
     disc_soup,
     droplet_soup,
     make_soup,
+    mesh_soup,
     tcam,
 )
 
@@ -212,3 +214,101 @@ def test_droplet_frame_on_card_near_cpu(cuda_device):
           f"flips; {moved} of {len(pos)} tail capsules differ")
     assert (~same).sum() <= 8
     assert (fbs[0].index.numpy() >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_triangles", [False, True])
+@pytest.mark.parametrize("case", CASES + ["mesh"])
+def test_binned_triangle_and_v4_kernels_match_plain_on_card(
+        cuda_device, case, bin_triangles):
+    """csr6_raster (with and without bin_triangles) and csr4_raster with
+    its z-bucket exit and with it off, against their plain versions:
+    depth bits and index, on the seeded soups and a mesh-LOD soup (binned
+    droplet triangles, ties, near-clip rows, wide triangles on the big
+    list)."""
+    soup = (mesh_soup(tcam()) if case == "mesh"
+            else make_soup(case)).to(cuda_device)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    table = csr6.build_table16(soup, zeros, zeros[:, 0],
+                               bin_triangles=bin_triangles)
+    b = csr6.bin_csr6(soup, W, H, 1 << 14, bin_triangles=bin_triangles)
+    args = (table, b["order"], b["starts"], b["big_ids"], b["big_n"], W, H,
+            bin_triangles)
+    counter = csr6.raster_tiles_tri if bin_triangles else csr6.raster_tiles
+    before = counter.launches
+    got = csr6.raster_tiles(*args)
+    want = csr6.raster_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(w))
+    b4 = csr4.bin_csr4(soup, W, H, 1 << 14, bin_triangles)
+    for zq in (b4["zq_bits"], 0):  # the early exit on, then off
+        args4 = (table, b4["entries"], b4["starts"], b4["big_ids"],
+                 b4["big_n"], b4["zmeta"], W, H, zq, bin_triangles)
+        before = csr4.raster_tiles4.launches
+        got4 = csr4.raster_tiles4(*args4)
+        want4 = csr4.raster_tiles4_plain(*args4)
+        torch.cuda.synchronize()
+        assert csr4.raster_tiles4.launches == before + 1
+        for a, w in zip(got4, want4):
+            np.testing.assert_array_equal(_bits(a), _bits(w))
+        # walked: the whole range without the exit; with it, at least the
+        # first chunk of 256 (the exit is tested after each chunk).
+        lengths = b4["starts"][1:] - b4["starts"][:-1]
+        walked = torch.full_like(lengths, -1)
+        again = csr4.raster_tiles4(*args4, walked=walked)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_bits(again[0]), _bits(got4[0]))
+        if zq == 0:
+            assert torch.equal(walked, lengths)
+        else:
+            assert bool((walked <= lengths).all())
+            assert bool((walked >= torch.clamp(lengths, max=256)).all())
+        for a, w in zip(got4, got):  # v4 == v6
+            np.testing.assert_array_equal(_bits(a), _bits(w))
+    assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_v4_capacity_truncation_on_card(cuda_device):
+    """csr4_raster on entries truncated below true_entries equals its
+    plain version on the same truncated entries."""
+    soup = mesh_soup(tcam()).to(cuda_device)
+    cap = int(csr4.true_entry_count4(soup, W, H, bin_triangles=True)) // 2
+    before = csr4.raster_tiles4.launches
+    d, i, diag = csr4.rasterize_csr4(soup, W, H, entry_capacity=cap,
+                                     bin_triangles=True)
+    d_p, i_p, _ = csr4.rasterize_csr4(soup, W, H, entry_capacity=cap,
+                                      bin_triangles=True, plain=True)
+    torch.cuda.synchronize()
+    assert csr4.raster_tiles4.launches == before + 1
+    assert int(diag["true_entries"]) > cap
+    np.testing.assert_array_equal(_bits(i), _bits(i_p))
+    np.testing.assert_array_equal(_bits(d), _bits(d_p))
+
+
+@pytest.mark.cuda
+def test_mesh_frame_on_card_near_cpu(cuda_device):
+    """A 160x96 mesh-LOD traj_vel frame on the card and on the CPU: the
+    droplets' rotations round differently on the two devices (ROADMAP
+    queue C), so whole droplets move by ulps; all but a few winners agree.
+    One binned-triangle launch; pallas4 renders the card's frame too."""
+    pos, vel = cloud(n=40, seed=3)
+    pcl = np.concatenate([pos, vel], axis=1)
+    preset = PRESETS["traj_vel"]
+    before = csr6.raster_tiles_tri.launches
+    fbs = [pipeline.FramePipeline(preset, droplet_lod="mesh", width=160,
+                                  height=96, device=dev).render_array(pcl, 120)
+           for dev in ("cpu", cuda_device)]
+    assert csr6.raster_tiles_tri.launches == before + 1
+    same = fbs[0].index.numpy() == fbs[1].index.cpu().numpy()
+    print(f"mesh-LOD frame, card vs CPU: {int((~same).sum())} winner flips")
+    assert (~same).sum() <= 8
+    v4 = pipeline.FramePipeline(
+        preset, RasterConfig(backend="pallas4", bin_triangles=True),
+        droplet_lod="mesh", width=160, height=96,
+        device=cuda_device).render_array(pcl, 120)
+    for field in ("index", "depth", "rgb"):
+        np.testing.assert_array_equal(_bits(getattr(v4, field)),
+                                      _bits(getattr(fbs[1], field)))

@@ -627,9 +627,13 @@ def test_traj_vel_cli_on_cpu(tmp_path):
          "--frames", "10", "--device", "cpu", "--droplet-lod", "capsule",
          "--width", "96", "--height", "64"])
     assert [r.status for r in bad.records] == ["ok"]
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        traj_vel_renderer.main(["--input-folder", str(inp), "--device",
-                                "cpu", "--droplet-lod", "mesh"])
+    mesh = traj_vel_renderer.main(
+        ["--input-folder", str(inp), "--output-folder", str(tmp_path / "o3"),
+         "--frames", "120", "--device", "cpu", "--droplet-lod", "mesh",
+         "--width", "96", "--height", "64"])
+    assert [r.status for r in mesh.records] == ["ok"]
+    assert (tmp_path / "o3" / "frame_0120_b0.png").read_bytes()[:8] \
+        == b"\x89PNG\r\n\x1a\n"
 
 
 def test_rows9_wrapper_dispatch_and_knob_errors():

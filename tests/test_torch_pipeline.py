@@ -198,9 +198,12 @@ def test_profiler_trace_writes_a_trace(tmp_path):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="queue B item 9"):
+    with pytest.raises(NotImplementedError, match="queue B item 10"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(backend="pallas4"), device="cpu")
+                               RasterConfig(backend="pallas3"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue B item 11"):
+        pipeline.FramePipeline(PRESETS["traj_ball"],
+                               RasterConfig(backend="pallas"), device="cpu")
     with pytest.raises(NotImplementedError, match="queue B item 8"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
                                RasterConfig(cap_rows10=True), device="cpu")
@@ -211,8 +214,8 @@ def test_unported_paths_raise():
         pipeline.FramePipeline(
             PRESETS["traj_ball"],
             RasterConfig(shading=ShadingConfig(shadows=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="mesh",
+    with pytest.raises(ValueError, match="unknown droplet_lod"):
+        pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
     pos, vel = cloud(n=10)
     with pytest.raises(NotImplementedError, match="queue A item 11"):

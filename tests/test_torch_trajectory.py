@@ -213,8 +213,8 @@ def test_certificate_raises_on_overflow():
 
 
 def test_scan_refusals():
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        TrajectoryScanRenderer(PRESETS["traj_vel"], droplet_lod="mesh",
+    with pytest.raises(ValueError, match="unknown droplet_lod"):
+        TrajectoryScanRenderer(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         TrajectoryScanRenderer(dataclasses.replace(

@@ -57,9 +57,9 @@ def mixed_soup(cam, n, trails, seed, radius=0.025):
          caps])
 
 
-def _near_clip_soup(cam):
-    """Triangles crossing the near plane (1 or 2 vertices behind it) plus
-    a few discs."""
+def _near_clip_tris(cam):
+    """Three wide triangles crossing the near plane (1 or 2 vertices
+    behind it): split rows, invalid rows and big-list rows."""
     eye = np.array(ORIGIN, np.float32)
     fwd = np.array(TARGET, np.float32) - eye
     fwd /= np.linalg.norm(fwd)
@@ -76,6 +76,12 @@ def _near_clip_soup(cam):
                                np.asarray(faces), cam,
                                np.array([0.9, 0.4, 0.1], np.float32))
     assert bool((~tris.valid[3:]).any()) and bool(tris.valid.any())
+    return tris
+
+
+def _near_clip_soup(cam):
+    """Triangles crossing the near plane plus a few discs."""
+    tris = _near_clip_tris(cam)
     rng = np.random.default_rng(5)
     pos = rng.uniform(-0.4, 0.4, (80, 3)).astype(np.float32)
     return ScreenPrimitives.concatenate(
@@ -181,6 +187,51 @@ def droplet_soup(cam, n=160, seed=13, frame=120, long_caps=12):
     return ScreenPrimitives(kind=soup.kind, params=soup.params,
                             color=soup.color, valid=valid, bbox=soup.bbox,
                             normal=soup.normal)
+
+
+def mesh_soup(cam, n=12, seed=17, scale=4.0, ties=3, near=2, discs=60):
+    """A mesh-LOD droplet soup at ``cam``: the ground, ``n`` instanced
+    teardrop meshes at seeded positions and velocity orientations, scaled
+    ``scale`` times about their centres (a triangle spans a few pixels at
+    150x90), the first ``ties`` after the near ones instanced twice (exact
+    depth ties between ids), ``near`` unscaled droplets close to the eye
+    whose near clip splits triangles and leaves invalid rows, three wide
+    triangles across the near plane (big-list rows), and ``discs`` gray
+    discs."""
+    from pointcloud_render_tpu_torch.geometry import droplet  # noqa: PLC0415
+    from pointcloud_render_tpu_torch.geometry import (  # noqa: PLC0415
+        rotation,
+    )
+
+    dev = cam.device
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.35, 0.35, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 2, (n, 3)).astype(np.float32)
+    eye = np.array(ORIGIN, np.float32)
+    fwd = np.array(TARGET, np.float32) - eye
+    fwd /= np.linalg.norm(fwd)
+    side = np.cross(fwd, [0.0, 0.0, 1.0]).astype(np.float32)
+    for k, dist in enumerate((0.104, 0.11)[:near]):
+        pos[k] = eye + fwd * dist + side * (0.02 - 0.04 * k)
+    pos = np.concatenate([pos, pos[near:near + ties]])
+    vel = np.concatenate([vel, vel[near:near + ties]])
+    m = pos.shape[0]
+    rot = rotation.rotation_matrices_from_velocities(
+        torch.tensor(vel, device=dev), torch.tensor(pos, device=dev))
+    verts, faces = droplet.instance_droplets(rot)
+    centre = torch.tensor(pos, device=dev)[:, None, :]
+    factor = torch.full((m, 1, 1), scale, device=dev)
+    factor[:near] = 1.0
+    verts = ((verts.reshape(m, -1, 3) - centre) * factor + centre).reshape(
+        -1, 3)
+    tris = triangles_from_mesh(verts, faces, cam,
+                               np.array([0.3, 0.3, 0.8], np.float32))
+    parts = [ground_plane(cam, 10.0, (0, 0, -0.5)), tris,
+             _near_clip_tris(cam)]
+    if discs:
+        parts.append(_discs(cam, rng.uniform(-0.4, 0.4, (discs, 3)).astype(
+            np.float32), 0.02))
+    return ScreenPrimitives.concatenate(parts)
 
 
 def cloud(n=300, seed=0):
