@@ -7,7 +7,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels (one source, six kernels) from csrc/ with nvcc;
+  2. build the kernels (one source, eight kernels) from csrc/ with nvcc;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
      seeded soups at 1920x1080 and one traj_ball frame, and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
@@ -74,14 +74,41 @@ Phases (any failure exits non-zero and prints no result line):
      (the bound counts the entries its tiles walked before their exits,
      which the kernel reports) and off, and its plain time, at frames 120
      and 205, and a mesh-LOD soup of 13,026
-     droplets (one past the 2^24-row id limit) must raise ValueError.
+     droplets (one past the 2^24-row id limit) must raise ValueError;
+ 10. the history-trail slice: (a) csr6_cap10 (the 10-float cap_rows10
+     walk) at spans 2, 4 and 8 and csr6_raster at spans 4 and 8 against
+     their plain versions on phase 3's soups, and the cap_rows10
+     FramePipeline frames equal to the default walk's (rgb, depth, index)
+     at phase 6's traj_ball frames 120 and 205; (b) the traj preset at
+     700,000 points (15,400,004 rows): seeded PLYs of frames 0-23
+     (positions uniform in [-0.5, 0.5)^3, velocities normal(0, 2), frame
+     n = p0 + v * 0.002 * n) through the traj CLI (history preload,
+     records ok, PNGs), cap_rows10 frames at spans 2 and 4 equal to the
+     default walk's at frames 20, 21 and 23 (csr6_cap10 launched there),
+     both kernels == plain and == each other at the frame's shape (span
+     2, timed with their bounds; spans 4 and 8 timed) and at spans 2, 4
+     and 8 on a 100,000-point traj soup, the warm frame, its stages and a
+     trace, a 40-frame scan from frame 0 in chunks of 8 (the rolling
+     history buffer fills during it; certificate 0, one csr6_raster
+     launch per frame, a traced chunk synchronises once), and 762,601
+     points raising the 2^24 ValueError; (c) the v3 disc fast path:
+     csr3_raster with its exit on and off against its plain version on
+     phase 3's disc scene with exact ties, its wide-disc soup and its
+     capsule + triangle soup (big lists), on entries cut to 2/3 of
+     true_entries, and on bench.py's disc lane at frames 0, 120 and 219
+     (entry_capacity by bench.py:407-425's rule), pallas3 frames equal
+     to pallas6 frames there, the kernel's time with its exit at five
+     block sizes and without it, the 220-frame pallas3 scan (certificate
+     0, one csr3_raster launch per frame, frames equal to the pallas6
+     scan's), and the example CLI with --backend pallas3 (PNGs
+     byte-equal to pallas6's).
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
 the walk must evaluate times the float32 operations per pair, over the
 card's float32 rate without multiply-add fusion; or its bytes over the
-memory rate if that is larger); csr4_raster's entry adds ms_exit_off
-and bound_ms_exit_off, the walk of every entry.
+memory rate if that is larger); csr4_raster's and csr3_raster's entries
+add ms_exit_off and bound_ms_exit_off, the walk of every entry.
 """
 
 from __future__ import annotations
@@ -106,6 +133,8 @@ REPLACES = {
     "csr6_raster[bin_triangles]":
         "pointcloud_render_tpu/raster/pallas_csr6.py:904",
     "csr4_raster": "pointcloud_render_tpu/raster/pallas_csr4.py:385",
+    "csr6_cap10": "pointcloud_render_tpu/raster/pallas_csr6.py:298",
+    "csr3_raster": "pointcloud_render_tpu/raster/pallas_csr3.py:254",
 }
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
 SCAN_FRAMES = 220
@@ -146,6 +175,22 @@ DROPLET_SEGMENTS = 4
 MESH_DROPLETS = 10_000
 MESH_ROWS_PER_DROPLET = 1288
 MESH_MAX_DROPLETS = ((1 << 24) - 4 - 1) // MESH_ROWS_PER_DROPLET
+# The history-trail slice: a traj frame holds the ground's 4 rows and 22
+# per point (head disc, tail capsule, 20 trail capsules), so at most
+# 762,600 points; the slice runs 700,000 (15,400,004 rows), its seeded
+# PLYs advected by TRAJ_DT per frame (the step of the advected scans
+# above; scene/dynamics.py has no step of its own).
+# bench.py's disc lane: 1M gray splats of radius 0.002 (bench.py:383-398).
+DISC_POINTS = 1_000_000
+TRAJ_POINTS = 700_000
+TRAJ_ROWS_PER_POINT = 22
+TRAJ_MAX_POINTS = ((1 << 24) - 4 - 1) // TRAJ_ROWS_PER_POINT
+TRAJ_PLY_FRAMES = 24
+TRAJ_DT = 0.002
+TRAJ_SCAN_FRAMES = 40
+# Entries the v3 kernel walks between two checks of its early exit: the
+# blocks timed, and the one the port ships (csr3.EXIT_BLOCK).
+V3_BLOCKS = (64, 128, 256, 512, 1024)
 
 
 class SmokeFailure(Exception):
@@ -388,14 +433,15 @@ def check_equal_bits(got, want, what):
 
 
 def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
-                 height, bin_triangles):
-    """(bound ms, "operations" | "bytes") of a 16-float walk (v6 or v4)
-    whose tiles evaluate entries of prim kinds ``kinds`` (one per (tile,
-    prim) pair; the v4 entries, which the v6 class weights count too) at
-    1024 pixels each, 18 operations for a triangle under
-    ``bin_triangles`` (the dual) and 17 otherwise, and every pixel x every
-    live big row; bytes: ``n_rows`` rows read once with their ids, the big
-    rows, ``n_starts`` range bounds, two output images."""
+                 height, bin_triangles, row_bytes=64):
+    """(bound ms, "operations" | "bytes") of a 16-float walk (v6 or v4; or
+    the 10-float cap_rows10 walk, ``row_bytes`` 40) whose tiles evaluate
+    entries of prim kinds ``kinds`` (one per (tile, prim) pair; the v4
+    entries, which the v6 class weights count too) at 1024 pixels each,
+    18 operations for a triangle under ``bin_triangles`` (the dual) and
+    17 otherwise, and every pixel x every live big row; bytes: ``n_rows``
+    rows read once with their ids, the big rows, ``n_starts`` range
+    bounds, two output images."""
     n_tri = int((kinds == 2).sum()) if bin_triangles else 0
     n_ent = int(kinds.numel())
     nb = int(big_n[0])
@@ -404,31 +450,34 @@ def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
     ops = (1024 * (n_tri * OPS_TRIANGLE16 + (n_ent - n_tri) * OPS_CAPSULE16)
            + pixels * (nb_tri * OPS_TRIANGLE16
                        + (nb - nb_tri) * OPS_CAPSULE16))
-    nbytes = (n_rows + nb) * (64 + 4) + n_starts * 4 + pixels * 4 * 2
+    nbytes = (n_rows * (row_bytes + 4) + nb * (64 + 4) + n_starts * 4
+              + pixels * 4 * 2)
     t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
-            timing=False):
+            timing=False, span=2):
     """csr6_raster (with ``bin_triangles`` or without) vs its plain
-    version on one soup -> (dict(err, ms, plain_ms, bound_ms, bound_by),
-    (depth, index)); times and bound only with ``timing``."""
+    version on one soup binned at ``span`` -> (dict(err, ms, plain_ms,
+    bound_ms, bound_by), (depth, index)); times and bound only with
+    ``timing``."""
     import torch
 
-    b = csr6.bin_csr6(soup, width, height, max_big,
+    b = csr6.bin_csr6(soup, width, height, max_big, span=span,
                       bin_triangles=bin_triangles)
     check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
     zeros = torch.zeros((soup.count, 3), device=soup.device)
     table = csr6.build_table16(soup, zeros, zeros[:, 0],
                                bin_triangles=bin_triangles)
     args = (table, b["order"], b["starts"], b["big_ids"], b["big_n"],
-            width, height, bin_triangles)
+            width, height, bin_triangles, span)
     got = csr6.raster_tiles(*args)
     torch.cuda.synchronize()
     want = csr6.raster_tiles_plain(*args)
     torch.cuda.synchronize()
-    name = "csr6_raster" + ("[bin_triangles]" if bin_triangles else "")
+    name = "csr6_raster" + ("[bin_triangles]" if bin_triangles else "") + (
+        f" span {span}" if span != 2 else "")
     out = dict(err=check_equal_bits(got, want, name))
     if timing:
         b4 = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
@@ -575,6 +624,110 @@ def compare_rows9(soup, width, height, csr6, max_big, span, timing=False):
                    plain_ms=time_ms(
                        lambda: csr6.raster_tiles_rows9_plain(*args), 1),
                    bound_ms=bound_ms, bound_by=bound_by)
+    return out, b
+
+
+def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
+    """csr6_cap10 vs its plain version on one soup at ``span`` ->
+    (dict(err, binned, big, entries, and with ``timing`` ms, plain_ms,
+    bound_ms, bound_by), (depth, index)); the bound counts 17 operations
+    per capsule pair, as row 1's, and 40-byte rows."""
+    import torch
+
+    b = csr6.bin_csr6(soup, width, height, max_big, span=span)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    args = (csr6.build_table10(soup),
+            csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
+            b["order"], b["starts"], b["big_n"], width, height, span)
+    got = csr6.raster_tiles_cap10(*args)
+    torch.cuda.synchronize()
+    want = csr6.raster_tiles_cap10_plain(*args)
+    torch.cuda.synchronize()
+    out = dict(err=check_equal_bits(got, want, f"csr6_cap10 span {span}"),
+               binned=int(b["starts"][-1]), big=int(b["big_count"]),
+               entries=int(b["diag"]["true_entries"]))
+    if timing:
+        bound_ms, bound_by = walk_bound(b, soup, width, height, 40,
+                                        OPS_CAPSULE16, 2, span=span)
+        out.update(ms=time_ms(lambda: csr6.raster_tiles_cap10(*args), 11),
+                   plain_ms=time_ms(
+                       lambda: csr6.raster_tiles_cap10_plain(*args), 1),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    return out, got
+
+
+def v3_bound(soup, b, entries_walked, width, height):
+    """(bound ms, "operations" | "bytes") of the v3 walk: 1024 pixels x
+    the entries walked at OPS_DISC8 operations, every pixel x every live
+    big row (18 operations for a triangle, 17 otherwise); bytes: the 16
+    bytes of each walked entry row the walk reads, the big rows, the
+    starts, two output images."""
+    nb = int(b["big_n"][0])
+    n_tri = int((soup.kind[b["big_ids"][:nb].long()] == 2).sum())
+    pixels = width * height
+    ops = (1024 * entries_walked * OPS_DISC8
+           + pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16))
+    nbytes = (entries_walked * 16 + nb * 64 + b["starts"].numel() * 4
+              + pixels * 4 * 2)
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
+               what=""):
+    """csr3_raster with its exit on and off vs its plain version (which
+    never exits) on one soup, entries past ``cap`` dropped ->
+    (dict(err, and with ``timing``: ms, ms_exit_off, plain_ms, bound_ms,
+    bound_ms_exit_off, bound_by, entries, walked, blocks), binning).
+    ``blocks`` holds (block, ms, entries walked) of the exit-on walk at
+    each of V3_BLOCKS."""
+    import torch
+
+    b = csr3.bin_csr_2x2(soup, width, height, max_big=1 << 16)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    entries, starts = csr3.cut_entries(b, cap)
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    rows = csr3.pack_rows8(soup, entries, b["big_ids"], zeros, zeros[:, 0],
+                           (0.0, 0.0, 0.0))
+    args = (rows[:entries.shape[0]],
+            csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
+            starts, b["big_n"], b["zmeta"], width, height, b["zq_bits"])
+    check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
+    want = csr3.raster_tiles3_plain(*args)
+    lengths = starts[1:] - starts[:-1]
+    walked = torch.empty_like(lengths)
+    errs = []
+    for exit_on in (True, False):
+        got = csr3.raster_tiles3(*args, walked=walked, allow_exit=exit_on)
+        torch.cuda.synchronize()
+        errs.append(check_equal_bits(
+            got, want, f"csr3_raster {what} exit {'on' if exit_on else 'off'}"
+            + (f" entry_capacity {cap}" if cap is not None else "")))
+        check(bool((walked <= lengths).all()) and (
+            exit_on or torch.equal(walked, lengths)),
+            f"csr3_raster {what}: walked {int(walked.sum())} of "
+            f"{int(lengths.sum())} entries (exit {exit_on})")
+    out = dict(err=max(errs))
+    if timing:
+        n = int(starts[-1])
+        blocks = []
+        for block in V3_BLOCKS:
+            csr3.raster_tiles3(*args, walked=walked, block=block)
+            blocks.append((block, time_ms(
+                lambda k=block: csr3.raster_tiles3(*args, block=k), 11),
+                int(walked.sum())))
+        csr3.raster_tiles3(*args, walked=walked)
+        n_walked = int(walked.sum())
+        on, off = (v3_bound(soup, b, e, width, height)
+                   for e in (n_walked, n))
+        out.update(ms=time_ms(lambda: csr3.raster_tiles3(*args), 11),
+                   ms_exit_off=time_ms(lambda: csr3.raster_tiles3(
+                       *args, allow_exit=False), 11),
+                   plain_ms=time_ms(lambda: csr3.raster_tiles3_plain(*args),
+                                    2),
+                   bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
+                   entries=n, walked=n_walked, blocks=blocks)
     return out, b
 
 
@@ -1565,6 +1718,461 @@ def v4_flagship(card, dev, inp, out_default, out_v4, counters, max_err):
     return dict(timed4[120], launches=launches)
 
 
+def traj_stages(csr6, pipeline, trails_mod, prims_mod, preset, pcl, hist,
+                fi, dev, max_big):
+    """The stages of one traj frame (default config): the soup build split
+    into its droplet part, the history trails (Catmull-Rom fit, then their
+    capsules) and the concatenation, then the order render_shaded_csr6
+    runs.  ``hist`` is the (20, N, 3) history on the device."""
+    import numpy as np
+
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    shading = ShadingConfig()
+
+    def droplets(f):
+        f["cam"] = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        f["pos"] = pcl[:, :3]
+        f["soup"] = pipeline.build_primitives(preset, f["cam"], f["pos"],
+                                              pcl[:, 3:], fi)
+
+    def fit(f):
+        f["pts"], f["valid"], f["keep"] = trails_mod.catmull_rom_trails(
+            hist, f["pos"])
+
+    def capsules(f):
+        f["trail"] = prims_mod.capsules_from_polylines(
+            f["pts"], f["keep"] & f["valid"][:, None], f["cam"],
+            preset.trail_radius, np.asarray(preset.trail_color, np.float32))
+
+    def concat(f):
+        f["soup"] = prims_mod.ScreenPrimitives.concatenate(
+            [f["soup"], f["trail"]])
+
+    def preshade(f):
+        f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big)
+
+    def table(f):
+        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"])
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], f["index"] = csr6.raster_tiles(
+            f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
+            WIDTH, HEIGHT)
+
+    def shade(f):
+        csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
+                         f["index"], f["rgb"], f["flag"])
+
+    return [("camera + ground + droplets", droplets),
+            ("catmull_rom_trails", fit),
+            ("trail capsules_from_polylines", capsules),
+            ("soup concatenate", concat), ("preshade", preshade),
+            ("binning (sort, starts, big list)", binning),
+            ("table16", table), ("csr6_raster kernel", kernel),
+            ("shade_by_id", shade),
+            ("overflow read-back",
+             lambda f: int(f["b"]["diag"]["big_overflow"]))]
+
+
+def traj_slice(card, dev, max_err, counters, tmp) -> dict:
+    """Phase 10 (b): the traj preset at 700,000 points -> dict(launches,
+    ms, plain_ms, bound_ms, bound_by) of csr6_cap10 (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.geometry import trails as trails_mod
+    from pointcloud_render_tpu_torch.io import ply
+    from pointcloud_render_tpu_torch.raster import csr4, csr6
+    from pointcloud_render_tpu_torch.raster import primitives as prims_mod
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+    from pointcloud_render_tpu_torch.scene import dynamics
+
+    preset = PRESETS["traj"]
+    pos, vel = flagship_cloud(TRAJ_POINTS, seed=17)
+    inp, out = os.path.join(tmp, "in_traj"), os.path.join(tmp, "out_traj")
+    os.makedirs(inp)
+    for n in range(TRAJ_PLY_FRAMES):
+        ply.write_ply(os.path.join(inp, f"frame_{n:04d}_b0.ply"),
+                      pos + vel * np.float32(TRAJ_DT * n), velocities=vel)
+    last = TRAJ_PLY_FRAMES - 1
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    sink = traj_renderer.main(
+        ["--input-folder", inp, "--output-folder", out, "--frames",
+         f"0:{TRAJ_PLY_FRAMES}", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == TRAJ_PLY_FRAMES
+          and all(st == "ok" for _, st, _ in statuses),
+          f"traj frame records not all ok: {statuses}")
+    for fi in (20, 21, last):
+        check(os.path.getsize(os.path.join(out, f"frame_{fi:04d}_b0.png"))
+              > 1000, f"traj frame_{fi:04d}_b0.png missing")
+    check(set(counts) == {"raster_tiles"}
+          and counts["raster_tiles"] >= TRAJ_PLY_FRAMES,
+          f"traj CLI: launches {counts}, want csr6_raster once per frame "
+          "or more (self-heals) and no other kernel")
+    for r in sink.records:
+        if r.frame_index in (0, 20, 21, last):
+            t = " ".join(f"{k}={v * 1e3:.1f}ms"
+                         for k, v in r.timings_s.items())
+            print(f"[traj cli] frame {r.frame_index}: {r.points} points {t} "
+                  f"({card})", flush=True)
+    print(f"[traj cli] traj frames 0-{last} ok (history preload, 20-frame "
+          f"windows from frame 20), PNGs written; csr6_raster launches "
+          f"{counts['raster_tiles']}; {wall:.1f} s wall", flush=True)
+
+    pipe = pipeline.FramePipeline(preset, device=dev)
+    clouds = [pipe.load_and_prepare(os.path.join(inp,
+                                                 f"frame_{n:04d}_b0.ply"))
+              for n in range(TRAJ_PLY_FRAMES)]
+
+    def history(fi, n=None):
+        return np.stack([c[:n, :3] for c in clouds[max(0, fi - 20):fi]])
+
+    # The cap_rows10 walk on its main path: FramePipeline frames at spans
+    # 2 and 4, each equal to the default walk's at the same span.
+    span4 = pipeline.FramePipeline(preset, RasterConfig(span=4), device=dev)
+    cap10 = {span: pipeline.FramePipeline(
+        preset, RasterConfig(cap_rows10=True, span=span), device=dev)
+        for span in (2, 4)}
+    reset_counts(counters)
+    for fi in (20, 21, last):
+        h = history(fi)
+        want = pipe.render_array(clouds[fi], fi, h)
+        equal_buffers(cap10[2].render_array(clouds[fi], fi, h), want,
+                      f"traj frame {fi}: cap_rows10 vs the default walk")
+        check(bool((want.index >= 0).any())
+              and bool(torch.isfinite(want.rgb).all()), "traj frame empty")
+    h = history(last)
+    equal_buffers(cap10[4].render_array(clouds[last], last, h),
+                  span4.render_array(clouds[last], last, h),
+                  f"traj frame {last}: cap_rows10 span 4 vs span 4")
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    launches = counts.get("raster_tiles_cap10", 0)
+    check(launches >= 4, f"cap_rows10 frames: launches {counts}, want "
+          "csr6_cap10 at least 4 times")
+    print(f"[traj] frames 20, 21, {last} (span 2) and {last} (span 4): "
+          f"cap_rows10 == the default walk bit for bit (rgb, depth, index);"
+          f" launches {counts}", flush=True)
+
+    # The frame's shape, and the kernels against their plain versions.
+    hist = torch.tensor(h, device=dev)
+    pcl = clouds[last]
+    cam = pipeline.frame_camera(preset, last, WIDTH, HEIGHT, dev)
+    soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
+                                     last, hist)
+    check(soup.count == 4 + TRAJ_ROWS_PER_POINT * TRAJ_POINTS,
+          f"traj soup holds {soup.count} rows")
+    max_big = pipe.raster_config.max_big
+    res10, got10 = compare_cap10(soup, WIDTH, HEIGHT, csr6, max_big, 2,
+                                 timing=True)
+    res16, got16 = compare(soup, WIDTH, HEIGHT, csr6, csr4, max_big,
+                           timing=True)
+    check_equal_bits(got10, got16, "traj frame: csr6_cap10 == csr6_raster")
+    max_err["csr6_cap10"] = max(max_err["csr6_cap10"], res10["err"])
+    max_err["csr6_raster"] = max(max_err["csr6_raster"], res16["err"])
+    print(f"[traj] frame {last}: {soup.count} prims "
+          f"({int(soup.valid.sum())} valid), {res10['binned']} binned, big "
+          f"list {res10['big']}, tile entries {res10['entries']} at span 2",
+          flush=True)
+    print(f"[time] csr6_cap10 kernel {res10['ms']:.3f} ms (median of 11), "
+          f"plain {res10['plain_ms']:.1f} ms, bound {res10['bound_ms']:.3f} "
+          f"ms by {res10['bound_by']}; csr6_raster {res16['ms']:.3f} ms, "
+          f"plain {res16['plain_ms']:.1f} ms, bound {res16['bound_ms']:.3f} "
+          f"ms, at the traj frame-{last} shape, span 2 ({card})", flush=True)
+    zeros = torch.zeros((soup.count, 3), device=dev)
+    for span in (4, 8):
+        b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, span=span)
+        r10 = (csr6.build_table10(soup), csr6.build_table16_rows(
+            soup, zeros, zeros[:, 0], b["big_ids"]), b["order"],
+            b["starts"], b["big_n"], WIDTH, HEIGHT, span)
+        r16 = (csr6.build_table16(soup, zeros, zeros[:, 0]), b["order"],
+               b["starts"], b["big_ids"], b["big_n"], WIDTH, HEIGHT, False,
+               span)
+        check_equal_bits(csr6.raster_tiles_cap10(*r10),
+                         csr6.raster_tiles(*r16),
+                         f"traj frame span {span}: cap10 == csr6_raster")
+        print(f"[time] traj frame {last} span {span}: csr6_cap10 "
+              f"{time_ms(lambda a=r10: csr6.raster_tiles_cap10(*a), 11):.3f}"
+              f" ms, csr6_raster "
+              f"{time_ms(lambda a=r16: csr6.raster_tiles(*a), 11):.3f} ms "
+              f"(medians of 11; {int(b['starts'][-1])} binned, big list "
+              f"{int(b['big_count'])}, tile entries "
+              f"{int(b['diag']['true_entries'])}) ({card})", flush=True)
+    del r10, r16, zeros
+    # Both kernels == plain at spans 2, 4, 8 on a 100,000-point traj soup.
+    n_small = 100_000
+    small = pipeline.build_primitives(
+        preset, cam, pcl[:n_small, :3], pcl[:n_small, 3:], last,
+        torch.tensor(history(last, n_small), device=dev))
+    for span in csr6.SPANS:
+        r10, _ = compare_cap10(small, WIDTH, HEIGHT, csr6, 1 << 16, span)
+        r16, _ = compare(small, WIDTH, HEIGHT, csr6, csr4, 1 << 16,
+                         span=span)
+        max_err["csr6_cap10"] = max(max_err["csr6_cap10"], r10["err"])
+        max_err["csr6_raster"] = max(max_err["csr6_raster"], r16["err"])
+        print(f"[kernel==plain] csr6_cap10, csr6_raster span {span} traj "
+              f"{n_small} points: {small.count} prims, {r10['binned']} "
+              f"binned, big list {r10['big']} ok", flush=True)
+
+    # The warm frame, its stages and a trace.
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.render_array(pcl, last, h)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    print(f"[time] traj frame {last} render_array warm: median {med:.2f} ms, "
+          f"quartiles {q1:.2f}-{q3:.2f} ms over 5 frames ({TRAJ_POINTS} "
+          f"points, 20 frames of history) ({card})", flush=True)
+    for stage, ms in stage_times(traj_stages(
+            csr6, pipeline, trails_mod, prims_mod, preset,
+            torch.tensor(pcl, device=dev), hist, last, dev,
+            max_big)).items():
+        print(f"[stage] traj frame {last} {stage}: {ms:.3f} ms ({card})",
+              flush=True)
+    busy, wall_us, top, _ = device_profile(
+        lambda: pipe.render_array(pcl, last, h), 1, tmp)
+    if top:
+        print(f"[trace] traj frame {last}: device busy {busy / 1e3:.2f} of "
+              f"{wall_us / 1e3:.2f} ms wall, idle share "
+              f"{1 - busy / wall_us:.3f} ({card})", flush=True)
+        for name, us in top[:8]:
+            print(f"[trace] traj {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
+    else:
+        print("[trace] traj frame: the profiler saw no device activity; "
+              "device busy share not measured", flush=True)
+    del soup, small, got10, got16
+
+    # The scan: the rolling buffer fills during 40 frames from frame 0.
+    film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
+                device="cuda")
+    scan = trajectory.TrajectoryScanRenderer(preset, dt=TRAJ_DT, **film)
+    p0, v0 = clouds[0][:, :3], clouds[0][:, 3:]
+    scan.render_frames(p0, v0, range(SCAN_CHUNK))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    frames, final = scan.render_frames(p0, v0, range(TRAJ_SCAN_FRAMES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    check(counts == {"raster_tiles": TRAJ_SCAN_FRAMES},
+          f"traj scan: launches {counts}, want csr6_raster once per frame")
+    moved = torch.tensor(p0, device=dev)
+    vdev = torch.tensor(v0, device=dev)
+    for _ in range(TRAJ_SCAN_FRAMES):
+        moved = dynamics.advect(moved, vdev, TRAJ_DT)
+    check(torch.equal(final, moved), "traj scan: final positions differ")
+    check(all((f.min(axis=2) < 250).mean() > 0.01 for f in frames),
+          "traj scan frames look empty")
+    print(f"[scan] traj {TRAJ_SCAN_FRAMES} frames from frame 0, "
+          f"{TRAJ_POINTS} points, chunks of {SCAN_CHUNK}, dt {TRAJ_DT}: "
+          f"certificate 0 on every chunk, launches {counts}, max_big "
+          f"{scan.raster_config.max_big}, {wall:.3f} s wall, "
+          f"{TRAJ_SCAN_FRAMES / wall:.2f} frames/s warm ({card})", flush=True)
+    p0_dev = torch.tensor(p0, device=dev)
+    busy, wall_us, top, calls = device_profile(
+        lambda: scan.render_frames(p0_dev, vdev, range(32, 40)), 1, tmp)
+    if top:
+        waits = sum(v for k, v in calls.items() if "Synchronize" in k)
+        print(f"[trace] traj scan chunk (frames 32-39): device busy "
+              f"{busy / 1e3:.2f} of {wall_us / 1e3:.2f} ms wall, idle share "
+              f"{1 - busy / wall_us:.3f}; host calls {calls} ({card})",
+              flush=True)
+        check(waits < SCAN_CHUNK, f"the traj chunk synchronised {waits} "
+              "times: the frame loop waits for the device inside a chunk")
+    else:
+        print("[trace] traj scan: the profiler saw no device activity; "
+              "device busy share not measured", flush=True)
+    del frames
+
+    # One point past the 2^24-row limit raises the JAX package's error.
+    over = TRAJ_MAX_POINTS + 1
+    rng = np.random.default_rng(19)
+    big = np.concatenate([rng.uniform(-0.5, 0.5, (over, 3)),
+                          rng.normal(0.0, 2.0, (over, 3))],
+                         axis=1).astype(np.float32)
+    try:
+        pipe.render_array(big, last, np.stack([big[:, :3]] * 20))
+    except ValueError as e:
+        check("2^24" in str(e), f"{over} points: {e}")
+        print(f"[traj] {over} points ({4 + TRAJ_ROWS_PER_POINT * over} rows) "
+              f"raise ValueError: {e}", flush=True)
+    else:
+        raise SmokeFailure(f"{over} traj points rendered past the 2^24-row "
+                           "id limit")
+    return dict(res10, launches=launches)
+
+
+def v3_lane(card, dev, max_err, counters, tmp, seeded) -> dict:
+    """Phase 10 (c): the v3 disc fast path -> dict(launches, ms,
+    ms_exit_off, plain_ms, bound_ms, bound_ms_exit_off, bound_by) of
+    csr3_raster (see the module docstring).  ``seeded`` holds phase 3's
+    soups by name."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import example_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.io import ply
+    from pointcloud_render_tpu_torch.raster import csr3, csr6
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+
+    # The kernel against its plain version, exit on and off: exact ties
+    # and two wide discs; wide discs on the big list; capsules and
+    # triangles on the big list (with invalid rows); entries cut to 2/3.
+    for name in ("disc_ties_wide", "big_list", "invalid_nearclip"):
+        res, b = compare_v3(seeded[name], WIDTH, HEIGHT, csr3, csr6,
+                            what=name)
+        max_err["csr3_raster"] = max(max_err["csr3_raster"], res["err"])
+        print(f"[kernel==plain] csr3_raster exit on and off {name}: "
+              f"{seeded[name].count} prims, {int(b['starts'][-1])} entries, "
+              f"big list {int(b['big_count'])} ok", flush=True)
+    soup = seeded["disc_ties_wide"]
+    cap = 2 * int(csr3.true_entry_count3(soup, WIDTH, HEIGHT)) // 3
+    compare_v3(soup, WIDTH, HEIGHT, csr3, csr6, cap=cap, what="ties")
+    print(f"[kernel==plain] csr3_raster exit on and off disc_ties_wide, "
+          f"entries cut to {cap} (2/3 of true_entries) ok", flush=True)
+
+    # bench.py's disc lane, as phase 7.
+    n = DISC_POINTS
+    pos_host = np.random.default_rng(0).uniform(
+        -0.5, 0.5, (n, 3)).astype(np.float32)
+    pos = torch.tensor(pos_host, device=dev)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.002,
+                                 point_color=LOOK[0])
+    cfg6 = RasterConfig(discs_only=True, max_big=256, uniform_look=LOOK)
+    # bench.py:407-425: 1.15 x the largest true entry count over frames
+    # 0, 120, 199 and 219, rounded up to 128; no big-list overflow.
+    true = {}
+    for fi in (0, 120, 199, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        s = pipeline.build_primitives(preset, cam, pos, None, fi)
+        true[fi] = int(csr3.true_entry_count3(s, WIDTH, HEIGHT))
+        check(int(csr3.bin_diagnostics3(s, WIDTH, HEIGHT)) == 0,
+              f"disc lane frame {fi}: v3 big list overflows")
+    capacity = ((int(max(true.values()) * 1.15) + 127) // 128) * 128
+    cfg3 = dataclasses.replace(cfg6, backend="pallas3",
+                               entry_capacity=capacity)
+    print(f"[v3] disc lane true entries {true}: entry_capacity {capacity}",
+          flush=True)
+    timed = {}
+    for fi in (0, 120, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        s = pipeline.build_primitives(preset, cam, pos, None, fi)
+        res, b = compare_v3(s, WIDTH, HEIGHT, csr3, csr6, cap=capacity,
+                            timing=fi == 120, what=f"disc lane frame {fi}")
+        max_err["csr3_raster"] = max(max_err["csr3_raster"], res["err"])
+        fb3, diag = render(s, cam, cfg3, return_diag=True)
+        fb6 = render(s, cam, cfg6)
+        equal_buffers(fb3, fb6, f"disc lane frame {fi}: pallas3 vs pallas6 "
+                      "(uniform_look)")
+        check(int(diag["true_entries"]) <= capacity, "capacity violated")
+        print(f"[v3] disc lane frame {fi}: {s.count} prims, "
+              f"{int(b['starts'][-1])} entries, big list "
+              f"{int(b['big_count'])}; csr3_raster == plain exit on and off; "
+              "pallas3 frame == pallas6 frame bit for bit (index, depth, "
+              "rgb)", flush=True)
+        if fi == 120:
+            timed = res
+            for block, ms, walked in res["blocks"]:
+                print(f"[time] csr3_raster exit block {block}: {ms:.3f} ms "
+                      f"(median of 11), {walked} of {res['entries']} entries "
+                      f"walked ({card})", flush=True)
+            print(f"[time] csr3_raster kernel {res['ms']:.3f} ms (block "
+                  f"{csr3.EXIT_BLOCK}), bound {res['bound_ms']:.3f} ms by "
+                  f"{res['bound_by']} ({res['walked']} of {res['entries']} "
+                  f"entries walked); exit off {res['ms_exit_off']:.3f} ms, "
+                  f"bound {res['bound_ms_exit_off']:.3f} ms; plain "
+                  f"{res['plain_ms']:.1f} ms, at the disc lane's frame-120 "
+                  f"shape ({card})", flush=True)
+
+    # The flythrough through pallas3: warm-up chunk, then 220 frames.
+    film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
+                device="cuda")
+    scan = trajectory.TrajectoryScanRenderer(preset, cfg3, **film)
+    scan.render_frames(pos, None, range(SCAN_CHUNK))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    frames, _ = scan.render_frames(pos, None, range(SCAN_FRAMES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    check(counts == {"raster_tiles3": SCAN_FRAMES},
+          f"pallas3 scan: launches {counts}, want csr3_raster once per frame")
+    launches = counts["raster_tiles3"]
+    check(len(frames) == SCAN_FRAMES, "pallas3 scan frames missing")
+    check_ids = (0, SCAN_FRAMES // 2, SCAN_FRAMES - 1)
+    want, _ = trajectory.TrajectoryScanRenderer(preset, cfg6, **film) \
+        .render_frames(pos, None, check_ids)
+    for fi, w in zip(check_ids, want):
+        check(np.array_equal(frames[fi], w),
+              f"pallas3 scan frame {fi} differs from the pallas6 scan's")
+    print(f"[scan] pallas3 {SCAN_FRAMES} frames, {n} points, chunks of "
+          f"{SCAN_CHUNK}: certificate 0 on every chunk (entry_capacity "
+          f"{capacity}), launches {counts}, {wall:.3f} s wall, "
+          f"{SCAN_FRAMES / wall:.2f} frames/s warm; frames {check_ids} == "
+          f"the pallas6 scan's ({card})", flush=True)
+    del frames
+
+    # The example CLI with --backend pallas3 on two positions-only PLYs:
+    # PNGs byte-equal to the default (pallas6) run's.
+    inp = os.path.join(tmp, "in_example")
+    os.makedirs(inp)
+    for k in range(2):
+        ply.write_ply(os.path.join(inp, f"pts_{k}.ply"),
+                      pos_host * (1.0 + 0.1 * k))
+    outs = {}
+    for backend in ("pallas3", "pallas6"):
+        outs[backend] = os.path.join(tmp, f"out_example_{backend}")
+        reset_counts(counters)
+        sink = example_renderer.main(
+            ["--input-folder", inp, "--output-folder", outs[backend],
+             "--frames", "0,1", "--device", "cuda", "--backend", backend])
+        torch.cuda.synchronize()
+        counts = launch_counts(counters)
+        statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+        check(len(statuses) == 2 and all(st == "ok" for _, st, _ in statuses),
+              f"example CLI {backend}: {statuses}")
+        want_kernel = "raster_tiles3" if backend == "pallas3" \
+            else "raster_tiles"
+        check(set(counts) == {want_kernel},
+              f"example CLI {backend}: launches {counts}")
+        for r in sink.records:
+            t = " ".join(f"{k}={v * 1e3:.1f}ms"
+                         for k, v in r.timings_s.items())
+            print(f"[v3 cli] example --backend {backend} frame "
+                  f"{r.frame_index}: {r.points} points {t} ({card})",
+                  flush=True)
+    for k in range(2):
+        with open(os.path.join(outs["pallas3"], f"pts_{k}.png"), "rb") as a, \
+                open(os.path.join(outs["pallas6"], f"pts_{k}.png"), "rb") as b:
+            check(a.read() == b.read(),
+                  f"example pts_{k}.png: pallas3 differs from pallas6")
+    print("[v3 cli] example preset --backend pallas3 frames 0, 1 ok; PNGs "
+          "byte-equal to pallas6's", flush=True)
+    return dict(timed, launches=launches)
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -1575,7 +2183,8 @@ def run() -> dict:
         from pointcloud_render_tpu_torch.cli import traj_ball_renderer
         from pointcloud_render_tpu_torch.configs import PRESETS
         from pointcloud_render_tpu_torch.io import ply
-        from pointcloud_render_tpu_torch.raster import csr4, csr6
+        from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
+        from pointcloud_render_tpu_torch.raster.render import RasterConfig
         from pointcloud_render_tpu_torch.run import pipeline
         from pointcloud_render_tpu_torch.scene import normalize
         from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
@@ -1591,13 +2200,14 @@ def run() -> dict:
 
     counters = (csr6.raster_tiles, csr6.raster_tiles_tri,
                 csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_uv,
-                csr6.raster_tiles_rows9, csr4.raster_tiles4)
+                csr6.raster_tiles_rows9, csr4.raster_tiles4,
+                csr6.raster_tiles_cap10, csr3.raster_tiles3)
 
     # Phase 2: build from the checkout's sources.
     t0 = time.perf_counter()
     kernels.load("csr6_raster")
-    print(f"[build] csr6_raster.cu (csr6_raster, csr6_disc8, "
-          f"csr6_disc8_uv, csr6_rows9, csr4_raster) "
+    print(f"[build] csr6_raster.cu (csr6_raster, csr6_cap10, csr6_disc8, "
+          f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in kernels.build_log("csr6_raster").splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
@@ -1630,6 +2240,8 @@ def run() -> dict:
               flush=True)
     # Phase 8 (a): the kind-split kernel at spans 2, 4 and 8 on the same
     # soups and on seeded traj_vel soups.
+    # Phase 10 (a): csr6_cap10 at spans 2, 4 and 8 and csr6_raster at 4
+    # and 8 on the same soups.
     seeded.update(droplet_soups(dev))
     for name, soup in seeded.items():
         for span in csr6.SPANS:
@@ -1638,6 +2250,18 @@ def run() -> dict:
             print(f"[kernel==plain] csr6_rows9 span {span} {name}: "
                   f"{soup.count} prims, {int(b['starts'][-1])} binned, big "
                   f"list {int(b['big_count'])} ok", flush=True)
+            res, _ = compare_cap10(soup, WIDTH, HEIGHT, csr6, 1 << 16, span)
+            max_err["csr6_cap10"] = max(max_err["csr6_cap10"], res["err"])
+            if span != 2:
+                r16, _ = compare(soup, WIDTH, HEIGHT, csr6, csr4, 1 << 16,
+                                 span=span)
+                max_err["csr6_raster"] = max(max_err["csr6_raster"],
+                                             r16["err"])
+            print(f"[kernel==plain] csr6_cap10{'' if span == 2 else ', csr6_raster'}"
+                  f" span {span} {name}: {res['binned']} binned, big list "
+                  f"{res['big']} ok", flush=True)
+    v3_soups = {k: seeded[k] for k in ("disc_ties_wide", "big_list",
+                                        "invalid_nearclip")}
     del seeded
     preset = PRESETS["traj_ball"]
     pos, vel = flagship_cloud(20000, seed=7)
@@ -1804,6 +2428,16 @@ def run() -> dict:
                   f"11), plain {plain_ms:.1f} ms (median of 2), bound "
                   f"{res['bound_ms']:.3f} ms by {res['bound_by']} at the "
                   f"frame-{fi} shape ({card})", flush=True)
+            if fi in (120, 205):
+                # Phase 10: the cap_rows10 walk renders the same frame.
+                cap10 = pipeline.FramePipeline(
+                    preset, RasterConfig(cap_rows10=True, max_big=max_big),
+                    device=dev)
+                equal_buffers(cap10.render_array(clouds[fi], fi),
+                              pipe.render_array(clouds[fi], fi),
+                              f"traj_ball frame {fi}: cap_rows10 vs default")
+                print(f"[heal] frame {fi}: cap_rows10 frame == the default "
+                      "walk's bit for bit (rgb, depth, index)", flush=True)
         del clouds, soup
         # Phase 8 (b): the traj_vel CLI on the same PLYs.
         droplet_cli(card, inp, os.path.join(tmp, "out_vel"), counters)
@@ -1818,9 +2452,15 @@ def run() -> dict:
     # Phase 9 (b): 10,000 mesh-LOD droplets.
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         mesh = mesh_lane(card, dev, max_err, counters, tmp)
+    # Phase 10 (b): the traj preset at 700,000 points (cap_rows10).
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        traj = traj_slice(card, dev, max_err, counters, tmp)
+    # Phase 10 (c): the v3 disc fast path (pallas3).
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        v3 = v3_lane(card, dev, max_err, counters, tmp, v3_soups)
     numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
-               "csr4_raster": v4}
+               "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3}
     return dict(card=card, kernels=[dict(
         name=name, route="cuda", source=KERNEL_SOURCE,
         replaces=REPLACES[name], launches=numbers[name]["launches"],

@@ -10,11 +10,13 @@ The PyTorch twin of ``pointcloud_render_tpu.cli.main``.  ``--device``
 defaults to ``cuda`` and never falls back to the CPU; ``--device cpu``
 runs the plain PyTorch rasterizer.  ``--droplet-lod mesh`` renders the
 droplets as the instanced teardrop mesh (binned triangles);
-``--backend pallas4`` takes the v4 walk with its z-bucket early exit;
-``pallas`` and ``pallas3`` raise ``NotImplementedError`` (ROADMAP queue
-B items 10-11).  The per-script entry points ``cli.traj_ball_renderer``,
-``cli.traj_vel_renderer`` and ``cli.example_renderer`` are thin wrappers
-with the reference's defaults.
+``--backend pallas4`` takes the v4 walk with its z-bucket early exit,
+``--backend pallas3`` the v3 disc fast path (binned discs, every other
+prim on its big list); ``pallas`` raises ``NotImplementedError`` (ROADMAP
+queue B item 11).  The per-script entry points (``cli.traj_ball_renderer``,
+``cli.traj_vel_renderer``, ``cli.traj_renderer``, ``cli.traj_b0``,
+``cli.traj_b1``, ``cli.traj_original``, ``cli.example_renderer``) are thin
+wrappers with the reference's defaults.
 """
 
 from __future__ import annotations

@@ -1,31 +1,49 @@
-// v6 and v4 tile rasterizers for Hopper (sm_90a): one CTA per 32x32
-// pixel tile.  Five kernels share the walk: csr6_raster (16-float binned
-// rows; with bin_triangles, binned triangles too), csr6_disc8
+// v6, v4 and v3 tile rasterizers for Hopper (sm_90a): one CTA per 32x32
+// pixel tile.  Seven kernels share the walk: csr6_raster (16-float binned
+// rows at span 2, 4 or 8; with bin_triangles, binned triangles too),
+// csr6_cap10 (the same walk over 10-float capsule rows), csr6_disc8
 // (8-float disc rows), csr6_disc8_uv (disc rows, with the winner's
 // lambert plane coordinates carried through the merge), csr6_rows9
-// (kind-split 9-float disc and capsule rows, any span) and csr4_raster
-// (the v4 walk over per-tile entries with the z-bucket early exit).
+// (kind-split 9-float disc and capsule rows, any span), csr4_raster (the
+// v4 walk over per-tile entries with the z-bucket early exit) and
+// csr3_raster (the v3 disc fast path: stable runs, a strict-< merge on
+// the entry index, the z-bucket early exit).
 //
 // csr6_raster replaces three Pallas TPU pieces of
 // pointcloud_render_tpu/raster:
 //   * pallas_csr6._make_kernel6 / _make_tile_body — the per-tile walk over
-//     the tile's four merged CSR ranges of the anchor-sorted soup: its own
-//     anchor (classes 0..3), the left neighbour's x-spill classes {1, 2},
-//     the up neighbour's y-spill classes {2, 3} and the diagonal's "both"
-//     class {2}, guarded at tx >= 1 / ty >= 1;
+//     the tile's CSR ranges of the anchor-sorted soup.  At span 2 these
+//     are four merged ranges: its own anchor (classes 0..3), the left
+//     neighbour's x-spill classes {1, 2}, the up neighbour's y-spill
+//     classes {2, 3} and the diagonal's "both" class {2}, guarded at
+//     tx >= 1 / ty >= 1.  At span 4 and 8 (span x span classes, row-major
+//     cy * span + cx) they are the own anchor's range plus, per neighbour
+//     (dx, dy), one range per class row cy >= dy of the classes cx >= dx
+//     (one range when dx = 0): see tile_range;
 //   * pallas_csr4._make_row_body16 — the 16-float row evaluation: the
 //     capsule (a disc is a zero-axis capsule) and the triangle dual, in
 //     the exact expression order of the JAX code;
 //   * pallas_csr4._stream_big and the resident big-list branch of
 //     _make_tile_body — every tile merges every big-list row through the
 //     triangle-aware evaluation.
+// A CTA sizes its ranges in parallel (one or two per thread), scans their
+// lengths, and stages rows across range boundaries in chunks, so empty
+// and tiny ranges cost no synchronisation (size_ranges, flat_pos).
 //
 // csr6_raster with bin_triangles (the mesh-LOD droplets; the kBinTri
-// instance of its tile kernel): small triangles are binned like discs and capsules, and the
-// binned ranges go through the triangle-aware dual evaluation as the big
-// list does (pallas_csr6._make_tile_body's binned stream with
-// _make_row_body16(with_triangles=True)).  Every thread reads the same
-// staged row, so the per-row kind branch does not diverge.
+// instance of its tile kernel): small triangles are binned like discs and
+// capsules, and the binned ranges go through the triangle-aware dual
+// evaluation as the big list does (pallas_csr6._make_tile_body's binned
+// stream with _make_row_body16(with_triangles=True)).  Every thread reads
+// the same staged row, so the per-row kind branch does not diverge.
+//
+// csr6_cap10 replaces pallas_csr6._make_row_body10 (cap_rows10): the
+// binned rows are [x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2, idf], the
+// lanes of the 16-float row that its capsule body reads, evaluated by the
+// same function (capsule_pair), so winners and depth bits equal
+// csr6_raster's; triangles ride the big list (16-float rows, dual body).
+// A 40 B row is not float4-aligned: rows are staged as five float2 each
+// into a 10-float stride of shared memory, 512 rows (20 KB) per chunk.
 //
 // csr4_raster replaces pallas_csr4._make_kernel4 (v4): every binned prim
 // is expanded into the up-to-four (tile, z-bucket) entries its 2x2 tile
@@ -40,6 +58,23 @@
 // is at least its zlb, which is past that floor, so none can change a
 // winner (strict >: at equality a later entry with a lower id could).
 // The exit is the TPU kernel's rule, per CTA instead of per grid step.
+//
+// csr3_raster replaces pallas_csr3._make_kernel3 (v3, the disc fast
+// path): the binned entries are 2x2-span discs only, sorted STABLY by
+// (tile, z-bucket) over the id-major expansion, so a tile's run ascends
+// in (bucket, prim id), and the rows are entry-indexed ([px, py, z, r*r,
+// ...] in sorted order: no gather by id).  The big list runs first in
+// rank order (prim order) through the 16-float dual, the same float32
+// expressions as the JAX package's scalar evaluators _eval_capsule /
+// _eval_tri (pallas_csr.py:60-85), then the tile's run in order; both
+// with a strict < on depth, so the first (lowest-id) pair at the least
+// depth wins without an id compare (a disc's depth is constant over its
+// footprint).  The kernel writes the winner's ENTRY: its sorted position,
+// -(rank + 2) for a big winner, INT32_MAX where nothing won.  The early
+// exit checks once per block of `block` entries (the TPU: once per
+// 512-entry DMA chunk): the block's last entry's bucket, one bucket
+// back, stops the run when zmin + qz * thr_scale >= dmax (>=: a later
+// entry at equal depth cannot displace a winner under strict <).
 //
 // csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk:
 // binned rows are [px, py, z, r*r, idf, flag, 0, 0], covered where
@@ -57,23 +92,18 @@
 // the same float32 expressions and route here too) inside the v6 walk
 // at span 2, 4 or 8.  The binning is kind-split: every disc's key sorts
 // before every capsule's, so a tile has a disc range set and a capsule
-// range set.  Rows are 9 floats in sorted order, disc
-// [px, py, z, r*r, idf, 0, 0, 0, 0] through the exact disc body, capsule
-// [x0, y0, ux, -rho0, uy, rhod, z0, sdz, idf] through the renormalized
-// segment-frame body (ux = sdx*il2, rho = r*sqrt(il2)).  At span 2 each
-// set is the four merged ranges above; at span 4 and 8 it is the tile's
-// own anchor range plus, per neighbour (dx, dy), the classes reaching
-// this tile: one range per class row cy >= dy of the row-major ordinals
-// cy*span + cx with cx >= dx (one range when dx = 0), 34 per set at span
-// 4.  A CTA sizes its ranges in parallel (one per thread), scans their
-// lengths, and stages rows across range boundaries in chunks of 512, so
-// empty and tiny ranges cost no synchronisation.  Big rows (wide discs,
-// wide capsules, the ground) keep the exact 16-float evaluation.
+// range set, each walked as csr6_raster walks its ranges.  Rows are 9
+// floats in sorted order, disc [px, py, z, r*r, idf, 0, 0, 0, 0] through
+// the exact disc body, capsule [x0, y0, ux, -rho0, uy, rhod, z0, sdz, idf]
+// through the renormalized segment-frame body (ux = sdx*il2,
+// rho = r*sqrt(il2)).  Big rows (wide discs, wide capsules, the ground)
+// keep the exact 16-float evaluation.
 //
 // Winner per pixel = lexicographic min of (depth, primitive id) with
-// strict compares, so the walk order does not matter.  Exactness needs
-// IEEE float32 per operation: build with -fmad=false (no multiply-add
-// contraction) and without --use_fast_math (correctly rounded 1/iz).
+// strict compares, so the walk order does not matter (v3: the order is
+// the stable run's, see above).  Exactness needs IEEE float32 per
+// operation: build with -fmad=false (no multiply-add contraction) and
+// without --use_fast_math (correctly rounded 1/iz).
 //
 // What bounds it on an H100: per-pair arithmetic.  Every (row, pixel)
 // pair of a 16-float row must execute 17 float32 operations in the
@@ -82,21 +112,23 @@
 // depth they read, z0 + sdz * t or 1 / iz, are needed only at covered
 // pairs), and a tile evaluates every row of its ranges at
 // all 1024 pixels, so the work is 1024 x (binned entries) + pixels x (big
-// rows) pairs; row bytes (64 B per row, read once per tile it touches)
-// are small beside that.  Design: rows are staged through shared memory
-// in chunks of 256 (one row per thread, gathered by sorted id), every
-// thread keeps the (depth, id) minima of its 4 pixels in registers, and
-// all threads read the same staged row (a shared-memory broadcast).  A
-// disc pair must execute 4 operations (dy, dy * dy, + dx * dx, <= r * r;
-// dx and dx * dx are per row and thread, not per pixel) and a disc row is
-// 32 B, staged 512 at a time.  A rows9 capsule pair must execute 16 (dy,
-// a and g (2 each, with dx * ux and dx * uy per column), the clip (2),
-// a - t, d2 (3), rad (2), d2 <= rad * rad (2), rad > 0; its depth z is
-// read only at covered pairs).
+// rows) pairs; row bytes (64 B per row, read once per tile it touches;
+// 40 B under cap_rows10) are small beside that.  Design: rows are staged
+// through shared memory in chunks (one row per thread, gathered by sorted
+// id), every thread keeps the (depth, id) minima of its 4 pixels in
+// registers, and all threads read the same staged row (a shared-memory
+// broadcast).  A disc pair must execute 4 operations (dy, dy * dy,
+// + dx * dx, <= r * r; dx and dx * dx are per row and thread, not per
+// pixel) and a disc row is 32 B, staged 512 at a time (v3: 16 B of its
+// entry row, 128 per exit block by default).  A rows9 capsule pair must
+// execute 16 (dy, a and g (2 each, with dx * ux and dx * uy per column),
+// the clip (2), a - t, d2 (3), rad (2), d2 <= rad * rad (2), rad > 0; its
+// depth z is read only at covered pairs).
 // A binned triangle pair (csr6_raster or csr4_raster with bin_triangles)
-// costs 18 operations, as a big-list one.  csr4_raster's bound counts
-// 1024 x (the entries its tiles evaluated before their exits, which the
-// kernel reports through `walked`) + pixels x (big rows) pairs.
+// costs 18 operations, as a big-list one.  csr4_raster's and
+// csr3_raster's bounds count 1024 x (the entries their tiles evaluated
+// before their exits, which the kernels report through `walked`) +
+// pixels x (big rows) pairs.
 // Not done yet: the z-bucket early exit in the v6 walks, load balancing
 // of dense tiles, and asynchronous (TMA / cp.async) staging.
 
@@ -127,6 +159,43 @@ __device__ __forceinline__ void stage_row(float4* sh, int slot,
   for (int j = 0; j < 4; ++j) sh[slot * 4 + j] = src[j];
 }
 
+// The capsule body of pallas_csr4._make_row_body16 (and of
+// _make_row_body10) at one pair, in the JAX expression order: covered,
+// with the depth in *z.
+__device__ __forceinline__ bool capsule_pair(float dx, float dy, float z0,
+                                             float r0, float sdx, float sdy,
+                                             float sdz, float sdr, float il2,
+                                             float* z) {
+  const float t = clip01((dx * sdx + dy * sdy) * il2);
+  const float cx = dx - t * sdx;
+  const float cy = dy - t * sdy;
+  const float rad = r0 + sdr * t;
+  *z = z0 + sdz * t;
+  return cx * cx + cy * cy <= rad * rad;
+}
+
+// One pair of a staged 16-float row (a, b, c, e = its four float4s): the
+// triangle dual when kTri and the row's kind flag (lane 15) is set, else
+// the capsule body.  Returns covered; writes the depth and the capsule's
+// (dx, dy).
+template <bool kTri>
+__device__ __forceinline__ bool pair16(const float4& a, const float4& b,
+                                       const float4& c, const float4& e,
+                                       float qx, float qy, float* z,
+                                       float* dx, float* dy) {
+  if (kTri && e.w > 0.0f) {
+    const float e0 = a.x * qy - a.y * qx + a.z;
+    const float e1 = a.w * qy - b.x * qx + b.y;
+    const float e2 = b.z * qy - b.w * qx + c.x;
+    const float iz = e0 * c.z + e1 * c.w + e2 * e.x;
+    *z = 1.0f / (iz > 0.0f ? iz : 1.0f);
+    return (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f) & (iz > 0.0f);
+  }
+  *dx = qx - a.x;
+  *dy = qy - a.y;
+  return capsule_pair(*dx, *dy, a.z, a.w, b.x, b.y, b.z, b.w, c.x, z);
+}
+
 // Evaluate staged rows [0, count) at this thread's pixels.  kTri selects
 // the dual (triangle-aware) body used for the big list and, under
 // bin_triangles, for binned rows; otherwise binned rows are
@@ -144,45 +213,21 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
     const float4 b = sh[r * 4 + 1];  // sdx, sdy, sdz, sdr
     const float4 c = sh[r * 4 + 2];  // il2, idf, lane10, lane11
     const float4 e = sh[r * 4 + 3];  // lane12, lane13, zlb, kind flag
-    const float x0 = a.x, y0 = a.y, z0 = a.z, r0 = a.w;
-    const float sdx = b.x, sdy = b.y, sdz = b.z, sdr = b.w;
-    const float il2 = c.x, idf = c.y;
+    const float idf = c.y;
     // The row's kind is the same for every thread (a broadcast row), so
     // the branch does not diverge: a big-list capsule skips the triangle
     // body and its division.
-    const bool is_tri = kTri && e.w > 0.0f;
-    const bool is_disc = !is_tri && e.y > 0.0f;
+    const bool is_disc = !(kTri && e.w > 0.0f) && e.y > 0.0f;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      float z, uc = inf, vc = inf;
-      bool cov;
-      if (is_tri) {
-        const float e0 = x0 * qy[k] - y0 * qx + z0;
-        const float e1 = r0 * qy[k] - sdx * qx + sdy;
-        const float e2 = sdz * qy[k] - sdr * qx + il2;
-        const float iz = e0 * c.z + e1 * c.w + e2 * e.x;
-        cov = (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f) & (iz > 0.0f);
-        z = 1.0f / (iz > 0.0f ? iz : 1.0f);
-      } else {
-        const float dx = qx - x0;
-        const float dy = qy[k] - y0;
-        const float t = clip01((dx * sdx + dy * sdy) * il2);
-        const float cx = dx - t * sdx;
-        const float cy = dy - t * sdy;
-        const float rad = r0 + sdr * t;
-        z = z0 + sdz * t;
-        cov = cx * cx + cy * cy <= rad * rad;
-        if (kUV && is_disc) {
-          uc = dx * e.y;
-          vc = -dy * e.y;
-        }
-      }
+      float z, dx = 0.0f, dy = 0.0f;
+      const bool cov = pair16<kTri>(a, b, c, e, qx, qy[k], &z, &dx, &dy);
       if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
         d[k] = z;
         di[k] = idf;
         if (kUV) {
-          u[k] = uc;
-          v[k] = vc;
+          u[k] = is_disc ? dx * e.y : inf;
+          v[k] = is_disc ? -dy * e.y : inf;
         }
       }
     }
@@ -220,6 +265,8 @@ __device__ __forceinline__ void eval_disc_rows(const float4* sh, int count,
 
 constexpr int kRowF9 = 9;
 constexpr int kChunk9 = 512;     // 9-float rows per staged chunk (18 KB)
+constexpr int kRowF10 = 10;
+constexpr int kChunk10 = 512;    // 10-float rows per staged chunk (20 KB)
 constexpr int kMaxRanges = 512;  // range slots: span^3 at span 8
 
 // Evaluate staged 9-float rows [0, count) at this thread's pixels:
@@ -274,12 +321,36 @@ __device__ __forceinline__ void eval_rows9(const float* sh, int count,
   }
 }
 
+// Evaluate staged 10-float capsule rows [0, count) at this thread's
+// pixels: pallas_csr6._make_row_body10, the capsule body of eval_rows.
+__device__ __forceinline__ void eval_rows10(const float* sh, int count,
+                                            float qx, const float* qy,
+                                            float* d, float* di) {
+  for (int r = 0; r < count; ++r) {
+    const float* row = sh + r * kRowF10;
+    const float x0 = row[0], y0 = row[1], z0 = row[2], r0 = row[3];
+    const float sdx = row[4], sdy = row[5], sdz = row[6], sdr = row[7];
+    const float il2 = row[8], idf = row[9];
+    const float dx = qx - x0;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      float z;
+      const bool cov = capsule_pair(dx, qy[k] - y0, z0, r0, sdx, sdy, sdz,
+                                    sdr, il2, &z);
+      if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
+        d[k] = z;
+        di[k] = idf;
+      }
+    }
+  }
+}
+
 // Range slot q of tile (tx, ty) in the ordinal region starting at `reg`
 // -> (first sorted position, length); length 0 for slots that name no
-// range or a neighbour off the grid.  Span 2: the four merged ranges of
-// csr6_tile_kernel.  Wider spans: slot q = (cy * span + dy) * span + dx
-// names neighbour (dx, dy)'s classes in class row cy with cx >= dx; for
-// dx = 0 the slot cy = dy takes every class row from dy on at once.
+// range or a neighbour off the grid.  Span 2: the four merged ranges.
+// Wider spans: slot q = (cy * span + dy) * span + dx names neighbour
+// (dx, dy)'s classes in class row cy with cx >= dx; for dx = 0 the slot
+// cy = dy takes every class row from dy on at once.
 __device__ __forceinline__ void tile_range(int q, int span, int tile, int tx,
                                            int ty, int tiles_x, int reg,
                                            const int* __restrict__ starts,
@@ -309,6 +380,114 @@ __device__ __forceinline__ void tile_range(int q, int span, int tile, int tx,
   *n_out = starts[base + hi] - s;
 }
 
+__device__ __forceinline__ int range_slots(int span) {
+  return span == 2 ? 4 : span * span * span;
+}
+
+// Size the tile's ranges in the ordinal region `reg`: every thread sizes
+// slots 2 * tid and 2 * tid + 1, and a block-wide exclusive scan of the
+// lengths leaves each slot's first sorted position in range_start and
+// its first flat row in range_cum.  Returns the tile's row count (the
+// same in every thread); ends with a barrier.
+__device__ int size_ranges(int span, int tile, int tx, int ty, int tiles_x,
+                           int reg, const int* __restrict__ starts,
+                           int* range_start, int* range_cum, int* warp_tot) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n_slots = range_slots(span);
+  int len[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = 2 * tid + h;
+    int s = 0;
+    len[h] = 0;
+    if (q < n_slots)
+      tile_range(q, span, tile, tx, ty, tiles_x, reg, starts, &s, &len[h]);
+    range_start[q] = s;
+  }
+  const int local = len[0] + len[1];
+  int v = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31) warp_tot[warp] = v;
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int t = warp_tot[w];
+    off += w < warp ? t : 0;
+    total += t;
+  }
+  const int excl = off + v - local;
+  range_cum[2 * tid] = excl;
+  range_cum[2 * tid + 1] = excl + len[0];
+  __syncthreads();
+  return total;
+}
+
+// The sorted position of flat row f of the sized ranges: the last slot
+// whose prefix is <= f holds it (empty slots share their prefix with the
+// next one).
+__device__ __forceinline__ int flat_pos(int f, int n_slots,
+                                        const int* range_start,
+                                        const int* range_cum) {
+  int lo = 0, hi = n_slots;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (range_cum[mid] <= f) lo = mid + 1; else hi = mid;
+  }
+  return range_start[lo - 1] + f - range_cum[lo - 1];
+}
+
+// Write a tile's (depth, id) minima: index -1 where the depth is +inf.
+__device__ __forceinline__ void write_tile(const float* d, const float* di,
+                                           int tx, int ty, int width,
+                                           int height, float* depth_out,
+                                           int* index_out) {
+  const int px = tx * kTile + (threadIdx.x & (kTile - 1));
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int py = ty * kTile + (threadIdx.x >> 5) + 8 * k;
+    if (px < width && py < height) {
+      const long long o = static_cast<long long>(py) * width + px;
+      depth_out[o] = d[k];
+      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+    }
+  }
+}
+
+// This thread's pixel centres (qx; qy per k) and the empty minima.
+__device__ __forceinline__ float init_pixels(int tx, int ty, float* qy,
+                                             float* d, float* di) {
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    qy[k] = static_cast<float>(ty * kTile + (threadIdx.x >> 5) + 8 * k) +
+            0.5f;
+    d[k] = __int_as_float(0x7f800000);  // +inf
+    di[k] = kEmpty;
+  }
+  return static_cast<float>(tx * kTile + (threadIdx.x & (kTile - 1))) + 0.5f;
+}
+
+// The big-list phase over a dense array of big_n 16-float rows.
+__device__ __forceinline__ void walk_big_rows(float4* sh,
+                                              const float* __restrict__ rows,
+                                              int big_n, float qx,
+                                              const float* qy, float* d,
+                                              float* di) {
+  for (int base = 0; base < big_n; base += kChunk) {
+    const int cnt = min(kChunk, big_n - base);
+    __syncthreads();
+    const int tid = threadIdx.x;
+    if (tid < cnt) stage_row(sh, tid, rows, base + tid);
+    __syncthreads();
+    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 csr6_rows9_kernel(const float* __restrict__ rows9,
                   const float* __restrict__ big_rows,
@@ -322,87 +501,29 @@ csr6_rows9_kernel(const float* __restrict__ rows9,
   __shared__ int range_start[kMaxRanges];
   __shared__ int range_cum[kMaxRanges];  // exclusive prefix of lengths
   __shared__ int warp_tot[kThreads / 32];
-  float4* sh4 = reinterpret_cast<float4*>(sh);
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int lx = tid & (kTile - 1);
-  const int ly = tid >> 5;
-
-  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
   float qy[kPix], d[kPix], di[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
-    d[k] = __int_as_float(0x7f800000);  // +inf
-    di[k] = kEmpty;
-  }
+  const float qx = init_pixels(tx, ty, qy, d, di);
 
   // Big list: wide discs and capsules and the ground, exact 16-float rows.
-  const int big_n = min(*big_n_ptr, big_cap);
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh4, tid, big_rows, base + tid);
-    __syncthreads();
-    eval_rows<true, false>(sh4, cnt, qx, qy, d, di, nullptr, nullptr);
-  }
+  walk_big_rows(reinterpret_cast<float4*>(sh), big_rows,
+                min(*big_n_ptr, big_cap), qx, qy, d, di);
 
-  const int k2 = span * span;
-  const int n_slots = span == 2 ? 4 : k2 * span;
+  const int n_slots = range_slots(span);
 #pragma unroll 1
   for (int kind = 0; kind < 2; ++kind) {
-    // Size this kind's ranges: slots 2*tid and 2*tid + 1.
-    const int reg = kind * k2 * num_tiles;
-    int len[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = 2 * tid + h;
-      int s = 0;
-      len[h] = 0;
-      if (q < n_slots)
-        tile_range(q, span, tile, tx, ty, tiles_x, reg, starts, &s, &len[h]);
-      range_start[q] = s;
-    }
-    // Block-wide exclusive scan of the lengths.
-    const int local = len[0] + len[1];
-    int v = local;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += y;
-    }
-    if (lane == 31) warp_tot[warp] = v;
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      const int t = warp_tot[w];
-      off += w < warp ? t : 0;
-      total += t;
-    }
-    const int excl = off + v - local;
-    range_cum[2 * tid] = excl;
-    range_cum[2 * tid + 1] = excl + len[0];
-    __syncthreads();
-
+    const int total = size_ranges(span, tile, tx, ty, tiles_x,
+                                  kind * span * span * num_tiles, starts,
+                                  range_start, range_cum, warp_tot);
     for (int base = 0; base < total; base += kChunk9) {
       const int cnt = min(kChunk9, total - base);
       __syncthreads();
-      for (int i = tid; i < cnt; i += kThreads) {
-        // The last range whose prefix is <= f holds flat row f (empty
-        // ranges share their prefix with the next one).
-        const int f = base + i;
-        int lo = 0, hi = n_slots;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (range_cum[mid] <= f) lo = mid + 1; else hi = mid;
-        }
-        const int r = lo - 1;
+      for (int i = threadIdx.x; i < cnt; i += kThreads) {
         const float* src =
-            rows9 + static_cast<long long>(range_start[r] + f - range_cum[r]) *
+            rows9 + static_cast<long long>(
+                        flat_pos(base + i, n_slots, range_start, range_cum)) *
                         kRowF9;
 #pragma unroll
         for (int j = 0; j < kRowF9; ++j) sh[i * kRowF9 + j] = src[j];
@@ -414,20 +535,11 @@ csr6_rows9_kernel(const float* __restrict__ rows9,
         eval_rows9<true>(sh, cnt, qx, qy, d, di);
     }
   }
-
-  const int px = tx * kTile + lx;
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + ly + 8 * k;
-    if (px < width && py < height) {
-      const long long o = static_cast<long long>(py) * width + px;
-      depth_out[o] = d[k];
-      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
-    }
-  }
+  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
-// kBinTri: binned rows through the triangle-aware dual (bin_triangles).
+// The 16-float walk at span 2, 4 or 8.  kBinTri: binned rows through the
+// triangle-aware dual (bin_triangles).
 template <bool kBinTri>
 __global__ void __launch_bounds__(kThreads)
 csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
@@ -435,23 +547,17 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
                  const int* __restrict__ big_ids,
                  const int* __restrict__ big_n_ptr,
                  float* __restrict__ depth_out, int* __restrict__ index_out,
-                 int width, int height, int tiles_x) {
+                 int width, int height, int tiles_x, int span) {
   __shared__ float4 sh[kChunk * 4];
+  __shared__ int range_start[kMaxRanges];
+  __shared__ int range_cum[kMaxRanges];
+  __shared__ int warp_tot[kThreads / 32];
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
   const int tid = threadIdx.x;
-  const int lx = tid & (kTile - 1);
-  const int ly = tid >> 5;
-
-  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
   float qy[kPix], d[kPix], di[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
-    d[k] = __int_as_float(0x7f800000);  // +inf
-    di[k] = kEmpty;
-  }
+  const float qx = init_pixels(tx, ty, qy, d, di);
 
   // Big list: wide prims and the ground, merged at every tile.
   const int big_n = *big_n_ptr;
@@ -463,38 +569,66 @@ csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
     eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
   }
 
-  // The four merged CSR ranges of the anchor-sorted order (span 2,
-  // class ordinals 0 = none, 1 = x-spill, 2 = both, 3 = y-spill).
-  const bool left = tx >= 1, up = ty >= 1;
-  const int anchors[4] = {tile, tile - 1, tile - tiles_x, tile - tiles_x - 1};
-  const int lo[4] = {0, 1, 2, 2};
-  const int hi[4] = {4, 3, 4, 3};
-  const bool ok[4] = {true, left, up, left && up};
-#pragma unroll 1
-  for (int g = 0; g < 4; ++g) {
-    if (!ok[g]) continue;
-    const int a = anchors[g];
-    const int s = starts[4 * a + lo[g]];
-    const int n = starts[4 * a + hi[g]] - s;
-    for (int base = 0; base < n; base += kChunk) {
-      const int cnt = min(kChunk, n - base);
-      __syncthreads();
-      if (tid < cnt) stage_row(sh, tid, table, order[s + base + tid]);
-      __syncthreads();
-      eval_rows<kBinTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
-    }
+  const int n_slots = range_slots(span);
+  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                range_start, range_cum, warp_tot);
+  for (int base = 0; base < total; base += kChunk) {
+    const int cnt = min(kChunk, total - base);
+    __syncthreads();
+    if (tid < cnt)
+      stage_row(sh, tid, table,
+                order[flat_pos(base + tid, n_slots, range_start, range_cum)]);
+    __syncthreads();
+    eval_rows<kBinTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
   }
+  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+}
 
-  const int px = tx * kTile + lx;
+// The cap_rows10 walk at span 2, 4 or 8: the big list is the dense
+// (big_cap, 16) array big_rows (its first *big_n rows live), binned rows
+// are 10-float rows of table10 gathered by sorted id.
+__global__ void __launch_bounds__(kThreads)
+csr6_cap10_kernel(const float* __restrict__ table10,
+                  const float* __restrict__ big_rows,
+                  const int* __restrict__ order,
+                  const int* __restrict__ starts,
+                  const int* __restrict__ big_n_ptr, int big_cap,
+                  float* __restrict__ depth_out, int* __restrict__ index_out,
+                  int width, int height, int tiles_x, int span) {
+  // Staged rows: 512 x 10 floats, or 256 x 16 for the big list.
+  __shared__ __align__(16) float sh[kChunk10 * kRowF10];
+  __shared__ int range_start[kMaxRanges];
+  __shared__ int range_cum[kMaxRanges];
+  __shared__ int warp_tot[kThreads / 32];
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  float qy[kPix], d[kPix], di[kPix];
+  const float qx = init_pixels(tx, ty, qy, d, di);
+
+  walk_big_rows(reinterpret_cast<float4*>(sh), big_rows,
+                min(*big_n_ptr, big_cap), qx, qy, d, di);
+
+  const int n_slots = range_slots(span);
+  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                range_start, range_cum, warp_tot);
+  for (int base = 0; base < total; base += kChunk10) {
+    const int cnt = min(kChunk10, total - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < cnt; i += kThreads) {
+      // 40 B rows: five 8-byte loads, 8-byte aligned in both memories.
+      const float2* src = reinterpret_cast<const float2*>(
+          table10 + static_cast<long long>(order[flat_pos(
+                        base + i, n_slots, range_start, range_cum)]) *
+                        kRowF10);
+      float2* dst = reinterpret_cast<float2*>(sh + i * kRowF10);
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + ly + 8 * k;
-    if (px < width && py < height) {
-      const long long o = static_cast<long long>(py) * width + px;
-      depth_out[o] = d[k];
-      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+      for (int j = 0; j < kRowF10 / 2; ++j) dst[j] = src[j];
     }
+    __syncthreads();
+    eval_rows10(sh, cnt, qx, qy, d, di);
   }
+  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
 // The v4 walk: big list first, then the tile's entry range in chunks of
@@ -518,17 +652,8 @@ csr4_tile_kernel(const float* __restrict__ table,
   const int tx = tile - ty * tiles_x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int lx = tid & (kTile - 1);
-  const int ly = tid >> 5;
-
-  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
   float qy[kPix], d[kPix], di[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
-    d[k] = __int_as_float(0x7f800000);  // +inf
-    di[k] = kEmpty;
-  }
+  const float qx = init_pixels(tx, ty, qy, d, di);
 
   const int big_n = *big_n_ptr;
   for (int base = 0; base < big_n; base += kChunk) {
@@ -571,17 +696,7 @@ csr4_tile_kernel(const float* __restrict__ table,
     }
   }
   if (walked != nullptr && tid == 0) walked[tile] = done;
-
-  const int px = tx * kTile + lx;
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + ly + 8 * k;
-    if (px < width && py < height) {
-      const long long o = static_cast<long long>(py) * width + px;
-      depth_out[o] = d[k];
-      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
-    }
-  }
+  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
 // The discs_only walk: the big list is the dense (big_cap, 16) array
@@ -670,29 +785,187 @@ csr6_disc_kernel(const float* __restrict__ table8,
   }
 }
 
+// The v3 walk (see the header): the big list in rank order through the
+// 16-float dual, then the tile's stable run of entry-indexed disc rows
+// (rows8: [px, py, z, r*r, c0, c1, c2, flag], only the first float4
+// read), both with a strict < on depth, tracking the winner's entry.
+// With allow_exit the run stops after a block of `block` entries once
+// zmin + max(floor((z_last - zmin) * s) - 1, 0) * thr_scale >= dmax.
+constexpr int kImax = 2147483647;
+constexpr int kMaxBlock3 = kChunk * 4;  // entries that fit the staging
+
+__global__ void __launch_bounds__(kThreads)
+csr3_tile_kernel(const float* __restrict__ rows8,
+                 const float* __restrict__ big_rows,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 const float* __restrict__ zmeta,
+                 float* __restrict__ depth_out, int* __restrict__ ent_out,
+                 int* __restrict__ walked, int width, int height, int tiles_x,
+                 int allow_exit, int block) {
+  __shared__ float4 sh[kChunk * 4];
+  __shared__ float warp_max[kThreads / 32];
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  float qy[kPix], d[kPix], unused[kPix];
+  int e[kPix];
+  const float qx = init_pixels(tx, ty, qy, d, unused);
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) e[k] = kImax;
+
+  // Big list in rank order: strict <, so the first (lowest-rank, lowest
+  // id) big prim at the least depth wins; big winners travel as
+  // -(rank + 2).
+  const int big_n = min(*big_n_ptr, big_cap);
+  for (int base = 0; base < big_n; base += kChunk) {
+    const int cnt = min(kChunk, big_n - base);
+    __syncthreads();
+    if (tid < cnt) stage_row(sh, tid, big_rows, base + tid);
+    __syncthreads();
+    for (int r = 0; r < cnt; ++r) {
+      const float4 a = sh[r * 4 + 0], b = sh[r * 4 + 1];
+      const float4 c = sh[r * 4 + 2], f = sh[r * 4 + 3];
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        float z, dx, dy;
+        if (pair16<true>(a, b, c, f, qx, qy[k], &z, &dx, &dy) && z < d[k]) {
+          d[k] = z;
+          e[k] = -(base + r + 2);
+        }
+      }
+    }
+  }
+
+  // The tile's run [s, s + n), in order.
+  const float zmin = zmeta[0], zs = zmeta[1], thr_scale = zmeta[2];
+  const int s = starts[tile];
+  const int n = starts[tile + 1] - s;
+  const float4* rows = reinterpret_cast<const float4*>(rows8);
+  int done = n;  // entries evaluated before the exit
+  for (int base = 0; base < n; base += block) {
+    const int cnt = min(block, n - base);
+    __syncthreads();
+    for (int i = tid; i < cnt; i += kThreads)
+      sh[i] = rows[static_cast<long long>(s + base + i) * 2];
+    __syncthreads();
+    for (int r = 0; r < cnt; ++r) {
+      const float4 a = sh[r];  // px, py, z, r*r
+      const float dx = qx - a.x;
+      const float dx2 = dx * dx;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const float dy = qy[k] - a.y;
+        if ((dx2 + dy * dy <= a.w) && a.z < d[k]) {
+          d[k] = a.z;
+          e[k] = s + base + r;
+        }
+      }
+    }
+    if (allow_exit) {
+      // dmax over the tile's 1024 pixels (a NaN depth never wins).
+      float m = fmaxf(fmaxf(d[0], d[1]), fmaxf(d[2], d[3]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) warp_max[warp] = m;
+      __syncthreads();
+      float dmax = warp_max[0];
+#pragma unroll
+      for (int w = 1; w < kThreads / 32; ++w) dmax = fmaxf(dmax, warp_max[w]);
+      float qz = floorf((sh[cnt - 1].z - zmin) * zs) - 1.0f;
+      qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN (jnp.maximum), no exit
+      if (zmin + qz * thr_scale >= dmax) {  // the same for every thread
+        done = base + cnt;
+        break;
+      }
+    }
+  }
+  if (walked != nullptr && tid == 0) walked[tile] = done;
+
+  const int px = tx * kTile + (tid & (kTile - 1));
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int py = ty * kTile + (tid >> 5) + 8 * k;
+    if (px < width && py < height) {
+      const long long o = static_cast<long long>(py) * width + px;
+      depth_out[o] = d[k];
+      ent_out[o] = e[k];
+    }
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// table (P+1, 16) f32 with row P all zero; order (>= starts[4T]) i32 sorted
-// prim ids; starts (4T+1) i32 range bounds; big_ids (>= *big_n) i32;
-// big_n one i32 on the device; depth (H, W) f32; index (H, W) i32;
-// bin_triangles != 0 evaluates the binned rows through the dual.
+// table (P+1, 16) f32 with row P all zero; order (>= starts[-1]) i32
+// sorted prim ids; starts (span^2 T + 1) i32 range bounds of a binning at
+// `span` (2, 4 or 8); big_ids (>= *big_n) i32; big_n one i32 on the
+// device; depth (H, W) f32; index (H, W) i32; bin_triangles != 0
+// evaluates the binned rows through the dual.
 extern "C" int csr6_raster(const float* table, const int* order,
                            const int* starts, const int* big_ids,
                            const int* big_n, float* depth, int* index,
                            int width, int height, int tiles_x, int tiles_y,
-                           int bin_triangles, void* stream) {
+                           int bin_triangles, int span, void* stream) {
+  if (span != 2 && span != 4 && span != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bin_triangles)
     csr6_tile_kernel<true><<<num_tiles, kThreads, 0, st>>>(
         table, order, starts, big_ids, big_n, depth, index, width, height,
-        tiles_x);
+        tiles_x, span);
   else
     csr6_tile_kernel<false><<<num_tiles, kThreads, 0, st>>>(
         table, order, starts, big_ids, big_n, depth, index, width, height,
-        tiles_x);
+        tiles_x, span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cap_rows10 walk.  table10 (P+1, 10) f32 with row P all zero;
+// big_rows (big_cap, 16) f32, the first *big_n rows live; order, starts
+// and span as csr6_raster's; depth (H, W) f32; index (H, W) i32.
+extern "C" int csr6_cap10(const float* table10, const float* big_rows,
+                          const int* order, const int* starts,
+                          const int* big_n, float* depth, int* index,
+                          int big_cap, int width, int height, int tiles_x,
+                          int tiles_y, int span, void* stream) {
+  if (span != 2 && span != 4 && span != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  csr6_cap10_kernel<<<num_tiles, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      table10, big_rows, order, starts, big_n, big_cap, depth, index, width,
+      height, tiles_x, span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The v3 walk.  rows8 (>= starts[T], 8) f32 entry-indexed rows; big_rows
+// (big_cap, 16) f32 in rank order, the first *big_n rows live; starts
+// (T+1) i32 per-tile runs; zmeta (3) f32 (zmin, s, thr_scale); depth
+// (H, W) f32; ent (H, W) i32 winning entries (-(rank + 2) for big
+// winners, INT32_MAX where empty); walked null or (T) i32, each tile's
+// count of entries evaluated before its exit; allow_exit != 0 turns the
+// z-bucket early exit on, checked after every `block` entries (1..1024).
+extern "C" int csr3_raster(const float* rows8, const float* big_rows,
+                           const int* starts, const int* big_n,
+                           const float* zmeta, float* depth, int* ent,
+                           int* walked, int big_cap, int width, int height,
+                           int tiles_x, int tiles_y, int allow_exit,
+                           int block, void* stream) {
+  if (block < 1 || block > kMaxBlock3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  csr3_tile_kernel<<<num_tiles, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      rows8, big_rows, starts, big_n, big_cap, zmeta, depth, ent, walked,
+      width, height, tiles_x, allow_exit, block);
   return static_cast<int>(cudaGetLastError());
 }
 

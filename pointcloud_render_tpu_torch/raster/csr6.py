@@ -1,15 +1,18 @@
 """v6 anchor-sorted tile rasterizer: binning, tables, the CUDA kernel's
 wrapper and its plain PyTorch version, and the shade epilogue.
 
-The counterpart of ``pointcloud_render_tpu.raster.pallas_csr6`` at span 2
-with the big list for wide prims and the ground, in its two row modes:
-the generic 16-float rows (discs and capsules binned, and under
-``bin_triangles`` small triangles too, through the triangle-aware dual
-evaluation: the mesh-LOD droplets) and the ``discs_only`` 8-float disc
-rows (capsules and triangles ride the big list), the latter also with
-the winner's lambert (u, v) carried through the merge for the
-gather-free two-tone shade.  The stages around the
-kernels were XLA in the JAX package and are torch ops here:
+The counterpart of ``pointcloud_render_tpu.raster.pallas_csr6`` with the
+big list for wide prims and the ground, in its row modes: the generic
+16-float rows (discs and capsules binned, and under ``bin_triangles``
+small triangles too, through the triangle-aware dual evaluation: the
+mesh-LOD droplets) at span 2, 4 or 8; ``cap_rows10``, the same walk over
+10-float rows without the triangle and shade lanes (bit-identical
+winners; triangles ride the big list); the kind-split 9-float rows
+(rows8/rows9) at span 2, 4 or 8; and the ``discs_only`` 8-float disc
+rows at span 2 (capsules and triangles ride the big list), also with the
+winner's lambert (u, v) carried through the merge for the gather-free
+two-tone shade.  The stages around the kernels were XLA in the JAX
+package and are torch ops here:
 
 1. ``preshade``      — ``pallas_csr3._preshade``: per-prim rgb and flag;
 2. ``bin_csr6``      — ``_bin_csr6(with_z=False)``: one unstable sort of
@@ -18,12 +21,14 @@ kernels were XLA in the JAX package and are torch ops here:
    the range ``starts`` by ``searchsorted``; ``diag`` with
    ``big_overflow`` and ``true_entries``;
 3. ``build_table16`` — ``pallas_csr4._build_table16``: (P+1, 16) rows;
-   under ``discs_only`` ``build_table8`` ((P+1, 8) disc rows) and
+   under ``cap_rows10`` ``build_table10`` ((P+1, 10) capsule rows), under
+   ``discs_only`` ``build_table8`` ((P+1, 8) disc rows), each with
    ``build_table16_rows`` (16-float rows at the big ids only);
-4. the tile walk: ``raster_tiles`` (16-float rows), ``raster_tiles_disc8``
-   and ``raster_tiles_disc8_uv`` (8-float rows) — the kernels of
-   ``csrc/csr6_raster.cu`` on CUDA tensors, the ``*_plain`` versions on
-   CPU tensors;
+4. the tile walk: ``raster_tiles`` (16-float rows), ``raster_tiles_cap10``
+   (10-float rows), ``raster_tiles_rows9`` (9-float rows),
+   ``raster_tiles_disc8`` and ``raster_tiles_disc8_uv`` (8-float rows) —
+   the kernels of ``csrc/csr6_raster.cu`` on CUDA tensors, the
+   ``*_plain`` versions on CPU tensors;
 5. ``shade_by_id``   — the ``pallas_csr4._shade_by_id`` epilogue (generic
    and ``uniform_look``); ``shade_uv`` — the gather-free
    ``pallas_csr6._shade_uv`` epilogue over the fused (u, v) images.
@@ -62,12 +67,12 @@ from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 
 TILE = 32
 SPAN = 2
-K2 = SPAN * SPAN
 # Binning spans: prims whose bbox covers at most span x span tiles are
-# binned.  The 16- and 8-float walks take span 2 only (ROADMAP queue B
-# item 1); the kind-split rows9 walk takes all three.
+# binned.  The 16-, 10- and 9-float walks take all three; the 8-float
+# disc walks span 2 only (ROADMAP queue B item 4).
 SPANS = (2, 4, 8)
 ROW_F = 16
+ROW_F10 = 10
 ROW_F_DISC = 8
 ROW_F9 = 9
 DEFAULT_MAX_BIG = 1024
@@ -362,6 +367,23 @@ def build_table16_rows(prims: ScreenPrimitives, shade_rgb, shade_flag,
                          bin_triangles=bin_triangles)
 
 
+def build_table10(prims: ScreenPrimitives) -> torch.Tensor:
+    """(P+1, 10) float32 rows [x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2,
+    idf] of the ``cap_rows10`` walk (``pallas_csr6.py:1407-1413``):
+    ``params[:, 0:9]`` and the float id, the lanes of the 16-float row the
+    capsule body reads.  Invalid prims' rows and the pad row P are zero:
+    a zero row has rad = 0 and no pixel centre at (0, 0), so it covers
+    nothing."""
+    p = prims.count
+    dev = prims.device
+    table = torch.cat([prims.params[:, 0:9],
+                       torch.arange(p, dtype=torch.float32,
+                                    device=dev)[:, None]], dim=1)
+    table = torch.where(prims.valid[:, None], table, torch.zeros_like(table))
+    return torch.cat([table, torch.zeros((1, ROW_F10), dtype=torch.float32,
+                                         device=dev)]).contiguous()
+
+
 def build_table8(prims: ScreenPrimitives, shade_flag) -> torch.Tensor:
     """(P+1, 8) float32 disc rows [px, py, z, r*r, idf, flag, 0, 0] of the
     ``discs_only`` walk (``pallas_csr6.py:1282-1297``); invalid prims' rows
@@ -427,13 +449,15 @@ def build_table9(prims: ScreenPrimitives, order, n_small) -> torch.Tensor:
 # The tile walks: CUDA kernel wrappers and plain versions
 # ---------------------------------------------------------------------------
 
-def _check_ranges(order, starts, big_n, width, height):
+def _check_ranges(order, starts, big_n, width, height, span=SPAN):
+    if span not in SPANS:
+        raise ValueError(f"span must be one of {SPANS}, got {span}")
     tiles_x, tiles_y = grid_shape(width, height)
     for name, t in (("order", order), ("starts", starts), ("big_n", big_n)):
         if t.dtype != torch.int32 or t.ndim != 1:
             raise ValueError(f"{name} must be a 1-D int32 tensor")
-    if starts.shape[0] != tiles_x * tiles_y * K2 + 1:
-        raise ValueError("starts does not match the tile grid")
+    if starts.shape[0] != tiles_x * tiles_y * span * span + 1:
+        raise ValueError("starts does not match the tile grid at this span")
     if big_n.shape[0] != 1:
         raise ValueError("big_n must hold one element")
     return tiles_x, tiles_y
@@ -445,26 +469,29 @@ def _check_one_device(*tensors):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def _check_inputs(table, order, starts, big_ids, big_n, width, height):
+def _check_inputs(table, order, starts, big_ids, big_n, width, height,
+                  span=SPAN):
     if table.dtype != torch.float32 or table.ndim != 2 or table.shape[1] != ROW_F:
         raise ValueError("table must be (P+1, 16) float32")
     if big_ids.dtype != torch.int32 or big_ids.ndim != 1:
         raise ValueError("big_ids must be a 1-D int32 tensor")
-    grid = _check_ranges(order, starts, big_n, width, height)
+    grid = _check_ranges(order, starts, big_n, width, height, span)
     _check_one_device(table, order, starts, big_ids, big_n)
     return grid
 
 
-def _check_inputs_disc8(table8, big_rows, order, starts, big_n, width,
-                        height):
-    if (table8.dtype != torch.float32 or table8.ndim != 2
-            or table8.shape[1] != ROW_F_DISC):
-        raise ValueError("table8 must be (P+1, 8) float32")
+def _check_inputs_narrow(table, row_f, big_rows, order, starts, big_n,
+                         width, height, span=SPAN):
+    """Checks of the walks over narrow binned rows (``table`` (P+1,
+    ``row_f``)) with a dense 16-float big list."""
+    if (table.dtype != torch.float32 or table.ndim != 2
+            or table.shape[1] != row_f):
+        raise ValueError(f"table{row_f} must be (P+1, {row_f}) float32")
     if (big_rows.dtype != torch.float32 or big_rows.ndim != 2
             or big_rows.shape[1] != ROW_F):
         raise ValueError("big_rows must be (B, 16) float32")
-    grid = _check_ranges(order, starts, big_n, width, height)
-    _check_one_device(table8, big_rows, order, starts, big_n)
+    grid = _check_ranges(order, starts, big_n, width, height, span)
+    _check_one_device(table, big_rows, order, starts, big_n)
     return grid
 
 
@@ -492,12 +519,12 @@ def _launch(symbol, ptr_args, int_args, device):
 
 
 def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
-               width, height):
+              width, height, span):
     tiles_x, tiles_y = _check_inputs(table, order, starts, big_ids, big_n,
-                                     width, height)
+                                     width, height, span)
     if table.device.type == "cpu":
         return raster_tiles_plain(table, order, starts, big_ids, big_n,
-                                  width, height, bin_triangles)
+                                  width, height, bin_triangles, span)
     if table.device.type != "cuda":
         raise ValueError(f"no csr6 kernel for device {table.device}")
     table, order, starts, big_ids, big_n = (
@@ -507,14 +534,15 @@ def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
     index = torch.empty((height, width), dtype=torch.int32, device=dev)
     _launch("csr6_raster", (table, order, starts, big_ids, big_n, depth,
                             index),
-            (width, height, tiles_x, tiles_y, int(bin_triangles)), dev)
+            (width, height, tiles_x, tiles_y, int(bin_triangles), span), dev)
     wrapper.launches += 1
     return depth, index
 
 
 def raster_tiles(table, order, starts, big_ids, big_n, width: int,
-                 height: int, bin_triangles: bool = False):
-    """(depth (H, W) f32 +inf-empty, index (H, W) i32 -1-empty).
+                 height: int, bin_triangles: bool = False, span: int = SPAN):
+    """(depth (H, W) f32 +inf-empty, index (H, W) i32 -1-empty) of a
+    binning at ``span`` (2, 4 or 8).
 
     CUDA tensors launch the ``csr6_raster`` kernel of
     ``csrc/csr6_raster.cu``; CPU tensors take :func:`raster_tiles_plain`.
@@ -522,30 +550,64 @@ def raster_tiles(table, order, starts, big_ids, big_n, width: int,
     ``.launches`` counts launches without ``bin_triangles``."""
     if bin_triangles:
         return raster_tiles_tri(table, order, starts, big_ids, big_n, width,
-                                height)
+                                height, span)
     return _raster16(raster_tiles, False, table, order, starts, big_ids,
-                     big_n, width, height)
+                     big_n, width, height, span)
 
 
 raster_tiles.launches = 0
 
 
 def raster_tiles_tri(table, order, starts, big_ids, big_n, width: int,
-                     height: int):
+                     height: int, span: int = SPAN):
     """:func:`raster_tiles` with ``bin_triangles``: binned rows through the
     triangle-aware dual evaluation, as the big list always is (the
     mesh-LOD droplets).  ``.launches`` counts launches."""
     return _raster16(raster_tiles_tri, True, table, order, starts, big_ids,
-                     big_n, width, height)
+                     big_n, width, height, span)
 
 
 raster_tiles_tri.launches = 0
 
 
+def raster_tiles_cap10(table10, big_rows, order, starts, big_n, width: int,
+                       height: int, span: int = SPAN):
+    """The ``cap_rows10`` walk -> (depth, index): binned rows are the
+    10-float rows of :func:`build_table10` gathered by ``order`` (a
+    binning at ``span``) through the capsule body of the 16-float walk
+    (the same float32 expressions, so the same winners and depth bits),
+    the big list the dense 16-float ``big_rows`` (its first ``big_n``
+    live) through the dual evaluation.  CUDA tensors launch the
+    ``csr6_cap10`` kernel of ``csrc/csr6_raster.cu``; CPU tensors take
+    :func:`raster_tiles_cap10_plain`.  ``.launches`` counts launches."""
+    tiles_x, tiles_y = _check_inputs_narrow(table10, ROW_F10, big_rows,
+                                            order, starts, big_n, width,
+                                            height, span)
+    if table10.device.type == "cpu":
+        return raster_tiles_cap10_plain(table10, big_rows, order, starts,
+                                        big_n, width, height, span)
+    if table10.device.type != "cuda":
+        raise ValueError(f"no csr6 kernel for device {table10.device}")
+    table10, big_rows, order, starts, big_n = (
+        t.contiguous() for t in (table10, big_rows, order, starts, big_n))
+    dev = table10.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    index = torch.empty((height, width), dtype=torch.int32, device=dev)
+    _launch("csr6_cap10", (table10, big_rows, order, starts, big_n, depth,
+                           index),
+            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
+    raster_tiles_cap10.launches += 1
+    return depth, index
+
+
+raster_tiles_cap10.launches = 0
+
+
 def _raster_disc8(wrapper, with_uv, table8, big_rows, order, starts, big_n,
                   width, height):
-    tiles_x, tiles_y = _check_inputs_disc8(table8, big_rows, order, starts,
-                                           big_n, width, height)
+    tiles_x, tiles_y = _check_inputs_narrow(table8, ROW_F_DISC, big_rows,
+                                            order, starts, big_n, width,
+                                            height)
     if table8.device.type == "cpu":
         return _disc8_plain(with_uv, table8, big_rows, order, starts, big_n,
                             width, height)
@@ -596,6 +658,28 @@ def raster_tiles_disc8_uv(table8, big_rows, order, starts, big_n, width: int,
 raster_tiles_disc8_uv.launches = 0
 
 
+def _eval_capsule(x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2, qx, qy):
+    """The capsule body of pallas_csr4._make_row_body16 (and of
+    _make_row_body10) in its exact expression order -> (dx, dy, covered,
+    depth)."""
+    dx = qx - x0
+    dy = qy - y0
+    t = torch.clamp((dx * sdx + dy * sdy) * il2, 0.0, 1.0)
+    cx = dx - t * sdx
+    cy = dy - t * sdy
+    rad = r0 + sdr * t
+    z = z0 + sdz * t
+    return dx, dy, cx * cx + cy * cy <= rad * rad, z
+
+
+def _eval10(rows, rid, qx, qy, with_uv):
+    """The 10-float capsule row evaluation (pallas_csr6._make_row_body10)
+    -> (covered, depth, idf, u, v)."""
+    cols = [rows[rid, k] for k in range(ROW_F10)]
+    _, _, cov, z = _eval_capsule(*cols[:9], qx, qy)
+    return cov, z, cols[9], None, None
+
+
 def _eval16(rows, rid, qx, qy, with_uv, tri=True):
     """The 16-float row evaluation (pallas_csr4._make_row_body16 with the
     triangle dual; ``tri=False`` the capsule body alone, as the binned
@@ -605,14 +689,8 @@ def _eval16(rows, rid, qx, qy, with_uv, tri=True):
     ``with_uv``)."""
     x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2, idf, t9, t10, t11, flag, _, kf \
         = (rows[rid, k] for k in range(ROW_F))
-    dx = qx - x0
-    dy = qy - y0
-    t = torch.clamp((dx * sdx + dy * sdy) * il2, 0.0, 1.0)
-    cx = dx - t * sdx
-    cy = dy - t * sdy
-    rad = r0 + sdr * t
-    z = z0 + sdz * t
-    cov = cx * cx + cy * cy <= rad * rad
+    dx, dy, cov, z = _eval_capsule(x0, y0, z0, r0, sdx, sdy, sdz, sdr, il2,
+                                   qx, qy)
     e0 = x0 * qy - y0 * qx + z0
     e1 = r0 * qy - sdx * qx + sdy
     e2 = sdz * qy - sdr * qx + il2
@@ -718,15 +796,21 @@ def _tri_window(rows, rect):
                     torch.where(ok, grow, torch.zeros_like(grow)), ~ok, rect)
 
 
+def _windows_capsule(rows, rect):
+    """Capsule windows of rows whose lanes 0-7 are [x0, y0, z0, r0, sdx,
+    sdy, sdz, sdr] (the 16- and 10-float rows)."""
+    r64 = rows.to(torch.float64)
+    x0, y0, r0 = r64[:, 0], r64[:, 1], r64[:, 3]
+    rad = torch.maximum(r0.abs(), (r0 + r64[:, 7]).abs())
+    return _windows(x0, y0, x0 + r64[:, 4], y0 + r64[:, 5], rad,
+                    torch.zeros_like(x0, dtype=torch.bool), rect)
+
+
 def _windows16(rows, rect, tri=True):
     """Windows of 16-float rows; rows flagged as triangles (lane 15) take
     :func:`_tri_window` when ``tri`` (the dual evaluation), else the
     capsule window as every other row."""
-    r64 = rows.to(torch.float64)
-    x0, y0, r0 = r64[:, 0], r64[:, 1], r64[:, 3]
-    rad = torch.maximum(r0.abs(), (r0 + r64[:, 7]).abs())
-    win = _windows(x0, y0, x0 + r64[:, 4], y0 + r64[:, 5], rad,
-                   torch.zeros_like(rows[:, 15], dtype=torch.bool), rect)
+    win = _windows_capsule(rows, rect)
     is_tri = (rows[:, 15] > 0) & tri
     if not bool(is_tri.any()):
         return win
@@ -764,10 +848,10 @@ def _binned_layout(starts, width, height, span=SPAN):
     return region, rect
 
 
-def _binned_rects(order, starts, width, height):
-    """(sorted prim ids, pixel rectangle) of the binned rows of a span-2
-    binning."""
-    _, rect = _binned_layout(starts, width, height)
+def _binned_rects(order, starts, width, height, span=SPAN):
+    """(sorted prim ids, pixel rectangle) of the binned rows of a binning
+    at ``span``."""
+    _, rect = _binned_layout(starts, width, height, span)
     return order[:int(starts[-1])].to(torch.int64), rect
 
 
@@ -868,11 +952,12 @@ def plain_walk16(table, binned_ids, rect, big_ids, big_n, width, height,
 
 
 def raster_tiles_plain(table, order, starts, big_ids, big_n, width: int,
-                       height: int, bin_triangles: bool = False):
+                       height: int, bin_triangles: bool = False,
+                       span: int = SPAN):
     """Plain PyTorch version of the 16-float tile walk, on any device.
 
     Evaluates the same rows as the kernel: each binned row (sorted
-    position below ``starts[4T]``) over the pixels of the tiles its
+    position below ``starts[-1]``) over the pixels of the tiles its
     (anchor, class) covers, each live big-list row over the whole image —
     both clipped to a window around the row's extent that provably holds
     every covered pixel.  Binned rows take the capsule body, or the
@@ -881,15 +966,37 @@ def raster_tiles_plain(table, order, starts, big_ids, big_n, width: int,
     ``PLAIN_PAIR_CHUNK`` and merged with a two-step lexicographic min, so
     the result is exact and order-independent.
     """
-    _check_inputs(table, order, starts, big_ids, big_n, width, height)
-    ids, rect = _binned_rects(order, starts, width, height)
+    _check_inputs(table, order, starts, big_ids, big_n, width, height, span)
+    ids, rect = _binned_rects(order, starts, width, height, span)
     return plain_walk16(table, ids, rect, big_ids, big_n, width, height,
                         bin_triangles)
 
 
+def raster_tiles_cap10_plain(table10, big_rows, order, starts, big_n,
+                             width: int, height: int, span: int = SPAN):
+    """Plain PyTorch version of :func:`raster_tiles_cap10`, on any device:
+    the capsule body over each binned row's window within its (anchor,
+    class) tiles, the 16-float dual over the live big rows, merged as in
+    :func:`raster_tiles_plain`."""
+    _check_inputs_narrow(table10, ROW_F10, big_rows, order, starts, big_n,
+                         width, height, span)
+    dev = table10.device
+    ids, rect = _binned_rects(order, starts, width, height, span)
+    binned = table10[ids]
+    nb = int(big_n[0])
+    big = big_rows[:nb]
+    groups = [
+        _pair_group(binned, _windows_capsule(binned, rect), _eval10, width,
+                    False),
+        _pair_group(big, _windows16(big, _full_rect(nb, width, height, dev)),
+                    _eval16, width, False)]
+    return _merge_plain(groups, width, height, dev, False)
+
+
 def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
                  height):
-    _check_inputs_disc8(table8, big_rows, order, starts, big_n, width, height)
+    _check_inputs_narrow(table8, ROW_F_DISC, big_rows, order, starts, big_n,
+                         width, height)
     dev = table8.device
     ids, rect = _binned_rects(order, starts, width, height)
     binned = table8[ids]
@@ -1046,32 +1153,63 @@ def raster_tiles_rows9_plain(rows9, big_rows, starts, big_n, width: int,
 # Entry points
 # ---------------------------------------------------------------------------
 
+def check_cap10(cap_rows10: bool, discs_only: bool, bin_triangles: bool,
+                allow_exit, cap10_carry: bool = False) -> None:
+    """Raise (ValueError) for the ``cap_rows10`` combinations the JAX
+    package rejects (``pallas_csr6._raster_core6``)."""
+    if cap_rows10 and discs_only:
+        raise ValueError("cap_rows10 is the generic-soup narrow-row mode: "
+                         "discs_only already rides 8-float rows")
+    if cap_rows10 and bin_triangles:
+        raise ValueError("cap_rows10 rows have no triangle lanes: triangles "
+                         "must ride the big list (bin_triangles=False)")
+    if cap10_carry and not cap_rows10:
+        raise ValueError("cap10_carry is a cap_rows10 build variant: "
+                         "requires cap_rows10=True")
+    if allow_exit and cap_rows10:
+        raise ValueError("cap_rows10 rows carry no zlb lane: allow_exit "
+                         "must be off")
+
+
+def check_disc_span(discs_only: bool, span: int) -> None:
+    """The 8-float disc walks take span 2 only."""
+    if discs_only and span != SPAN:
+        raise NotImplementedError(
+            f"span={span} on the discs_only 8-float walks is not ported "
+            "yet: ROADMAP queue B item 4")
+
+
 def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   max_big: int, shade_rgb, shade_flag, plain: bool = False,
                   discs_only: bool = False, fused_uv: bool = False,
                   span: int = SPAN, kind_split: bool = False,
-                  bin_triangles: bool = False):
+                  bin_triangles: bool = False, cap_rows10: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, uv, diag);
     ``uv`` is None unless ``fused_uv`` (then the winner's lambert (u, v)
-    images, +inf where the winner is no disc).  Under ``discs_only`` and
-    ``kind_split`` no (P+1, 16) table exists: the binned rows are 8 or 9
-    floats and the big rows are built at the big ids.  ``bin_triangles``
-    bins small triangles into the 16-float walk (mesh-LOD droplets)."""
+    images, +inf where the winner is no disc).  Under ``discs_only``,
+    ``kind_split`` and ``cap_rows10`` no (P+1, 16) table exists: the
+    binned rows are 8, 9 or 10 floats and the big rows are built at the
+    big ids.  ``bin_triangles`` bins small triangles into the 16-float
+    walk (mesh-LOD droplets)."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
         raise ValueError(
             f"fused_uv requires a resident big list (max_big <= "
             f"{FUSED_MAX_BIG})")
-    if span != SPAN and not kind_split:
-        raise NotImplementedError(
-            f"span={span} is ported for the rows8/rows9 walk only; the "
-            "16- and 8-float walks take span 2: ROADMAP queue B item 1")
+    check_cap10(cap_rows10, discs_only, bin_triangles, None)
+    check_disc_span(discs_only, span)
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
                       kind_split, bin_triangles)
     ranges = (binned["order"], binned["starts"])
     uv = None
-    if kind_split:
+    if cap_rows10:
+        big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
+                                      binned["big_ids"])
+        walk = raster_tiles_cap10_plain if plain else raster_tiles_cap10
+        depth, index = walk(build_table10(prims), big_rows, *ranges,
+                            binned["big_n"], width, height, span)
+    elif kind_split:
         rows9 = build_table9(prims, binned["order"], binned["starts"][-1])
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
                                       binned["big_ids"])
@@ -1096,21 +1234,23 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                               bin_triangles=bin_triangles)
         walk = raster_tiles_plain if plain else raster_tiles
         depth, index = walk(table, *ranges, binned["big_ids"],
-                            binned["big_n"], width, height, bin_triangles)
+                            binned["big_n"], width, height, bin_triangles,
+                            span)
     return depth, index, uv, binned["diag"]
 
 
 def _kind_split(rows8: bool, rows9: bool, discs_only: bool,
-                allow_exit, bin_triangles: bool = False) -> bool:
+                allow_exit, bin_triangles: bool = False,
+                cap_rows10: bool = False) -> bool:
     """Whether the rows8/rows9 kind-split walk runs; raises for the
     combinations the JAX package rejects (``_raster_core6``)."""
     if not (rows8 or rows9):
         return False
-    if (rows8 and rows9) or discs_only or bin_triangles:
+    if (rows8 and rows9) or discs_only or bin_triangles or cap_rows10:
         raise ValueError(
             "rows8/rows9 are kind-split narrow-row modes for mixed disc + "
             "capsule soups: mutually exclusive with each other and with "
-            "discs_only and bin_triangles")
+            "cap_rows10, discs_only and bin_triangles")
     if allow_exit:
         raise ValueError("rows8/rows9 rows carry no zlb lane: allow_exit "
                          "must be off")
@@ -1122,15 +1262,17 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                    shade_flag=None, plain: bool = False,
                    discs_only: bool = False, span: int = SPAN,
                    rows8: bool = False, rows9: bool = False,
-                   bin_triangles: bool = False):
+                   bin_triangles: bool = False, cap_rows10: bool = False):
     """Bin, build the rows and walk the tiles -> (depth, index, diag).
 
     ``plain=True`` runs the plain tile walk on any device (the reference
     the CUDA kernels are held against); otherwise the device decides.
-    ``discs_only`` takes the 8-float disc rows (same winners); ``rows8``
-    or ``rows9`` the kind-split 9-float rows at ``span`` (binned capsules
-    through the renormalized evaluation); ``bin_triangles`` bins small
-    triangles through the dual evaluation (same winners).
+    ``span`` (2, 4 or 8) bins prims covering at most span x span tiles.
+    ``discs_only`` takes the 8-float disc rows (same winners);
+    ``cap_rows10`` the 10-float capsule rows (same winners); ``rows8``
+    or ``rows9`` the kind-split 9-float rows (binned capsules through the
+    renormalized evaluation); ``bin_triangles`` bins small triangles
+    through the dual evaluation (same winners).
     """
     if shade_rgb is None:
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
@@ -1140,8 +1282,9 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
     depth, index, _, diag = _raster_core6(
         prims, width, height, max_big, shade_rgb, shade_flag, plain=plain,
         discs_only=discs_only, span=span,
-        kind_split=_kind_split(rows8, rows9, discs_only, None, bin_triangles),
-        bin_triangles=bin_triangles)
+        kind_split=_kind_split(rows8, rows9, discs_only, None, bin_triangles,
+                               cap_rows10),
+        bin_triangles=bin_triangles, cap_rows10=cap_rows10)
     return depth, index, diag
 
 
@@ -1337,7 +1480,8 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
                        discs_only: bool = False, uniform_look=None,
                        allow_exit=None, span: int = SPAN,
                        rows8: bool = False, rows9: bool = False,
-                       three_tone=None, bin_triangles: bool = False):
+                       three_tone=None, bin_triangles: bool = False,
+                       cap_rows10: bool = False):
     """Rasterize + shade in one pass -> (rgb, depth, index, diag).
 
     Two-tone disc scenes (``uniform_look`` with ``discs_only``, lambert,
@@ -1346,15 +1490,18 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     and :func:`shade_uv` shades without a gather.  Every other case
     shades through :func:`shade_by_id`; under ``three_tone`` (lambert)
     ``preshade`` is skipped, its outputs being read by nothing else.
-    ``rows8`` and ``rows9`` take the kind-split walk at ``span`` (one
-    kernel for both: they evaluate the same float32 expressions);
-    ``bin_triangles`` the binned-triangle 16-float walk.  ``allow_exit``
-    has no other effect here (the v6 walks have no depth early exit)."""
+    ``rows8`` and ``rows9`` take the kind-split walk (one kernel for
+    both: they evaluate the same float32 expressions), ``cap_rows10`` the
+    10-float capsule walk, ``bin_triangles`` the binned-triangle 16-float
+    walk, each at ``span``.  ``allow_exit`` has no other effect here (the
+    v6 walks have no depth early exit) beyond the JAX package's checks."""
     check_supported(shading)
+    check_id_range(prims)
     if three_tone is not None and uniform_look is not None:
         raise ValueError("three_tone and uniform_look are exclusive")
     kind_split = _kind_split(rows8, rows9, discs_only, allow_exit,
-                             bin_triangles)
+                             bin_triangles, cap_rows10)
+    check_cap10(cap_rows10, discs_only, bin_triangles, allow_exit)
     if three_tone is not None and shading.mode != "flat":
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
                                 device=prims.device)
@@ -1368,7 +1515,8 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     depth, index, uv, diag = _raster_core6(
         prims, camera.width, camera.height, max_big, shade_rgb, shade_flag,
         plain=plain, discs_only=discs_only, fused_uv=fused, span=span,
-        kind_split=kind_split, bin_triangles=bin_triangles)
+        kind_split=kind_split, bin_triangles=bin_triangles,
+        cap_rows10=cap_rows10)
     if fused:
         rgb = shade_uv(camera, shading, depth, uv[0], uv[1], uniform_look)
     else:

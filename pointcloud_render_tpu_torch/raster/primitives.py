@@ -102,6 +102,21 @@ def discs_from_points(positions, camera, radii, colors) -> ScreenPrimitives:
     )
 
 
+def capsules_from_polylines(points, vertex_valid, camera, radius_world,
+                            colors) -> ScreenPrimitives:
+    """Trail polylines (N, V, 3) with an (N, V) per-vertex keep mask ->
+    N*(V-1) screen capsules, point-major (``capsules_from_polylines`` of
+    the JAX package).  A segment is emitted iff both endpoints are kept;
+    the culls, zero-length drop and radii are those of
+    :func:`capsules_from_vertex_columns`, which evaluates the same
+    float32 expressions per element: the polyline's vertices go there as
+    V columns."""
+    v = points.shape[1]
+    return capsules_from_vertex_columns(
+        [points[:, j] for j in range(v)],
+        [vertex_valid[:, j] for j in range(v)], camera, radius_world, colors)
+
+
 def capsules_from_vertex_columns(vertex_cols, valid_cols, camera,
                                  radius_world, colors) -> ScreenPrimitives:
     """Trail polylines given as V (N, 3) vertex columns -> N*(V-1) screen
@@ -110,7 +125,8 @@ def capsules_from_vertex_columns(vertex_cols, valid_cols, camera,
     A segment is valid iff both endpoints pass the near/far cull and their
     ``valid_cols`` masks, it has nonzero screen length, and its bbox touches
     the film.  ``radius_world`` is a Python scalar (the constant trail
-    radius) or (N, V) per-vertex radii (the droplets' tapered tails).
+    radius) or (N, V) per-vertex radii (the droplets' tapered tails);
+    ``colors`` one (3,) color or (N, 3) per polyline.
     """
     v = len(vertex_cols)
     n = vertex_cols[0].shape[0]
@@ -159,10 +175,13 @@ def capsules_from_vertex_columns(vertex_cols, valid_cols, camera,
         return torch.stack(cs, dim=1).reshape(-1)
 
     m = n * (v - 1)
+    color = as_f32(colors, dev)
+    color = (color.expand(m, 3).contiguous() if color.ndim == 1
+             else color.repeat_interleave(v - 1, dim=0))
     return ScreenPrimitives(
         kind=torch.full((m,), KIND_CAPSULE, dtype=torch.int32, device=dev),
         params=_pad_params([interleave(cols[k]) for k in names]),
-        color=_broadcast_color(colors, m, dev),
+        color=color,
         valid=interleave(valids),
         bbox=torch.stack([interleave(bb[k]) for k in bb], dim=1),
         normal=torch.zeros((m, 3), dtype=torch.float32, device=dev),

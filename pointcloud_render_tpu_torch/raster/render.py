@@ -8,12 +8,18 @@ The PyTorch twin of ``pointcloud_render_tpu.raster.render``.  Backends:
   "pallas4"         — the v4 tile rasterizer (``raster/csr4.py``: 2x2
                       entry binning, the z-bucket early exit, a semantic
                       ``entry_capacity``), kernel or plain likewise;
+  "pallas3"         — the v3 disc fast path (``raster/csr3.py``: 2x2 disc
+                      binning with a stable sort, a strict-< merge on
+                      entry index, the z-bucket early exit, the fused
+                      8-float shade rows, a semantic ``entry_capacity``;
+                      its fixed big list of 1024 holds every capsule and
+                      triangle), kernel or plain likewise;
   "cpu", "tiled", "bruteforce" — the plain PyTorch version of the v6 walk
                       explicitly, on any device (the JAX package's exact
                       reference backends; one plain rasterizer serves all
                       three).
-  "pallas", "pallas3" — older kernel generations, not ported yet (ROADMAP
-                      queue B items 10-11): NotImplementedError.
+  "pallas"          — v2, not ported yet (ROADMAP queue B item 11):
+                      NotImplementedError.
 
 ``RasterConfig`` keeps every field of the JAX package's so configs stay
 compatible.  The TPU performance knobs (``tiles_per_program``,
@@ -21,8 +27,8 @@ compatible.  The TPU performance knobs (``tiles_per_program``,
 ``*_carry`` build variants, ``chunk``, ``tile_h``/``tile_w``,
 ``max_per_tile``, ``max_tiles_per_prim``, ``row_budget``,
 ``no_triangles``) are accepted and have no effect here; ``entry_capacity``
-drops entries under ``pallas4`` and is checked against the frame's
-``true_entries`` by the pipelines;
+drops entries under ``pallas4`` and ``pallas3`` and is checked against the
+frame's ``true_entries`` by the pipelines;
 ``allow_exit`` only decides, as in the JAX package, whether a two-tone
 disc scene may take the fused (u, v) shade (forced on, it may not).
 ``discs_only`` walks 8-float disc rows (capsules ride the big list) and
@@ -32,8 +38,10 @@ disc scene may take the fused (u, v) shade (forced on, it may not).
 ``pallas4`` shades generically, as ``render_shaded_csr4`` does.
 ``rows9`` and ``rows8`` walk the kind-split 9-float rows (binned capsules
 through the renormalized segment-frame evaluation; one kernel serves
-both), at ``span`` 2, 4 or 8; ``three_tone`` shades per-kind-constant
-soups from three or four representative colors.  The plain backends run
+both) and ``cap_rows10`` the 10-float capsule rows (the default walk's
+winners and depth bits), at ``span`` 2, 4 or 8 as the default 16-float
+walk; ``three_tone`` shades per-kind-constant soups from three or four
+representative colors.  The plain backends run
 the plain version of the same walk, so a rows9 config renders the rows9
 winners there too.  Semantic knobs outside the ported slices raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -47,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pointcloud_render_tpu_torch.raster import csr4, csr6
+from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
     triangles_from_mesh,
@@ -55,11 +63,10 @@ from pointcloud_render_tpu_torch.raster.primitives import (
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils.consts import const
 
-KERNEL_BACKENDS = ("auto", "pallas6", "pallas4")
+KERNEL_BACKENDS = ("auto", "pallas6", "pallas4", "pallas3")
 PLAIN_BACKENDS = ("cpu", "tiled", "bruteforce")
 UNPORTED_BACKENDS = {
     "pallas": "ROADMAP queue B item 11 (pallas_csr2, v2)",
-    "pallas3": "ROADMAP queue B item 10 (pallas_csr3, v3)",
 }
 
 
@@ -125,25 +132,18 @@ def check_config(config: RasterConfig) -> None:
                          "rows9=True")
     if config.allow_exit and config.span != 2:
         raise ValueError("allow_exit requires span=2")
-    kind_split = csr6._kind_split(config.rows8, config.rows9,
-                                  config.discs_only, config.allow_exit,
-                                  config.bin_triangles)
-    if kind_split and config.cap_rows10:
-        raise ValueError("rows8/rows9 are exclusive with cap_rows10")
-    if config.cap_rows10 and config.bin_triangles:
-        raise ValueError("cap_rows10 rows have no triangle lanes: triangles "
-                         "must ride the big list (bin_triangles=False)")
-    unported = [
-        (config.cap_rows10, "cap_rows10", "ROADMAP queue B item 8"),
-        (config.span != 2 and not kind_split,
-         f"span={config.span} on the 16- and 8-float walks",
-         "ROADMAP queue B item 1"),
-        (config.supersample != 1, f"supersample={config.supersample}",
-         "ROADMAP queue A item 13 (shading/aa.py)"),
-    ]
-    for bad, name, item in unported:
-        if bad:
-            raise NotImplementedError(f"{name} is not ported yet: {item}")
+    csr6._kind_split(config.rows8, config.rows9, config.discs_only,
+                     config.allow_exit, config.bin_triangles,
+                     config.cap_rows10)
+    csr6.check_cap10(config.cap_rows10, config.discs_only,
+                     config.bin_triangles, config.allow_exit,
+                     config.cap10_carry)
+    if config.backend not in ("pallas3", "pallas4"):
+        csr6.check_disc_span(config.discs_only, config.span)
+    if config.supersample != 1:
+        raise NotImplementedError(
+            f"supersample={config.supersample} is not ported yet: ROADMAP "
+            "queue A item 13 (shading/aa.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +163,16 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
             prims, width, height, entry_capacity=config.entry_capacity,
             max_big=config.max_big, bin_triangles=config.bin_triangles)
         return depth, index
+    if config.backend == "pallas3":
+        depth, index, _ = csr3.rasterize_csr3(
+            prims, width, height, entry_capacity=config.entry_capacity)
+        return depth, index
     depth, index, _ = csr6.rasterize_csr6(
         prims, width, height, max_big=config.max_big,
         plain=config.backend in PLAIN_BACKENDS,
         discs_only=config.discs_only, span=config.span, rows8=config.rows8,
-        rows9=config.rows9, bin_triangles=config.bin_triangles)
+        rows9=config.rows9, bin_triangles=config.bin_triangles,
+        cap_rows10=config.cap_rows10)
     return depth, index
 
 
@@ -187,6 +192,11 @@ def render(prims: ScreenPrimitives, camera,
             prims, camera, config.shading,
             entry_capacity=config.entry_capacity, max_big=config.max_big,
             bin_triangles=config.bin_triangles)
+    elif config.backend == "pallas3":
+        rgb, depth, index, diag = csr3.render_shaded_csr3(
+            prims, camera, config.shading,
+            entry_capacity=config.entry_capacity,
+            uniform_look=config.uniform_look)
     else:
         rgb, depth, index, diag = csr6.render_shaded_csr6(
             prims, camera, config.shading, max_big=config.max_big,
@@ -195,7 +205,8 @@ def render(prims: ScreenPrimitives, camera,
             allow_exit=config.allow_exit, span=config.span,
             rows8=config.rows8, rows9=config.rows9,
             three_tone=config.three_tone,
-            bin_triangles=config.bin_triangles)
+            bin_triangles=config.bin_triangles,
+            cap_rows10=config.cap_rows10)
     fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
     return (fb, diag) if return_diag else fb
 

@@ -5,7 +5,9 @@ main() loops, traj_ball_renderer.py:419-477): the same frame-file
 synthesis (frames 200-219 reuse frame 199), missing-file warnings and
 per-frame error containment, plus a manifest of completed frames so an
 interrupted batch resumes at the first unrendered frame.  History-trail
-presets are not ported yet (ROADMAP queue A item 11).
+presets (traj) preload every frame once (load, standardize, transform)
+and slide a window of ``preset.history_window`` prior frames over them
+(traj_renderer.py:718-742); the render reuses the preloaded frame.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 import traceback
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pointcloud_render_tpu_torch.configs import ScenePreset
@@ -54,6 +57,30 @@ class Manifest:
         os.replace(tmp, self.path)
 
 
+def preload_frames(pipeline: FramePipeline, plan) -> dict:
+    """{frame index: prepared (N, 3|6) array, or None where it failed to
+    load} for every (frame, path) of ``plan``: the history preload."""
+    frames = {}
+    for fi, path in plan:
+        try:
+            frames[fi] = pipeline.load_and_prepare(path)
+        except Exception as e:  # noqa: BLE001 — reference continues
+            print(f"Warning: Failed to load {os.path.basename(path)}: {e}")
+            frames[fi] = None
+    return frames
+
+
+def history_window(frames: dict, frame_index: int,
+                   window: int) -> Optional[np.ndarray]:
+    """The (H, N, 3) positions of the preloaded frames among the
+    ``window`` frame indices before ``frame_index``, oldest first (missing
+    and failed frames skipped), or None when there are none."""
+    lo = max(0, frame_index - window)
+    hs = [frames.get(h) for h in range(lo, frame_index)]
+    hs = [h[:, :3] for h in hs if h is not None]
+    return np.stack(hs) if hs else None
+
+
 def run_batch(preset: ScenePreset, input_folder: Optional[str] = None,
               output_folder: Optional[str] = None, frames=None,
               pipeline: Optional[FramePipeline] = None, resume: bool = True,
@@ -80,17 +107,25 @@ def run_batch(preset: ScenePreset, input_folder: Optional[str] = None,
         print(f"No target files found in folder: {input_folder}")
         return sink
 
+    all_frames = (preload_frames(pipeline, plan)
+                  if preset.trail == "history" else None)
     t_start = time.perf_counter()
     for fi, path in plan:
         if resume and manifest.is_done(fi, output_folder):
             continue
         rec = FrameRecord(frame_index=fi, file=os.path.basename(path))
         try:
+            history = None
+            if all_frames is not None:
+                history = history_window(all_frames, fi,
+                                         preset.history_window)
             with stage(rec, "load"):
-                pcl = pipeline.load_and_prepare(path)
+                pcl = all_frames.get(fi) if all_frames is not None else None
+                if pcl is None:
+                    pcl = pipeline.load_and_prepare(path)
             rec.points = int(pcl.shape[0])
             with stage(rec, "render"):
-                fb = pipeline.render_array(pcl, fi)
+                fb = pipeline.render_array(pcl, fi, history)
                 if pipeline.device.type == "cuda":
                     torch.cuda.synchronize(pipeline.device)
             with stage(rec, "save"):

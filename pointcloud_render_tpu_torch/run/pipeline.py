@@ -6,12 +6,14 @@ transform); the device side is float32 on ``FramePipeline.device``.
 PyTorch runs eagerly, so there is no compiled-step cache.
 
 Ported: the sphere splats, the droplets' capsule LOD (head disc and
-tapered tail capsule, velocity-aligned) and mesh LOD (the reference's
-16x20 teardrop instanced per point, as triangles), and the fixed-segment
-velocity trails (the traj_ball and traj_vel frames, the other sphere +
-velocity presets and the example preset's static cloud, whose 3-D stacks
-``process`` iterates).  History trails and the adaptive trail
-segmentation raise ``NotImplementedError`` naming their ROADMAP entry.
+tapered tail capsule, velocity-aligned, or oriented by the reference's
+seeded random rotations when the cloud has no velocities) and mesh LOD
+(the reference's 16x20 teardrop instanced per point, as triangles), the
+fixed-segment velocity trails and the Catmull-Rom history-fit trails
+(every preset: traj_ball, traj_vel, traj with its history window, the
+other sphere + velocity presets and the example preset's static cloud,
+whose 3-D stacks ``process`` iterates).  The adaptive trail segmentation
+raises ``NotImplementedError`` naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pointcloud_render_tpu_torch.geometry import trails as trails_mod
 from pointcloud_render_tpu_torch.io import loaders, png
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
+    capsules_from_polylines,
     capsules_from_vertex_columns,
     discs_from_points,
     triangles_from_mesh,
@@ -82,8 +85,8 @@ def scene_config(preset: ScenePreset, config: RasterConfig,
 
 
 def build_primitives(preset: ScenePreset, camera: Camera, positions,
-                     velocities=None, frame_index=0, rotations=None,
-                     droplet_lod: str = "capsule",
+                     velocities=None, frame_index=0, history=None,
+                     rotations=None, droplet_lod: str = "capsule",
                      trail_segments: Optional[int] = None,
                      return_layout: bool = False):
     """Assemble the frame's primitive soup on the camera's device.
@@ -93,15 +96,15 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
     instanced teardrops' triangles), trails.  Droplets take their
     orientation from ``rotations`` ((N, 4, 4)), else from the velocities,
     else the identity.  ``trail_segments`` overrides
-    VEL_TRAIL_RENDER_SEGMENTS (1..20).  ``return_layout=True`` also
-    returns the soup's part layout as a list of ``(rows, rows_per_point)``
-    (0 for fixed furniture like the ground); every per-point part is
-    row-major in point index.  The near clip emits the mesh's triangles in
-    two blocks of F rows per point, recorded as two entries.
+    VEL_TRAIL_RENDER_SEGMENTS (1..20).  History presets fit their trails
+    through ``history`` ((H, N, 3) prior positions, oldest first; 20
+    capsules per point) when it holds a frame.  ``return_layout=True``
+    also returns the soup's part layout as a list of ``(rows,
+    rows_per_point)`` (0 for fixed furniture like the ground); every
+    per-point part is row-major in point index.  The near clip emits the
+    mesh's triangles in two blocks of F rows per point, recorded as two
+    entries.
     """
-    if preset.trail == "history":
-        raise NotImplementedError(
-            "history trails are not ported yet: ROADMAP queue A item 11")
     dev = camera.device
     positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
     if velocities is not None:
@@ -172,6 +175,15 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
             vcols, [valid] * len(vcols), camera, preset.trail_radius,
             np.asarray(preset.trail_color, np.float32)))
         per_point.append(len(vcols) - 1)
+    elif (preset.trail == "history" and history is not None
+          and history.shape[0] > 0):
+        pts, valid, keep = trails_mod.catmull_rom_trails(
+            torch.as_tensor(history, dtype=torch.float32, device=dev),
+            positions)
+        parts.append(capsules_from_polylines(
+            pts, keep & valid[:, None], camera, preset.trail_radius,
+            np.asarray(preset.trail_color, np.float32)))
+        per_point.append(pts.shape[1] - 1)
     soup = ScreenPrimitives.concatenate(parts)
     if not return_layout:
         return soup
@@ -240,24 +252,43 @@ class FramePipeline:
         return [self._prepare(f) for f in pcl]
 
     # -- device layer -------------------------------------------------------
-    def render_array(self, pcl: np.ndarray, frame_index: int) -> FrameBuffers:
-        """Render a prepared (N, 3|6) array on ``self.device``.
+    def render_array(self, pcl: np.ndarray, frame_index: int,
+                     history: Optional[np.ndarray] = None) -> FrameBuffers:
+        """Render a prepared (N, 3|6) array on ``self.device``; ``history``
+        is the (H, N, 3|6) prior frames of a history-trail preset, oldest
+        first, or None.
 
         The frame's certificate is read back every frame: on big-list
         overflow the big list grows and the frame renders again; binned
         entries past a finite ``entry_capacity`` raise.  The config goes
         through :func:`scene_config` first (mesh-LOD droplets under
-        ``auto`` bin their triangles).
+        ``auto`` bin their triangles).  Droplets of a history preset
+        without velocities take the reference's seeded random rotations
+        (traj_renderer.py:566-568, a host loop over the points).
         """
         pcl = np.asarray(pcl, np.float32)
         has_vel = pcl.shape[1] == 6
         positions = torch.as_tensor(pcl[:, :3], device=self.device)
         velocities = (torch.as_tensor(pcl[:, 3:6], device=self.device)
                       if has_vel else None)
+        rotations = None
+        if (self.preset.splat == "droplet" and not has_vel
+                and self.preset.trail == "history"):
+            rotations = torch.as_tensor(np.stack([
+                rotation_mod.random_rotation_matrix(i, pcl[i, :3])
+                for i in range(pcl.shape[0])]).reshape(-1, 4, 4)
+                .astype(np.float32), device=self.device)
+        if (self.preset.trail == "history" and history is not None
+                and len(history) > 0):
+            history = torch.as_tensor(
+                np.asarray(history, np.float32)[:, :, :3], device=self.device)
+        else:
+            history = None
         w, h = self.film
         camera = frame_camera(self.preset, frame_index, w, h, self.device)
         prims = build_primitives(self.preset, camera, positions, velocities,
-                                 frame_index, droplet_lod=self.droplet_lod)
+                                 frame_index, history, rotations=rotations,
+                                 droplet_lod=self.droplet_lod)
         for _attempt in range(MAX_RENDER_ATTEMPTS):
             fb, diag = render(prims, camera,
                               scene_config(self.preset, self.raster_config,
@@ -288,18 +319,19 @@ class FramePipeline:
     # -- full frame ----------------------------------------------------------
     def process(self, file_path: str, frame_index: int = 0,
                 output_folder: Optional[str] = None,
-                write_depth: bool = False) -> str:
+                write_depth: bool = False,
+                history: Optional[np.ndarray] = None) -> str:
         """The reference's process(): load, render, save; returns the
-        written PNG path.  For ``iterate_stack`` presets every frame of a
-        3-D stack renders in turn to the same output name, as in the
-        reference (example_renderer.py:165-199: the last frame's PNG
-        survives)."""
+        written PNG path.  ``history`` as in :meth:`render_array`.  For
+        ``iterate_stack`` presets every frame of a 3-D stack renders in
+        turn to the same output name, as in the reference
+        (example_renderer.py:165-199: the last frame's PNG survives)."""
         if self.preset.iterate_stack:
             for pcl in self.load_stack(file_path):
-                fb = self.render_array(pcl, frame_index)
+                fb = self.render_array(pcl, frame_index, history)
         else:
             fb = self.render_array(self.load_and_prepare(file_path),
-                                   frame_index)
+                                   frame_index, history)
         return self.save_outputs(
             fb, file_path, frame_index,
             output_folder or self.preset.output_folder, write_depth)

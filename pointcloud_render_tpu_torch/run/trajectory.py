@@ -19,9 +19,15 @@ Static clouds use dt=0 (a pure camera flythrough); dynamic clouds advect
 by their velocities each frame, with optional motion coloring.  Sphere
 and droplet presets (capsule or mesh LOD, oriented by the velocities,
 with velocity trails: traj_vel; mesh-LOD droplets under ``auto`` bin their
-triangles, as in ``FramePipeline``); history trails raise
-``NotImplementedError`` naming their ROADMAP item, as
-``build_primitives`` does.
+triangles, as in ``FramePipeline``).  History-trail presets (traj) carry
+a rolling (HISTORY_WINDOW, N, 3) position buffer on the device instead of
+the reference's preload of every frame (traj_renderer.py:718-742): it
+starts as copies of the initial cloud, so the first frames' trails are
+degenerate (the Catmull-Rom dedup collapses the copies: no trail) and
+grow as real history accumulates; after each frame the positions it
+rendered are pushed in.  The JAX scan pads a short last chunk with
+frozen steps; the eager loop renders only real frames, so the state
+never advances past the last of them.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Optional
 import torch
 
 from pointcloud_render_tpu_torch.configs import ScenePreset
+from pointcloud_render_tpu_torch.geometry.trails import HISTORY_WINDOW
 from pointcloud_render_tpu_torch.raster import csr6
 from pointcloud_render_tpu_torch.raster.render import (
     RasterConfig,
@@ -71,9 +78,6 @@ class TrajectoryScanRenderer:
                  device="cuda"):
         if preset.splat == "droplet":
             check_droplet_lod(droplet_lod)
-        if preset.trail == "history":
-            raise NotImplementedError(
-                "history trails are not ported yet: ROADMAP queue A item 11")
         self.preset = preset
         self.raster_config = raster_config or RasterConfig()
         check_config(self.raster_config)
@@ -89,16 +93,16 @@ class TrajectoryScanRenderer:
                                "is available")
         self._probed = False
 
-    def _soup(self, positions, velocities, frame_index):
+    def _soup(self, positions, velocities, frame_index, history=None):
         """(camera, primitive soup) of one frame."""
         w, h = self.film
         camera = frame_camera(self.preset, frame_index, w, h, self.device)
         if not self.motion_color:
             return camera, build_primitives(self.preset, camera, positions,
-                                            velocities, frame_index,
+                                            velocities, frame_index, history,
                                             droplet_lod=self.droplet_lod)
         prims, layout = build_primitives(self.preset, camera, positions,
-                                         velocities, frame_index,
+                                         velocities, frame_index, history,
                                          droplet_lod=self.droplet_lod,
                                          return_layout=True)
         # Recolor the splats by speed: the first per-point block of the
@@ -125,7 +129,10 @@ class TrajectoryScanRenderer:
         every frame afterwards: this probe only avoids a wasted first
         render.  Advects the cloud to each sampled frame when dt != 0, and
         bins with the render's own ``discs_only``, span, kind split and
-        ``bin_triangles``."""
+        ``bin_triangles``.  History presets see their real trail
+        capsules: under linear advection frame j's positions are exactly
+        p - v * dt * (fi - j), clamped at frame 0, where the scan's buffer
+        holds the initial cloud (the JAX probe's rule)."""
         ids = sorted(frame_indices)
         if not ids:
             return
@@ -136,9 +143,12 @@ class TrajectoryScanRenderer:
         for fi in sorted(samples):
             p = (dynamics.advect(positions, velocities, self.dt * fi)
                  if self.dt else positions)
+            hist = None
+            if self.preset.trail == "history":
+                hist = self._probe_history(p, velocities, fi)
             camera = frame_camera(self.preset, fi, w, h, self.device)
             prims = build_primitives(self.preset, camera, p, velocities, fi,
-                                     droplet_lod=self.droplet_lod)
+                                     hist, droplet_lod=self.droplet_lod)
             cfg = self._config()
             worst = max(worst, int(csr6.bin_diagnostics6(
                 prims, w, h, max_big=cfg.max_big, discs_only=cfg.discs_only,
@@ -148,6 +158,18 @@ class TrajectoryScanRenderer:
             mb = self.raster_config.max_big + int(worst * 1.5)
             self.raster_config = dataclasses.replace(
                 self.raster_config, max_big=((mb + 511) // 512) * 512)
+
+    def _probe_history(self, p, velocities, fi):
+        """The (HISTORY_WINDOW, N, 3) buffer the scan holds at frame
+        ``fi`` (see :meth:`_probe_max_big`)."""
+        if velocities is None or not self.dt:
+            return p[None].expand(HISTORY_WINDOW, *p.shape)
+        f = torch.full((), float(fi), dtype=torch.float32, device=p.device)
+        offs = torch.arange(HISTORY_WINDOW, 0, -1, dtype=torch.float32,
+                            device=p.device)
+        j = torch.clamp(f - offs, min=0.0)
+        back = (self.dt * (f - j))[:, None, None]
+        return p[None] - velocities[None] * back
 
     def _config(self) -> RasterConfig:
         """The render's config: :func:`scene_config` of the given one."""
@@ -169,7 +191,9 @@ class TrajectoryScanRenderer:
     def render_frames(self, positions, velocities, frame_indices):
         """Render the given frame indices in chunks; returns a list of
         (H, W, 3) uint8 numpy frames and the final (advected) positions, a
-        tensor on the device.  ``velocities`` may be None (no trails)."""
+        tensor on the device.  ``velocities`` may be None (no velocity
+        trails; a history buffer of a cloud at rest).  Each call starts
+        its own history buffer from ``positions``."""
         dev = self.device
         pos = torch.as_tensor(positions, dtype=torch.float32, device=dev)
         vel = (None if velocities is None else
@@ -188,6 +212,8 @@ class TrajectoryScanRenderer:
                    for _ in range(min(2, -(-len(ids) // fpc)))]
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         cfg = self._config()
+        hist = (pos[None].expand(HISTORY_WINDOW, *pos.shape)
+                if self.preset.trail == "history" else None)
         out, pending = [], None
         for c, lo in enumerate(range(0, len(ids), fpc)):
             # A short last chunk renders its own frames only: an eager loop
@@ -197,13 +223,16 @@ class TrajectoryScanRenderer:
             frames, host_frames, host_cert = buffers[c % 2]
             tc_max, ovf_max = zero, zero
             for k in range(len(chunk_ids)):
-                camera, prims = self._soup(pos, vel, ids_dev[lo + k])
+                camera, prims = self._soup(pos, vel, ids_dev[lo + k], hist)
                 fb, diag = render(prims, camera, cfg, return_diag=True)
                 # The certificate's running maxima over every frame of the
                 # chunk stay on the device.
                 tc_max = torch.maximum(tc_max, diag["true_entries"])
                 ovf_max = torch.maximum(ovf_max, diag["big_overflow"])
                 frames[k] = srgb_encode_u8(fb.rgb)
+                if hist is not None:
+                    # The frame rendered only prior frames; push its own.
+                    hist = torch.cat([hist[1:], pos[None]])
                 if self.dt:
                     pos = dynamics.advect(pos, vel, self.dt)
             n = len(chunk_ids)

@@ -1,8 +1,10 @@
-"""The port on an NVIDIA GPU: the CUDA kernels (csr6 16-float rows, with
-and without binned triangles, 8-float disc rows, disc rows with the fused
-(u, v), kind-split 9-float rows; the v4 walk with and without its
-z-bucket early exit) against their plain PyTorch versions, and frames and
-a flythrough rendered on the card against the same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
+"""The port on an NVIDIA GPU: the CUDA kernels (csr6 16-float rows at
+spans 2, 4 and 8, with and without binned triangles, 10-float cap_rows10
+rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
+9-float rows; the v4 walk with and without its z-bucket early exit; the
+v3 disc fast path with and without its exit) against their plain PyTorch
+versions, and frames and flythroughs (traj_ball, the disc lane, traj's
+history trails) rendered on the card against the same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
 without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
-from pointcloud_render_tpu_torch.raster import csr4, csr6
+from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -312,3 +314,104 @@ def test_mesh_frame_on_card_near_cpu(cuda_device):
     for field in ("index", "depth", "rgb"):
         np.testing.assert_array_equal(_bits(getattr(v4, field)),
                                       _bits(getattr(fbs[1], field)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [2, 4, 8])
+@pytest.mark.parametrize("case", CASES + ["droplets"])
+def test_cap10_and_wide_span_kernels_match_plain_on_card(cuda_device, case,
+                                                         span):
+    """csr6_cap10 and csr6_raster at ``span`` == their plain versions bit
+    for bit, and == each other (the same capsule expressions)."""
+    if case == "droplets":
+        soup = droplet_soup(tcam(*SPAN8_FILM, device=cuda_device,
+                                 origin=NEAR_ORIGIN))
+        w, h = SPAN8_FILM
+    else:
+        soup, (w, h) = make_soup(case).to(cuda_device), (W, H)
+    b = csr6.bin_csr6(soup, w, h, 1 << 14, span=span)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args10 = (csr6.build_table10(soup), csr6.build_table16_rows(
+        soup, zeros, zeros[:, 0], b["big_ids"]), b["order"], b["starts"],
+        b["big_n"], w, h, span)
+    args16 = (csr6.build_table16(soup, zeros, zeros[:, 0]), b["order"],
+              b["starts"], b["big_ids"], b["big_n"], w, h, False, span)
+    before = (csr6.raster_tiles_cap10.launches, csr6.raster_tiles.launches)
+    got10 = csr6.raster_tiles_cap10(*args10)
+    got16 = csr6.raster_tiles(*args16)
+    torch.cuda.synchronize()
+    assert (csr6.raster_tiles_cap10.launches,
+            csr6.raster_tiles.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((got10, csr6.raster_tiles_cap10_plain(*args10)),
+                      (got16, csr6.raster_tiles_plain(*args16)),
+                      (got10, got16)):
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      want[1].cpu().numpy())
+        np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exit_on", [True, False])
+@pytest.mark.parametrize("case", CASES + ["disc_ties"])
+def test_v3_kernel_matches_plain_on_card(cuda_device, case, exit_on):
+    """csr3_raster == raster_tiles3_plain bit for bit (depth bits, entry
+    image) with its exit on and off, on full and on capacity-cut entries;
+    the entries it walked never pass a tile's run."""
+    soup = (disc_soup(tcam()) if case == "disc_ties"
+            else make_soup(case)).to(cuda_device)
+    b = csr3.bin_csr_2x2(soup, W, H, max_big=1 << 14)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    for cap in (None, 2 * int(b["starts"][-1]) // 3):
+        entries, starts = csr3.cut_entries(b, cap)
+        rows = csr3.pack_rows8(soup, entries, b["big_ids"], zeros,
+                               zeros[:, 0], (0.0, 0.0, 0.0))
+        args = (rows[:entries.shape[0]], csr6.build_table16_rows(
+            soup, zeros, zeros[:, 0], b["big_ids"]), starts, b["big_n"],
+            b["zmeta"], W, H, b["zq_bits"])
+        walked = torch.empty_like(starts[1:])
+        before = csr3.raster_tiles3.launches
+        got = csr3.raster_tiles3(*args, walked=walked, allow_exit=exit_on,
+                                 block=64)
+        want = csr3.raster_tiles3_plain(*args)
+        torch.cuda.synchronize()
+        assert csr3.raster_tiles3.launches == before + 1
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      want[1].cpu().numpy())
+        np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+        lengths = starts[1:] - starts[:-1]
+        assert bool((walked <= lengths).all())
+        if not exit_on:
+            assert torch.equal(walked, lengths)
+
+
+@pytest.mark.cuda
+def test_traj_frame_and_scan_on_card_near_cpu(cuda_device):
+    """A 160x96 traj frame with 20 frames of history, on the card and on
+    the CPU (the droplets' rotations round differently per device:
+    ROADMAP queue C), and the card's frame through cap_rows10 and pallas3
+    against its default walk; a short traj scan on the card equals the
+    pipeline's frames there."""
+    pos, vel = cloud()
+    hist = np.stack([pos + vel * np.float32(0.002 * (k - 20))
+                     for k in range(20)])
+    pcl = np.concatenate([pos, vel], axis=1)
+    fbs = [pipeline.FramePipeline(PRESETS["traj"], cfg, width=160,
+                                  height=96, device=dev)
+           .render_array(pcl, 23, hist)
+           for dev, cfg in (("cpu", RasterConfig()),
+                            (cuda_device, RasterConfig()),
+                            (cuda_device, RasterConfig(cap_rows10=True,
+                                                       span=4)))]
+    flips = int((fbs[0].index.numpy() != fbs[1].index.cpu().numpy()).sum())
+    assert flips <= 8
+    span4 = pipeline.FramePipeline(PRESETS["traj"], RasterConfig(span=4),
+                                   width=160, height=96, device=cuda_device)
+    want = span4.render_array(pcl, 23, hist)
+    for field in ("index", "depth", "rgb"):
+        np.testing.assert_array_equal(
+            _bits(getattr(fbs[2], field)), _bits(getattr(want, field)))
+    scan = TrajectoryScanRenderer(PRESETS["traj"], dt=0.002,
+                                  frames_per_chunk=3, width=160, height=96,
+                                  device=cuda_device)
+    frames, _ = scan.render_frames(pos, vel, range(5))
+    assert len(frames) == 5 and (frames[4].min(axis=2) < 250).mean() > 0.005

@@ -468,12 +468,12 @@ def test_id_range_guard():
 
 
 def test_knobs_that_still_raise_and_wrapper_dispatch(soup):
-    for backend, item in (("pallas", "queue B item 11"),
-                          ("pallas3", "queue B item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            check_config(RasterConfig(backend=backend))
-    with pytest.raises(NotImplementedError, match="queue B item 8"):
-        check_config(RasterConfig(cap_rows10=True))
+    with pytest.raises(NotImplementedError, match="queue B item 11"):
+        check_config(RasterConfig(backend="pallas"))
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
+        check_config(RasterConfig(discs_only=True, span=8))
+    check_config(RasterConfig(backend="pallas3"))
+    check_config(RasterConfig(cap_rows10=True, span=4))
     for cfg, err in ((RasterConfig(cap_rows10=True, bin_triangles=True),
                       "triangle lanes"),
                      (RasterConfig(rows9=True, bin_triangles=True),

@@ -198,18 +198,17 @@ def test_profiler_trace_writes_a_trace(tmp_path):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="queue B item 10"):
-        pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(backend="pallas3"), device="cpu")
     with pytest.raises(NotImplementedError, match="queue B item 11"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
                                RasterConfig(backend="pallas"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue B item 8"):
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(cap_rows10=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue B item 1"):
-        pipeline.FramePipeline(PRESETS["traj_ball"], RasterConfig(span=4),
+                               RasterConfig(discs_only=True, span=4),
                                device="cpu")
+    # Ported since: pallas3, cap_rows10, span 4 and 8 on the 16-float walk.
+    for cfg in (RasterConfig(backend="pallas3"), RasterConfig(cap_rows10=True),
+                RasterConfig(span=4), RasterConfig(span=8, cap_rows10=True)):
+        pipeline.FramePipeline(PRESETS["traj_ball"], cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.FramePipeline(
             PRESETS["traj_ball"],
@@ -218,9 +217,11 @@ def test_unported_paths_raise():
         pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
     pos, vel = cloud(n=10)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        pipeline.FramePipeline(PRESETS["traj"], device="cpu") \
-            .render_array(np.concatenate([pos, vel], axis=1), 10)
+    with pytest.raises(NotImplementedError, match="queue A, 'Not to port'"):
+        pipeline.build_primitives(
+            PRESETS["traj_ball"], pipeline.frame_camera(
+                PRESETS["traj_ball"], 10, 64, 48, "cpu"), pos, vel, 10,
+            trail_segments="adaptive")
 
 
 def test_cuda_device_without_card_raises():

@@ -216,9 +216,9 @@ def test_scan_refusals():
     with pytest.raises(ValueError, match="unknown droplet_lod"):
         TrajectoryScanRenderer(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        TrajectoryScanRenderer(dataclasses.replace(
-            PRESETS["traj"], splat="sphere"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
+        TrajectoryScanRenderer(PRESETS["traj_ball"], RasterConfig(
+            discs_only=True, span=4), device="cpu")
     with pytest.raises(ValueError, match="need velocities"):
         TrajectoryScanRenderer(PRESETS["traj_ball"], dt=DT, device="cpu") \
             .render_frames(_cloud()[0], None, [0])
