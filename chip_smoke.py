@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels (one source, eight kernels) from csrc/ with nvcc;
+  2. build the kernels (two sources, eleven kernels) from csrc/ with nvcc,
+     one nvcc per source, started together;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
      seeded soups at 1920x1080 and one traj_ball frame, and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
@@ -32,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
      fused shade equals shade_by_id(uniform_look) bit for bit; then the
      220-frame flythrough through TrajectoryScanRenderer at 1920x1080 in
      chunks of 8: certificate 0 on every chunk, one csr6_disc8_uv launch
-     per frame, frames equal to the plain backend's, frames/s, ms/frame,
+     per frame, frames equal to the fused walk's plain version (the scan's
+     render swapped for render_shaded_csr6(plain=True)), frames/s, ms/frame,
      the stages of one warm frame and a trace of one warm chunk (device
      idle share, host synchronisations); 8 frames without uniform_look
      (csr6_disc8) and 8 advected traj_ball frames with trails
@@ -101,18 +103,40 @@ Phases (any failure exits non-zero and prints no result line):
      block sizes and without it, the 220-frame pallas3 scan (certificate
      0, one csr3_raster launch per frame, frames equal to the pallas6
      scan's), and the example CLI with --backend pallas3 (PNGs
-     byte-equal to pallas6's).
+     byte-equal to pallas6's);
+ 11. the strip-tiled backends: (a) csr1_raster (v1), csr2_raster (v2,
+     16-float rows, with and without no_triangles) and csr2_disc8 (v2's
+     8-float disc rows), each with its saturation exit on and off,
+     against the plain strip walk bit for bit on phase 3's seeded soups
+     and the disc scene with ties, on 1,500 wide discs (v1 at max_big
+     2048 takes them all, v2 drops those past its 1024), on entries cut
+     to 2/3 of true_entries, and on strips of 16x256 and 4x32; (b) the
+     traj_ball CLI with --backend pallas on phase 5's PLYs at frames 10
+     and 120 (records ok, PNGs byte-equal to phase 5's pallas6 PNGs, one
+     csr2_raster launch per frame), frame 205 decided by v2's big list
+     (the frame equals pallas6's, or FramePipeline raises the JAX
+     package's RuntimeError after its retries: printed), csr2_raster and
+     csr1_raster timed at frame 120 with their exits on and off, their
+     plain time and bounds, and equal to each other; (c) bench.py's disc
+     lane through pallas (max_tiles_per_prim 4, no_triangles,
+     discs_only, entry_capacity by bench.py:427-445's rule): csr2_disc8
+     == plain at frames 0, 120 and 219, pallas frames == pallas6 frames
+     there, the 220-frame scan (certificate 0 on every chunk, one
+     csr2_disc8 launch per frame, every u8 frame equal to the pallas6
+     scan's without uniform_look) and its frames/s.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
 the walk must evaluate times the float32 operations per pair, over the
 card's float32 rate without multiply-add fusion; or its bytes over the
-memory rate if that is larger); csr4_raster's and csr3_raster's entries
-add ms_exit_off and bound_ms_exit_off, the walk of every entry.
+memory rate if that is larger); csr4_raster's, csr3_raster's and the
+strip kernels' entries add ms_exit_off and bound_ms_exit_off, the walk of
+every entry.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -125,6 +149,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = (10, 120, 205)
 KERNEL_SOURCE = "pointcloud_render_tpu_torch/csrc/csr6_raster.cu"
+STRIP_SOURCE = "pointcloud_render_tpu_torch/csrc/csr2_raster.cu"
 REPLACES = {
     "csr6_raster": "pointcloud_render_tpu/raster/pallas_csr6.py:601",
     "csr6_disc8": "pointcloud_render_tpu/raster/pallas_csr6.py:268",
@@ -135,6 +160,9 @@ REPLACES = {
     "csr4_raster": "pointcloud_render_tpu/raster/pallas_csr4.py:385",
     "csr6_cap10": "pointcloud_render_tpu/raster/pallas_csr6.py:298",
     "csr3_raster": "pointcloud_render_tpu/raster/pallas_csr3.py:254",
+    "csr2_raster": "pointcloud_render_tpu/raster/pallas_csr2.py:100",
+    "csr2_disc8": "pointcloud_render_tpu/raster/pallas_csr2.py:100",
+    "csr1_raster": "pointcloud_render_tpu/raster/pallas_csr.py:88",
 }
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
 SCAN_FRAMES = 220
@@ -1145,6 +1173,33 @@ def scan_stages(pipeline, csr6, trajectory, preset, pos, fi, dev, max_big):
             ("srgb_encode_u8", lambda f: trajectory.srgb_encode_u8(f["lit"]))]
 
 
+@contextlib.contextmanager
+def plain_v6_scan(trajectory, csr6):
+    """Within the block, TrajectoryScanRenderer renders through the plain
+    versions of the v6 walks (render_shaded_csr6 with plain=True, every
+    knob of the config forwarded): the kernels' own plain reference."""
+    from pointcloud_render_tpu_torch.raster.render import FrameBuffers
+
+    def render(prims, camera, config, return_diag=False):
+        rgb, depth, index, diag = csr6.render_shaded_csr6(
+            prims, camera, config.shading, max_big=config.max_big,
+            plain=True, discs_only=config.discs_only,
+            uniform_look=config.uniform_look, allow_exit=config.allow_exit,
+            span=config.span, rows8=config.rows8, rows9=config.rows9,
+            three_tone=config.three_tone,
+            bin_triangles=config.bin_triangles,
+            cap_rows10=config.cap_rows10)
+        fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
+        return (fb, diag) if return_diag else fb
+
+    saved = trajectory.render
+    trajectory.render = render
+    try:
+        yield
+    finally:
+        trajectory.render = saved
+
+
 def disc_lane(card, dev, max_err, counters) -> dict:
     """Phase 7 -> {kernel name: dict(launches, ms, plain_ms, bound_ms,
     bound_by)} for csr6_disc8 and csr6_disc8_uv (see the module docstring)."""
@@ -1252,16 +1307,17 @@ def disc_lane(card, dev, max_err, counters) -> dict:
           f"of {SCAN_CHUNK}: certificate 0 on every chunk (max_big {max_big})"
           f", csr6_disc8_uv launches {uv_launches}, {wall:.3f} s wall, "
           f"{SCAN_FRAMES / wall:.2f} frames/s warm ({card})", flush=True)
-    # The same three frames through the plain backend on the card.
+    # The same three frames through the fused walk's plain version on the
+    # card (the scan's render runs render_shaded_csr6 with plain=True).
     check_ids = (0, 120, SCAN_FRAMES - 1)
-    plain_frames, _ = trajectory.TrajectoryScanRenderer(
-        preset, dataclasses.replace(cfg, backend="cpu"), **film
-    ).render_frames(pos, None, check_ids)
+    with plain_v6_scan(trajectory, csr6):
+        plain_frames, _ = trajectory.TrajectoryScanRenderer(
+            preset, cfg, **film).render_frames(pos, None, check_ids)
     for fi, want in zip(check_ids, plain_frames):
         check(np.array_equal(frames[fi], want),
-              f"scan frame {fi} differs from the plain backend's")
-    print("[scan] frames 0, 120, 219 equal the plain backend's bit for bit",
-          flush=True)
+              f"scan frame {fi} differs from the plain walk's")
+    print("[scan] frames 0, 120, 219 equal the plain fused walk's bit for "
+          "bit", flush=True)
     del frames
     per_frame = []
     for lo in range(0, SCAN_FRAMES, SCAN_CHUNK):
@@ -2173,6 +2229,357 @@ def v3_lane(card, dev, max_err, counters, tmp, seeded) -> dict:
     return dict(timed, launches=launches)
 
 
+def strip_bound(soup, entries, rows_f, pixels_per_tile, big_ids, big_n,
+                n_starts, width, height, no_triangles):
+    """(bound ms, "operations" | "bytes") of a v1/v2 strip walk that
+    evaluated the binned entries of prim ids ``entries`` (each at every
+    pixel of its tile: 4 operations per pair for a disc row, 17 for a
+    capsule, 18 for a triangle through the dual unless ``no_triangles``)
+    and every live big row at every pixel; bytes: those rows read once
+    (``rows_f`` floats each), the big rows, the starts, two images."""
+    kinds = soup.kind[entries.long()]
+    n = int(kinds.numel())
+    n_tri = 0 if no_triangles or rows_f == 8 else int((kinds == 2).sum())
+    per_entry = (n * OPS_DISC8 if rows_f == 8
+                 else n_tri * OPS_TRIANGLE16 + (n - n_tri) * OPS_CAPSULE16)
+    nb = int(big_n[0])
+    nb_tri = int((soup.kind[big_ids[:nb].long()] == 2).sum())
+    pixels = width * height
+    ops = (pixels_per_tile * per_entry
+           + pixels * (nb_tri * OPS_TRIANGLE16
+                       + (nb - nb_tri) * OPS_CAPSULE16))
+    nbytes = n * rows_f * 4 + nb * 64 + n_starts * 4 + pixels * 4 * 2
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
+                   max_big=1024, tile=(8, 128), mtp=None, no_triangles=False,
+                   timing=False):
+    """``kernel`` (csr1_raster, csr2_raster or csr2_disc8) with its exit on
+    and off vs the plain strip walk (which never exits) on one soup,
+    entries past ``cap`` and big prims past ``max_big`` dropped ->
+    (dict(err, big_count, entries, and with ``timing``: ms, ms_exit_off,
+    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked), (depth,
+    index)).  ``mtp`` defaults to the kernel's JAX default (v1 8, v2 4)."""
+    import torch
+
+    from pointcloud_render_tpu_torch.raster import csr, csr2
+
+    disc = kernel == "csr2_disc8"
+    mtp = mtp or (8 if kernel == "csr1_raster" else 4)
+    th, tw = tile
+    b = csr.bin_csr(soup, width, height, th, tw, mtp, max_big,
+                    force_tri_big=no_triangles or disc,
+                    force_capsule_big=disc)
+    starts = b["starts"]
+    n_rows = int(starts[-1]) if cap is None else min(b["prims"].shape[0],
+                                                     cap)
+    starts = torch.clamp(starts, max=n_rows)
+    pack = csr2.pack_rows_disc if disc else csr.pack_rows_generic
+    rows = pack(soup, b["prims"][:n_rows], b["keys"][:n_rows], b["zmin"],
+                b["span"])
+    wrapper = {"csr1_raster": csr.raster_tiles1,
+               "csr2_raster": csr2.raster_tiles2,
+               "csr2_disc8": csr2.raster_tiles2_disc8}[kernel]
+    args = (rows, starts, csr.pack_big_rows(soup, b["big_ids"]), b["big_n"],
+            width, height, th, tw)
+    kw = {} if disc else dict(no_triangles=no_triangles)
+    want = csr.raster_strips_plain(*args, no_triangles=no_triangles)
+    # A tile of more than 1024 pixels walks its rows once per 1024.
+    lengths = (starts[1:] - starts[:-1]) * -(-th * tw // 1024)
+    walked = torch.empty_like(lengths)
+    what = (f"{kernel} {th}x{tw} max_tiles_per_prim {mtp}"
+            + (f" entry_capacity {cap}" if cap is not None else ""))
+    errs = []
+    for exit_on in (False, True):
+        got = wrapper(*args, walked=walked, allow_exit=exit_on, **kw)
+        torch.cuda.synchronize()
+        errs.append(check_equal_bits(
+            got, want, f"{what} exit {'on' if exit_on else 'off'}"))
+        check(bool((walked <= lengths).all()) and (
+            exit_on or torch.equal(walked, lengths)),
+            f"{what}: walked {int(walked.sum())} of {int(lengths.sum())} "
+            f"rows (exit {exit_on})")
+    out = dict(err=max(errs), big_count=int(b["big_count"]),
+               entries=int(starts[-1]))
+    if timing:
+        check(th * tw == 1024, "timed strips must hold 1024 pixels")
+        n = int(starts[-1])
+        s64 = starts.long()
+        pos = torch.arange(n, device=soup.device)
+        tile_of = torch.searchsorted(s64, pos, right=True) - 1
+        keep = (pos - s64[tile_of]) < walked.long()[tile_of]
+        rows_f = 8 if disc else 16
+        on, off = (strip_bound(soup, ids, rows_f, th * tw, b["big_ids"],
+                               b["big_n"], starts.numel(), width, height,
+                               no_triangles)
+                   for ids in (b["prims"][:n][keep], b["prims"][:n]))
+        out.update(ms=time_ms(lambda: wrapper(*args, **kw), 11),
+                   ms_exit_off=time_ms(lambda: wrapper(
+                       *args, allow_exit=False, **kw), 11),
+                   plain_ms=time_ms(lambda: csr.raster_strips_plain(
+                       *args, no_triangles=no_triangles), 2),
+                   bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
+                   walked=int(keep.sum()))
+    return out, got
+
+
+def print_strip_times(kernel, r, shape, card):
+    """One [time] line of compare_strips' numbers."""
+    print(f"[time] {kernel} kernel {r['ms']:.3f} ms (median of 11), bound "
+          f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']} of "
+          f"{r['entries']} rows walked); exit off {r['ms_exit_off']:.3f} ms, "
+          f"bound {r['bound_ms_exit_off']:.3f} ms; plain {r['plain_ms']:.1f} "
+          f"ms (median of 2), at the {shape} shape ({card})", flush=True)
+
+
+STRIP_KERNELS = ("csr1_raster", "csr2_raster", "csr2_disc8")
+
+
+def strip_kernels_vs_plain(dev, max_err):
+    """Phase 11 (a): the three strip kernels against the plain strip walk
+    (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.raster import csr2
+    from pointcloud_render_tpu_torch.raster.primitives import (
+        ScreenPrimitives,
+        discs_from_points,
+    )
+    from pointcloud_render_tpu_torch.raster.render import ground_plane
+
+    seeded = soups(dev)
+    seeded["disc_ties_wide"] = disc_lane_soup(dev)
+    for name, soup in seeded.items():
+        for kernel in STRIP_KERNELS:
+            for no_tri in ((False, True) if kernel == "csr2_raster"
+                           else (False,)):
+                r, _ = compare_strips(soup, kernel, no_triangles=no_tri)
+                max_err[kernel] = max(max_err[kernel], r["err"])
+        print(f"[kernel==plain] csr1_raster, csr2_raster (no_triangles off "
+              f"and on), csr2_disc8 exit on and off {name}: {soup.count} "
+              f"prims ok", flush=True)
+    # 1,500 wide discs: v1 takes them all (max_big 2048); v2's fixed big
+    # list drops those past 1024, as does its plain version.
+    cam = soup_camera(dev)
+    rng = np.random.default_rng(2029)
+    wide = torch.tensor(rng.uniform(-0.4, 0.4, (1500, 3)).astype(np.float32),
+                        device=dev)
+    small = torch.tensor(rng.uniform(-0.5, 0.5, (20000, 3)).astype(
+        np.float32), device=dev)
+    gray = np.asarray(LOOK[0], np.float32)
+    soup = ScreenPrimitives.concatenate([
+        ground_plane(cam, 10.0, (0.0, 0.0, -0.5)),
+        discs_from_points(wide, cam, torch.full((1500,), 0.15, device=dev),
+                          gray),
+        discs_from_points(small, cam, torch.full((20000,), 0.01, device=dev),
+                          gray)])
+    r1, got1 = compare_strips(soup, "csr1_raster", max_big=2048)
+    r2, got2 = compare_strips(soup, "csr2_raster")
+    check(r1["big_count"] > 1024, f"only {r1['big_count']} wide prims")
+    check(not torch.equal(got1[1], got2[1]),
+          "v2's cut at 1024 big prims changed no pixel")
+    max_err["csr1_raster"] = max(max_err["csr1_raster"], r1["err"])
+    max_err["csr2_raster"] = max(max_err["csr2_raster"], r2["err"])
+    print(f"[kernel==plain] {r1['big_count']} big prims: csr1_raster at "
+          "max_big 2048 and csr2_raster cut at 1024 ok; the cut changes "
+          f"{int((got1[1] != got2[1]).sum())} pixels", flush=True)
+    # Entries cut below true_entries, and strips of other shapes (16x256:
+    # four passes of 1024 pixels per tile; 4x32).
+    for name in ("mixed", "disc_ties_wide"):
+        soup = seeded[name]
+        for kernel in STRIP_KERNELS[1:]:
+            true = int(csr2.true_entry_count(
+                soup, WIDTH, HEIGHT, no_triangles=kernel == "csr2_disc8"))
+            r, _ = compare_strips(soup, kernel, cap=2 * true // 3)
+            max_err[kernel] = max(max_err[kernel], r["err"])
+            for tile in ((16, 256), (4, 32)):
+                r, _ = compare_strips(soup, kernel, tile=tile, mtp=8)
+                max_err[kernel] = max(max_err[kernel], r["err"])
+        print(f"[kernel==plain] csr2_raster, csr2_disc8 {name}: entries cut "
+              "to 2/3 of true_entries, strips of 16x256 and 4x32 ok",
+              flush=True)
+
+
+def v2_flagship(card, dev, inp, out_default, out_v2, counters, max_err):
+    """Phase 11 (b): the traj_ball CLI with --backend pallas on phase 5's
+    PLYs -> {kernel: numbers} of csr2_raster and csr1_raster."""
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_ball_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr, csr2
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline
+
+    frames = (10, 120)
+    reset_counts(counters)
+    sink = traj_ball_renderer.main(
+        ["--input-folder", inp, "--output-folder", out_v2, "--frames",
+         ",".join(map(str, frames)), "--device", "cuda", "--backend",
+         "pallas"])
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == 2 and all(s == "ok" for _, s, _ in statuses),
+          f"pallas frame records not all ok: {statuses}")
+    check(counts == {"raster_tiles2": 2},
+          f"pallas CLI: launches {counts}, want csr2_raster once per frame")
+    for fi in frames:
+        name = f"frame_{fi:04d}_b0.png"
+        with open(os.path.join(out_default, name), "rb") as f, \
+                open(os.path.join(out_v2, name), "rb") as g:
+            check(f.read() == g.read(),
+                  f"pallas {name} differs from the pallas6 frame")
+    for r in sink.records:
+        t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
+        print(f"[v2 cli] frame {r.frame_index}: {r.points} points {t} "
+              f"({card})", flush=True)
+    print(f"[v2 cli] traj_ball --backend pallas frames 10, 120: PNGs equal "
+          f"the pallas6 run's byte for byte; launches {counts}", flush=True)
+    preset = PRESETS["traj_ball"]
+    # Frame 205 (the frame-199 cloud): v2's big list decides.
+    p6 = pipeline.FramePipeline(preset, device=dev)
+    p2 = pipeline.FramePipeline(preset, RasterConfig(backend="pallas"),
+                                device=dev)
+    pcl = p6.load_and_prepare(os.path.join(inp, "frame_0199_b0.ply"))
+    cam = pipeline.frame_camera(preset, 205, WIDTH, HEIGHT, dev)
+    soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:], 205)
+    ovf = int(csr.bin_diagnostics(soup, WIDTH, HEIGHT, max_big=1024,
+                                  no_triangles=True))
+    big = ovf + 1024 if ovf else int(csr.bin_csr(
+        soup, WIDTH, HEIGHT, force_tri_big=True)["big_count"])
+    if ovf == 0:
+        equal_buffers(p2.render_array(pcl, 205), p6.render_array(pcl, 205),
+                      "traj_ball frame 205: pallas vs pallas6")
+        print(f"[v2] traj_ball frame 205: v2 big list {big} <= 1024; the "
+              "pallas frame equals the pallas6 frame (depth bits, index, "
+              "rgb)", flush=True)
+    else:
+        try:
+            p2.render_array(pcl, 205)
+        except RuntimeError as e:
+            check("after capacity retries" in str(e),
+                  f"unexpected RuntimeError: {e}")
+            print(f"[v2] traj_ball frame 205: v2 big list {big} > 1024 (the "
+                  "JAX package never forwards max_big to v2): FramePipeline "
+                  f"raised the JAX package's RuntimeError after its retries "
+                  f"(max_big -> {p2.raster_config.max_big}, no effect)",
+                  flush=True)
+        else:
+            raise SmokeFailure(f"frame 205: {big} v2 big prims rendered")
+    # The kernels beside their plain versions at frame 120's shape.
+    pcl = p6.load_and_prepare(os.path.join(inp, "frame_0120_b0.ply"))
+    cam = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
+    soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:], 120)
+    timed = {}
+    for kernel in ("csr2_raster", "csr1_raster"):
+        r, got = compare_strips(soup, kernel, mtp=8, no_triangles=True,
+                                timing=True)
+        max_err[kernel] = max(max_err[kernel], r["err"])
+        timed[kernel] = (r, got)
+        print_strip_times(kernel, r, "traj_ball frame-120", card)
+    for a, b in zip(timed["csr1_raster"][1], timed["csr2_raster"][1]):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              "csr1_raster and csr2_raster differ at traj_ball frame 120")
+    # v1's path: rasterize_csr, once, counted.
+    reset_counts(counters)
+    d1, i1, diag = csr.rasterize_csr(soup, WIDTH, HEIGHT, no_triangles=True)
+    torch.cuda.synchronize()
+    v1_counts = launch_counts(counters)
+    check(v1_counts == {"raster_tiles1": 1}, f"rasterize_csr: {v1_counts}")
+    check(int(diag["big_overflow"]) == 0 and torch.equal(
+        i1, timed["csr2_raster"][1][1]), "rasterize_csr's frame differs")
+    print("[v2] traj_ball frame 120: csr1_raster == csr2_raster (depth bits, "
+          f"index); rasterize_csr launches {v1_counts}", flush=True)
+    return dict(csr2_raster=dict(timed["csr2_raster"][0],
+                                 launches=counts["raster_tiles2"]),
+                csr1_raster=dict(timed["csr1_raster"][0],
+                                 launches=v1_counts["raster_tiles1"]))
+
+
+def v2_disc_lane(card, dev, max_err, counters) -> dict:
+    """Phase 11 (c): bench.py's disc lane through backend pallas -> the
+    numbers of csr2_disc8 (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr2
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+
+    n = DISC_POINTS
+    pos = torch.tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (n, 3)).astype(np.float32), device=dev)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.002,
+                                 point_color=LOOK[0])
+    # bench.py:427-445: 1.15 x the largest true entry count over frames
+    # 0, 120, 199 and 219 (max_tiles_per_prim 4, no_triangles), rounded
+    # up to 128; :468-481: discs_only, no_triangles, no uniform_look.
+    true = {}
+    for fi in (0, 120, 199, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        s = pipeline.build_primitives(preset, cam, pos, None, fi)
+        true[fi] = int(csr2.true_entry_count(s, WIDTH, HEIGHT,
+                                             max_tiles_per_prim=4,
+                                             no_triangles=True))
+    capacity = ((int(max(true.values()) * 1.15) + 127) // 128) * 128
+    cfg2 = RasterConfig(backend="pallas", max_tiles_per_prim=4,
+                        no_triangles=True, discs_only=True,
+                        entry_capacity=capacity)
+    cfg6 = RasterConfig(discs_only=True, max_big=256)
+    print(f"[v2] disc lane true entries {true}: entry_capacity {capacity}",
+          flush=True)
+    timed = {}
+    for fi in (0, 120, SCAN_FRAMES - 1):
+        cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        s = pipeline.build_primitives(preset, cam, pos, None, fi)
+        r, _ = compare_strips(s, "csr2_disc8", cap=capacity,
+                              timing=fi == 120)
+        max_err["csr2_disc8"] = max(max_err["csr2_disc8"], r["err"])
+        fb2, diag = render(s, cam, cfg2, return_diag=True)
+        equal_buffers(fb2, render(s, cam, cfg6),
+                      f"disc lane frame {fi}: pallas vs pallas6")
+        check(int(diag["true_entries"]) <= capacity
+              and int(diag["big_overflow"]) == 0, "certificate not 0")
+        print(f"[v2] disc lane frame {fi}: {s.count} prims, {r['entries']} "
+              f"entries, big list {r['big_count']}; csr2_disc8 == plain exit "
+              "on and off; pallas frame == pallas6 frame bit for bit",
+              flush=True)
+        if fi == 120:
+            timed = r
+            print_strip_times("csr2_disc8", r, "disc lane frame-120", card)
+    film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
+                device="cuda")
+    scan = trajectory.TrajectoryScanRenderer(preset, cfg2, **film)
+    scan.render_frames(pos, None, range(SCAN_CHUNK))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    frames, _ = scan.render_frames(pos, None, range(SCAN_FRAMES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    check(counts == {"raster_tiles2_disc8": SCAN_FRAMES},
+          f"pallas scan: launches {counts}, want csr2_disc8 once per frame")
+    want, _ = trajectory.TrajectoryScanRenderer(preset, cfg6, **film) \
+        .render_frames(pos, None, range(SCAN_FRAMES))
+    for fi, (a, w) in enumerate(zip(frames, want)):
+        check(np.array_equal(a, w),
+              f"pallas scan frame {fi} differs from the pallas6 scan's")
+    print(f"[scan] pallas {SCAN_FRAMES} frames, {n} points, chunks of "
+          f"{SCAN_CHUNK}: certificate 0 on every chunk (entry_capacity "
+          f"{capacity}), launches {counts}, {wall:.3f} s wall, "
+          f"{SCAN_FRAMES / wall:.2f} frames/s warm; all frames == the "
+          f"pallas6 scan's without uniform_look ({card})", flush=True)
+    return dict(timed, launches=counts["raster_tiles2_disc8"])
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2183,7 +2590,13 @@ def run() -> dict:
         from pointcloud_render_tpu_torch.cli import traj_ball_renderer
         from pointcloud_render_tpu_torch.configs import PRESETS
         from pointcloud_render_tpu_torch.io import ply
-        from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
+        from pointcloud_render_tpu_torch.raster import (
+            csr,
+            csr2,
+            csr3,
+            csr4,
+            csr6,
+        )
         from pointcloud_render_tpu_torch.raster.render import RasterConfig
         from pointcloud_render_tpu_torch.run import pipeline
         from pointcloud_render_tpu_torch.scene import normalize
@@ -2201,18 +2614,24 @@ def run() -> dict:
     counters = (csr6.raster_tiles, csr6.raster_tiles_tri,
                 csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_uv,
                 csr6.raster_tiles_rows9, csr4.raster_tiles4,
-                csr6.raster_tiles_cap10, csr3.raster_tiles3)
+                csr6.raster_tiles_cap10, csr3.raster_tiles3,
+                csr.raster_tiles1, csr2.raster_tiles2,
+                csr2.raster_tiles2_disc8)
 
-    # Phase 2: build from the checkout's sources.
+    # Phase 2: build from the checkout's sources, one nvcc per source.
     t0 = time.perf_counter()
-    kernels.load("csr6_raster")
+    kernels.build_all()
+    for name in kernels.LIBRARIES:
+        kernels.load(name)
     print(f"[build] csr6_raster.cu (csr6_raster, csr6_cap10, csr6_disc8, "
-          f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster) "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in kernels.build_log("csr6_raster").splitlines():
-        if ("registers" in line or "spill" in line or "smem" in line
-                or "Compiling entry" in line):
-            print(f"[build] {line.strip()}", flush=True)
+          f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster) and "
+          f"csr2_raster.cu (csr2_raster, csr2_disc8, csr1_raster) in "
+          f"parallel {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in kernels.LIBRARIES:
+        for line in kernels.build_log(name).splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     # Phase 3: kernel vs plain on seeded soups.
     default_big = csr6.DEFAULT_MAX_BIG
@@ -2276,6 +2695,8 @@ def run() -> dict:
           flush=True)
     # Phase 9 (a): the binned-triangle walk and the v4 walk.
     mesh_kernels_vs_plain(dev, csr6, csr4, max_err)
+    # Phase 11 (a): the v1 and v2 strip walks.
+    strip_kernels_vs_plain(dev, max_err)
 
     # Phase 4: the soup built on the card equals the CPU build.
     for fi in FRAMES:
@@ -2444,6 +2865,9 @@ def run() -> dict:
         # Phase 9 (c): the same PLYs through --backend pallas4.
         v4 = v4_flagship(card, dev, inp, out, os.path.join(tmp, "out_v4"),
                          counters, max_err)
+        # Phase 11 (b): the same PLYs through --backend pallas.
+        strips = v2_flagship(card, dev, inp, out,
+                             os.path.join(tmp, "out_v2"), counters, max_err)
     # Phase 7: bench.py's disc lane and the flythrough loop.
     disc = disc_lane(card, dev, max_err, counters)
     # Phase 8 (c): bench.py's droplet lane.
@@ -2458,11 +2882,15 @@ def run() -> dict:
     # Phase 10 (c): the v3 disc fast path (pallas3).
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         v3 = v3_lane(card, dev, max_err, counters, tmp, v3_soups)
+    # Phase 11 (c): bench.py's disc lane through backend pallas.
+    disc2 = v2_disc_lane(card, dev, max_err, counters)
     numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
-               "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3}
+               "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,
+               **strips, "csr2_disc8": disc2}
     return dict(card=card, kernels=[dict(
-        name=name, route="cuda", source=KERNEL_SOURCE,
+        name=name, route="cuda",
+        source=STRIP_SOURCE if name in STRIP_KERNELS else KERNEL_SOURCE,
         replaces=REPLACES[name], launches=numbers[name]["launches"],
         max_abs_err=max_err[name], ms=numbers[name]["ms"],
         plain_ms=numbers[name]["plain_ms"],

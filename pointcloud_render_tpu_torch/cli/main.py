@@ -12,8 +12,10 @@ runs the plain PyTorch rasterizer.  ``--droplet-lod mesh`` renders the
 droplets as the instanced teardrop mesh (binned triangles);
 ``--backend pallas4`` takes the v4 walk with its z-bucket early exit,
 ``--backend pallas3`` the v3 disc fast path (binned discs, every other
-prim on its big list); ``pallas`` raises ``NotImplementedError`` (ROADMAP
-queue B item 11).  The per-script entry points (``cli.traj_ball_renderer``,
+prim on its big list), ``--backend pallas`` the v2 strip-tile walk (its
+big list fixed at 1024 prims, as in the JAX package: a frame that needs
+more fails after the pipeline's retries), and ``cpu``/``tiled``/
+``bruteforce`` the plain exact rasterizer.  The per-script entry points (``cli.traj_ball_renderer``,
 ``cli.traj_vel_renderer``, ``cli.traj_renderer``, ``cli.traj_b0``,
 ``cli.traj_b1``, ``cli.traj_original``, ``cli.example_renderer``) are thin
 wrappers with the reference's defaults.

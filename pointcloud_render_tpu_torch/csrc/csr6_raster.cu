@@ -134,6 +134,8 @@
 
 #include <cuda_runtime.h>
 
+#include "raster_pairs.cuh"  // clip01, capsule_pair, tri_pair
+
 namespace {
 
 constexpr int kTile = 32;
@@ -142,12 +144,6 @@ constexpr int kPix = kTile * kTile / kThreads;  // pixels per thread
 constexpr int kChunk = 256;                      // rows per staged chunk
 constexpr int kRowF = 16;
 constexpr float kEmpty = 16777216.0f;           // 2^24 > every prim id
-
-// jnp.clip / torch.clamp semantics: NaN propagates.
-__device__ __forceinline__ float clip01(float v) {
-  const float t = v < 0.0f ? 0.0f : v;
-  return t > 1.0f ? 1.0f : t;
-}
 
 // Stage table row `id` into shared slot `slot` (4 x float4).
 __device__ __forceinline__ void stage_row(float4* sh, int slot,
@@ -159,21 +155,6 @@ __device__ __forceinline__ void stage_row(float4* sh, int slot,
   for (int j = 0; j < 4; ++j) sh[slot * 4 + j] = src[j];
 }
 
-// The capsule body of pallas_csr4._make_row_body16 (and of
-// _make_row_body10) at one pair, in the JAX expression order: covered,
-// with the depth in *z.
-__device__ __forceinline__ bool capsule_pair(float dx, float dy, float z0,
-                                             float r0, float sdx, float sdy,
-                                             float sdz, float sdr, float il2,
-                                             float* z) {
-  const float t = clip01((dx * sdx + dy * sdy) * il2);
-  const float cx = dx - t * sdx;
-  const float cy = dy - t * sdy;
-  const float rad = r0 + sdr * t;
-  *z = z0 + sdz * t;
-  return cx * cx + cy * cy <= rad * rad;
-}
-
 // One pair of a staged 16-float row (a, b, c, e = its four float4s): the
 // triangle dual when kTri and the row's kind flag (lane 15) is set, else
 // the capsule body.  Returns covered; writes the depth and the capsule's
@@ -183,14 +164,9 @@ __device__ __forceinline__ bool pair16(const float4& a, const float4& b,
                                        const float4& c, const float4& e,
                                        float qx, float qy, float* z,
                                        float* dx, float* dy) {
-  if (kTri && e.w > 0.0f) {
-    const float e0 = a.x * qy - a.y * qx + a.z;
-    const float e1 = a.w * qy - b.x * qx + b.y;
-    const float e2 = b.z * qy - b.w * qx + c.x;
-    const float iz = e0 * c.z + e1 * c.w + e2 * e.x;
-    *z = 1.0f / (iz > 0.0f ? iz : 1.0f);
-    return (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f) & (iz > 0.0f);
-  }
+  if (kTri && e.w > 0.0f)
+    return tri_pair(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.z, c.w,
+                    e.x, qx, qy, z);
   *dx = qx - a.x;
   *dy = qy - a.y;
   return capsule_pair(*dx, *dy, a.z, a.w, b.x, b.y, b.z, b.w, c.x, z);

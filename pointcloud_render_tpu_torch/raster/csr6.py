@@ -111,22 +111,24 @@ def check_id_range(prims: ScreenPrimitives) -> None:
         raise ValueError("float id encoding supports < 2^24 primitives")
 
 
-def tile_span(prims: ScreenPrimitives, tiles_x: int, tiles_y: int):
+def tile_span(prims: ScreenPrimitives, tiles_x: int, tiles_y: int,
+              tile_w: int = TILE, tile_h: int = TILE):
     """(tx0, tx1, ty0, ty1) int32: the first and last tile column and row
-    of each prim's bbox, clipped to the grid."""
-    tw = const(TILE, np.float32, prims.device)
+    of each prim's bbox on a grid of ``tile_w`` x ``tile_h`` tiles,
+    clipped to the grid."""
 
-    def tile_of(v, n):
+    def tile_of(v, size, n):
         # Saturate before the int cast (XLA's float->int convert saturates
         # and maps NaN to 0; torch's cast of an out-of-range float does not).
-        f = torch.nan_to_num(torch.floor(v / tw), nan=0.0)
+        f = torch.nan_to_num(
+            torch.floor(v / const(size, np.float32, prims.device)), nan=0.0)
         f = torch.clamp(f, -1.0, float(n))
         return torch.clamp(f.to(torch.int32), 0, n - 1)
 
-    return (tile_of(prims.bbox[:, 0], tiles_x),
-            tile_of(prims.bbox[:, 1], tiles_x),
-            tile_of(prims.bbox[:, 2], tiles_y),
-            tile_of(prims.bbox[:, 3], tiles_y))
+    return (tile_of(prims.bbox[:, 0], tile_w, tiles_x),
+            tile_of(prims.bbox[:, 1], tile_w, tiles_x),
+            tile_of(prims.bbox[:, 2], tile_h, tiles_y),
+            tile_of(prims.bbox[:, 3], tile_h, tiles_y))
 
 
 def binnable_kinds(prims: ScreenPrimitives, discs_only: bool = False,
@@ -495,14 +497,14 @@ def _check_inputs_narrow(table, row_f, big_rows, order, starts, big_n,
     return grid
 
 
-def _launch(symbol, ptr_args, int_args, device):
-    """Call ``symbol`` of the csr6 kernel library on the current stream of
-    ``device``; pointers first (None passes a null pointer), then ints,
-    then the stream.  Raises on a
+def _launch(symbol, ptr_args, int_args, device, library="csr6_raster"):
+    """Call ``symbol`` of the kernel library ``library`` (``csrc/<library>
+    .cu``) on the current stream of ``device``; pointers first (None
+    passes a null pointer), then ints, then the stream.  Raises on a
     refused launch: nothing falls back to a plain version."""
     from pointcloud_render_tpu_torch.utils import kernels  # noqa: PLC0415
 
-    lib = kernels.load("csr6_raster")
+    lib = kernels.load(library)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(ptr_args)
@@ -512,10 +514,11 @@ def _launch(symbol, ptr_args, int_args, device):
         err = fn(*(None if t is None else t.data_ptr() for t in ptr_args),
                  *int_args, stream)
     if err != 0:
-        lib.csr6_error_string.restype = ctypes.c_char_p
-        lib.csr6_error_string.argtypes = [ctypes.c_int]
+        err_fn = getattr(lib, library.split("_")[0] + "_error_string")
+        err_fn.restype = ctypes.c_char_p
+        err_fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{symbol} launch failed: "
-                           + lib.csr6_error_string(err).decode())
+                           + err_fn(err).decode())
 
 
 def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,

@@ -14,37 +14,49 @@ The PyTorch twin of ``pointcloud_render_tpu.raster.render``.  Backends:
                       8-float shade rows, a semantic ``entry_capacity``;
                       its fixed big list of 1024 holds every capsule and
                       triangle), kernel or plain likewise;
-  "cpu", "tiled", "bruteforce" — the plain PyTorch version of the v6 walk
-                      explicitly, on any device (the JAX package's exact
-                      reference backends; one plain rasterizer serves all
-                      three).
-  "pallas"          — v2, not ported yet (ROADMAP queue B item 11):
-                      NotImplementedError.
+  "pallas"          — v2 (``raster/csr2.py``): strip tiles of ``tile_h`` x
+                      ``tile_w``, v1's binning (``raster/csr.py``), the
+                      big list first and the saturation early exit;
+                      kernel or plain likewise;
+  "cpu", "tiled", "bruteforce" — the JAX package's exact reference
+                      backends: the plain version of the default v6 walk
+                      (16-float rows at span 2; one plain rasterizer
+                      serves all three), on any device.
+
+As in the JAX package, ``pallas`` and the three plain backends rasterize
+and then shade through ``shading.shade.shade_framebuffer`` (no
+``uniform_look`` or ``three_tone`` epilogue); the plain backends ignore
+the walk's knobs (``rows9``, ``rows8``, ``cap_rows10``, ``discs_only``,
+``span``, ``bin_triangles``) and report ``true_entries`` 0.
 
 ``RasterConfig`` keeps every field of the JAX package's so configs stay
-compatible.  The TPU performance knobs (``tiles_per_program``,
-``dma_slots``, ``chunk_rows``, ``unroll``, ``starts_method``, the
-``*_carry`` build variants, ``chunk``, ``tile_h``/``tile_w``,
-``max_per_tile``, ``max_tiles_per_prim``, ``row_budget``,
-``no_triangles``) are accepted and have no effect here; ``entry_capacity``
-drops entries under ``pallas4`` and ``pallas3`` and is checked against the
-frame's ``true_entries`` by the pipelines;
-``allow_exit`` only decides, as in the JAX package, whether a two-tone
-disc scene may take the fused (u, v) shade (forced on, it may not).
-``discs_only`` walks 8-float disc rows (capsules ride the big list) and
-``uniform_look`` shades two-tone scenes from two constant colors.
-``bin_triangles`` bins small triangles (the mesh-LOD droplets) into the
-16-float walk of ``pallas6`` and ``pallas4``, as the JAX package does;
-``pallas4`` shades generically, as ``render_shaded_csr4`` does.
-``rows9`` and ``rows8`` walk the kind-split 9-float rows (binned capsules
-through the renormalized segment-frame evaluation; one kernel serves
-both) and ``cap_rows10`` the 10-float capsule rows (the default walk's
-winners and depth bits), at ``span`` 2, 4 or 8 as the default 16-float
-walk; ``three_tone`` shades per-kind-constant soups from three or four
-representative colors.  The plain backends run
-the plain version of the same walk, so a rows9 config renders the rows9
-winners there too.  Semantic knobs outside the ported slices raise
-``NotImplementedError`` naming their ROADMAP item.
+compatible.  Under ``pallas``, ``tile_h``, ``tile_w``,
+``max_tiles_per_prim``, ``no_triangles``, ``discs_only`` and
+``entry_capacity`` decide what is binned, what rides the big list and
+what is dropped; its big list is fixed at 1024, as the JAX package never
+forwards ``max_big`` to v2.  The TPU performance knobs
+(``tiles_per_program``, ``dma_slots``, ``chunk_rows``, ``unroll``,
+``starts_method``, the ``*_carry`` build variants, ``chunk``,
+``max_per_tile``, ``row_budget``) are accepted and have no effect, and so
+are ``tile_h``/``tile_w``, ``max_tiles_per_prim`` and ``no_triangles``
+outside ``pallas``; ``entry_capacity`` drops entries under ``pallas4``,
+``pallas3`` and ``pallas`` and is checked against the frame's
+``true_entries`` by the pipelines.  Under the v6 backends: ``allow_exit``
+only decides, as in the JAX package, whether a two-tone disc scene may
+take the fused (u, v) shade (forced on, it may not); ``discs_only`` walks
+8-float disc rows (capsules ride the big list) and ``uniform_look`` shades
+two-tone scenes from two constant colors; ``bin_triangles`` bins small
+triangles (the mesh-LOD droplets) into the 16-float walk of ``pallas6``
+and ``pallas4``, as the JAX package does (``pallas4`` shades generically,
+as ``render_shaded_csr4`` does); ``rows9`` and ``rows8`` walk the
+kind-split 9-float rows (binned capsules through the renormalized
+segment-frame evaluation; one kernel serves both) and ``cap_rows10`` the
+10-float capsule rows (the default walk's winners and depth bits), at
+``span`` 2, 4 or 8 as the default 16-float walk; ``three_tone`` shades
+per-kind-constant soups from three or four representative colors.  The
+v6 backends reject what ``pallas_csr6`` rejects; the others only what
+their JAX functions reject.  Semantic knobs outside the ported slices
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,19 +67,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
+from pointcloud_render_tpu_torch.raster import csr2, csr3, csr4, csr6
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
     triangles_from_mesh,
 )
-from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+from pointcloud_render_tpu_torch.shading.shade import (
+    ShadingConfig,
+    shade_framebuffer,
+)
 from pointcloud_render_tpu_torch.utils.consts import const
 
-KERNEL_BACKENDS = ("auto", "pallas6", "pallas4", "pallas3")
+V6_BACKENDS = ("auto", "pallas6")
+KERNEL_BACKENDS = V6_BACKENDS + ("pallas4", "pallas3", "pallas")
 PLAIN_BACKENDS = ("cpu", "tiled", "bruteforce")
-UNPORTED_BACKENDS = {
-    "pallas": "ROADMAP queue B item 11 (pallas_csr2, v2)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,14 +123,17 @@ class RasterConfig:
 
 
 def check_config(config: RasterConfig) -> None:
-    """Raise for backends and semantic knobs the port does not have yet,
-    and (ValueError) for the combinations the JAX package rejects."""
-    if config.backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {config.backend!r} is not ported yet: "
-            + UNPORTED_BACKENDS[config.backend])
+    """Raise for unknown backends and semantic knobs the port does not have
+    yet, and (ValueError) for the combinations the configured backend's
+    JAX function rejects: ``pallas_csr6``'s under ``auto``/``pallas6``."""
     if config.backend not in KERNEL_BACKENDS + PLAIN_BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}")
+    if config.supersample != 1:
+        raise NotImplementedError(
+            f"supersample={config.supersample} is not ported yet: ROADMAP "
+            "queue A item 13 (shading/aa.py)")
+    if config.backend not in V6_BACKENDS:
+        return
     if config.three_tone is not None and config.uniform_look is not None:
         raise ValueError("three_tone and uniform_look are exclusive")
     if config.three_tone is not None and len(config.three_tone) not in (3, 5):
@@ -138,12 +154,7 @@ def check_config(config: RasterConfig) -> None:
     csr6.check_cap10(config.cap_rows10, config.discs_only,
                      config.bin_triangles, config.allow_exit,
                      config.cap10_carry)
-    if config.backend not in ("pallas3", "pallas4"):
-        csr6.check_disc_span(config.discs_only, config.span)
-    if config.supersample != 1:
-        raise NotImplementedError(
-            f"supersample={config.supersample} is not ported yet: ROADMAP "
-            "queue A item 13 (shading/aa.py)")
+    csr6.check_disc_span(config.discs_only, config.span)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +162,27 @@ class FrameBuffers:
     rgb: torch.Tensor  # (H, W, 3) float32
     depth: torch.Tensor  # (H, W) float32, +inf empty
     index: torch.Tensor  # (H, W) int32, -1 empty
+
+
+def _rasterize_diag(prims: ScreenPrimitives, width: int, height: int,
+                    config: RasterConfig):
+    """(depth, index, diag) of the backends that rasterize and then shade:
+    ``pallas`` (v2, with the certificate the JAX package's ``render``
+    computes for it) and the plain backends (the plain default v6 walk;
+    ``true_entries`` 0, as they drop no entry, and the big list's
+    overflow, which the pipelines heal)."""
+    if config.backend == "pallas":
+        return csr2.rasterize_csr2(
+            prims, width, height, tile_h=config.tile_h, tile_w=config.tile_w,
+            max_tiles_per_prim=config.max_tiles_per_prim,
+            no_triangles=config.no_triangles, discs_only=config.discs_only,
+            entry_capacity=config.entry_capacity)
+    depth, index, diag = csr6.rasterize_csr6(prims, width, height,
+                                             max_big=config.max_big,
+                                             plain=True)
+    return depth, index, dict(
+        true_entries=torch.zeros((), dtype=torch.int32, device=depth.device),
+        big_overflow=diag["big_overflow"])
 
 
 def rasterize(prims: ScreenPrimitives, width: int, height: int,
@@ -162,17 +194,17 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
         depth, index, _ = csr4.rasterize_csr4(
             prims, width, height, entry_capacity=config.entry_capacity,
             max_big=config.max_big, bin_triangles=config.bin_triangles)
-        return depth, index
-    if config.backend == "pallas3":
+    elif config.backend == "pallas3":
         depth, index, _ = csr3.rasterize_csr3(
             prims, width, height, entry_capacity=config.entry_capacity)
-        return depth, index
-    depth, index, _ = csr6.rasterize_csr6(
-        prims, width, height, max_big=config.max_big,
-        plain=config.backend in PLAIN_BACKENDS,
-        discs_only=config.discs_only, span=config.span, rows8=config.rows8,
-        rows9=config.rows9, bin_triangles=config.bin_triangles,
-        cap_rows10=config.cap_rows10)
+    elif config.backend in V6_BACKENDS:
+        depth, index, _ = csr6.rasterize_csr6(
+            prims, width, height, max_big=config.max_big,
+            discs_only=config.discs_only, span=config.span,
+            rows8=config.rows8, rows9=config.rows9,
+            bin_triangles=config.bin_triangles, cap_rows10=config.cap_rows10)
+    else:
+        depth, index, _ = _rasterize_diag(prims, width, height, config)
     return depth, index
 
 
@@ -197,16 +229,19 @@ def render(prims: ScreenPrimitives, camera,
             prims, camera, config.shading,
             entry_capacity=config.entry_capacity,
             uniform_look=config.uniform_look)
-    else:
+    elif config.backend in V6_BACKENDS:
         rgb, depth, index, diag = csr6.render_shaded_csr6(
             prims, camera, config.shading, max_big=config.max_big,
-            plain=config.backend in PLAIN_BACKENDS,
             discs_only=config.discs_only, uniform_look=config.uniform_look,
             allow_exit=config.allow_exit, span=config.span,
             rows8=config.rows8, rows9=config.rows9,
             three_tone=config.three_tone,
             bin_triangles=config.bin_triangles,
             cap_rows10=config.cap_rows10)
+    else:
+        depth, index, diag = _rasterize_diag(prims, camera.width,
+                                             camera.height, config)
+        rgb = shade_framebuffer(prims, camera, depth, index, config.shading)
     fb = FrameBuffers(rgb=rgb, depth=depth, index=index)
     return (fb, diag) if return_diag else fb
 

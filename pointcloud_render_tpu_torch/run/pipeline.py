@@ -306,8 +306,9 @@ class FramePipeline:
                   f"retrying with max_big -> {new}")
         raise RuntimeError(
             f"overflow ({ovf} primitives) at frame {frame_index} after "
-            f"capacity retries — the render dropped them.  Reduce "
-            f"primitive screen extents.")
+            f"capacity retries — the render dropped them. Reduce primitive "
+            f"screen extents, or span=4 (pallas6) if the overflow is long "
+            f"trail segments.")
 
     def _check_capacity(self, true_entries: int, frame_index) -> None:
         cap = self.raster_config.entry_capacity

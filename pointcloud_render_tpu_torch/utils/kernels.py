@@ -1,10 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each library is one ``csrc/<name>.cu`` file (one kernel or a few that
-share code) with a plain C interface.  At first use it is compiled with ``nvcc`` for Hopper into a shared library
-under ``build/kernels/`` beside the package (a directory git ignores) and
-bound with ``ctypes``.  The library name carries a hash of the source and
-the flags, so an edited source rebuilds and a finished build is reused.
+share code; the per-pair evaluations they all use sit in
+``csrc/raster_pairs.cuh``) with a plain C interface.  At first use it is
+compiled with ``nvcc`` for Hopper into a shared library under
+``build/kernels/`` beside the package (a directory git ignores) and bound
+with ``ctypes``.  The library name carries a hash of the source, the
+headers and the flags, so an edited source rebuilds and a finished build
+is reused.  ``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import time.
 """
 
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -25,6 +29,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 # -fmad=false: no multiply-add contraction (the per-pair math is IEEE
 # float32 per operation); no --use_fast_math: division and sqrt stay
 # correctly rounded.  -Xptxas -v records registers/spills in the log.
+# Every kernel library of csrc/.
+LIBRARIES = ("csr6_raster", "csr2_raster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,9 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    the shared ``csrc/*.cuh`` headers and the flags)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -73,6 +83,13 @@ def build(name: str) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_all(names=LIBRARIES) -> list:
+    """:func:`build` each library of ``names`` at once (one ``nvcc`` per
+    source, all started together); returns their paths."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def build_log(name: str) -> str:

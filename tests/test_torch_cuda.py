@@ -2,10 +2,12 @@
 spans 2, 4 and 8, with and without binned triangles, 10-float cap_rows10
 rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 9-float rows; the v4 walk with and without its z-bucket early exit; the
-v3 disc fast path with and without its exit) against their plain PyTorch
-versions, and frames and flythroughs (traj_ball, the disc lane, traj's
-history trails) rendered on the card against the same on the CPU.  Every test here needs a card (marker ``cuda``) and skips
-without one.  The file imports no jax, so it also runs on a machine that
+v3 disc fast path with and without its exit; the v1 and v2 strip walks,
+16-float and 8-float disc rows, with their saturation exit) against their
+plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
+lane, traj's history trails, the pallas backend) rendered on the card
+against the same on the CPU.  Every test here needs a card (marker
+``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
-from pointcloud_render_tpu_torch.raster import csr3, csr4, csr6
+from pointcloud_render_tpu_torch.raster import csr, csr2, csr3, csr4, csr6
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -415,3 +417,114 @@ def test_traj_frame_and_scan_on_card_near_cpu(cuda_device):
                                   device=cuda_device)
     frames, _ = scan.render_frames(pos, vel, range(5))
     assert len(frames) == 5 and (frames[4].min(axis=2) < 250).mean() > 0.005
+
+
+# (name, rasterize function, its keyword arguments) of the strip walks:
+# v1 and v2 generic rows, v2 without binned triangles, v2 disc rows, a
+# strip shape of 2048 pixels (two passes per tile) and a narrow one.
+STRIP_WALKS = {
+    "v1": (csr.rasterize_csr, {}),
+    "v1_max_big_3": (csr.rasterize_csr, dict(max_big=3)),
+    "v2": (csr2.rasterize_csr2, {}),
+    "v2_no_triangles": (csr2.rasterize_csr2, dict(no_triangles=True)),
+    "v2_discs_only": (csr2.rasterize_csr2, dict(discs_only=True)),
+    "v2_16x128": (csr2.rasterize_csr2, dict(tile_h=16, tile_w=128)),
+    "v2_4x24": (csr2.rasterize_csr2, dict(tile_h=4, tile_w=24,
+                                          max_tiles_per_prim=8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", sorted(STRIP_WALKS))
+@pytest.mark.parametrize("case", CASES + ["disc_ties"])
+def test_strip_kernels_match_plain_on_card(cuda_device, case, walk):
+    """csr1_raster, csr2_raster and csr2_disc8 (with their saturation
+    exit) against the plain strip walk (none): depth bits and index, one
+    launch of the wrapper the walk names."""
+    soup = (disc_soup(tcam()) if case == "disc_ties"
+            else make_soup(case)).to(cuda_device)
+    fn, kw = STRIP_WALKS[walk]
+    wrapper = (csr.raster_tiles1 if fn is csr.rasterize_csr
+               else csr2.raster_tiles2_disc8 if kw.get("discs_only")
+               else csr2.raster_tiles2)
+    before = wrapper.launches
+    got = fn(soup, W, H, **kw)
+    want = fn(soup, W, H, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for a, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_bits(a), _bits(w))
+    assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("discs_only", [False, True])
+def test_strip_capacity_cut_and_walked_on_card(cuda_device, discs_only):
+    """v2 on entries cut by an entry_capacity below true_entries equals
+    the plain walk on the same cut; ``walked`` counts at most each tile's
+    range, and all of it with nothing to stop on (no ground: tiles never
+    fill)."""
+    soup = disc_soup(tcam()).to(cuda_device)
+    true = int(csr2.true_entry_count(soup, W, H, no_triangles=discs_only))
+    cap = 2 * true // 3
+    got = csr2.rasterize_csr2(soup, W, H, discs_only=discs_only,
+                              entry_capacity=cap)
+    want = csr2.rasterize_csr2(soup, W, H, discs_only=discs_only,
+                               entry_capacity=cap, plain=True)
+    assert int(got[2]["true_entries"]) == true > cap
+    for a, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_bits(a), _bits(w))
+    b = csr.bin_csr(soup, W, H, max_tiles_per_prim=4)
+    zeros = torch.zeros((b["starts"].shape[0] - 1,), dtype=torch.int32,
+                        device=cuda_device)
+    lengths = b["starts"][1:] - b["starts"][:-1]
+    n = int(b["starts"][-1])
+    rows = csr.pack_rows_generic(soup, b["prims"][:n], b["keys"][:n],
+                                 b["zmin"], b["span"])
+    big = csr.pack_big_rows(soup, b["big_ids"])
+    walked = zeros.clone()
+    csr2.raster_tiles2(rows, b["starts"], big, b["big_n"], W, H,
+                       walked=walked)
+    assert bool((walked <= lengths).all())
+    no_ground = disc_soup(tcam(), ground=False, wide=0).to(cuda_device)
+    b = csr.bin_csr(no_ground, W, H, max_tiles_per_prim=4)
+    n = int(b["starts"][-1])
+    walked = zeros.clone()
+    csr2.raster_tiles2(csr.pack_rows_generic(no_ground, b["prims"][:n],
+                                             b["keys"][:n], b["zmin"],
+                                             b["span"]),
+                       b["starts"], csr.pack_big_rows(no_ground,
+                                                      b["big_ids"]),
+                       b["big_n"], W, H, walked=walked)
+    assert torch.equal(walked, b["starts"][1:] - b["starts"][:-1])
+
+
+@pytest.mark.cuda
+def test_pallas_frame_and_scan_on_card_equal_cpu(cuda_device):
+    """FramePipeline and the scan through backend "pallas" (v2) at
+    160x96: the card's frames equal the CPU's (index, depth, rgb; the scan
+    within 1 u8 level), one csr2_raster launch per frame."""
+    pcl = np.concatenate(cloud(), axis=1)
+    cfg = RasterConfig(backend="pallas")
+    for fi in (10, 120):
+        fbs = [pipeline.FramePipeline(PRESETS["traj_ball"], cfg, width=160,
+                                      height=96, device=dev)
+               .render_array(pcl, fi) for dev in ("cpu", cuda_device)]
+        for field in ("index", "depth", "rgb"):
+            np.testing.assert_array_equal(
+                getattr(fbs[0], field).numpy(),
+                getattr(fbs[1], field).cpu().numpy())
+    pos, _ = cloud(n=400)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.01,
+                                 point_color=LOOK[0])
+    lane = RasterConfig(backend="pallas", discs_only=True,
+                        no_triangles=True, max_tiles_per_prim=4,
+                        entry_capacity=4096)
+    ids = [0, 120, 219]
+    before = csr2.raster_tiles2_disc8.launches
+    runs = [TrajectoryScanRenderer(preset, lane, frames_per_chunk=2,
+                                   width=160, height=96, device=dev)
+            .render_frames(pos, None, ids) for dev in ("cpu", cuda_device)]
+    assert csr2.raster_tiles2_disc8.launches == before + len(ids)
+    for a, b in zip(*(frames for frames, _ in runs)):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1

@@ -198,9 +198,13 @@ def test_profiler_trace_writes_a_trace(tmp_path):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="queue B item 11"):
-        pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(backend="pallas"), device="cpu")
+    # Ported since: backend "pallas" (v2) renders.
+    pos, vel = cloud(n=10)
+    fb = pipeline.FramePipeline(PRESETS["traj_ball"],
+                                RasterConfig(backend="pallas"), width=64,
+                                height=48, device="cpu").render_array(
+        np.concatenate([pos, vel], axis=1), 120)
+    assert bool((fb.index >= 0).any())
     with pytest.raises(NotImplementedError, match="queue B item 4"):
         pipeline.FramePipeline(PRESETS["traj_ball"],
                                RasterConfig(discs_only=True, span=4),
@@ -216,7 +220,6 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="unknown droplet_lod"):
         pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
-    pos, vel = cloud(n=10)
     with pytest.raises(NotImplementedError, match="queue A, 'Not to port'"):
         pipeline.build_primitives(
             PRESETS["traj_ball"], pipeline.frame_camera(
