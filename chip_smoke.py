@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels (two sources, eleven kernels) from csrc/ with nvcc,
-     one nvcc per source, started together;
+  2. build the kernels (three sources, thirteen kernels) from csrc/ with
+     nvcc, one nvcc per source, started together;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
      seeded soups at 1920x1080 and one traj_ball frame, and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
@@ -123,15 +123,33 @@ Phases (any failure exits non-zero and prints no result line):
      == plain at frames 0, 120 and 219, pallas frames == pallas6 frames
      there, the 220-frame scan (certificate 0 on every chunk, one
      csr2_disc8 launch per frame, every u8 frame equal to the pallas6
-     scan's without uniform_look) and its frames/s.
+     scan's without uniform_look) and its frames/s;
+ 12. the v5 slice: bench.py's disc lane (1M gray splats of radius 0.002
+     and the ground) put in Morton order by the port's spatial_sort
+     (timed once per cloud), frames 0, 120, 199 and 219 at 1920x1080:
+     per frame the chunk entries, singleton spills, big list and
+     big_overflow (frame 120 must not overflow); the main path, the four
+     frames through render_shaded_csr5(uniform_color=gray), one
+     csr5_shaded launch each; every frame without overflow equal to the
+     pallas6 frame of the same soup (depth bits, index) and its rgb to
+     shade_framebuffer on its buffers bit for bit; rasterize_csr5 once
+     (csr5_raster); csr5_raster and csr5_shaded == their plain version
+     bit for bit with their exits on and off at frame 120 and on phase
+     3's soups in their own and in Morton order, timed at frame 120 with
+     the superrows walked before the exits (the bound counts their live
+     slots); the stages of one warm frame and its ms; csr6_disc8 and
+     csr6_disc8_uv at spans 4 and 8 == plain and timed on frame 120's
+     soup, and their entry point render_shaded_csr6(discs_only,
+     uniform_look) at each span: one csr6_disc8_uv launch, == its plain
+     walk bit for bit.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
 the walk must evaluate times the float32 operations per pair, over the
 card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr4_raster's, csr3_raster's and the
-strip kernels' entries add ms_exit_off and bound_ms_exit_off, the walk of
-every entry.
+strip kernels' and the v5 kernels' entries add ms_exit_off and
+bound_ms_exit_off, the walk of every entry.
 """
 
 from __future__ import annotations
@@ -163,6 +181,8 @@ REPLACES = {
     "csr2_raster": "pointcloud_render_tpu/raster/pallas_csr2.py:100",
     "csr2_disc8": "pointcloud_render_tpu/raster/pallas_csr2.py:100",
     "csr1_raster": "pointcloud_render_tpu/raster/pallas_csr.py:88",
+    "csr5_raster": "pointcloud_render_tpu/raster/pallas_csr5.py:281",
+    "csr5_shaded": "pointcloud_render_tpu/raster/pallas_csr5.py:281",
 }
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))  # bench.py's disc lane
 SCAN_FRAMES = 220
@@ -190,8 +210,12 @@ BYTES_PER_S = 3.35e12
 #                 am * am + g * g (3), rad (2), d2 <= rad * rad (2),
 #                 rad > 0                                               16
 #   rows9 disc row: as the disc row                                      4
+#   v5 slot (csr5): as the disc row: dy, dy * dy, + dx2, <= r2 (dx2 and
+#                 r * r are per slot and column; the strict < on depth
+#                 only where covered; the row merge is per superrow)    4
 OPS_CAPSULE16, OPS_TRIANGLE16, OPS_DISC8 = 17, 18, 4
 OPS_DISC9, OPS_CAPSULE9 = 4, 16
+OPS_DISC5 = 4
 # bench.py's droplet lane (bench.py:624-659, :913, tuned_defaults.json
 # "droplet"): 12 frames over linspace(20, 219), 4 capsules per trail.
 DROPLET_POINTS = 1_000_000
@@ -216,6 +240,10 @@ TRAJ_MAX_POINTS = ((1 << 24) - 4 - 1) // TRAJ_ROWS_PER_POINT
 TRAJ_PLY_FRAMES = 24
 TRAJ_DT = 0.002
 TRAJ_SCAN_FRAMES = 40
+# The v5 slice: bench.py's disc lane in Morton order, at the frames of
+# bench.py's probe (:407-425).
+V5_FRAMES = (0, 120, 199, 219)
+V5_SOURCE = "pointcloud_render_tpu_torch/csrc/csr5_raster.cu"
 # Entries the v3 kernel walks between two checks of its early exit: the
 # blocks timed, and the one the port ships (csr3.EXIT_BLOCK).
 V3_BLOCKS = (64, 128, 256, 512, 1024)
@@ -592,19 +620,21 @@ def print_v4_times(what, r, shape, card):
           f"({card})", flush=True)
 
 
-def compare_disc(soup, flag, width, height, csr6, max_big, timing=False):
-    """csr6_disc8 and csr6_disc8_uv vs their plain versions on one soup ->
-    {kernel name: dict(err, ms, plain_ms, bound_ms, bound_by)}; ``flag``
-    is preshade's disc flag (lane 5 of the disc rows, lane 13 of the big
-    rows), which the (u, v) walk multiplies by."""
+def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
+                 span=2):
+    """csr6_disc8 and csr6_disc8_uv vs their plain versions on one soup
+    binned at ``span`` -> {kernel name: dict(err, ms, plain_ms, bound_ms,
+    bound_by)}; ``flag`` is preshade's disc flag (lane 5 of the disc rows,
+    lane 13 of the big rows), which the (u, v) walk multiplies by."""
     import torch
 
-    b = csr6.bin_csr6(soup, width, height, max_big, discs_only=True)
+    b = csr6.bin_csr6(soup, width, height, max_big, discs_only=True,
+                      span=span)
     check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
     zeros = torch.zeros((soup.count, 3), device=soup.device)
     args = (csr6.build_table8(soup, flag),
             csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
-            b["order"], b["starts"], b["big_n"], width, height)
+            b["order"], b["starts"], b["big_n"], width, height, span)
     out = {}
     for name, kernel, plain, images in (
             ("csr6_disc8", csr6.raster_tiles_disc8,
@@ -618,7 +648,7 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False):
         out[name] = dict(err=check_equal_bits(got, want, name))
         if timing:
             bound_ms, bound_by = walk_bound(b, soup, width, height, 32,
-                                            OPS_DISC8, images)
+                                            OPS_DISC8, images, span)
             out[name].update(
                 ms=time_ms(lambda k=kernel: k(*args), 11),
                 plain_ms=time_ms(lambda f=plain: f(*args), 2),
@@ -759,25 +789,29 @@ def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
     return out, b
 
 
+def torch_soups():
+    """The checkout's ``tests/torch_soups.py``, loaded by file name: an
+    installed package named ``tests`` may shadow the checkout's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_soups", os.path.join(REPO, "tests", "torch_soups.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def droplet_soups(device):
     """Seeded traj_vel soups at 1920x1080 for csr6_rows9, at frames 120 and
     205: ``tests/torch_soups.droplet_soup`` of 30k droplets (ties, every
     7th row invalid) with 400 long straight capsules, which at this film
     pass 2x2, 4x4 and 8x8 tiles (the big list at each span) and reach 5-8
     tiles on both axes (binned only at span 8)."""
-    import importlib.util
-
     from pointcloud_render_tpu_torch.configs import PRESETS
     from pointcloud_render_tpu_torch.run import pipeline
 
-    # By file name: an installed package named ``tests`` may shadow the
-    # checkout's.
-    spec = importlib.util.spec_from_file_location(
-        "torch_soups", os.path.join(REPO, "tests", "torch_soups.py"))
-    torch_soups = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(torch_soups)
     preset = PRESETS["traj_vel"]
-    return {f"droplets_f{fi}": torch_soups.droplet_soup(
+    return {f"droplets_f{fi}": torch_soups().droplet_soup(
         pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, device), n=30000,
         seed=2028, frame=fi, long_caps=400) for fi in (120, 205)}
 
@@ -2580,6 +2614,325 @@ def v2_disc_lane(card, dev, max_err, counters) -> dict:
     return dict(timed, launches=counts["raster_tiles2_disc8"])
 
 
+def v5_bound(soup, b, tab, walked, width, height, n_images):
+    """(bound ms, "operations" | "bytes", live slots) of one v5 walk in
+    which tile t evaluates the first ``walked[t]`` superrows of its run:
+    1024 pixels x each live slot of those superrows (a finite depth: not
+    a pad slot of a singleton row or a chunk's tail, nor an inert slot of
+    a non-binnable prim, which the plain walk drops) at OPS_DISC5, and
+    every pixel x every live big row at its body's operations; bytes: the
+    live slots (32 B each) and chunk id of each walked superrow, the big
+    rows (17 floats and a kind), the range starts, ``n_images`` output
+    floats per pixel."""
+    import torch
+
+    starts = b["starts"].long()
+    lengths = starts[1:] - starts[:-1]
+    n = int(starts[-1])
+    tile = torch.repeat_interleave(
+        torch.arange(lengths.numel(), device=starts.device), lengths)
+    offset = torch.arange(n, device=starts.device) - starts[:-1][tile]
+    rows = b["chunks"][:n][offset < walked.long()[tile]].long()
+    live_per_row = (tab[:, 2::8] < float("inf")).sum(dim=1)
+    slots = int(live_per_row[rows].sum())
+    nb = int(b["big_n"][0])
+    n_tri = int((soup.kind[b["big_list"][:nb].long()] == 2).sum())
+    pixels = width * height
+    ops = (1024 * slots * OPS_DISC5
+           + pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16))
+    nbytes = (slots * 32 + rows.numel() * 4 + nb * (17 * 4 + 4)
+              + b["starts"].numel() * 4 + pixels * 4 * n_images)
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", slots)
+
+
+def compare_v5(soup, cam, width, height, max_big, uniform=None,
+               timing=False):
+    """csr5_raster and csr5_shaded (``uniform`` the uniform color, or None)
+    vs their plain version, each with its exit on and off -> ({kernel
+    name: dict(err[, ms, ms_exit_off, plain_ms, bound_ms, bound_by,
+    bound_ms_exit_off, entries, walked])}, binning); ``walked`` never
+    passes a tile's run and is the whole run with the exit off."""
+    import torch
+
+    from pointcloud_render_tpu_torch.raster import csr5, csr6
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    shading = ShadingConfig()
+    b = csr5.bin_chunks5(soup, width, height, max_big=max_big)
+    check(int(b["diag"]["big_overflow"]) == 0, "v5 big list overflowed")
+    rgb_p, _ = csr6.preshade(soup, cam, shading)
+    tab, bp, kinds, meta = csr5.tables5(
+        soup, b, rgb_p, csr5.look5(soup, cam, shading, uniform))
+    args = (tab, b["chunks"], b["starts"], bp, kinds, b["big_n"], meta,
+            width, height)
+    lengths = b["starts"][1:] - b["starts"][:-1]
+    n = int(b["starts"][-1])
+    out = {}
+    for name, kernel, fused, kw in (
+            ("csr5_raster", csr5.raster_tiles5, False, {}),
+            ("csr5_shaded", csr5.raster_tiles5_shaded, True,
+             {"uniform": uniform is not None})):
+        want = csr5.raster_tiles5_plain(*args, fused=fused, **kw)
+        walked = {}
+        for exit_on in (True, False):
+            walked[exit_on] = torch.full_like(lengths, -1)
+            got = kernel(*args, allow_exit=exit_on, walked=walked[exit_on],
+                         **kw)
+            torch.cuda.synchronize()
+            err = check_equal_bits(got, want, f"{name} exit "
+                                   f"{'on' if exit_on else 'off'}")
+            check(bool((walked[exit_on] >= 0).all()
+                       & (walked[exit_on] <= lengths).all()),
+                  f"{name}: a tile walked past its run")
+        check(torch.equal(walked[False], lengths),
+              f"{name}: the walk without the exit skipped superrows")
+        out[name] = dict(err=err)
+        if timing:
+            rows = int(walked[True].sum())
+            bound, by, slots = v5_bound(soup, b, tab, walked[True], width,
+                                        height, 5 if fused else 2)
+            bound_off, _, slots_off = v5_bound(soup, b, tab, lengths, width,
+                                               height, 5 if fused else 2)
+            out[name].update(
+                ms=time_ms(lambda k=kernel: k(*args, **kw), 11),
+                ms_exit_off=time_ms(
+                    lambda k=kernel: k(*args, allow_exit=False, **kw), 11),
+                plain_ms=time_ms(lambda: csr5.raster_tiles5_plain(
+                    *args, fused=fused, **kw), 1),
+                bound_ms=bound, bound_by=by, bound_ms_exit_off=bound_off,
+                entries=n, walked=rows, live_slots=slots,
+                live_slots_exit_off=slots_off)
+    return out, b
+
+
+def v5_stages(csr5, csr6, pipeline, preset, pos, fi, dev):
+    """The stages of one v5 frame from the Morton-sorted cloud, in the
+    order render_shaded_csr5 runs them (uniform_color)."""
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    shading = ShadingConfig()
+
+    def build(f):
+        f["cam"] = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        f["soup"] = pipeline.build_primitives(preset, f["cam"], pos, None,
+                                              fi)
+
+    def preshade(f):
+        f["rgb"], _ = csr6.preshade(f["soup"], f["cam"], shading)
+
+    def binning(f):
+        f["b"] = csr5.bin_chunks5(f["soup"], WIDTH, HEIGHT)
+
+    def tables(f):
+        f["tab"], f["bp"], f["kinds"], f["meta"] = csr5.tables5(
+            f["soup"], f["b"], f["rgb"],
+            csr5.look5(f["soup"], f["cam"], shading, LOOK[0]))
+
+    def kernel(f):
+        b = f["b"]
+        f["out"] = csr5.raster_tiles5_shaded(
+            f["tab"], b["chunks"], b["starts"], f["bp"], f["kinds"],
+            b["big_n"], f["meta"], WIDTH, HEIGHT, uniform=True)
+
+    return [("camera+soup build", build), ("preshade", preshade),
+            ("bin_chunks5 (reduces, sort, starts, big list)", binning),
+            ("chunk table + big rows + meta", tables),
+            ("csr5_shaded kernel", kernel),
+            ("overflow read-back",
+             lambda f: int(f["b"]["diag"]["big_overflow"]))]
+
+
+def v5_lane(card, dev, max_err, counters, seeded) -> dict:
+    """Phase 12, the v5 slice -> {kernel name: dict(launches, ms, plain_ms,
+    bound_ms, bound_by, ms_exit_off, bound_ms_exit_off)} for csr5_raster
+    and csr5_shaded.  bench.py's disc lane (1M gray splats of radius
+    0.002 and the ground, positions uniform from seed 0) put in Morton
+    order by the port's spatial_sort, frames 0, 120, 199 and 219 through
+    render_shaded_csr5(uniform_color=gray) at default knobs; ``seeded``
+    are phase 3's soups."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import csr5, csr6
+    from pointcloud_render_tpu_torch.run import pipeline
+    from pointcloud_render_tpu_torch.scene import spatial
+    from pointcloud_render_tpu_torch.shading.shade import (
+        ShadingConfig,
+        shade_framebuffer,
+    )
+
+    pos = torch.tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (DISC_POINTS, 3)).astype(np.float32), device=dev)
+    preset = dataclasses.replace(PRESETS["traj_ball"], point_radius=0.002,
+                                 point_color=LOOK[0])
+    shading = ShadingConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pos, _ = spatial.spatial_sort(pos)
+    torch.cuda.synchronize()
+    morton_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[v5] Morton order of {DISC_POINTS} points (host codes, the "
+          f"permutation on the card): {morton_ms:.1f} ms, once per cloud "
+          f"({card})", flush=True)
+    cams, soups, stats = {}, {}, {}
+    for fi in V5_FRAMES:
+        cams[fi] = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+        soups[fi] = pipeline.build_primitives(preset, cams[fi], pos, None, fi)
+        b = csr5.bin_chunks5(soups[fi], WIDTH, HEIGHT)
+        stats[fi] = dict(entries=int(b["starts"][-1]),
+                         spills=int(b["sok"].sum()),
+                         wide=int(b["srank"][-1]) + 1,
+                         big=int(b["big_count"]),
+                         big_overflow=int(b["diag"]["big_overflow"]))
+        s = stats[fi]
+        print(f"[v5] frame {fi}: {soups[fi].count} prims, chunk entries "
+              f"{s['entries']}, singleton spills {s['spills']} (discs of "
+              f"wide chunks {s['wide']}), big list {s['big']}, big_overflow "
+              f"{s['big_overflow']} (max_big {csr5.DEFAULT_MAX_BIG})",
+              flush=True)
+    check(stats[120]["big_overflow"] == 0,
+          f"v5 frame 120 overflows its big list: {stats[120]}")
+
+    # The main path: the four frames through render_shaded_csr5.
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    frames = {fi: csr5.render_shaded_csr5(
+        soups[fi], cams[fi], shading, uniform_color=LOOK[0],
+        return_diag=True) for fi in V5_FRAMES}
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    check(counts == {"raster_tiles5_shaded": len(V5_FRAMES)},
+          f"v5 frames: launches {counts}, want csr5_shaded once per frame")
+    for fi, (rgb, depth, index, diag) in frames.items():
+        check(rgb.shape == (HEIGHT, WIDTH, 3)
+              and bool(torch.isfinite(rgb).all())
+              and bool((index >= 0).any()), f"v5 frame {fi} malformed")
+        check(int(diag["big_overflow"]) == stats[fi]["big_overflow"],
+              f"v5 frame {fi}: the render's certificate differs")
+        if stats[fi]["big_overflow"]:
+            print(f"[v5] frame {fi}: big list overflows (the JAX package's "
+                  "truncated render): not compared with pallas6", flush=True)
+            continue
+        d6, i6, diag6 = csr6.rasterize_csr6(soups[fi], WIDTH, HEIGHT,
+                                            max_big=1 << 14, discs_only=True)
+        check(int(diag6["big_overflow"]) == 0, "pallas6 big list overflowed")
+        check(torch.equal(depth.view(torch.int32), d6.view(torch.int32))
+              and torch.equal(index, i6),
+              f"v5 frame {fi} differs from the pallas6 frame")
+        ref = shade_framebuffer(soups[fi], cams[fi], depth, index, shading)
+        check(torch.equal(rgb.view(torch.int32), ref.view(torch.int32)),
+              f"v5 frame {fi}: rgb differs from shade_framebuffer")
+        print(f"[v5] frame {fi}: depth bits and index == the pallas6 frame, "
+              "rgb == shade_framebuffer bit for bit", flush=True)
+    del frames
+
+    # csr5_raster's entry point once.
+    reset_counts(counters)
+    depth, index = csr5.rasterize_csr5(soups[120], WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    raster_counts = launch_counts(counters)
+    check(raster_counts == {"raster_tiles5": 1},
+          f"rasterize_csr5: launches {raster_counts}, want csr5_raster once")
+    d6, i6, _ = csr6.rasterize_csr6(soups[120], WIDTH, HEIGHT,
+                                    max_big=1 << 14, discs_only=True)
+    check(torch.equal(depth.view(torch.int32), d6.view(torch.int32))
+          and torch.equal(index, i6),
+          "rasterize_csr5 at frame 120 differs from the pallas6 frame")
+
+    # Kernel == plain at frame 120, timed; and on phase 3's soups in their
+    # order and in Morton order.
+    timed, b = compare_v5(soups[120], cams[120], WIDTH, HEIGHT,
+                          csr5.DEFAULT_MAX_BIG, LOOK[0], timing=True)
+    for name, r in timed.items():
+        max_err[name] = max(max_err[name], r["err"])
+        print(f"[time] {name} kernel {r['ms']:.3f} ms (median of 11), "
+              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']}"
+              f" of {r['entries']} superrows walked before the exits, "
+              f"{r['walked'] / r['entries']:.3f}, holding {r['live_slots']} "
+              f"live slots); exit off {r['ms_exit_off']:.3f} ms, bound "
+              f"{r['bound_ms_exit_off']:.3f} ms ({r['live_slots_exit_off']} "
+              f"live slots); plain {r['plain_ms']:.1f} "
+              f"ms, at the disc lane's frame-120 shape in Morton order "
+              f"({card})", flush=True)
+    cam = soup_camera(dev)
+    morton_soup = torch_soups().morton_soup
+    for name, soup in seeded.items():
+        for order, s in (("original", soup), ("Morton", morton_soup(soup))):
+            res, b = compare_v5(s, cam, WIDTH, HEIGHT, 1 << 16)
+            for kernel, r in res.items():
+                max_err[kernel] = max(max_err[kernel], r["err"])
+            print(f"[kernel==plain] csr5_raster, csr5_shaded {name} "
+                  f"({order} order): {s.count} prims, "
+                  f"{int(b['starts'][-1])} entries, {int(b['sok'].sum())} "
+                  f"spills, big list {int(b['big_count'])}; exit on and off "
+                  "ok", flush=True)
+
+    # One warm frame: stages and ms/frame.
+    for stage, ms in stage_times(v5_stages(csr5, csr6, pipeline, preset,
+                                           pos, 120, dev)).items():
+        print(f"[stage] v5 frame 120 {stage}: {ms:.3f} ms ({card})",
+              flush=True)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        cam = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
+        csr5.render_shaded_csr5(
+            pipeline.build_primitives(preset, cam, pos, None, 120), cam,
+            shading, uniform_color=LOOK[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(times[1:], n=4)
+    print(f"[time] v5 frame 120 (soup build + render_shaded_csr5) warm: "
+          f"median {med:.2f} ms, quartiles {q1:.2f}-{q3:.2f} ms over 5 "
+          f"frames ({card})", flush=True)
+
+    # B4: the disc-row kernels at spans 4 and 8 on the same frame, and
+    # their entry point: render_shaded_csr6(discs_only, span) fused under
+    # uniform_look, one csr6_disc8_uv launch, == its plain walk.
+    _, flag = csr6.preshade(soups[120], cams[120], shading)
+    for span in (4, 8):
+        res, b = compare_disc(soups[120], flag, WIDTH, HEIGHT, csr6, 256,
+                              timing=True, span=span)
+        for kernel, r in res.items():
+            max_err[kernel] = max(max_err[kernel], r["err"])
+            print(f"[time] {kernel} span {span} kernel {r['ms']:.3f} ms "
+                  f"(median of 11), plain {r['plain_ms']:.1f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms by {r['bound_by']}; == plain bit "
+                  f"for bit; big list {int(b['big_count'])} at the disc "
+                  f"lane's frame-120 shape ({card})", flush=True)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        got = csr6.render_shaded_csr6(soups[120], cams[120], shading,
+                                      max_big=256, discs_only=True,
+                                      uniform_look=LOOK, span=span)
+        torch.cuda.synchronize()
+        span_counts = launch_counts(counters)
+        check(span_counts == {"raster_tiles_disc8_uv": 1},
+              f"render_shaded_csr6 at span {span}: launches {span_counts}, "
+              "want csr6_disc8_uv once")
+        want = csr6.render_shaded_csr6(soups[120], cams[120], shading,
+                                       max_big=256, discs_only=True,
+                                       uniform_look=LOOK, span=span,
+                                       plain=True)
+        check(int(got[3]["big_overflow"]) == 0,
+              f"span {span}: the big list overflowed")
+        check_equal_bits((got[1], got[2], got[0]), (want[1], want[2], want[0]),
+                         f"render_shaded_csr6 discs_only span {span}")
+        print(f"[B4] render_shaded_csr6(discs_only, uniform_look, span "
+              f"{span}) at the disc lane's frame 120: one csr6_disc8_uv "
+              "launch; rgb, depth and index == the plain walk bit for bit",
+              flush=True)
+    return dict(csr5_raster=dict(timed["csr5_raster"], launches=raster_counts[
+                    "raster_tiles5"]),
+                csr5_shaded=dict(timed["csr5_shaded"],
+                                 launches=counts["raster_tiles5_shaded"]))
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2595,6 +2948,7 @@ def run() -> dict:
             csr2,
             csr3,
             csr4,
+            csr5,
             csr6,
         )
         from pointcloud_render_tpu_torch.raster.render import RasterConfig
@@ -2616,7 +2970,8 @@ def run() -> dict:
                 csr6.raster_tiles_rows9, csr4.raster_tiles4,
                 csr6.raster_tiles_cap10, csr3.raster_tiles3,
                 csr.raster_tiles1, csr2.raster_tiles2,
-                csr2.raster_tiles2_disc8)
+                csr2.raster_tiles2_disc8, csr5.raster_tiles5,
+                csr5.raster_tiles5_shaded)
 
     # Phase 2: build from the checkout's sources, one nvcc per source.
     t0 = time.perf_counter()
@@ -2624,9 +2979,10 @@ def run() -> dict:
     for name in kernels.LIBRARIES:
         kernels.load(name)
     print(f"[build] csr6_raster.cu (csr6_raster, csr6_cap10, csr6_disc8, "
-          f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster) and "
-          f"csr2_raster.cu (csr2_raster, csr2_disc8, csr1_raster) in "
-          f"parallel {time.perf_counter() - t0:.1f} s", flush=True)
+          f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster), "
+          f"csr2_raster.cu (csr2_raster, csr2_disc8, csr1_raster) and "
+          f"csr5_raster.cu (csr5_raster, csr5_shaded) in parallel "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels.LIBRARIES:
         for line in kernels.build_log(name).splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
@@ -2638,6 +2994,7 @@ def run() -> dict:
     max_err = dict.fromkeys(REPLACES, 0.0)
     shading = ShadingConfig()
     seeded = soups(dev)
+    v5_seeded = dict(seeded)  # phase 12's kernel == plain soups
     for name, soup in seeded.items():
         err = compare(soup, WIDTH, HEIGHT, csr6, csr4, default_big)[0]["err"]
         max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
@@ -2884,13 +3241,17 @@ def run() -> dict:
         v3 = v3_lane(card, dev, max_err, counters, tmp, v3_soups)
     # Phase 11 (c): bench.py's disc lane through backend pallas.
     disc2 = v2_disc_lane(card, dev, max_err, counters)
+    # Phase 12: the v5 slice (and B4's disc rows at spans 4 and 8).
+    v5_seeded["disc_ties_wide"] = disc_lane_soup(dev)
+    v5 = v5_lane(card, dev, max_err, counters, v5_seeded)
     numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
                "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,
-               **strips, "csr2_disc8": disc2}
+               **strips, "csr2_disc8": disc2, **v5}
     return dict(card=card, kernels=[dict(
         name=name, route="cuda",
-        source=STRIP_SOURCE if name in STRIP_KERNELS else KERNEL_SOURCE,
+        source=(STRIP_SOURCE if name in STRIP_KERNELS else V5_SOURCE
+                if name.startswith("csr5") else KERNEL_SOURCE),
         replaces=REPLACES[name], launches=numbers[name]["launches"],
         max_abs_err=max_err[name], ms=numbers[name]["ms"],
         plain_ms=numbers[name]["plain_ms"],

@@ -76,9 +76,10 @@
 // back, stops the run when zmin + qz * thr_scale >= dmax (>=: a later
 // entry at equal depth cannot displace a winner under strict <).
 //
-// csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk:
-// binned rows are [px, py, z, r*r, idf, flag, 0, 0], covered where
-// dx*dx + dy*dy <= r*r) and csr6_disc8_uv replaces
+// csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk at
+// span 2, 4 or 8, its ranges walked as csr6_raster's: binned rows are
+// [px, py, z, r*r, idf, flag, 0, 0], covered where dx*dx + dy*dy <= r*r)
+// and csr6_disc8_uv replaces
 // pallas_csr6._make_row_body8_uv with _make_big_body16_uv: the same walk,
 // every pixel also keeping u = dx * flag and v = -dy * flag of its
 // winning pair (flag = 1/r; lane 5 of a disc row, lane 13 of a big row),
@@ -675,9 +676,10 @@ csr4_tile_kernel(const float* __restrict__ table,
   write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
-// The discs_only walk: the big list is the dense (big_cap, 16) array
-// big_rows (its first *big_n rows live), binned rows are 8-float rows of
-// table8 gathered by sorted id.  kUV also writes the winner's (u, v).
+// The discs_only walk at span 2, 4 or 8: the big list is the dense
+// (big_cap, 16) array big_rows (its first *big_n rows live), binned rows
+// are 8-float rows of table8 gathered by sorted id.  kUV also writes the
+// winner's (u, v).
 template <bool kUV>
 __global__ void __launch_bounds__(kThreads)
 csr6_disc_kernel(const float* __restrict__ table8,
@@ -686,8 +688,11 @@ csr6_disc_kernel(const float* __restrict__ table8,
                  const int* __restrict__ big_n_ptr, int big_cap,
                  float* __restrict__ depth_out, int* __restrict__ index_out,
                  float* __restrict__ u_out, float* __restrict__ v_out,
-                 int width, int height, int tiles_x) {
+                 int width, int height, int tiles_x, int span) {
   __shared__ float4 sh[kChunk * 4];
+  __shared__ int range_start[kMaxRanges];
+  __shared__ int range_cum[kMaxRanges];
+  __shared__ int warp_tot[kThreads / 32];
   constexpr int kDiscChunk = kChunk * 2;  // 2 x float4 per disc row
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x;
@@ -718,31 +723,25 @@ csr6_disc_kernel(const float* __restrict__ table8,
     eval_rows<true, kUV>(sh, cnt, qx, qy, d, di, u, v);
   }
 
-  // The four merged CSR ranges, as in csr6_tile_kernel.
-  const bool left = tx >= 1, up = ty >= 1;
-  const int anchors[4] = {tile, tile - 1, tile - tiles_x, tile - tiles_x - 1};
-  const int lo[4] = {0, 1, 2, 2};
-  const int hi[4] = {4, 3, 4, 3};
-  const bool ok[4] = {true, left, up, left && up};
   const float4* rows8 = reinterpret_cast<const float4*>(table8);
-#pragma unroll 1
-  for (int g = 0; g < 4; ++g) {
-    if (!ok[g]) continue;
-    const int a = anchors[g];
-    const int s = starts[4 * a + lo[g]];
-    const int n = starts[4 * a + hi[g]] - s;
-    for (int base = 0; base < n; base += kDiscChunk) {
-      const int cnt = min(kDiscChunk, n - base);
-      __syncthreads();
-      for (int i = tid; i < cnt; i += kThreads) {
-        const float4* src =
-            rows8 + static_cast<long long>(order[s + base + i]) * 2;
-        sh[i * 2 + 0] = src[0];
-        sh[i * 2 + 1] = src[1];
-      }
-      __syncthreads();
-      eval_disc_rows<kUV>(sh, cnt, qx, qy, d, di, u, v);
+  // The tile's ranges (tile_range: span 2's four merged ranges, or the
+  // anchor range plus one per neighbour and class row), sized in parallel
+  // and staged across range boundaries, as csr6_tile_kernel walks them.
+  const int n_slots = range_slots(span);
+  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                range_start, range_cum, warp_tot);
+  for (int base = 0; base < total; base += kDiscChunk) {
+    const int cnt = min(kDiscChunk, total - base);
+    __syncthreads();
+    for (int i = tid; i < cnt; i += kThreads) {
+      const float4* src =
+          rows8 + static_cast<long long>(order[flat_pos(
+                      base + i, n_slots, range_start, range_cum)]) * 2;
+      sh[i * 2 + 0] = src[0];
+      sh[i * 2 + 1] = src[1];
     }
+    __syncthreads();
+    eval_disc_rows<kUV>(sh, cnt, qx, qy, d, di, u, v);
   }
 
   const int px = tx * kTile + lx;
@@ -973,19 +972,21 @@ extern "C" int csr4_raster(const float* table, const int* entries,
 }
 
 // The discs_only walk.  table8 (P+1, 8) f32 with row P all zero; big_rows
-// (big_cap, 16) f32, the first *big_n rows live; order, starts, big_n as
-// above; depth (H, W) f32; index (H, W) i32.
+// (big_cap, 16) f32, the first *big_n rows live; order, starts, big_n and
+// span as csr6_raster's; depth (H, W) f32; index (H, W) i32.
 extern "C" int csr6_disc8(const float* table8, const float* big_rows,
                           const int* order, const int* starts,
                           const int* big_n, float* depth, int* index,
                           int big_cap, int width, int height, int tiles_x,
-                          int tiles_y, void* stream) {
+                          int tiles_y, int span, void* stream) {
+  if (span != 2 && span != 4 && span != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles <= 0) return 0;
   csr6_disc_kernel<false><<<num_tiles, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       table8, big_rows, order, starts, big_n, big_cap, depth, index, nullptr,
-      nullptr, width, height, tiles_x);
+      nullptr, width, height, tiles_x, span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -995,14 +996,16 @@ extern "C" int csr6_disc8_uv(const float* table8, const float* big_rows,
                              const int* order, const int* starts,
                              const int* big_n, float* depth, int* index,
                              float* u, float* v, int big_cap, int width,
-                             int height, int tiles_x, int tiles_y,
+                             int height, int tiles_x, int tiles_y, int span,
                              void* stream) {
+  if (span != 2 && span != 4 && span != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles <= 0) return 0;
   csr6_disc_kernel<true><<<num_tiles, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       table8, big_rows, order, starts, big_n, big_cap, depth, index, u, v,
-      width, height, tiles_x);
+      width, height, tiles_x, span);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,9 @@ mesh-LOD droplets) at span 2, 4 or 8; ``cap_rows10``, the same walk over
 10-float rows without the triangle and shade lanes (bit-identical
 winners; triangles ride the big list); the kind-split 9-float rows
 (rows8/rows9) at span 2, 4 or 8; and the ``discs_only`` 8-float disc
-rows at span 2 (capsules and triangles ride the big list), also with the
-winner's lambert (u, v) carried through the merge for the gather-free
-two-tone shade.  The stages around the kernels were XLA in the JAX
+rows at span 2, 4 or 8 (capsules and triangles ride the big list), also
+with the winner's lambert (u, v) carried through the merge for the
+gather-free two-tone shade.  The stages around the kernels were XLA in the JAX
 package and are torch ops here:
 
 1. ``preshade``      — ``pallas_csr3._preshade``: per-prim rgb and flag;
@@ -68,8 +68,7 @@ from pointcloud_render_tpu_torch.utils.ieee import sqrt_rn
 TILE = 32
 SPAN = 2
 # Binning spans: prims whose bbox covers at most span x span tiles are
-# binned.  The 16-, 10- and 9-float walks take all three; the 8-float
-# disc walks span 2 only (ROADMAP queue B item 4).
+# binned.  Every walk takes all three.
 SPANS = (2, 4, 8)
 ROW_F = 16
 ROW_F10 = 10
@@ -111,20 +110,22 @@ def check_id_range(prims: ScreenPrimitives) -> None:
         raise ValueError("float id encoding supports < 2^24 primitives")
 
 
+def tile_of(v: torch.Tensor, size: int, n: int) -> torch.Tensor:
+    """int32 ``clip(floor(v / size), 0, n - 1)`` as XLA evaluates it: the
+    divisor is a float32 tensor (a CUDA division by a Python scalar
+    multiplies by its reciprocal), and the float->int convert saturates
+    and maps NaN to 0 (torch's cast of an out-of-range float does not)."""
+    f = torch.nan_to_num(torch.floor(v / const(size, np.float32, v.device)),
+                         nan=0.0)
+    f = torch.clamp(f, -1.0, float(n))
+    return torch.clamp(f.to(torch.int32), 0, n - 1)
+
+
 def tile_span(prims: ScreenPrimitives, tiles_x: int, tiles_y: int,
               tile_w: int = TILE, tile_h: int = TILE):
     """(tx0, tx1, ty0, ty1) int32: the first and last tile column and row
     of each prim's bbox on a grid of ``tile_w`` x ``tile_h`` tiles,
-    clipped to the grid."""
-
-    def tile_of(v, size, n):
-        # Saturate before the int cast (XLA's float->int convert saturates
-        # and maps NaN to 0; torch's cast of an out-of-range float does not).
-        f = torch.nan_to_num(
-            torch.floor(v / const(size, np.float32, prims.device)), nan=0.0)
-        f = torch.clamp(f, -1.0, float(n))
-        return torch.clamp(f.to(torch.int32), 0, n - 1)
-
+    clipped to the grid (:func:`tile_of`)."""
     return (tile_of(prims.bbox[:, 0], tile_w, tiles_x),
             tile_of(prims.bbox[:, 1], tile_w, tiles_x),
             tile_of(prims.bbox[:, 2], tile_h, tiles_y),
@@ -607,13 +608,13 @@ raster_tiles_cap10.launches = 0
 
 
 def _raster_disc8(wrapper, with_uv, table8, big_rows, order, starts, big_n,
-                  width, height):
+                  width, height, span):
     tiles_x, tiles_y = _check_inputs_narrow(table8, ROW_F_DISC, big_rows,
                                             order, starts, big_n, width,
-                                            height)
+                                            height, span)
     if table8.device.type == "cpu":
         return _disc8_plain(with_uv, table8, big_rows, order, starts, big_n,
-                            width, height)
+                            width, height, span)
     if table8.device.type != "cuda":
         raise ValueError(f"no csr6 kernel for device {table8.device}")
     table8, big_rows, order, starts, big_n = (
@@ -626,28 +627,28 @@ def _raster_disc8(wrapper, with_uv, table8, big_rows, order, starts, big_n,
     _launch("csr6_disc8_uv" if with_uv else "csr6_disc8",
             (table8, big_rows, order, starts, big_n, outs[0], index,
              *outs[1:]),
-            (big_rows.shape[0], width, height, tiles_x, tiles_y), dev)
+            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
     wrapper.launches += 1
     return (outs[0], index, *outs[1:])
 
 
 def raster_tiles_disc8(table8, big_rows, order, starts, big_n, width: int,
-                       height: int):
+                       height: int, span: int = SPAN):
     """The ``discs_only`` walk -> (depth, index): binned rows are the
-    8-float disc rows of :func:`build_table8` gathered by ``order``, the
-    big list the dense 16-float ``big_rows`` (its first ``big_n`` rows
-    live).  CUDA tensors launch the ``csr6_disc8`` kernel of
-    ``csrc/csr6_raster.cu``; CPU tensors take
+    8-float disc rows of :func:`build_table8` gathered by ``order`` (a
+    binning at ``span``), the big list the dense 16-float ``big_rows``
+    (its first ``big_n`` rows live).  CUDA tensors launch the
+    ``csr6_disc8`` kernel of ``csrc/csr6_raster.cu``; CPU tensors take
     :func:`raster_tiles_disc8_plain`.  ``.launches`` counts launches."""
     return _raster_disc8(raster_tiles_disc8, False, table8, big_rows, order,
-                         starts, big_n, width, height)
+                         starts, big_n, width, height, span)
 
 
 raster_tiles_disc8.launches = 0
 
 
 def raster_tiles_disc8_uv(table8, big_rows, order, starts, big_n, width: int,
-                          height: int):
+                          height: int, span: int = SPAN):
     """:func:`raster_tiles_disc8` that also carries the winner's lambert
     plane coordinates -> (depth, index, u, v): u = (qx - px) * flag and
     v = -(qy - py) * flag at the winning pair for discs (binned, or wide
@@ -655,7 +656,7 @@ def raster_tiles_disc8_uv(table8, big_rows, order, starts, big_n, width: int,
     empty.  CUDA tensors launch the ``csr6_disc8_uv`` kernel; CPU tensors
     take :func:`raster_tiles_disc8_uv_plain`."""
     return _raster_disc8(raster_tiles_disc8_uv, True, table8, big_rows,
-                         order, starts, big_n, width, height)
+                         order, starts, big_n, width, height, span)
 
 
 raster_tiles_disc8_uv.launches = 0
@@ -997,11 +998,11 @@ def raster_tiles_cap10_plain(table10, big_rows, order, starts, big_n,
 
 
 def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
-                 height):
+                 height, span):
     _check_inputs_narrow(table8, ROW_F_DISC, big_rows, order, starts, big_n,
-                         width, height)
+                         width, height, span)
     dev = table8.device
-    ids, rect = _binned_rects(order, starts, width, height)
+    ids, rect = _binned_rects(order, starts, width, height, span)
     binned = table8[ids]
     nb = int(big_n[0])
     big = big_rows[:nb]
@@ -1013,20 +1014,20 @@ def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
 
 
 def raster_tiles_disc8_plain(table8, big_rows, order, starts, big_n,
-                             width: int, height: int):
+                             width: int, height: int, span: int = SPAN):
     """Plain PyTorch version of :func:`raster_tiles_disc8`, on any device:
     the disc body over each binned row's window, the 16-float body over
     the live big rows, merged as in :func:`raster_tiles_plain`."""
     return _disc8_plain(False, table8, big_rows, order, starts, big_n, width,
-                        height)
+                        height, span)
 
 
 def raster_tiles_disc8_uv_plain(table8, big_rows, order, starts, big_n,
-                                width: int, height: int):
+                                width: int, height: int, span: int = SPAN):
     """Plain PyTorch version of :func:`raster_tiles_disc8_uv`: (u, v) are
     taken at the one pair that wins (depth, id), +inf elsewhere."""
     return _disc8_plain(True, table8, big_rows, order, starts, big_n, width,
-                        height)
+                        height, span)
 
 
 def _check_inputs_rows9(rows9, big_rows, starts, big_n, width, height,
@@ -1174,14 +1175,6 @@ def check_cap10(cap_rows10: bool, discs_only: bool, bin_triangles: bool,
                          "must be off")
 
 
-def check_disc_span(discs_only: bool, span: int) -> None:
-    """The 8-float disc walks take span 2 only."""
-    if discs_only and span != SPAN:
-        raise NotImplementedError(
-            f"span={span} on the discs_only 8-float walks is not ported "
-            "yet: ROADMAP queue B item 4")
-
-
 def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   max_big: int, shade_rgb, shade_flag, plain: bool = False,
                   discs_only: bool = False, fused_uv: bool = False,
@@ -1201,7 +1194,6 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
             f"fused_uv requires a resident big list (max_big <= "
             f"{FUSED_MAX_BIG})")
     check_cap10(cap_rows10, discs_only, bin_triangles, None)
-    check_disc_span(discs_only, span)
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
                       kind_split, bin_triangles)
     ranges = (binned["order"], binned["starts"])
@@ -1227,11 +1219,11 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
             walk = raster_tiles_disc8_uv_plain if plain \
                 else raster_tiles_disc8_uv
             depth, index, *uv = walk(table8, big_rows, *ranges,
-                                     binned["big_n"], width, height)
+                                     binned["big_n"], width, height, span)
         else:
             walk = raster_tiles_disc8_plain if plain else raster_tiles_disc8
             depth, index = walk(table8, big_rows, *ranges, binned["big_n"],
-                                width, height)
+                                width, height, span)
     else:
         table = build_table16(prims, shade_rgb, shade_flag,
                               bin_triangles=bin_triangles)

@@ -154,7 +154,6 @@ def check_config(config: RasterConfig) -> None:
     csr6.check_cap10(config.cap_rows10, config.discs_only,
                      config.bin_triangles, config.allow_exit,
                      config.cap10_carry)
-    csr6.check_disc_span(config.discs_only, config.span)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 # float32 per operation); no --use_fast_math: division and sqrt stay
 # correctly rounded.  -Xptxas -v records registers/spills in the log.
 # Every kernel library of csrc/.
-LIBRARIES = ("csr6_raster", "csr2_raster")
+LIBRARIES = ("csr6_raster", "csr2_raster", "csr5_raster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -48,6 +48,7 @@ from pointcloud_render_tpu_torch.raster.render import (
 )
 from pointcloud_render_tpu_torch.run import pipeline
 from tests.torch_jax import jax_soup, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import (
     NEAR_ORIGIN,
     TARGET,
@@ -79,14 +80,6 @@ def _bits(a):
 
 def _ulp(a, b):
     return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.cache
@@ -130,23 +123,31 @@ def test_plain_backends_are_exact_and_shade_framebuffer():
             np.testing.assert_array_equal(_bits(rgb.numpy()), _bits(want))
 
 
-@pytest.mark.parametrize("cfg", [
-    RasterConfig(backend="tiled", rows9=True, bin_triangles=True),
-    RasterConfig(backend="cpu", discs_only=True, span=4),
-    RasterConfig(backend="pallas4", cap_rows10=True, discs_only=True),
-    RasterConfig(backend="pallas", rows9=True, span=3, cap_rows10=True,
-                 uniform_look=LOOK, three_tone=(0, 1, 2)),
+@pytest.mark.parametrize("cfg,v6_renders", [
+    (RasterConfig(backend="tiled", rows9=True, bin_triangles=True), False),
+    (RasterConfig(backend="cpu", discs_only=True, span=4), True),
+    (RasterConfig(backend="pallas4", cap_rows10=True, discs_only=True),
+     False),
+    (RasterConfig(backend="pallas", rows9=True, span=3, cap_rows10=True,
+                  uniform_look=LOOK, three_tone=(0, 1, 2)), False),
 ], ids=["tiled_rows9_bin_triangles", "cpu_discs_only_span4",
         "pallas4_cap10_discs_only", "pallas_v6_knobs"])
-def test_configs_v6_rejects_render_elsewhere(cfg):
+def test_configs_v6_rejects_render_elsewhere(cfg, v6_renders):
     """The JAX package renders these; only the v6 backends check v6's
-    combinations (and still do)."""
+    combinations (and still do).  discs_only at span 4 renders under
+    pallas6 too since the 8-float disc walks take spans 4 and 8."""
     check_config(cfg)
     soup, _, _ = _case("droplets")
     fb = render(soup, tcam(origin=NEAR_ORIGIN), cfg)
     _assert_oracle(fb.depth, fb.index, "droplets")
+    v6 = dataclasses.replace(cfg, backend="pallas6")
+    if v6_renders:
+        check_config(v6)
+        fb = render(soup, tcam(origin=NEAR_ORIGIN), v6)
+        _assert_oracle(fb.depth, fb.index, "droplets")
+        return
     with pytest.raises((ValueError, NotImplementedError)):
-        check_config(dataclasses.replace(cfg, backend="pallas6"))
+        check_config(v6)
 
 
 # (max_tiles_per_prim, force_tri_big, force_capsule_big, tile_h, tile_w)

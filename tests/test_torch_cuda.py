@@ -3,7 +3,9 @@ spans 2, 4 and 8, with and without binned triangles, 10-float cap_rows10
 rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 9-float rows; the v4 walk with and without its z-bucket early exit; the
 v3 disc fast path with and without its exit; the v1 and v2 strip walks,
-16-float and 8-float disc rows, with their saturation exit) against their
+16-float and 8-float disc rows, with their saturation exit; the v5
+chunk-binned disc walk, with and without its exit and its fused shade;
+the disc rows at spans 4 and 8) against their
 plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
@@ -23,7 +25,14 @@ import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
-from pointcloud_render_tpu_torch.raster import csr, csr2, csr3, csr4, csr6
+from pointcloud_render_tpu_torch.raster import (
+    csr,
+    csr2,
+    csr3,
+    csr4,
+    csr5,
+    csr6,
+)
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -41,7 +50,10 @@ from torch_soups import (
     droplet_soup,
     make_soup,
     mesh_soup,
+    morton_soup,
     tcam,
+    v5_soups,
+    wide_disc_soup,
 )
 
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
@@ -528,3 +540,175 @@ def test_pallas_frame_and_scan_on_card_equal_cpu(cuda_device):
     assert csr2.raster_tiles2_disc8.launches == before + len(ids)
     for a, b in zip(*(frames for frames, _ in runs)):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wide", "spill", "disc_ties"])
+@pytest.mark.parametrize("span", [4, 8])
+def test_disc8_kernels_at_wide_spans_match_plain_on_card(cuda_device, case,
+                                                        span):
+    """csr6_disc8 and csr6_disc8_uv at spans 4 and 8 == their plain
+    versions: depth bits, index, (u, v) bits."""
+    if case == "wide":
+        soup, (w, h) = wide_disc_soup().to(cuda_device), SPAN8_FILM
+    else:
+        soup = (disc_soup(tcam()) if case == "disc_ties"
+                else make_soup(case)).to(cuda_device)
+        w, h = W, H
+    _, flag = csr6.preshade(soup, tcam(w, h, device=cuda_device),
+                            ShadingConfig())
+    b = csr6.bin_csr6(soup, w, h, 1024, discs_only=True, span=span)
+    assert int(b["diag"]["big_overflow"]) == 0
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args = (csr6.build_table8(soup, flag),
+            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["order"], b["starts"], b["big_n"], w, h, span)
+    for wrapper, plain in (
+            (csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain),
+            (csr6.raster_tiles_disc8_uv, csr6.raster_tiles_disc8_uv_plain)):
+        before = wrapper.launches
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        for a, w_ in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(w_))
+        assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [4, 8])
+def test_disc_entry_point_at_wide_spans_on_card(cuda_device, span):
+    """render_shaded_csr6(discs_only, uniform_look) at spans 4 and 8 takes
+    the fused walk: one csr6_disc8_uv launch, and rgb, depth and index ==
+    its plain walk bit for bit."""
+    soup = wide_disc_soup().to(cuda_device)
+    cam = tcam(*SPAN8_FILM, device=cuda_device)
+    look = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
+    kw = dict(max_big=256, discs_only=True, uniform_look=look, span=span)
+    before = (csr6.raster_tiles_disc8.launches,
+              csr6.raster_tiles_disc8_uv.launches)
+    got = csr6.render_shaded_csr6(soup, cam, ShadingConfig(), **kw)
+    torch.cuda.synchronize()
+    assert (csr6.raster_tiles_disc8.launches,
+            csr6.raster_tiles_disc8_uv.launches) == (before[0],
+                                                     before[1] + 1)
+    want = csr6.render_shaded_csr6(soup, cam, ShadingConfig(), plain=True,
+                                   **kw)
+    assert int(got[3]["big_overflow"]) == 0
+    for a, w_ in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(_bits(a), _bits(w_))
+    assert bool((got[2] >= 0).any())
+
+
+# (soup, knobs) of the v5 kernels: the v5 slice's soups, the tile shapes
+# 16x64, 64x16 and 8x128, chunks of 8 at span 2, exit checks every row,
+# an entry capacity past the true count, and the seeded soups of
+# torch_soups in their original order and in Morton order.
+V5_CASES = {
+    "v5_sorted": ("v5_sorted", {}),
+    "v5_unsorted_spill": ("v5_unsorted", {"max_span": 2, "max_big": 64}),
+    "v5_mixed": ("v5_mixed", {}),
+    "tile16x64": ("v5_sorted", {"tile_h": 16, "tile_w": 64}),
+    "tile64x16": ("v5_mixed", {"tile_h": 64, "tile_w": 16}),
+    "tile8x128": ("v5_unsorted", {"tile_h": 8, "tile_w": 128}),
+    "k8_span2_check1": ("v5_sorted", {"k": 8, "max_span": 2,
+                                      "check_every": 1}),
+    "capacity": ("v5_sorted", {"capacity": 7}),
+    **{c: (c, {}) for c in CASES},
+    **{c + "_morton": (c + "_morton", {}) for c in CASES},
+}
+
+
+def _v5_soup(name, device):
+    if name.startswith("v5_"):
+        return v5_soups(device)[name[3:]]
+    if name.endswith("_morton"):
+        return morton_soup(make_soup(name[:-7]).to(device))
+    return make_soup(name).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(V5_CASES))
+def test_v5_kernels_match_plain_on_card(cuda_device, case):
+    """csr5_raster and csr5_shaded (with and without uniform_color) ==
+    raster_tiles5_plain bit for bit (depth, index, rgb) with the exit on
+    and off; ``walked`` never passes a tile's run, and is the whole run
+    with the exit off."""
+    name, kw = V5_CASES[case]
+    kw = dict(kw)
+    extra = kw.pop("capacity", None)
+    check_every = kw.pop("check_every", csr5.DEFAULT_CHECK_EVERY)
+    soup = _v5_soup(name, cuda_device)
+    cam = tcam(device=cuda_device)
+    tile_h, tile_w = kw.get("tile_h", 32), kw.get("tile_w", 32)
+    k = kw.get("k", csr5.DEFAULT_K)
+    max_spill = kw.get("max_spill", csr5.DEFAULT_MAX_SPILL)
+    b = csr5.bin_chunks5(soup, W, H, **kw)
+    assert int(b["diag"]["big_overflow"]) == 0
+    chunks, starts = b["chunks"], b["starts"]
+    if extra is not None:  # a capacity past the true count drops nothing
+        e = int(starts[-1]) + extra
+        chunks, starts = chunks[:e], torch.clamp(starts, max=e)
+    rgb_p, _ = csr6.preshade(soup, cam, ShadingConfig())
+    tab, bp, kinds, meta = csr5.tables5(
+        soup, b, rgb_p, csr5.look5(soup, cam, ShadingConfig(),
+                                   (0.3, 0.3, 0.3)), max_spill, k)
+    args = (tab, chunks, starts, bp, kinds, b["big_n"], meta, W, H, tile_h,
+            tile_w, k)
+    want = csr5.raster_tiles5_plain(*args)
+    want_s = csr5.raster_tiles5_plain(*args, fused=True)
+    want_u = csr5.raster_tiles5_plain(*args, fused=True, uniform=True)
+    lengths = starts[1:] - starts[:-1]
+    for exit_on in (True, False):
+        before = (csr5.raster_tiles5.launches,
+                  csr5.raster_tiles5_shaded.launches)
+        walked = torch.full_like(lengths, -1)
+        got = csr5.raster_tiles5(*args, check_every=check_every,
+                                 allow_exit=exit_on, walked=walked)
+        got_s = csr5.raster_tiles5_shaded(*args, check_every=check_every,
+                                          allow_exit=exit_on)
+        got_u = csr5.raster_tiles5_shaded(*args, check_every=check_every,
+                                          uniform=True, allow_exit=exit_on)
+        torch.cuda.synchronize()
+        assert (csr5.raster_tiles5.launches,
+                csr5.raster_tiles5_shaded.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+        for g, w_ in ((got, want), (got_s, want_s), (got_u, want_u)):
+            assert len(g) == len(w_)
+            for a, c in zip(g, w_):
+                np.testing.assert_array_equal(_bits(a), _bits(c))
+        assert bool((got[1] >= 0).any())
+        assert bool((walked >= 0).all() & (walked <= lengths).all())
+        if not exit_on:
+            assert torch.equal(walked, lengths)
+
+
+@pytest.mark.cuda
+def test_v5_entry_points_on_card(cuda_device):
+    """rasterize_csr5 and render_shaded_csr5 launch their kernels once and
+    equal their plain walks; an entry capacity at the true count equals
+    the uncut frame."""
+    soup = v5_soups(cuda_device)["mixed"]
+    cam = tcam(device=cuda_device)
+    before = (csr5.raster_tiles5.launches,
+              csr5.raster_tiles5_shaded.launches)
+    d, i, diag = csr5.rasterize_csr5(soup, W, H, return_diag=True)
+    rgb, d2, i2 = csr5.render_shaded_csr5(soup, cam, ShadingConfig(),
+                                          uniform_color=(0.3, 0.3, 0.3))
+    torch.cuda.synchronize()
+    assert (csr5.raster_tiles5.launches,
+            csr5.raster_tiles5_shaded.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    pd, pi = csr5.rasterize_csr5(soup, W, H, plain=True)
+    prgb, _, _ = csr5.render_shaded_csr5(soup, cam, ShadingConfig(),
+                                         uniform_color=(0.3, 0.3, 0.3),
+                                         plain=True)
+    for a, c in ((d, pd), (i, pi), (d2, pd), (i2, pi), (rgb, prgb)):
+        np.testing.assert_array_equal(_bits(a), _bits(c))
+    n = int(diag["true_entries"])
+    rgb_c, _, i_c = csr5.render_shaded_csr5(
+        soup, cam, ShadingConfig(), uniform_color=(0.3, 0.3, 0.3),
+        entry_capacity=n)
+    np.testing.assert_array_equal(_bits(rgb_c), _bits(rgb))
+    np.testing.assert_array_equal(_bits(i_c), _bits(i2))

@@ -16,6 +16,10 @@ against the JAX package on the CPU.
   ``pallas_csr4._shade_by_id`` evaluated op by op, and to ``shade_uv``.
 * ``advect`` and ``motion_colors`` are bit-equal to the JAX functions
   evaluated op by op.
+* Spans 4 and 8: ``bin_csr6(discs_only=True)`` against ``_bin_csr6``
+  under one jit, both 8-float walks against the oracle and the 16-float
+  walk at the same span, and the fused render at span 4 against the
+  ``shade_by_id`` path, on a film where wide discs reach 5-8 tiles.
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``.
 """
 
@@ -41,14 +45,23 @@ from pointcloud_render_tpu_torch.scene import dynamics
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_jax import jax_soup, jcam, numpy_soup
-from tests.torch_soups import H, W, disc_soup, make_soup, tcam
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
+from tests.torch_soups import (
+    H,
+    SPAN8_FILM,
+    W,
+    disc_soup,
+    make_soup,
+    tcam,
+    wide_disc_soup,
+)
 
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
 SMALL = 64  # film edge of the interpret-mode runs (2x2 tiles)
 
 
-def _disc_walk_inputs(soup, w, h, max_big=256, flag=None):
-    b = csr6.bin_csr6(soup, w, h, max_big, discs_only=True)
+def _disc_walk_inputs(soup, w, h, max_big=256, flag=None, span=2):
+    b = csr6.bin_csr6(soup, w, h, max_big, discs_only=True, span=span)
     zeros = torch.zeros((soup.count, 3))
     flag = torch.zeros(soup.count) if flag is None else flag
     table8 = csr6.build_table8(soup, flag)
@@ -355,3 +368,92 @@ def test_dynamics_match_jax():
     np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
     np.testing.assert_allclose(col.numpy()[0], [0.2, 0.4, 1.0], atol=1e-6)
     np.testing.assert_allclose(col.numpy()[1], [1.0, 0.3, 0.1], atol=1e-6)
+
+
+@pytest.mark.parametrize("span", [4, 8])
+def test_discs_only_wide_span_binning_matches_jax(span):
+    """The (key, prim) pairs of the binned prefix, the range starts and the
+    big list equal _bin_csr6(discs_only=True) at spans 4 and 8."""
+    soup = wide_disc_soup()
+    w, h = SPAN8_FILM
+    tiles_x, tiles_y = csr6.grid_shape(w, h)
+    n_keys = tiles_x * tiles_y * span * span
+    b = csr6.bin_csr6(soup, w, h, 1024, discs_only=True, span=span)
+    keys, prims, big_ids, big_count, _, n_small = jax.jit(
+        lambda s: jcsr6._bin_csr6(
+            s, 32, 32, tiles_x * tiles_y, tiles_x, tiles_y, max_big=1024,
+            discs_only=True, span=span, with_z=False))(jax_soup(soup))
+    keys = np.asarray(keys).astype(np.int64)
+    n_small = int(np.asarray(n_small))
+    starts = b["starts"].numpy()
+    np.testing.assert_array_equal(
+        starts, np.searchsorted(keys[:n_small], np.arange(n_keys + 1)))
+    ours = np.repeat(np.arange(n_keys), np.diff(starts))
+    order = b["order"].numpy()[:n_small]
+    theirs = np.asarray(prims)[:n_small]
+    np.testing.assert_array_equal(
+        np.stack([ours, order])[:, np.lexsort((order, ours))],
+        np.stack([keys[:n_small], theirs])[
+            :, np.lexsort((theirs, keys[:n_small]))])
+    assert int(b["big_count"]) == int(np.asarray(big_count))
+    nb = int(b["big_n"][0])
+    assert set(b["big_ids"].numpy()[:nb]) == set(np.asarray(big_ids)[:nb])
+    # The wider span bins discs that ride the big list one span down.
+    narrower = csr6.bin_csr6(soup, w, h, 1024, discs_only=True,
+                             span=span // 2)
+    assert int(b["big_count"]) < int(narrower["big_count"])
+
+
+@pytest.mark.parametrize("span", [4, 8])
+def test_plain_disc8_wide_spans_match_oracle(span):
+    """Both plain 8-float walks at spans 4 and 8 equal the NumPy oracle
+    bit for bit and the 16-float walk at the same span; (u, v) equal the
+    span-2 walk's (the same winners, wide discs binned or big)."""
+    soup = wide_disc_soup()
+    w, h = SPAN8_FILM
+    d_o, i_o = cpu_reference.rasterize_reference(numpy_soup(soup), w, h)
+    assert (i_o >= 0).mean() > 0.5
+    _, flag = csr6.preshade(soup, tcam(w, h), ShadingConfig())
+    args, b = _disc_walk_inputs(soup, w, h, 1024, flag, span)
+    assert int(b["diag"]["big_overflow"]) == 0
+    depth, index = csr6.raster_tiles_disc8(*args, span=span)
+    np.testing.assert_array_equal(index.numpy(), i_o)
+    np.testing.assert_array_equal(depth.numpy().view(np.int32),
+                                  d_o.view(np.int32))
+    d_uv, i_uv, u, v = csr6.raster_tiles_disc8_uv(*args, span=span)
+    np.testing.assert_array_equal(i_uv.numpy(), i_o)
+    np.testing.assert_array_equal(d_uv.numpy().view(np.int32),
+                                  d_o.view(np.int32))
+    args2, _ = _disc_walk_inputs(soup, w, h, 1024, flag)
+    _, _, u2, v2 = csr6.raster_tiles_disc8_uv(*args2)
+    for a, b2 in ((u, u2), (v, v2)):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      b2.numpy().view(np.int32))
+    d16, i16, _ = csr6.rasterize_csr6(soup, w, h, 1024, span=span)
+    np.testing.assert_array_equal(i16.numpy(), i_o)
+    np.testing.assert_array_equal(d16.numpy().view(np.int32),
+                                  d_o.view(np.int32))
+
+
+def test_fused_render_at_span4_matches_shade_by_id():
+    """render_shaded_csr6(discs_only, uniform_look, span=4) takes the fused
+    walk (the JAX condition holds at any span) and equals the
+    shade_by_id(uniform_look) epilogue on its own buffers, and render()
+    with the same config."""
+    soup = wide_disc_soup()
+    w, h = SPAN8_FILM
+    cam, shading = tcam(w, h), ShadingConfig()
+    rgb, depth, index, diag = csr6.render_shaded_csr6(
+        soup, cam, shading, max_big=256, discs_only=True, uniform_look=LOOK,
+        span=4)
+    assert int(diag["big_overflow"]) == 0
+    rgb_p, flag = csr6.preshade(soup, cam, shading)
+    by_id = csr6.shade_by_id(soup, cam, shading, depth, index, rgb_p, flag,
+                             uniform_look=LOOK)
+    np.testing.assert_array_equal(rgb.numpy().view(np.int32),
+                                  by_id.numpy().view(np.int32))
+    fb = render(soup, cam, RasterConfig(discs_only=True, uniform_look=LOOK,
+                                        max_big=256, span=4))
+    np.testing.assert_array_equal(fb.rgb.numpy().view(np.int32),
+                                  rgb.numpy().view(np.int32))
+    np.testing.assert_array_equal(fb.index.numpy(), index.numpy())

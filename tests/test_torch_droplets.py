@@ -71,6 +71,7 @@ from pointcloud_render_tpu_torch.run.trajectory import (
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_jax import jax_soup, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import (
     NEAR_ORIGIN,
     SPAN8_FILM,

@@ -68,6 +68,7 @@ from pointcloud_render_tpu_torch.run.trajectory import (
 from pointcloud_render_tpu_torch.scene import camera_path, dynamics
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_jax import jcam, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import cloud, tcam
 
 W, H = 160, 96
@@ -88,16 +89,6 @@ U8_DIFF_SHARE = 0.001
 
 def _bits(a):
     return np.asarray(a).view(np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Small torch ops interleaved with Python loops: one intra-op thread
-    keeps idle torch threads off the cores other workers need."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _history_case(m, n=64, seed=5):

@@ -56,6 +56,7 @@ from pointcloud_render_tpu_torch.run.trajectory import (
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_jax import jax_soup, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import H, W, cloud, make_soup, mesh_soup, tcam
 
 FI = 120
@@ -76,17 +77,6 @@ RGB_ATOL = 3e-5
 
 def _bits(a):
     return np.asarray(a).view(np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests interleave small torch ops with Python loops (the NumPy
-    oracle, op-by-op JAX): one intra-op thread keeps idle torch threads
-    from spinning on cores that the suite's other workers need."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -472,8 +462,10 @@ def test_knobs_that_still_raise_and_wrapper_dispatch(soup):
     check_config(RasterConfig(backend="pallas"))
     fb = render(soup, tcam(), RasterConfig(backend="pallas"))
     assert bool((fb.index >= 0).any())
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        check_config(RasterConfig(discs_only=True, span=8))
+    # Ported since: discs_only at spans 4 and 8 renders.
+    check_config(RasterConfig(discs_only=True, span=8))
+    fb = render(soup, tcam(), RasterConfig(discs_only=True, span=8))
+    assert bool((fb.index >= 0).any())
     check_config(RasterConfig(backend="pallas3"))
     check_config(RasterConfig(cap_rows10=True, span=4))
     for cfg, err in ((RasterConfig(cap_rows10=True, bin_triangles=True),

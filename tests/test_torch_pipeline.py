@@ -41,6 +41,7 @@ from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.metrics import profiler_trace
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils import convert
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import cloud
 
 W, H = 160, 96
@@ -205,10 +206,13 @@ def test_unported_paths_raise():
                                 height=48, device="cpu").render_array(
         np.concatenate([pos, vel], axis=1), 120)
     assert bool((fb.index >= 0).any())
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        pipeline.FramePipeline(PRESETS["traj_ball"],
-                               RasterConfig(discs_only=True, span=4),
-                               device="cpu")
+    # Ported since: discs_only at spans 4 and 8 renders.
+    fb = pipeline.FramePipeline(PRESETS["traj_ball"],
+                                RasterConfig(discs_only=True, span=4),
+                                width=64, height=48, device="cpu"
+                                ).render_array(
+        np.concatenate([pos, vel], axis=1), 120)
+    assert bool((fb.index >= 0).any())
     # Ported since: pallas3, cap_rows10, span 4 and 8 on the 16-float walk.
     for cfg in (RasterConfig(backend="pallas3"), RasterConfig(cap_rows10=True),
                 RasterConfig(span=4), RasterConfig(span=8, cap_rows10=True)):
@@ -242,6 +246,8 @@ def test_package_imports_without_jax():
             "import pointcloud_render_tpu_torch.run.trajectory\n"
             "import pointcloud_render_tpu_torch.utils.convert\n"
             "import pointcloud_render_tpu_torch.utils.kernels\n"
+            "import pointcloud_render_tpu_torch.raster.csr5\n"
+            "import pointcloud_render_tpu_torch.scene.spatial\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pointcloud_render_tpu.') for m in sys.modules "
             "if sys.modules[m] is not None)\n")

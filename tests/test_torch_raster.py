@@ -37,6 +37,7 @@ from pointcloud_render_tpu_torch.shading.shade import (
 from pointcloud_render_tpu_torch.utils import convert
 
 from tests.torch_jax import jax_soup, jcam, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import CASES, H, W, make_soup, mixed_soup, tcam
 
 

@@ -32,6 +32,7 @@ from pointcloud_render_tpu_torch.geometry import trails
 from pointcloud_render_tpu_torch.io import loaders, ply, png
 from pointcloud_render_tpu_torch.scene import camera, normalize
 from pointcloud_render_tpu_torch.utils import convert
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(20261016)
 

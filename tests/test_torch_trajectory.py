@@ -37,6 +37,7 @@ from pointcloud_render_tpu_torch.run.trajectory import (
     srgb_encode_u8,
 )
 from pointcloud_render_tpu_torch.utils import convert
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 
 W, H = 192, 104
 LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
@@ -216,9 +217,12 @@ def test_scan_refusals():
     with pytest.raises(ValueError, match="unknown droplet_lod"):
         TrajectoryScanRenderer(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        TrajectoryScanRenderer(PRESETS["traj_ball"], RasterConfig(
-            discs_only=True, span=4), device="cpu")
+    # Ported since: discs_only at spans 4 and 8 renders in the scan.
+    frames, _ = TrajectoryScanRenderer(
+        PRESETS["traj_ball"], RasterConfig(discs_only=True, span=4),
+        frames_per_chunk=1, width=64, height=48, device="cpu"
+    ).render_frames(*_cloud(), [120])
+    assert len(frames) == 1 and (frames[0].min(axis=2) < 250).any()
     with pytest.raises(ValueError, match="need velocities"):
         TrajectoryScanRenderer(PRESETS["traj_ball"], dt=DT, device="cpu") \
             .render_frames(_cloud()[0], None, [0])

@@ -40,6 +40,7 @@ from pointcloud_render_tpu_torch.raster.render import (
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from tests.torch_jax import jax_soup, jcam, numpy_soup
+from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import (
     CASES,
     H,
@@ -56,14 +57,6 @@ LOOK = ((0.3, 0.3, 0.3), (1.0, 1.0, 1.0))
 
 def _bits(a):
     return np.asarray(a).view(np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.cache
@@ -268,8 +261,8 @@ def test_wrappers_dispatch_and_knob_errors():
             (RasterConfig(cap_rows10=True, allow_exit=True), "allow_exit")):
         with pytest.raises(ValueError, match=err):
             check_config(cfg)
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        check_config(RasterConfig(discs_only=True, span=4))
+    # Ported since: discs_only at spans 4 and 8.
+    check_config(RasterConfig(discs_only=True, span=4))
     check_config(RasterConfig(cap_rows10=True, cap10_carry=True, span=8))
     check_config(RasterConfig(backend="pallas3", tile_h=32, tile_w=32,
                               unroll=8, chunk_rows=1024))

@@ -6,6 +6,8 @@ Holds no tests.  Imports jax: the card-only tests do not use it.
 import types
 
 import jax.numpy as jnp
+import pytest
+import torch
 
 from pointcloud_render_tpu.raster.primitives import (
     ScreenPrimitives as JScreenPrimitives,
@@ -13,6 +15,18 @@ from pointcloud_render_tpu.raster.primitives import (
 from pointcloud_render_tpu.scene.camera import Camera as JCamera
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_soups import H, ORIGIN, TARGET, W
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Small torch ops interleaved with Python loops (the NumPy oracle,
+    op-by-op JAX): one intra-op thread keeps idle torch threads from
+    spinning on cores that the suite's other workers need.  A test module
+    turns it on by importing it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jcam(w=W, h=H):

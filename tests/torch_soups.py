@@ -241,3 +241,102 @@ def cloud(n=300, seed=0):
     vel = rng.normal(0, 3, (n, 3)).astype(np.float32)
     vel[4] = 0.0  # below the velocity epsilon: no trail
     return pos, vel
+
+
+def wide_disc_soup():
+    """On the 10x8-tile SPAN8_FILM: the ground, discs and capsules of
+    ``mixed_soup``, and screen-space discs of radii 0.5-125 px at 40
+    depths (exact ties), a fifth of them wide enough to cover 5-8 tiles:
+    binned only at span 8 (the discs_only walks at spans 4 and 8)."""
+    w, h = SPAN8_FILM
+    rng = np.random.default_rng(21)
+    n = 150
+    r = np.concatenate([rng.uniform(0.5, 12.0, n - 30),
+                        rng.uniform(40.0, 125.0, 30)])
+    discs = _screen_discs(rng.uniform(-20, w + 20, n),
+                          rng.uniform(-20, h + 20, n),
+                          np.round(rng.uniform(1.0, 5.0, n), 1), r)
+    return ScreenPrimitives.concatenate(
+        [mixed_soup(tcam(w, h), n=100, trails=10, seed=5, radius=0.05),
+         discs])
+
+
+def _v5_cloud(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+
+
+def cross_chunk_ties(soup, pairs, k=16):
+    """``soup`` with ``pairs`` exact depth ties between overlapping discs of
+    different ``k``-prim chunks: disc j (0.5-2 px from an earlier disc i,
+    the two in different chunks, each in at most one pair) takes i's
+    depth, so the tie is decided by the ids across two superrows."""
+    p = soup.params.cpu().numpy()
+    disc = np.flatnonzero(soup.kind.cpu().numpy() == 0)
+    xy = p[disc, :2]
+    dist = np.linalg.norm(xy[:, None] - xy[None], axis=-1)
+    used = np.zeros(soup.count, bool)
+    params = p.copy()
+    found = 0
+    for a, i in enumerate(disc):
+        for b in np.flatnonzero((dist[a] > 0.5) & (dist[a] < 2.0)):
+            j = disc[b]
+            if j > i and i // k != j // k and not used[i] and not used[j]:
+                params[j, 2] = params[i, 2]
+                used[i] = used[j] = True
+                found += 1
+                break
+        if found == pairs:
+            break
+    assert found == pairs, found
+    return ScreenPrimitives(**{**{f: getattr(soup, f) for f in (
+        "kind", "color", "valid", "bbox", "normal")},
+        "params": torch.tensor(params, device=soup.device)})
+
+
+def v5_soups(device=None):
+    """The v5 slice's soups at ``tcam()``: "sorted" (the ground and 600
+    Morton-sorted discs with 60 cross-chunk exact depth ties),
+    "unsorted" (200 discs in random order, whose chunks span the film,
+    and three wide discs) and "mixed" (300 Morton-sorted discs, 4-segment
+    capsule polylines and triangles across the near plane)."""
+    from pointcloud_render_tpu_torch.scene import spatial  # noqa: PLC0415
+
+    cam = tcam(device=device)
+    ground = ground_plane(cam, 10.0, (0, 0, -0.5))
+
+    def discs(pos, radius=0.02):
+        return discs_from_points(
+            torch.tensor(pos, device=device), cam,
+            torch.full((pos.shape[0],), radius, device=device),
+            np.array([0.3, 0.3, 0.3], np.float32))
+
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-0.4, 0.4, (25, 5, 3)).astype(np.float32)
+    ones = torch.ones(25, dtype=torch.bool, device=device)
+    caps = capsules_from_vertex_columns(
+        [torch.tensor(pts[:, j], device=device) for j in range(5)],
+        [ones] * 5, cam, 0.003, np.array([0.2, 1.0, 0.4], np.float32))
+    return {
+        "sorted": cross_chunk_ties(ScreenPrimitives.concatenate([
+            ground, discs(spatial.spatial_sort(_v5_cloud(600, 3))[0])]), 60),
+        "unsorted": ScreenPrimitives.concatenate(
+            [ground, discs(_v5_cloud(200, 11)),
+             discs(_v5_cloud(3, 5) * 0.2, 0.4)]),
+        "mixed": ScreenPrimitives.concatenate(
+            [ground, discs(spatial.spatial_sort(_v5_cloud(300, 4))[0]),
+             caps, _near_clip_tris(cam)]),
+    }
+
+
+def morton_soup(soup):
+    """``soup`` with its rows in the Morton order of their screen bbox
+    centres and depths (what ``spatial_sort`` gives a cloud)."""
+    from pointcloud_render_tpu_torch.scene import spatial  # noqa: PLC0415
+
+    key = torch.stack([(soup.bbox[:, 0] + soup.bbox[:, 1]) * 0.5,
+                       (soup.bbox[:, 2] + soup.bbox[:, 3]) * 0.5,
+                       soup.params[:, 2]], dim=1)
+    order = torch.as_tensor(spatial.spatial_order(key), device=soup.device)
+    return ScreenPrimitives(**{f: getattr(soup, f)[order] for f in (
+        "kind", "params", "color", "valid", "bbox", "normal")})
