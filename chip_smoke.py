@@ -3,14 +3,24 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+--parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
+csr6_raster.cu beside this one and times its csr6_raster and csr6_cap10
+(the C interface before the split walk) on the same inputs wherever this
+run times those kernels, after holding them against the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels (three sources, thirteen kernels) from csrc/ with
      nvcc, one nvcc per source, started together;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
-     seeded soups at 1920x1080 and one traj_ball frame, and the two
+     seeded soups at 1920x1080 and one traj_ball frame (with its z-bucket
+     exit off and on, its tiles cut into work items of csr6.SPLIT_ROWS and
+     of 64 rows, walked every tile's rows with the exit off), both
+     csr6_raster instances and csr6_cap10 on a seeded soup that forces
+     splits and on the JAX package's cross-class exit case (the exit
+     leaves the far discs' segment and the near disc wins), and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
      seeded soups and a disc scene with exact depth ties and two wide
      discs on the big list: depth bits, winner index and the (u, v) bits
@@ -25,8 +35,12 @@ Phases (any failure exits non-zero and prints no result line):
      certificate is 0 after self-heal; count the big list over the fade
      tail (frames 200-219) and self-heal at its peak; at frames 120, 205
      and that peak, time warm frames, the frames' stages, a profiler trace
-     of warm frames (device busy share and the top device kernels), and
-     the kernel beside its plain version;
+     of warm frames (device busy share and the top device kernels), the
+     kernel with its exit on (the default, with the rows walked) and off
+     beside its plain version and bounds, the tile rows and work items,
+     and the frame with allow_exit=False equal to the default frame; at
+     frame 120 bin_csr6 with the int32 exit key and the int16 key, and
+     the walk by split_rows;
   7. the disc lane of bench.py (ground + 1M sphere splats of radius 0.002,
      discs_only, uniform_look, max_big 256): both disc kernels equal their
      plain versions on the 1M-point cloud at frames 0, 120 and 219; the
@@ -67,7 +81,10 @@ Phases (any failure exits non-zero and prints no result line):
      csr6_raster[bin_triangles] launched), FramePipeline's auto frames
      equal to pallas4 + bin_triangles frames in depth bits, index and rgb
      at those frames, both kernels equal to their plain versions at frame
-     120 with their times, plain times and bounds, the stages of one warm
+     120 with their times (csr6_raster[bin_triangles] with its exit on
+     and off, the rows walked, the tile rows and work items), plain times
+     and bounds, the allow_exit=False frame equal to the default frame at
+     frame 120, the stages of one warm
      frame, warm ms/frame, a trace, and 8 scan frames (certificate 0, one
      launch each); (c) the traj_ball CLI with --backend pallas4 on phase
      5's 1M-point PLYs: its PNGs equal phase 5's (pallas6) byte for byte,
@@ -88,7 +105,10 @@ Phases (any failure exits non-zero and prints no result line):
      records ok, PNGs), cap_rows10 frames at spans 2 and 4 equal to the
      default walk's at frames 20, 21 and 23 (csr6_cap10 launched there),
      both kernels == plain and == each other at the frame's shape (span
-     2, timed with their bounds; spans 4 and 8 timed) and at spans 2, 4
+     2, timed with their bounds, csr6_raster with its exit on and off,
+     the tile rows and work items, both walks by split_rows; spans 4 and
+     8 timed), the allow_exit=False frame equal to the default frame at
+     frame 23, and at spans 2, 4
      and 8 on a 100,000-point traj soup, the warm frame, its stages and a
      trace, a 40-frame scan from frame 0 in chunks of 8 (the rolling
      history buffer fills during it; certificate 0, one csr6_raster
@@ -147,9 +167,10 @@ before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
 the walk must evaluate times the float32 operations per pair, over the
 card's float32 rate without multiply-add fusion; or its bytes over the
-memory rate if that is larger); csr4_raster's, csr3_raster's and the
-strip kernels' and the v5 kernels' entries add ms_exit_off and
-bound_ms_exit_off, the walk of every entry.
+memory rate if that is larger); csr6_raster's (ms: the default walk,
+with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
+csr3_raster's and the strip kernels' and the v5 kernels' entries add
+ms_exit_off and bound_ms_exit_off, the walk of every entry.
 """
 
 from __future__ import annotations
@@ -162,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
@@ -247,6 +269,16 @@ V5_SOURCE = "pointcloud_render_tpu_torch/csrc/csr5_raster.cu"
 # Entries the v3 kernel walks between two checks of its early exit: the
 # blocks timed, and the one the port ships (csr3.EXIT_BLOCK).
 V3_BLOCKS = (64, 128, 256, 512, 1024)
+# The 16- and 10-float walks cut a tile into work items of at least
+# csr6.SPLIT_ROWS rows; the checks below also cut them at SPLIT_FORCED
+# rows (many items per tile, a split inside every range), and the sweep
+# times the walk at SPLIT_SWEEP (the last: one item per tile).
+SPLIT_FORCED = 64
+SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
+# --parent DIR: the parent commit's tree, whose csr6_raster.cu is built
+# beside this one's and timed on the same inputs (its one-CTA-per-tile
+# csr6_raster and csr6_cap10).
+PARENT = {"tree": None, "lib": None}
 
 
 class SmokeFailure(Exception):
@@ -489,7 +521,7 @@ def check_equal_bits(got, want, what):
 
 
 def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
-                 height, bin_triangles, row_bytes=64):
+                 height, bin_triangles, row_bytes=64, walked=None):
     """(bound ms, "operations" | "bytes") of a 16-float walk (v6 or v4; or
     the 10-float cap_rows10 walk, ``row_bytes`` 40) whose tiles evaluate
     entries of prim kinds ``kinds`` (one per (tile, prim) pair; the v4
@@ -497,9 +529,14 @@ def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
     18 operations for a triangle under ``bin_triangles`` (the dual) and
     17 otherwise, and every pixel x every live big row; bytes: ``n_rows``
     rows read once with their ids, the big rows, ``n_starts`` range
-    bounds, two output images."""
+    bounds, two output images.  ``walked``: the entries the tiles
+    evaluated before their exits (the v6 walk reports counts, not which:
+    its triangles are taken in the share of all entries)."""
     n_tri = int((kinds == 2).sum()) if bin_triangles else 0
     n_ent = int(kinds.numel())
+    if walked is not None:
+        n_tri = n_tri * walked // max(n_ent, 1)
+        n_ent = walked
     nb = int(big_n[0])
     nb_tri = int((soup.kind[big_ids[:nb].long()] == 2).sum())
     pixels = width * height
@@ -512,41 +549,202 @@ def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tile_stats(csr6, b, width, height, span, big_n, split_rows=None):
+    """(max, median, p99) of the binned rows per tile and the work items
+    the plan cuts (csrc/csr6_raster.cu csr6_plan_kernel: a tile's big and
+    binned rows in items of max(split_rows, ceil(rows / (3 T))) rows)."""
+    import torch
+
+    rows = csr6.tile_rows(b["starts"], width, height, span).double()
+    q = torch.quantile(rows, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                          device=rows.device))
+    total = rows + big_n
+    room = (csr6.ITEMS_PER_TILE - 1) * rows.numel()
+    w = max(split_rows or csr6.SPLIT_ROWS, -(-int(total.sum()) // room))
+    items = int(torch.clamp(torch.ceil(total / w), min=1).sum())
+    return dict(rows_max=int(rows.max()), rows_median=float(q[0]),
+                rows_p99=float(q[1]), items=items, item_rows=w)
+
+
+def stats_text(st):
+    return (f"tile rows max {st['rows_max']}, median {st['rows_median']:.0f}"
+            f", p99 {st['rows_p99']:.0f}; {st['items']} work items of "
+            f"<= {st['item_rows']} rows")
+
+
+def build_parent(kernels):
+    """Build the parent tree's csr6_raster.cu (--parent) into
+    build/parent/ and load it; nothing without --parent."""
+    import ctypes
+
+    if PARENT["tree"] is None:
+        return
+    src = os.path.join(PARENT["tree"], KERNEL_SOURCE)
+    out = os.path.join(REPO, "build", "parent", "libcsr6_parent.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+                           out, src], capture_output=True, text=True,
+                          check=False)
+    check(proc.returncode == 0, f"the parent's {src} does not build:\n"
+          + proc.stderr[-2000:])
+    PARENT["lib"] = ctypes.CDLL(out)
+
+
+def parent_walk(symbol, ptrs, ints, width, height):
+    """One call of the parent's ``symbol`` (csr6_raster or csr6_cap10, its
+    C interface: inputs, depth, index, ints, stream) -> (depth, index)."""
+    import ctypes
+
+    import torch
+
+    dev = ptrs[0].device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    index = torch.empty((height, width), dtype=torch.int32, device=dev)
+    fn = getattr(PARENT["lib"], symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ptrs), depth.data_ptr(),
+             index.data_ptr(), *ints, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the parent's {symbol} failed to launch: {err}")
+    return depth, index
+
+
+def parent_time(symbol, ptrs, ints, width, height, want, what):
+    """The parent's walk == ``want`` bit for bit, then its median time of
+    11 (None without --parent)."""
+    import torch
+
+    if PARENT["lib"] is None:
+        return None
+    got = parent_walk(symbol, ptrs, ints, width, height)
+    torch.cuda.synchronize()
+    check_equal_bits(got, want, f"the parent's {what}")
+    return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height),
+                   11)
+
+
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
             timing=False, span=2):
     """csr6_raster (with ``bin_triangles`` or without) vs its plain
     version on one soup binned at ``span`` -> (dict(err, ms, plain_ms,
-    bound_ms, bound_by), (depth, index)); times and bound only with
-    ``timing``."""
+    bound_ms, bound_by, ...), (depth, index)).  The kernel runs with its
+    tiles cut at csr6.SPLIT_ROWS and at SPLIT_FORCED rows, at span 2 with
+    the z-bucket exit off and on (the binning's exit keys), each equal to
+    the plain version bit for bit; ``walked`` must be every tile's row
+    count with the exit off and at most that with it on.  With
+    ``timing``: ``ms`` and ``bound_ms`` of the exit-on walk (the default
+    at span 2; its bound counts the rows the tiles evaluated),
+    ``ms_exit_off`` and ``bound_ms_exit_off``, the tile rows and work
+    items, and the parent's time under --parent."""
     import torch
 
+    exit_keys = span == 2
     b = csr6.bin_csr6(soup, width, height, max_big, span=span,
-                      bin_triangles=bin_triangles)
+                      bin_triangles=bin_triangles, with_z=exit_keys)
     check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
     zeros = torch.zeros((soup.count, 3), device=soup.device)
     table = csr6.build_table16(soup, zeros, zeros[:, 0],
                                bin_triangles=bin_triangles)
     args = (table, b["order"], b["starts"], b["big_ids"], b["big_n"],
             width, height, bin_triangles, span)
-    got = csr6.raster_tiles(*args)
-    torch.cuda.synchronize()
     want = csr6.raster_tiles_plain(*args)
     torch.cuda.synchronize()
+    rows = csr6.tile_rows(b["starts"], width, height, span)
     name = "csr6_raster" + ("[bin_triangles]" if bin_triangles else "") + (
         f" span {span}" if span != 2 else "")
-    out = dict(err=check_equal_bits(got, want, name))
+    zmeta = b["zmeta"] if exit_keys else None
+    out = dict(err=0.0)
+    walked_on = got = None
+    for z in (None, zmeta) if exit_keys else (None,):
+        for split in (csr6.SPLIT_ROWS, SPLIT_FORCED):
+            walked = torch.full_like(rows, -1)
+            got = csr6.raster_tiles(*args, zmeta=z, walked=walked,
+                                    split_rows=split)
+            torch.cuda.synchronize()
+            what = (f"{name} exit {'on' if z is not None else 'off'}, items "
+                    f"of {split} rows")
+            out["err"] = max(out["err"], check_equal_bits(got, want, what))
+            if z is None:
+                check(torch.equal(walked, rows),
+                      f"{what}: walked is not every tile's rows")
+            else:
+                check(bool(((walked >= 0) & (walked <= rows)).all()),
+                      f"{what}: walked outside [0, rows]")
+                if split == csr6.SPLIT_ROWS:
+                    walked_on = walked
     if timing:
+        # The v4 entries are the span-2 tile rows, with their kinds.
+        check(exit_keys, "compare times the walk at span 2 only")
         b4 = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
         n = int(b4["starts"][-1])
+        check(n == int(rows.sum()), "v4 entries != v6 tile rows")
         kinds = soup.kind[b4["entries"][:n].long()]
-        bound_ms, bound_by = walk16_bound(
-            soup, kinds, int(b["starts"][-1]), b["big_ids"], b["big_n"],
-            b["starts"].numel(), width, height, bin_triangles)
-        out.update(ms=time_ms(lambda: csr6.raster_tiles(*args), 11),
+        bound = dict(walked=None if walked_on is None
+                     else int(walked_on.sum()))
+        bound_off = walk16_bound(soup, kinds, int(b["starts"][-1]),
+                                 b["big_ids"], b["big_n"],
+                                 b["starts"].numel(), width, height,
+                                 bin_triangles)
+        bound_on = walk16_bound(soup, kinds, int(b["starts"][-1]),
+                                b["big_ids"], b["big_n"],
+                                b["starts"].numel(), width, height,
+                                bin_triangles, walked=bound["walked"])
+        ms_off = time_ms(lambda: csr6.raster_tiles(*args), 11)
+        out.update(ms=ms_off, bound_ms=bound_off[0], bound_by=bound_off[1],
                    plain_ms=time_ms(lambda: csr6.raster_tiles_plain(*args),
                                     1),
-                   bound_ms=bound_ms, bound_by=bound_by, entries=n)
+                   entries=n,
+                   **tile_stats(csr6, b, width, height, span,
+                                int(b["big_n"][0])))
+        if exit_keys:
+            out.update(
+                ms=time_ms(lambda: csr6.raster_tiles(*args, zmeta=zmeta), 11),
+                bound_ms=bound_on[0], bound_by=bound_on[1], ms_exit_off=ms_off,
+                bound_ms_exit_off=bound_off[0], walked=bound["walked"])
+        out["parent_ms"] = parent_time(
+            "csr6_raster", args[:5],
+            (width, height, *csr6.grid_shape(width, height),
+             int(bin_triangles), span), width, height, want, name)
     return out, got
+
+
+def print_v6_times(what, r, shape, card):
+    """The [time] lines of compare's (or compare_cap10's) numbers."""
+    line = (f"[time] {what} kernel {r['ms']:.3f} ms (median of 11), bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']}")
+    if "ms_exit_off" in r:
+        line += (f" ({r['walked']} of {r['entries']} tile rows walked, "
+                 f"{100.0 * r['walked'] / max(r['entries'], 1):.1f}%); exit "
+                 f"off {r['ms_exit_off']:.3f} ms, bound "
+                 f"{r['bound_ms_exit_off']:.3f} ms")
+    line += f"; plain {r['plain_ms']:.1f} ms, at the {shape} shape ({card})"
+    print(line, flush=True)
+    print(f"[time] {what} at the {shape} shape: {stats_text(r)}", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {what} at the {shape} shape: parent "
+              f"{r['parent_ms']:.3f} ms, change {r['ms']:.3f} ms ({card})",
+              flush=True)
+
+
+def split_sweep(what, fn, card, rows=None):
+    """Time ``fn(split_rows, walked)`` at each of SPLIT_SWEEP; one [split]
+    line, with the share of ``rows`` (the tiles' binned rows) walked when
+    given."""
+    import torch
+
+    parts = []
+    for w in SPLIT_SWEEP:
+        part = (f"{w if w < 1 << 30 else 'one item per tile'}: "
+                f"{time_ms(lambda w=w: fn(w, None), 5):.3f}")
+        if rows is not None:
+            walked = torch.zeros_like(rows)
+            fn(w, walked)
+            part += (f" ({100.0 * int(walked.sum()) / int(rows.sum()):.1f}%"
+                     " walked)")
+        parts.append(part)
+    print(f"[split] {what}, ms by split_rows (median of 5): "
+          + ", ".join(parts) + f" ({card})", flush=True)
 
 
 def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
@@ -686,10 +884,12 @@ def compare_rows9(soup, width, height, csr6, max_big, span, timing=False):
 
 
 def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
-    """csr6_cap10 vs its plain version on one soup at ``span`` ->
-    (dict(err, binned, big, entries, and with ``timing`` ms, plain_ms,
-    bound_ms, bound_by), (depth, index)); the bound counts 17 operations
-    per capsule pair, as row 1's, and 40-byte rows."""
+    """csr6_cap10 vs its plain version on one soup at ``span``, its tiles
+    cut at csr6.SPLIT_ROWS and at SPLIT_FORCED rows, ``walked`` every
+    tile's rows -> (dict(err, binned, big, entries, and with ``timing``
+    ms, plain_ms, bound_ms, bound_by, the tile rows and work items, the
+    parent's time under --parent), (depth, index)); the bound counts 17
+    operations per capsule pair, as row 1's, and 40-byte rows."""
     import torch
 
     b = csr6.bin_csr6(soup, width, height, max_big, span=span)
@@ -698,20 +898,34 @@ def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
     args = (csr6.build_table10(soup),
             csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
             b["order"], b["starts"], b["big_n"], width, height, span)
-    got = csr6.raster_tiles_cap10(*args)
-    torch.cuda.synchronize()
     want = csr6.raster_tiles_cap10_plain(*args)
     torch.cuda.synchronize()
-    out = dict(err=check_equal_bits(got, want, f"csr6_cap10 span {span}"),
-               binned=int(b["starts"][-1]), big=int(b["big_count"]),
+    rows = csr6.tile_rows(b["starts"], width, height, span)
+    out = dict(err=0.0, binned=int(b["starts"][-1]),
+               big=int(b["big_count"]),
                entries=int(b["diag"]["true_entries"]))
+    for split in (csr6.SPLIT_ROWS, SPLIT_FORCED):
+        walked = torch.full_like(rows, -1)
+        got = csr6.raster_tiles_cap10(*args, walked=walked, split_rows=split)
+        torch.cuda.synchronize()
+        what = f"csr6_cap10 span {span}, items of {split} rows"
+        out["err"] = max(out["err"], check_equal_bits(got, want, what))
+        check(torch.equal(walked, rows), f"{what}: walked is not every "
+              "tile's rows")
     if timing:
         bound_ms, bound_by = walk_bound(b, soup, width, height, 40,
                                         OPS_CAPSULE16, 2, span=span)
         out.update(ms=time_ms(lambda: csr6.raster_tiles_cap10(*args), 11),
                    plain_ms=time_ms(
                        lambda: csr6.raster_tiles_cap10_plain(*args), 1),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   **tile_stats(csr6, b, width, height, span,
+                                int(b["big_n"][0])))
+        out["parent_ms"] = parent_time(
+            "csr6_cap10", args[:5],
+            (args[1].shape[0], width, height,
+             *csr6.grid_shape(width, height), span), width, height, want,
+            f"csr6_cap10 span {span}")
     return out, got
 
 
@@ -787,6 +1001,50 @@ def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
                    bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
                    entries=n, walked=n_walked, blocks=blocks)
     return out, b
+
+
+def exit_split_soups(dev, csr6, csr4, max_err):
+    """Phase 3: both csr6_raster instances and csr6_cap10 against their
+    plain versions on the seeded soup that forces splits (6,600 capsules
+    over the corner of four tiles, ~2,500 rows per tile) and on the JAX
+    package's cross-class exit case; the exit must leave the far discs'
+    segment of the cross-class tile and still let the near disc win."""
+    import torch
+
+    ts = torch_soups()
+    split = ts.split_soup().to(dev)
+    cross = ts.cross_class_soup().to(dev)
+    for name, soup, (w, h) in (("split", split, (ts.W, ts.H)),
+                               ("cross_class", cross, ts.CROSS_FILM)):
+        for bt in (False, True):
+            key = "csr6_raster[bin_triangles]" if bt else "csr6_raster"
+            res, got = compare(soup, w, h, csr6, csr4, 1 << 16, bt)
+            max_err[key] = max(max_err[key], res["err"])
+        res10, _ = compare_cap10(soup, w, h, csr6, 1 << 16, 2)
+        max_err["csr6_cap10"] = max(max_err["csr6_cap10"], res10["err"])
+        rows = csr6.tile_rows(csr6.bin_csr6(soup, w, h)["starts"], w, h)
+        print(f"[kernel==plain] csr6_raster, csr6_raster[bin_triangles] "
+              f"(exit off and on), csr6_cap10 on the {name} soup ({w}x{h}): "
+              f"{soup.count} prims, tile rows max {int(rows.max())} ok",
+              flush=True)
+    b = csr6.bin_csr6(cross, *ts.CROSS_FILM, with_z=True)
+    zeros = torch.zeros((cross.count, 3), device=dev)
+    tiles_x = csr6.grid_shape(*ts.CROSS_FILM)[0]
+    walked = torch.zeros(tiles_x * csr6.grid_shape(*ts.CROSS_FILM)[1],
+                         dtype=torch.int32, device=dev)
+    _, index = csr6.raster_tiles(
+        csr6.build_table16(cross, zeros, zeros[:, 0]), b["order"],
+        b["starts"], b["big_ids"], b["big_n"], *ts.CROSS_FILM,
+        zmeta=b["zmeta"], walked=walked)
+    t = 2 * tiles_x + 2
+    rows = csr6.tile_rows(b["starts"], *ts.CROSS_FILM)
+    check(int(walked[t]) < int(rows[t]),
+          "cross-class tile: the exit did not leave the far discs' segment")
+    check(int(index[80, 95]) == cross.count - 1,
+          "cross-class tile: the near disc does not win its pixels")
+    print(f"[exit] cross-class tile (2, 2): {int(walked[t])} of "
+          f"{int(rows[t])} rows walked, the near disc wins (the far "
+          "discs' segment left, the next class walked)", flush=True)
 
 
 def torch_soups():
@@ -1098,23 +1356,27 @@ def frame_stages(pipeline, csr6, preset, pcl, fi, dev, max_big):
         f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
 
     def binning(f):
-        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big)
+        # The default walk takes the exit: zlb once, the int32 exit keys.
+        f["zlb"] = csr6.z_lower_bound(f["soup"])
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big,
+                               with_z=True, zlb=f["zlb"])
 
     def table(f):
-        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"])
+        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"],
+                                        zlb=f["zlb"])
 
     def kernel(f):
         b = f["b"]
         f["depth"], f["index"] = csr6.raster_tiles(
             f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
-            WIDTH, HEIGHT)
+            WIDTH, HEIGHT, zmeta=b["zmeta"])
 
     def shade(f):
         csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
                          f["index"], f["rgb"], f["flag"])
 
     return [("camera+soup build", build), ("preshade", preshade),
-            ("binning (sort, starts, big list)", binning),
+            ("binning (zlb, sort, starts, big list)", binning),
             ("table16", table), ("csr6_raster kernel", kernel),
             ("shade_by_id", shade),
             ("overflow read-back",
@@ -1552,18 +1814,19 @@ def mesh_stages(csr6, pipeline, preset, pcl, fi, dev, max_big):
         f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
 
     def binning(f):
+        f["zlb"] = csr6.z_lower_bound(f["soup"], with_triangles=True)
         f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big,
-                               bin_triangles=True)
+                               bin_triangles=True, with_z=True, zlb=f["zlb"])
 
     def table(f):
         f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"],
-                                        bin_triangles=True)
+                                        bin_triangles=True, zlb=f["zlb"])
 
     def kernel(f):
         b = f["b"]
         f["depth"], f["index"] = csr6.raster_tiles(
             f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
-            WIDTH, HEIGHT, True)
+            WIDTH, HEIGHT, True, zmeta=b["zmeta"])
 
     def shade(f):
         csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
@@ -1672,14 +1935,32 @@ def mesh_lane(card, dev, max_err, counters, tmp) -> dict:
                 max_err["csr6_raster[bin_triangles]"], res6["err"])
             max_err["csr4_raster"] = max(max_err["csr4_raster"], res4["err"])
             timed = res6
-            print(f"[time] csr6_raster[bin_triangles] kernel "
-                  f"{res6['ms']:.3f} ms (median of 11), plain "
-                  f"{res6['plain_ms']:.1f} ms, bound {res6['bound_ms']:.3f} "
-                  f"ms by {res6['bound_by']} ({res6['entries']} tile "
-                  f"entries) at the mesh frame-120 shape ({card})",
-                  flush=True)
+            print_v6_times("csr6_raster[bin_triangles]", res6,
+                           "mesh frame-120", card)
             print_v4_times("csr4_raster bin_triangles", res4,
                            "mesh frame-120", card)
+            bz = csr6.bin_csr6(soup, WIDTH, HEIGHT,
+                               auto.raster_config.max_big,
+                               bin_triangles=True, with_z=True)
+            zeros = torch.zeros((soup.count, 3), device=dev)
+            sweep = (csr6.build_table16(soup, zeros, zeros[:, 0],
+                                        bin_triangles=True), bz["order"],
+                     bz["starts"], bz["big_ids"], bz["big_n"], WIDTH, HEIGHT,
+                     True)
+            split_sweep("csr6_raster[bin_triangles] exit on, mesh frame 120",
+                        lambda w, wk: csr6.raster_tiles(
+                            *sweep, zmeta=bz["zmeta"], split_rows=w,
+                            walked=wk), card,
+                        csr6.tile_rows(bz["starts"], WIDTH, HEIGHT))
+            del sweep, zeros, bz
+            off = pipeline.FramePipeline(
+                preset, RasterConfig(allow_exit=False), droplet_lod="mesh",
+                device=dev)
+            equal_buffers(off.render_array(pcl, fi), fa,
+                          "mesh frame 120: exit off vs the default")
+            print("[exit] mesh frame 120: the default frame (exit on) == "
+                  "allow_exit=False bit for bit (rgb, depth, index)",
+                  flush=True)
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1843,16 +2124,20 @@ def traj_stages(csr6, pipeline, trails_mod, prims_mod, preset, pcl, hist,
         f["rgb"], f["flag"] = csr6.preshade(f["soup"], f["cam"], shading)
 
     def binning(f):
-        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big)
+        # The default walk takes the exit: zlb once, the int32 exit keys.
+        f["zlb"] = csr6.z_lower_bound(f["soup"])
+        f["b"] = csr6.bin_csr6(f["soup"], WIDTH, HEIGHT, max_big,
+                               with_z=True, zlb=f["zlb"])
 
     def table(f):
-        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"])
+        f["table"] = csr6.build_table16(f["soup"], f["rgb"], f["flag"],
+                                        zlb=f["zlb"])
 
     def kernel(f):
         b = f["b"]
         f["depth"], f["index"] = csr6.raster_tiles(
             f["table"], b["order"], b["starts"], b["big_ids"], b["big_n"],
-            WIDTH, HEIGHT)
+            WIDTH, HEIGHT, zmeta=b["zmeta"])
 
     def shade(f):
         csr6.shade_by_id(f["soup"], f["cam"], shading, f["depth"],
@@ -1862,7 +2147,7 @@ def traj_stages(csr6, pipeline, trails_mod, prims_mod, preset, pcl, hist,
             ("catmull_rom_trails", fit),
             ("trail capsules_from_polylines", capsules),
             ("soup concatenate", concat), ("preshade", preshade),
-            ("binning (sort, starts, big list)", binning),
+            ("binning (zlb, sort, starts, big list)", binning),
             ("table16", table), ("csr6_raster kernel", kernel),
             ("shade_by_id", shade),
             ("overflow read-back",
@@ -1978,12 +2263,33 @@ def traj_slice(card, dev, max_err, counters, tmp) -> dict:
           f"({int(soup.valid.sum())} valid), {res10['binned']} binned, big "
           f"list {res10['big']}, tile entries {res10['entries']} at span 2",
           flush=True)
-    print(f"[time] csr6_cap10 kernel {res10['ms']:.3f} ms (median of 11), "
-          f"plain {res10['plain_ms']:.1f} ms, bound {res10['bound_ms']:.3f} "
-          f"ms by {res10['bound_by']}; csr6_raster {res16['ms']:.3f} ms, "
-          f"plain {res16['plain_ms']:.1f} ms, bound {res16['bound_ms']:.3f} "
-          f"ms, at the traj frame-{last} shape, span 2 ({card})", flush=True)
+    print_v6_times("csr6_cap10", res10, f"traj frame-{last}, span 2", card)
+    print_v6_times("csr6_raster", res16, f"traj frame-{last}, span 2", card)
     zeros = torch.zeros((soup.count, 3), device=dev)
+    bz = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, with_z=True)
+    sweep = (csr6.build_table16(soup, zeros, zeros[:, 0]), bz["order"],
+             bz["starts"], bz["big_ids"], bz["big_n"], WIDTH, HEIGHT)
+    split_sweep(f"csr6_raster exit off, traj frame {last}",
+                lambda w, wk: csr6.raster_tiles(*sweep, split_rows=w,
+                                                walked=wk), card)
+    split_sweep(f"csr6_raster exit on, traj frame {last}",
+                lambda w, wk: csr6.raster_tiles(*sweep, zmeta=bz["zmeta"],
+                                                split_rows=w, walked=wk),
+                card, csr6.tile_rows(bz["starts"], WIDTH, HEIGHT))
+    r10 = (csr6.build_table10(soup), csr6.build_table16_rows(
+        soup, zeros, zeros[:, 0], bz["big_ids"]), bz["order"], bz["starts"],
+        bz["big_n"], WIDTH, HEIGHT)
+    split_sweep(f"csr6_cap10, traj frame {last}",
+                lambda w, wk: csr6.raster_tiles_cap10(*r10, split_rows=w,
+                                                      walked=wk), card)
+    del sweep, r10, bz
+    off = pipeline.FramePipeline(preset, RasterConfig(allow_exit=False),
+                                 device=dev)
+    equal_buffers(off.render_array(clouds[last], last, h),
+                  pipe.render_array(clouds[last], last, h),
+                  f"traj frame {last}: exit off vs the default")
+    print(f"[exit] traj frame {last}: the default frame (exit on) == "
+          "allow_exit=False bit for bit (rgb, depth, index)", flush=True)
     for span in (4, 8):
         b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, span=span)
         r10 = (csr6.build_table10(soup), csr6.build_table16_rows(
@@ -2973,9 +3279,13 @@ def run() -> dict:
                 csr2.raster_tiles2_disc8, csr5.raster_tiles5,
                 csr5.raster_tiles5_shaded)
 
-    # Phase 2: build from the checkout's sources, one nvcc per source.
+    # Phase 2: build from the checkout's sources, one nvcc per source (and
+    # the parent's csr6_raster.cu under --parent), all started together.
     t0 = time.perf_counter()
-    kernels.build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        parent = pool.submit(build_parent, kernels)
+        kernels.build_all()
+        parent.result()
     for name in kernels.LIBRARIES:
         kernels.load(name)
     print(f"[build] csr6_raster.cu (csr6_raster, csr6_cap10, csr6_disc8, "
@@ -2998,8 +3308,10 @@ def run() -> dict:
     for name, soup in seeded.items():
         err = compare(soup, WIDTH, HEIGHT, csr6, csr4, default_big)[0]["err"]
         max_err["csr6_raster"] = max(max_err["csr6_raster"], err)
-        print(f"[kernel==plain] csr6_raster {name}: {soup.count} prims ok",
-              flush=True)
+        print(f"[kernel==plain] csr6_raster {name}: {soup.count} prims ok "
+              f"(exit off and on, items of {csr6.SPLIT_ROWS} and "
+              f"{SPLIT_FORCED} rows)", flush=True)
+    exit_split_soups(dev, csr6, csr4, max_err)
     # The disc-row kernels on the same soups (their capsules ride the big
     # list; "mixed" is left to "invalid_nearclip", the same rows with
     # holes) and on a two-tone disc scene: exact ties, two wide discs.
@@ -3196,16 +3508,44 @@ def run() -> dict:
                              timing=True)
             max_err["csr6_raster"] = max(max_err["csr6_raster"], res["err"])
             timed[fi] = res
-            kernel_ms, plain_ms = res["ms"], res["plain_ms"]
             b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big)
             print(f"[time] frame {fi} shape: {n} points, {soup.count} prims, "
                   f"{int(b['starts'][-1])} binned, true_entries "
                   f"{int(b['diag']['true_entries'])}, big list "
                   f"{int(b['big_count'])}", flush=True)
-            print(f"[time] csr6_raster kernel {kernel_ms:.3f} ms (median of "
-                  f"11), plain {plain_ms:.1f} ms (median of 2), bound "
-                  f"{res['bound_ms']:.3f} ms by {res['bound_by']} at the "
-                  f"frame-{fi} shape ({card})", flush=True)
+            print_v6_times("csr6_raster", res, f"traj_ball frame-{fi}", card)
+            # The default frame takes the exit: the exit-off frame equals it.
+            off = pipeline.FramePipeline(
+                preset, RasterConfig(allow_exit=False, max_big=max_big),
+                device=dev)
+            equal_buffers(off.render_array(clouds[fi], fi),
+                          pipe.render_array(clouds[fi], fi),
+                          f"traj_ball frame {fi}: exit off vs the default")
+            print(f"[exit] traj_ball frame {fi}: the default frame (exit "
+                  "on) == allow_exit=False bit for bit (rgb, depth, index)",
+                  flush=True)
+            if fi == 120:
+                keys = {z: time_ms(lambda z=z: csr6.bin_csr6(
+                    soup, WIDTH, HEIGHT, max_big, with_z=z), 11)
+                        for z in (True, False)}
+                print(f"[time] bin_csr6 at the traj_ball frame-120 shape: "
+                      f"{keys[True]:.3f} ms with the int32 exit key, "
+                      f"{keys[False]:.3f} ms with the int16 key (medians of "
+                      f"11; {soup.count} keys) ({card})", flush=True)
+                zeros = torch.zeros((soup.count, 3), device=dev)
+                bz = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, with_z=True)
+                sweep = (csr6.build_table16(soup, zeros, zeros[:, 0]),
+                         bz["order"], bz["starts"], bz["big_ids"],
+                         bz["big_n"], WIDTH, HEIGHT)
+                split_sweep("csr6_raster exit off, traj_ball frame 120",
+                            lambda w, wk: csr6.raster_tiles(
+                                *sweep, split_rows=w, walked=wk), card)
+                split_sweep("csr6_raster exit on, traj_ball frame 120",
+                            lambda w, wk: csr6.raster_tiles(
+                                *sweep, zmeta=bz["zmeta"], split_rows=w,
+                                walked=wk), card,
+                            csr6.tile_rows(bz["starts"], WIDTH, HEIGHT))
+                del sweep, zeros, bz
             if fi in (120, 205):
                 # Phase 10: the cap_rows10 walk renders the same frame.
                 cap10 = pipeline.FramePipeline(
@@ -3263,7 +3603,10 @@ def run() -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) > 1:
+    args = sys.argv[1:]
+    if args[:1] == ["--parent"] and len(args) == 2:
+        PARENT["tree"] = os.path.abspath(args[1])
+    elif args:
         print(__doc__, file=sys.stderr)
         return 2
     try:

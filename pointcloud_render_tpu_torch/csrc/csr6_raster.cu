@@ -1,5 +1,5 @@
-// v6, v4 and v3 tile rasterizers for Hopper (sm_90a): one CTA per 32x32
-// pixel tile.  Seven kernels share the walk: csr6_raster (16-float binned
+// v6, v4 and v3 tile rasterizers for Hopper (sm_90a) over 32x32 pixel
+// tiles.  Seven kernels share the walk: csr6_raster (16-float binned
 // rows at span 2, 4 or 8; with bin_triangles, binned triangles too),
 // csr6_cap10 (the same walk over 10-float capsule rows), csr6_disc8
 // (8-float disc rows), csr6_disc8_uv (disc rows, with the winner's
@@ -16,10 +16,11 @@
 //     are four merged ranges: its own anchor (classes 0..3), the left
 //     neighbour's x-spill classes {1, 2}, the up neighbour's y-spill
 //     classes {2, 3} and the diagonal's "both" class {2}, guarded at
-//     tx >= 1 / ty >= 1.  At span 4 and 8 (span x span classes, row-major
-//     cy * span + cx) they are the own anchor's range plus, per neighbour
-//     (dx, dy), one range per class row cy >= dy of the classes cx >= dx
-//     (one range when dx = 0): see tile_range;
+//     tx >= 1 / ty >= 1; with the z-bucket early exit, the nine
+//     single-class segments they merge.  At span 4 and 8 (span x span
+//     classes, row-major cy * span + cx) they are the own anchor's range
+//     plus, per neighbour (dx, dy), one range per class row cy >= dy of
+//     the classes cx >= dx (one range when dx = 0): see tile_range;
 //   * pallas_csr4._make_row_body16 — the 16-float row evaluation: the
 //     capsule (a disc is a zero-axis capsule) and the triangle dual, in
 //     the exact expression order of the JAX code;
@@ -30,8 +31,8 @@
 // lengths, and stages rows across range boundaries in chunks, so empty
 // and tiny ranges cost no synchronisation (size_ranges, flat_pos).
 //
-// csr6_raster with bin_triangles (the mesh-LOD droplets; the kBinTri
-// instance of its tile kernel): small triangles are binned like discs and
+// csr6_raster with bin_triangles (the mesh-LOD droplets; the kRows16Tri
+// instance of its walk): small triangles are binned like discs and
 // capsules, and the binned ranges go through the triangle-aware dual
 // evaluation as the big list does (pallas_csr6._make_tile_body's binned
 // stream with _make_row_body16(with_triangles=True)).  Every thread reads
@@ -42,8 +43,37 @@
 // lanes of the 16-float row that its capsule body reads, evaluated by the
 // same function (capsule_pair), so winners and depth bits equal
 // csr6_raster's; triangles ride the big list (16-float rows, dual body).
-// A 40 B row is not float4-aligned: rows are staged as five float2 each
-// into a 10-float stride of shared memory, 512 rows (20 KB) per chunk.
+// A 40 B row is not 16-byte aligned: rows are staged as five 8-byte
+// copies into a 10-float stride of shared memory.  It has no exit: its
+// rows carry no zlb lane (the JAX package forces the exit off).
+//
+// csr6_raster and csr6_cap10 walk in three or four launches
+// (launch_split_walk).  What bounds them: per-pair arithmetic (below),
+// and how evenly it is spread.  One CTA per tile left a dense tile's
+// whole range on one SM (the traj preset packs trail capsules into a few
+// tiles at the cloud's centre), and staged each chunk synchronously.
+// (1) csr6_plan_kernel sizes every tile's rows (its big rows, then its
+// binned ranges) and cuts a tile of more than split_rows rows into work
+// items, contiguous slices of those rows: the first takes the big list
+// and the first w rows, the others share the rest; (2) csr6_walk_kernel
+// runs one persistent CTA per free SM slot, each taking the next item
+// from a counter (with the exit: every tile's first item in one launch,
+// then the others in a second, which test the exit against their own
+// depths and the first item's); (3) csr6_merge_kernel merges a split
+// tile's per-item (depth, id) minima with the walk's own compare, so the
+// image does not depend on the split or the order.  Rows are staged in
+// chunks of 256 through a two-slot ring by cp.async (16 B .cg copies for
+// 64 B rows, 8 B for 40 B rows), the next chunk and the sorted id of the
+// one after in flight while a chunk is evaluated.  TMA does not serve
+// this gather: its copies are boxes of a tensor, and these rows are
+// scattered records found through order[] (one 64 or 40 B row per id).
+// The exit (pallas_csr6's allow_exit, B1): with zmeta the binning's keys
+// carry the z-bucket of each prim's depth lower bound (lane 14), so each
+// single-class segment ascends in bucket; after a chunk whose segment
+// goes on past it, the CTA takes the rule of csr4_raster below over its
+// in-image pixels (the TPU block counts all 1024; both are sound) and
+// skips the rest of the segment, never across a class boundary.  A split
+// item decides on its own minima, which are never below the tile's.
 //
 // csr4_raster replaces pallas_csr4._make_kernel4 (v4): every binned prim
 // is expanded into the up-to-four (tile, z-bucket) entries its 2x2 tile
@@ -106,8 +136,8 @@
 // operation: build with -fmad=false (no multiply-add contraction) and
 // without --use_fast_math (correctly rounded 1/iz).
 //
-// What bounds it on an H100: per-pair arithmetic.  Every (row, pixel)
-// pair of a 16-float row must execute 17 float32 operations in the
+// What bounds the walks on an H100: per-pair arithmetic.  Every (row,
+// pixel) pair of a 16-float row must execute 17 float32 operations in the
 // capsule body and 18 in the triangle body (per-row and per-pixel-column
 // terms such as dx and dx * sdx hoisted; the three merge compares and the
 // depth they read, z0 + sdz * t or 1 / iz, are needed only at covered
@@ -116,22 +146,23 @@
 // rows) pairs; row bytes (64 B per row, read once per tile it touches;
 // 40 B under cap_rows10) are small beside that.  Design: rows are staged
 // through shared memory in chunks (one row per thread, gathered by sorted
-// id), every thread keeps the (depth, id) minima of its 4 pixels in
-// registers, and all threads read the same staged row (a shared-memory
-// broadcast).  A disc pair must execute 4 operations (dy, dy * dy,
-// + dx * dx, <= r * r; dx and dx * dx are per row and thread, not per
-// pixel) and a disc row is 32 B, staged 512 at a time (v3: 16 B of its
-// entry row, 128 per exit block by default).  A rows9 capsule pair must
+// id; by cp.async in csr6_raster and csr6_cap10), every thread keeps the
+// (depth, id) minima of its 4 pixels in registers, and all threads read
+// the same staged row (a shared-memory broadcast).  A disc pair must
+// execute 4 operations (dy, dy * dy, + dx * dx, <= r * r; dx and dx * dx
+// are per row and thread, not per pixel) and a disc row is 32 B, staged
+// 512 at a time (v3: 16 B of its entry row, 128 per exit block by
+// default).  A rows9 capsule pair must
 // execute 16 (dy, a and g (2 each, with dx * ux and dx * uy per column),
 // the clip (2), a - t, d2 (3), rad (2), d2 <= rad * rad (2), rad > 0; its
 // depth z is read only at covered pairs).
 // A binned triangle pair (csr6_raster or csr4_raster with bin_triangles)
-// costs 18 operations, as a big-list one.  csr4_raster's and
-// csr3_raster's bounds count 1024 x (the entries their tiles evaluated
-// before their exits, which the kernels report through `walked`) +
-// pixels x (big rows) pairs.
-// Not done yet: the z-bucket early exit in the v6 walks, load balancing
-// of dense tiles, and asynchronous (TMA / cp.async) staging.
+// costs 18 operations, as a big-list one.  The bounds of the walks with
+// an exit (csr6_raster, csr4_raster, csr3_raster) count 1024 x (the rows
+// their tiles evaluated before their exits, which the kernels report
+// through `walked`) + pixels x (big rows) pairs.
+// Not done yet: the split and the cp.async ring in the disc, rows9, v4
+// and v3 walks, and the early exit in the 8-float disc walk.
 
 #include <cuda_runtime.h>
 
@@ -178,8 +209,12 @@ __device__ __forceinline__ bool pair16(const float4& a, const float4& b,
 // bin_triangles, for binned rows; otherwise binned rows are
 // discs/capsules and take the capsule body alone, as on the TPU.  kUV
 // also keeps the winner's (u, v): a big-list disc (no triangle, lane 13
-// > 0) gives dx * flag and -dy * flag, any other row +inf.
-template <bool kTri, bool kUV>
+// > 0) gives dx * flag and -dy * flag, any other row +inf.  kLazy (the
+// split walk of csr6_raster) divides a triangle's 1 / iz only at covered
+// pairs: nothing else reads it, and iz > 0 there, so the depth is
+// tri_pair's.  The other walks keep the eager division, with which their
+// kernels were measured.
+template <bool kTri, bool kUV, bool kLazy = false>
 __device__ __forceinline__ void eval_rows(const float4* sh, int count,
                                           float qx, const float* qy,
                                           float* d, float* di, float* u,
@@ -194,6 +229,21 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
     // The row's kind is the same for every thread (a broadcast row), so
     // the branch does not diverge: a big-list capsule skips the triangle
     // body and its division.
+    if (kLazy && kTri && e.w > 0.0f) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        float iz;
+        if (tri_cover(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.z, c.w,
+                      e.x, qx, qy[k], &iz)) {
+          const float z = 1.0f / iz;
+          if ((z < d[k]) || ((z == d[k]) && (idf < di[k]))) {
+            d[k] = z;
+            di[k] = idf;
+          }
+        }
+      }
+      continue;
+    }
     const bool is_disc = !(kTri && e.w > 0.0f) && e.y > 0.0f;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
@@ -243,7 +293,6 @@ __device__ __forceinline__ void eval_disc_rows(const float4* sh, int count,
 constexpr int kRowF9 = 9;
 constexpr int kChunk9 = 512;     // 9-float rows per staged chunk (18 KB)
 constexpr int kRowF10 = 10;
-constexpr int kChunk10 = 512;    // 10-float rows per staged chunk (20 KB)
 constexpr int kMaxRanges = 512;  // range slots: span^3 at span 8
 
 // Evaluate staged 9-float rows [0, count) at this thread's pixels:
@@ -324,17 +373,29 @@ __device__ __forceinline__ void eval_rows10(const float* sh, int count,
 
 // Range slot q of tile (tx, ty) in the ordinal region starting at `reg`
 // -> (first sorted position, length); length 0 for slots that name no
-// range or a neighbour off the grid.  Span 2: the four merged ranges.
+// range or a neighbour off the grid.  Span 2: the four merged ranges, or
+// with `segs` (the early exit) the nine single-class segments, each
+// ascending in z-bucket: the own anchor's classes 1..3, the left
+// neighbour's 1 and 2, the up neighbour's 2 and 3, the diagonal's 2, and
+// last the own anchor's class 0.  Class 0 (prims inside the tile) holds
+// most rows but rarely covers the tile's border pixels, which the
+// spilling classes do: walked first, they let the exit leave class 0.
 // Wider spans: slot q = (cy * span + dy) * span + dx names neighbour
 // (dx, dy)'s classes in class row cy with cx >= dx; for dx = 0 the slot
 // cy = dy takes every class row from dy on at once.
 __device__ __forceinline__ void tile_range(int q, int span, int tile, int tx,
                                            int ty, int tiles_x, int reg,
                                            const int* __restrict__ starts,
-                                           int* s_out, int* n_out) {
+                                           int* s_out, int* n_out,
+                                           bool segs = false) {
   int dx, dy, lo, hi;
   bool named = true;
-  if (span == 2) {
+  if (segs) {
+    dx = (q == 3 || q == 4 || q == 7) ? 1 : 0;
+    dy = (q == 5 || q == 6 || q == 7) ? 1 : 0;
+    lo = q < 3 ? q + 1 : (q == 3 ? 1 : (q == 6 ? 3 : (q == 8 ? 0 : 2)));
+    hi = lo + 1;
+  } else if (span == 2) {
     dx = (q & 1);
     dy = (q >> 1);
     lo = q == 0 ? 0 : (q == 1 ? 1 : 2);
@@ -357,8 +418,10 @@ __device__ __forceinline__ void tile_range(int q, int span, int tile, int tx,
   *n_out = starts[base + hi] - s;
 }
 
-__device__ __forceinline__ int range_slots(int span) {
-  return span == 2 ? 4 : span * span * span;
+constexpr int kSegSlots = 9;  // single-class segments of a span-2 tile
+
+__device__ __forceinline__ int range_slots(int span, bool segs = false) {
+  return segs ? kSegSlots : (span == 2 ? 4 : span * span * span);
 }
 
 // Size the tile's ranges in the ordinal region `reg`: every thread sizes
@@ -368,10 +431,11 @@ __device__ __forceinline__ int range_slots(int span) {
 // same in every thread); ends with a barrier.
 __device__ int size_ranges(int span, int tile, int tx, int ty, int tiles_x,
                            int reg, const int* __restrict__ starts,
-                           int* range_start, int* range_cum, int* warp_tot) {
+                           int* range_start, int* range_cum, int* warp_tot,
+                           bool segs = false) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int n_slots = range_slots(span);
+  const int n_slots = range_slots(span, segs);
   int len[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -379,7 +443,8 @@ __device__ int size_ranges(int span, int tile, int tx, int ty, int tiles_x,
     int s = 0;
     len[h] = 0;
     if (q < n_slots)
-      tile_range(q, span, tile, tx, ty, tiles_x, reg, starts, &s, &len[h]);
+      tile_range(q, span, tile, tx, ty, tiles_x, reg, starts, &s, &len[h],
+                 segs);
     range_start[q] = s;
   }
   const int local = len[0] + len[1];
@@ -405,18 +470,25 @@ __device__ int size_ranges(int span, int tile, int tx, int ty, int tiles_x,
   return total;
 }
 
-// The sorted position of flat row f of the sized ranges: the last slot
-// whose prefix is <= f holds it (empty slots share their prefix with the
-// next one).
-__device__ __forceinline__ int flat_pos(int f, int n_slots,
-                                        const int* range_start,
-                                        const int* range_cum) {
+// The slot of flat row f of the sized ranges: the last slot whose
+// prefix is <= f holds it (empty slots share their prefix with the next
+// one).
+__device__ __forceinline__ int find_slot(int f, int n_slots,
+                                         const int* range_cum) {
   int lo = 0, hi = n_slots;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (range_cum[mid] <= f) lo = mid + 1; else hi = mid;
   }
-  return range_start[lo - 1] + f - range_cum[lo - 1];
+  return lo - 1;
+}
+
+// The sorted position of flat row f of the sized ranges.
+__device__ __forceinline__ int flat_pos(int f, int n_slots,
+                                        const int* range_start,
+                                        const int* range_cum) {
+  const int q = find_slot(f, n_slots, range_cum);
+  return range_start[q] + f - range_cum[q];
 }
 
 // Write a tile's (depth, id) minima: index -1 where the depth is +inf.
@@ -515,97 +587,423 @@ csr6_rows9_kernel(const float* __restrict__ rows9,
   write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
-// The 16-float walk at span 2, 4 or 8.  kBinTri: binned rows through the
-// triangle-aware dual (bin_triangles).
-template <bool kBinTri>
-__global__ void __launch_bounds__(kThreads)
-csr6_tile_kernel(const float* __restrict__ table, const int* __restrict__ order,
+// ---------------------------------------------------------------------------
+// The split walk of csr6_raster (16-float rows, with or without binned
+// triangles) and csr6_cap10 (10-float rows): see the header.
+
+enum RowMode { kRows16 = 0, kRows16Tri = 1, kRows10 = 2 };
+
+constexpr int kRing = 2;                   // staged chunks: one in flight
+constexpr int kSlotF = kChunk * kRowF;     // floats per ring slot (16 KB)
+constexpr int kRingBytes = kRing * kSlotF * 4;
+constexpr int kPlanThreads = 1024;
+constexpr int kTilePix = kTile * kTile;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The plan of one call, one CTA: every tile's rows (its live big rows,
+// then its binned ranges), the item size w = max(split_rows,
+// ceil(rows / (max_items - T))) so that no call takes more than
+// max_items items, each tile's item count n_t = max(1, ceil(rows_t / w))
+// and their inclusive prefix.  plan = [items_cum (T) | item_tile
+// (max_items) | n_items, the next item to hand out, w]; walked (null or
+// (T)) is zeroed.
+__global__ void __launch_bounds__(kPlanThreads)
+csr6_plan_kernel(const int* __restrict__ starts,
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 int tiles_x, int num_tiles, int span, int segs,
+                 int split_rows, int max_items, int* __restrict__ plan,
+                 int* __restrict__ walked) {
+  __shared__ long long warp_sum[kPlanThreads / 32];
+  __shared__ int warp_cnt[kPlanThreads / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int per = (num_tiles + kPlanThreads - 1) / kPlanThreads;
+  const int t0 = min(tid * per, num_tiles);
+  const int t1 = min(t0 + per, num_tiles);
+  const int big_n = min(*big_n_ptr, big_cap);
+  const int n_slots = range_slots(span, segs != 0);
+  int* items_cum = plan;
+  int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+
+  long long mine = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int ty = t / tiles_x;
+    const int tx = t - ty * tiles_x;
+    int rows = big_n;
+    for (int q = 0; q < n_slots; ++q) {
+      int st, len;
+      tile_range(q, span, t, tx, ty, tiles_x, 0, starts, &st, &len,
+                 segs != 0);
+      rows += len;
+    }
+    items_cum[t] = rows;  // replaced by the prefix below
+    if (walked != nullptr) walked[t] = 0;
+    mine += rows;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mine += __shfl_xor_sync(0xffffffffu, mine, o);
+  if (lane == 0) warp_sum[warp] = mine;
+  __syncthreads();
+  long long total = 0;
+  for (int w = 0; w < kPlanThreads / 32; ++w) total += warp_sum[w];
+  const long long room = max(max_items - num_tiles, 1);
+  const long long w_rows =
+      max(static_cast<long long>(split_rows), (total + room - 1) / room);
+
+  int cnt = 0;
+  for (int t = t0; t < t1; ++t)
+    cnt += max(1, static_cast<int>((items_cum[t] + w_rows - 1) / w_rows));
+  int v = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31) warp_cnt[warp] = v;
+  __syncthreads();
+  int base = v - cnt;
+  for (int w = 0; w < warp; ++w) base += warp_cnt[w];
+  for (int t = t0; t < t1; ++t) {
+    const int n = max(1, static_cast<int>((items_cum[t] + w_rows - 1) /
+                                          w_rows));
+    for (int j = 0; j < n; ++j) item_tile[base + j] = t;
+    base += n;
+    items_cum[t] = base;
+  }
+  if (tid == kPlanThreads - 1) {
+    sched[0] = base;  // items of the call
+    sched[1] = 0;     // the next item to hand out
+    sched[2] = static_cast<int>(w_rows);
+  }
+}
+
+// Depths as ints whose order is the floats' (atomicMin of depths).
+__device__ __forceinline__ int depth_key(float z) {
+  const int i = __float_as_int(z);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_depth(int key) {
+  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
+}
+
+// Where flat row f of a work item's tile lives: its live big rows first
+// (csr6_raster: table rows by big_ids; csr6_cap10: the dense big_rows),
+// then the binned ranges (rows of `table` by sorted id).
+template <int kMode>
+__device__ __forceinline__ const float* row_src(
+    int f, int big_n, const float* __restrict__ table,
+    const float* __restrict__ big_rows, const int* __restrict__ big_ids,
+    const int* __restrict__ order, int n_slots, const int* range_start,
+    const int* range_cum) {
+  if (f < big_n) {
+    if (kMode == kRows10) return big_rows + static_cast<long long>(f) * kRowF;
+    return table + static_cast<long long>(big_ids[f]) * kRowF;
+  }
+  const int id = order[flat_pos(f - big_n, n_slots, range_start, range_cum)];
+  return table + static_cast<long long>(id) *
+                     (kMode == kRows10 ? kRowF10 : kRowF);
+}
+
+// The walk of csr6_raster and csr6_cap10: persistent CTAs take work
+// items in order from the plan (an atomic counter).  An item is the
+// slice [lo, hi) of its tile's flat rows (big rows, then binned ranges;
+// split evenly among the tile's items), staged in chunks of kChunk rows
+// through a ring of two shared-memory slots by cp.async, the next chunk
+// (and the sorted id of the one after) in flight while the current one is
+// evaluated.  Chunks never straddle the big/binned boundary.  With zmeta
+// (span 2) the binned ranges are the nine single-class segments and,
+// after a chunk whose segment goes on past it, the CTA leaves the segment
+// when zmin + max(floor((zlb_last - zmin) * s) - 1, 0) * thr_scale
+// exceeds the depth of every in-image pixel it owns (strict: at equality
+// a later row with a lower id could win); chunks already staged evaluate
+// only their rows past the segment.  The items of a split tile run at
+// once and share their depths through `front` (the tile's 1024 pixels,
+// depth_key ints): after each binned chunk an item folds its minima in
+// by atomicMin and tests the exit against the result, which is at least
+// the tile's final depth at every pixel (a minimum of partial minima).
+// Alone, an item holding a slice of a segment would see pixels that
+// other rows cover (the big list's ground, the spilling classes, the
+// front of its own segment) as empty and never leave the segment.
+// Which item leaves when depends on timing; no winner does.  A tile of
+// one item writes the image; the items of a split
+// tile write their (depth, id) minima to `partial`, merged by
+// csr6_merge_kernel.  walked (null or (T)) sums the binned rows each
+// tile's items evaluated.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 2)
+csr6_walk_kernel(const float* __restrict__ table,
+                 const float* __restrict__ big_rows,
+                 const int* __restrict__ order,
                  const int* __restrict__ starts,
                  const int* __restrict__ big_ids,
-                 const int* __restrict__ big_n_ptr,
-                 float* __restrict__ depth_out, int* __restrict__ index_out,
-                 int width, int height, int tiles_x, int span) {
-  __shared__ float4 sh[kChunk * 4];
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 const float* __restrict__ zmeta, int* __restrict__ plan,
+                 float* __restrict__ partial, float* __restrict__ depth_out,
+                 int* __restrict__ index_out, int* __restrict__ walked,
+                 int* __restrict__ front, int width, int height,
+                 int tiles_x, int num_tiles, int span, int max_items) {
+  extern __shared__ __align__(16) float ring[];  // kRing x kSlotF floats
   __shared__ int range_start[kMaxRanges];
   __shared__ int range_cum[kMaxRanges];
   __shared__ int warp_tot[kThreads / 32];
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  const bool segs = zmeta != nullptr;
+  const int n_slots = range_slots(span, segs);
+  const int* items_cum = plan;
+  const int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+  const int n_items = sched[0];
+  const int big_n = min(*big_n_ptr, big_cap);
+  const float zmin = segs ? zmeta[0] : 0.0f;
+  const float zs = segs ? zmeta[1] : 0.0f;
+  const float thr_scale = segs ? zmeta[2] : 0.0f;
+
+  for (;;) {
+    __syncthreads();  // the last item is done with s_item, ring and ranges
+    if (tid == 0) s_item = atomicAdd(&sched[1], 1);
+    __syncthreads();
+    const int item = s_item;
+    if (item >= n_items) break;
+    const int tile = item_tile[item];
+    const int first = tile > 0 ? items_cum[tile - 1] : 0;
+    const int n = items_cum[tile] - first;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int binned = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                   range_start, range_cum, warp_tot, segs);
+    const long long rows = big_n + binned;
+    const int lo = static_cast<int>(rows * (item - first) / n);
+    const int hi = static_cast<int>(rows * (item - first + 1) / n);
+    float qy[kPix], d[kPix], di[kPix];
+    const float qx = init_pixels(tx, ty, qy, d, di);
+    // The depths the exit tests besides this item's: the tile's shared
+    // ones when it is split (+inf otherwise); -inf at off-image pixels,
+    // which are never tested.
+    const float inf = __int_as_float(0x7f800000);
+    float bound_d[kPix];
+    bool in_image[kPix];
+    const int px = tx * kTile + (tid & (kTile - 1));
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      in_image[k] = px < width && ty * kTile + (tid >> 5) + 8 * k < height;
+      bound_d[k] = in_image[k] ? inf : -inf;
+    }
+    int* tile_front = segs && n > 1
+                          ? front + static_cast<long long>(tile) * kTilePix
+                          : nullptr;
+
+    int issue = lo;  // the next flat row to stage
+    int skip = lo;   // rows below it are evaluated or skipped by the exit
+    int done = 0;    // binned rows evaluated
+    // The chunk after the one staged last: [max(issue, skip), +cnt),
+    // capped at hi and at the big/binned boundary.
+    auto next_chunk = [&](int* start, int* cnt) {
+      *start = max(issue, skip);
+      const int end = *start < big_n ? min(big_n, hi) : hi;
+      *cnt = min(kChunk, max(end - *start, 0));
+      issue = *start + *cnt;
+    };
+    int pf = -1;  // the row this thread stages next, and where it lives
+    const float* pf_src = nullptr;
+    auto stage = [&](int slot, int start, int cnt) {
+      if (tid < cnt) {
+        const int f = start + tid;
+        const float* src = f == pf ? pf_src
+                                   : row_src<kMode>(f, big_n, table,
+                                                    big_rows, big_ids, order,
+                                                    n_slots, range_start,
+                                                    range_cum);
+        float* dst = ring + slot * kSlotF;
+        if (kMode == kRows10 && f >= big_n) {
+          // 40 B rows, 8-byte aligned in both memories: five copies.
+          dst += tid * kRowF10;
+#pragma unroll
+          for (int j = 0; j < kRowF10; j += 2) cp_async8(dst + j, src + j);
+        } else {
+          dst += tid * kRowF;
+#pragma unroll
+          for (int j = 0; j < kRowF; j += 4) cp_async16(dst + j, src + j);
+        }
+      }
+      cp_async_commit();
+      // The sorted id of this thread's row in the next chunk, loaded now
+      // so that its latency hides behind the evaluation (an exit jump
+      // makes it stale: stage() then looks the row up again).
+      pf = issue + tid;
+      if (pf < hi)
+        pf_src = row_src<kMode>(pf, big_n, table, big_rows, big_ids, order,
+                                n_slots, range_start, range_cum);
+      else
+        pf = -1;
+    };
+
+    int slot = 0, n_start, n_cnt;
+    next_chunk(&n_start, &n_cnt);
+    stage(0, n_start, n_cnt);
+    for (;;) {
+      const int c_start = n_start, c_cnt = n_cnt;
+      if (c_cnt == 0) break;  // the same in every thread
+      cp_async_wait_all();
+      __syncthreads();  // chunk staged and visible; the other slot is free
+      next_chunk(&n_start, &n_cnt);
+      stage(slot ^ 1, n_start, n_cnt);
+      const float* sh = ring + slot * kSlotF;
+      const int r0 = min(max(skip - c_start, 0), c_cnt);
+      const float4* sh4 = reinterpret_cast<const float4*>(sh);
+      if (c_start < big_n) {
+        eval_rows<true, false, true>(sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di,
+                                     nullptr, nullptr);
+      } else {
+        if (kMode == kRows10)
+          eval_rows10(sh + r0 * kRowF10, c_cnt - r0, qx, qy, d, di);
+        else
+          eval_rows<kMode == kRows16Tri, false, true>(
+              sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di, nullptr, nullptr);
+        done += c_cnt - r0;
+        if (kMode != kRows10 && segs && r0 < c_cnt) {
+          if (tile_front != nullptr) {
+#pragma unroll
+            for (int k = 0; k < kPix; ++k) {
+              if (!in_image[k]) continue;
+              const int key = depth_key(d[k]);
+              const int old = atomicMin(&tile_front[tid + kThreads * k], key);
+              bound_d[k] = key_depth(min(old, key));
+            }
+          }
+          const int g = c_start + c_cnt - 1 - big_n;
+          const int q = find_slot(g, n_slots, range_cum);
+          const int seg_end =
+              big_n + (q + 1 < n_slots ? range_cum[q + 1] : binned);
+          if (seg_end > c_start + c_cnt) {  // the segment goes on
+            float qz = floorf((sh[(c_cnt - 1) * kRowF + 14] - zmin) * zs) -
+                       1.0f;
+            qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN: no exit
+            const float thr = zmin + qz * thr_scale;
+            bool past = true;
+#pragma unroll
+            for (int k = 0; k < kPix; ++k)
+              past = past && fminf(d[k], bound_d[k]) < thr;
+            if (__syncthreads_and(past)) skip = min(seg_end, hi);
+          }
+        }
+      }
+      slot ^= 1;
+    }
+
+    if (n == 1) {
+      write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+    } else {
+      float* out = partial + static_cast<long long>(item) * 2 * kTilePix;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        out[tid + kThreads * k] = d[k];
+        out[kTilePix + tid + kThreads * k] = di[k];
+      }
+    }
+    if (walked != nullptr && tid == 0 && done > 0)
+      atomicAdd(&walked[tile], done);
+  }
+}
+
+// The (depth, id) minima of a split tile's items, merged with the walk's
+// own compare (strict, so the result does not depend on the item order)
+// and written to the image; tiles of one item were written by the walk.
+__global__ void __launch_bounds__(kThreads)
+csr6_merge_kernel(const int* __restrict__ plan,
+                  const float* __restrict__ partial,
+                  float* __restrict__ depth_out, int* __restrict__ index_out,
+                  int width, int height, int tiles_x) {
   const int tile = blockIdx.x;
+  const int first = tile > 0 ? plan[tile - 1] : 0;
+  const int n = plan[tile] - first;
+  if (n <= 1) return;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
   const int tid = threadIdx.x;
   float qy[kPix], d[kPix], di[kPix];
-  const float qx = init_pixels(tx, ty, qy, d, di);
-
-  // Big list: wide prims and the ground, merged at every tile.
-  const int big_n = *big_n_ptr;
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh, tid, table, big_ids[base + tid]);
-    __syncthreads();
-    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
-  }
-
-  const int n_slots = range_slots(span);
-  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
-                                range_start, range_cum, warp_tot);
-  for (int base = 0; base < total; base += kChunk) {
-    const int cnt = min(kChunk, total - base);
-    __syncthreads();
-    if (tid < cnt)
-      stage_row(sh, tid, table,
-                order[flat_pos(base + tid, n_slots, range_start, range_cum)]);
-    __syncthreads();
-    eval_rows<kBinTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
+  init_pixels(tx, ty, qy, d, di);
+  for (int j = 0; j < n; ++j) {
+    const float* p = partial + static_cast<long long>(first + j) * 2 *
+                                   kTilePix;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const float z = p[tid + kThreads * k];
+      const float id = p[kTilePix + tid + kThreads * k];
+      if ((z < d[k]) || ((z == d[k]) && (id < di[k]))) {
+        d[k] = z;
+        di[k] = id;
+      }
+    }
   }
   write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
-// The cap_rows10 walk at span 2, 4 or 8: the big list is the dense
-// (big_cap, 16) array big_rows (its first *big_n rows live), binned rows
-// are 10-float rows of table10 gathered by sorted id.
-__global__ void __launch_bounds__(kThreads)
-csr6_cap10_kernel(const float* __restrict__ table10,
-                  const float* __restrict__ big_rows,
-                  const int* __restrict__ order,
-                  const int* __restrict__ starts,
-                  const int* __restrict__ big_n_ptr, int big_cap,
-                  float* __restrict__ depth_out, int* __restrict__ index_out,
-                  int width, int height, int tiles_x, int span) {
-  // Staged rows: 512 x 10 floats, or 256 x 16 for the big list.
-  __shared__ __align__(16) float sh[kChunk10 * kRowF10];
-  __shared__ int range_start[kMaxRanges];
-  __shared__ int range_cum[kMaxRanges];
-  __shared__ int warp_tot[kThreads / 32];
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  float qy[kPix], d[kPix], di[kPix];
-  const float qx = init_pixels(tx, ty, qy, d, di);
-
-  walk_big_rows(reinterpret_cast<float4*>(sh), big_rows,
-                min(*big_n_ptr, big_cap), qx, qy, d, di);
-
-  const int n_slots = range_slots(span);
-  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
-                                range_start, range_cum, warp_tot);
-  for (int base = 0; base < total; base += kChunk10) {
-    const int cnt = min(kChunk10, total - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += kThreads) {
-      // 40 B rows: five 8-byte loads, 8-byte aligned in both memories.
-      const float2* src = reinterpret_cast<const float2*>(
-          table10 + static_cast<long long>(order[flat_pos(
-                        base + i, n_slots, range_start, range_cum)]) *
-                        kRowF10);
-      float2* dst = reinterpret_cast<float2*>(sh + i * kRowF10);
-#pragma unroll
-      for (int j = 0; j < kRowF10 / 2; ++j) dst[j] = src[j];
-    }
-    __syncthreads();
-    eval_rows10(sh, cnt, qx, qy, d, di);
+// Plan, walk and merge on `st`; returns the first launch error.
+template <int kMode>
+int launch_split_walk(const float* table, const float* big_rows,
+                      const int* order, const int* starts,
+                      const int* big_ids, const int* big_n, int big_cap,
+                      const float* zmeta, int* walked, float* depth,
+                      int* index, int* plan, float* partial, int* front,
+                      int width, int height, int tiles_x, int tiles_y,
+                      int span, int split_rows, int max_items,
+                      cudaStream_t st) {
+  const int num_tiles = tiles_x * tiles_y;
+  if ((span != 2 && span != 4 && span != 8) || (zmeta && span != 2) ||
+      (zmeta && !front) || split_rows < 1 || max_items < num_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_tiles <= 0) return 0;
+  csr6_plan_kernel<<<1, kPlanThreads, 0, st>>>(
+      starts, big_n, big_cap, tiles_x, num_tiles, span, zmeta != nullptr,
+      split_rows, max_items, plan, walked);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // One resident CTA per free slot of every SM (the walk is persistent).
+  static int ctas = 0;
+  if (ctas == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, csr6_walk_kernel<kMode>, kThreads, kRingBytes);
+    ctas = max(sms * per_sm, 1);
   }
-  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+  csr6_walk_kernel<kMode><<<min(ctas, max_items), kThreads, kRingBytes,
+                            st>>>(
+      table, big_rows, order, starts, big_ids, big_n, big_cap, zmeta, plan,
+      partial, depth, index, walked, front, width, height, tiles_x,
+      num_tiles, span, max_items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr6_merge_kernel<<<num_tiles, kThreads, 0, st>>>(plan, partial, depth,
+                                                    index, width, height,
+                                                    tiles_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The v4 walk: big list first, then the tile's entry range in chunks of
@@ -726,7 +1124,7 @@ csr6_disc_kernel(const float* __restrict__ table8,
   const float4* rows8 = reinterpret_cast<const float4*>(table8);
   // The tile's ranges (tile_range: span 2's four merged ranges, or the
   // anchor range plus one per neighbour and class row), sized in parallel
-  // and staged across range boundaries, as csr6_tile_kernel walks them.
+  // and staged across range boundaries, as csr6_walk_kernel walks them.
   const int n_slots = range_slots(span);
   const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
                                 range_start, range_cum, warp_tot);
@@ -874,50 +1272,53 @@ csr3_tile_kernel(const float* __restrict__ rows8,
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// table (P+1, 16) f32 with row P all zero; order (>= starts[-1]) i32
-// sorted prim ids; starts (span^2 T + 1) i32 range bounds of a binning at
-// `span` (2, 4 or 8); big_ids (>= *big_n) i32; big_n one i32 on the
-// device; depth (H, W) f32; index (H, W) i32; bin_triangles != 0
-// evaluates the binned rows through the dual.
+// Launch on `stream`; returns the cudaError_t of the first failed launch
+// (0 = success).  table (P+1, 16) f32 with row P all zero, 16-byte
+// aligned; order (>= starts[-1]) i32 sorted prim ids; starts (span^2 T +
+// 1) i32 range bounds of a binning at `span` (2, 4 or 8); big_ids (>=
+// *big_n, big_cap slots) i32; big_n one i32 on the device; zmeta null, or
+// (3) f32 (zmin, s, thr_scale) of an exit binning at span 2 (the z-bucket
+// early exit); front, with zmeta, (T, 1024) i32 scratch filled with
+// 0x7f800000 (+inf as a depth_key); walked null or (T) i32, the binned
+// rows each tile evaluated; depth (H, W) f32; index (H, W) i32; plan (T +
+// max_items + 3) i32 and partial (max_items, 2, 1024) f32 scratch;
+// bin_triangles != 0 evaluates the binned rows through the dual; a tile
+// of more than split_rows rows is cut into items (max_items >= T in all).
 extern "C" int csr6_raster(const float* table, const int* order,
                            const int* starts, const int* big_ids,
-                           const int* big_n, float* depth, int* index,
-                           int width, int height, int tiles_x, int tiles_y,
-                           int bin_triangles, int span, void* stream) {
-  if (span != 2 && span != 4 && span != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
+                           const int* big_n, const float* zmeta, int* front,
+                           int* walked, float* depth, int* index, int* plan,
+                           float* partial, int big_cap, int width,
+                           int height, int tiles_x, int tiles_y,
+                           int bin_triangles, int span, int split_rows,
+                           int max_items, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bin_triangles)
-    csr6_tile_kernel<true><<<num_tiles, kThreads, 0, st>>>(
-        table, order, starts, big_ids, big_n, depth, index, width, height,
-        tiles_x, span);
-  else
-    csr6_tile_kernel<false><<<num_tiles, kThreads, 0, st>>>(
-        table, order, starts, big_ids, big_n, depth, index, width, height,
-        tiles_x, span);
-  return static_cast<int>(cudaGetLastError());
+    return launch_split_walk<kRows16Tri>(
+        table, nullptr, order, starts, big_ids, big_n, big_cap, zmeta,
+        walked, depth, index, plan, partial, front, width, height, tiles_x,
+        tiles_y, span, split_rows, max_items, st);
+  return launch_split_walk<kRows16>(
+      table, nullptr, order, starts, big_ids, big_n, big_cap, zmeta, walked,
+      depth, index, plan, partial, front, width, height, tiles_x, tiles_y,
+      span, split_rows, max_items, st);
 }
 
-// The cap_rows10 walk.  table10 (P+1, 10) f32 with row P all zero;
-// big_rows (big_cap, 16) f32, the first *big_n rows live; order, starts
-// and span as csr6_raster's; depth (H, W) f32; index (H, W) i32.
+// The cap_rows10 walk (no exit).  table10 (P+1, 10) f32 with row P all
+// zero, 8-byte aligned; big_rows (big_cap, 16) f32, 16-byte aligned, the
+// first *big_n rows live; the rest as csr6_raster's.
 extern "C" int csr6_cap10(const float* table10, const float* big_rows,
                           const int* order, const int* starts,
-                          const int* big_n, float* depth, int* index,
-                          int big_cap, int width, int height, int tiles_x,
-                          int tiles_y, int span, void* stream) {
-  if (span != 2 && span != 4 && span != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
-  csr6_cap10_kernel<<<num_tiles, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      table10, big_rows, order, starts, big_n, big_cap, depth, index, width,
-      height, tiles_x, span);
-  return static_cast<int>(cudaGetLastError());
+                          const int* big_n, int* walked, float* depth,
+                          int* index, int* plan, float* partial, int big_cap,
+                          int width, int height, int tiles_x, int tiles_y,
+                          int span, int split_rows, int max_items,
+                          void* stream) {
+  return launch_split_walk<kRows10>(
+      table10, big_rows, order, starts, nullptr, big_n, big_cap, nullptr,
+      walked, depth, index, plan, partial, nullptr, width, height, tiles_x,
+      tiles_y, span, split_rows, max_items,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The v3 walk.  rows8 (>= starts[T], 8) f32 entry-indexed rows; big_rows

@@ -31,9 +31,23 @@ __device__ __forceinline__ bool capsule_pair(float dx, float dy, float z0,
   return cx * cx + cy * cy <= rad * rad;
 }
 
-// The triangle body at one pair: three edge functions e_k = a_k * qy -
-// b_k * qx + c_k and the inverse-depth plane iz = e0 * w0 + e1 * w1 +
-// e2 * w2; covered where every edge is >= 0 and iz > 0, with the depth
+// The triangle body's coverage at one pair: three edge functions e_k =
+// a_k * qy - b_k * qx + c_k and the inverse-depth plane iz = e0 * w0 +
+// e1 * w1 + e2 * w2 (in *iz); covered where every edge is >= 0 and
+// iz > 0.
+__device__ __forceinline__ bool tri_cover(float a0, float b0, float c0,
+                                          float a1, float b1, float c1,
+                                          float a2, float b2, float c2,
+                                          float w0, float w1, float w2,
+                                          float qx, float qy, float* iz) {
+  const float e0 = a0 * qy - b0 * qx + c0;
+  const float e1 = a1 * qy - b1 * qx + c1;
+  const float e2 = a2 * qy - b2 * qx + c2;
+  *iz = e0 * w0 + e1 * w1 + e2 * w2;
+  return (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f) & (*iz > 0.0f);
+}
+
+// The triangle body at one pair: tri_cover's expressions, with the depth
 // 1 / iz in *z.
 __device__ __forceinline__ bool tri_pair(float a0, float b0, float c0,
                                          float a1, float b1, float c1,

@@ -15,11 +15,12 @@ gather-free two-tone shade.  The stages around the kernels were XLA in the JAX
 package and are torch ops here:
 
 1. ``preshade``      — ``pallas_csr3._preshade``: per-prim rgb and flag;
-2. ``bin_csr6``      — ``_bin_csr6(with_z=False)``: one unstable sort of
-   per-prim (anchor tile, spill class) keys; the sorted tail past the
-   binned keys is the big list, truncated at ``max_big``;
-   the range ``starts`` by ``searchsorted``; ``diag`` with
-   ``big_overflow`` and ``true_entries``;
+2. ``bin_csr6``      — ``_bin_csr6``: one unstable sort of per-prim
+   (anchor tile, spill class) keys (with ``with_z``, the exit's
+   ``((anchor * span^2 + class) << ZQ) | z-bucket`` int32 keys and
+   ``zmeta``); the sorted tail past the binned keys is the big list,
+   truncated at ``max_big``; the range ``starts`` by ``searchsorted``;
+   ``diag`` with ``big_overflow`` and ``true_entries``;
 3. ``build_table16`` — ``pallas_csr4._build_table16``: (P+1, 16) rows;
    under ``cap_rows10`` ``build_table10`` ((P+1, 10) capsule rows), under
    ``discs_only`` ``build_table8`` ((P+1, 8) disc rows), each with
@@ -33,9 +34,13 @@ package and are torch ops here:
    and ``uniform_look``); ``shade_uv`` — the gather-free
    ``pallas_csr6._shade_uv`` epilogue over the fused (u, v) images.
 
-The z-bucket early exit of the TPU kernel never changes a winner and is
-not part of the v6 walks yet (ROADMAP queue B item 1); their keys carry
-no z-bucket.  The v4 walk (``raster/csr4.py``) has it.
+The 16-float walk takes the TPU kernel's z-bucket early exit
+(``allow_exit``; on by default for generic soups at span 2, as in the
+JAX package): each tile walks its nine single-class segments, each
+ascending in the z-bucket of its rows' depth lower bound, and leaves a
+segment once no later row of it can win a pixel.  The exit never changes
+a winner; the plain versions walk every row.  The disc rows, the
+kind-split rows and ``cap_rows10`` walk without it.
 
 Contract: winner per pixel = lexicographic min of (depth, primitive id);
 depth +inf and index -1 where empty.  Ids ride the rows as float32, so a
@@ -80,6 +85,15 @@ DEFAULT_MAX_BIG = 1024
 # row).
 FUSED_MAX_BIG = 511
 F_EMPTY = float(1 << 24)  # > every representable prim id
+# z-bucket bits in the exit's int32 sort key (256 buckets).
+ZQ = 8
+# Rows a work item of the 16- and 10-float walks takes at least: a tile
+# with more rows (its big list and binned ranges) is cut into several
+# items, each walked by its own CTA, whose (depth, id) minima a second
+# pass merges.  ITEMS_PER_TILE bounds the items of one call (the items
+# grow past SPLIT_ROWS rows when a frame would need more).
+SPLIT_ROWS = 2048
+ITEMS_PER_TILE = 4
 # Pair budget of one chunk of the plain rasterizer (bounds its memory).
 PLAIN_PAIR_CHUNK = 1 << 23
 
@@ -101,7 +115,7 @@ def class_spill(span: int):
 
 
 # ---------------------------------------------------------------------------
-# Binning (pallas_csr6._bin_csr6 without z-buckets)
+# Binning (pallas_csr6._bin_csr6)
 # ---------------------------------------------------------------------------
 
 def check_id_range(prims: ScreenPrimitives) -> None:
@@ -144,10 +158,27 @@ def binnable_kinds(prims: ScreenPrimitives, discs_only: bool = False,
     return binnable
 
 
+def key_layout(num_tiles: int, span: int, with_z: bool,
+               kind_split: bool = False):
+    """(dtype, shift) of the v6 sort key (``pallas_csr6._key_layout``):
+    the exit's keys pack the z-bucket into the low ``ZQ`` bits of an
+    int32; exit-off keys are the bare (anchor, class) ordinals, int16
+    where the grid fits.  Raises where the int32 key cannot hold the
+    grid."""
+    n_keys = (2 if kind_split else 1) * num_tiles * span * span
+    shift = ZQ if with_z else 0
+    if (n_keys + 2) << shift >= 1 << 31:
+        raise ValueError("tile grid too large for the int32 v6 key")
+    if not with_z and n_keys + 2 <= np.iinfo(np.int16).max:
+        return torch.int16, 0
+    return torch.int32, shift
+
+
 def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
              max_big: int = DEFAULT_MAX_BIG,
              discs_only: bool = False, span: int = SPAN,
-             kind_split: bool = False, bin_triangles: bool = False) -> dict:
+             kind_split: bool = False, bin_triangles: bool = False,
+             with_z: bool = False, zlb=None) -> dict:
     """Per-prim (anchor, class) keys, one unstable sort, CSR range starts.
 
     ``discs_only`` bins discs alone: capsules join the triangles and the
@@ -156,25 +187,34 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     (the rows8/rows9 walk) puts every binned capsule in a second ordinal
     region past the discs', so a tile walks its disc ranges and its
     capsule ranges separately.  ``bin_triangles`` bins small triangles
-    too (the mesh-LOD droplets; only the ground stays big).
+    too (the mesh-LOD droplets; only the ground stays big).  ``with_z``
+    builds the early exit's keys: ``((anchor * span^2 + class) << ZQ) |
+    qz``, qz the z-bucket of the prim's depth lower bound (``zlb``, or
+    :func:`z_lower_bound`), so every (anchor, class) segment ascends in
+    bucket; without it the keys are the bare ordinals (:func:`key_layout`).
 
     Returns a dict of device tensors (k2 = span * span, F = 2 under
     ``kind_split``, else 1):
+      keys       (P,) sorted keys;
       order      (P,) int32 prim ids in key order (binned prims first);
       starts     (F*k2*T+1,) int32 — starts[j] is the first sorted
-                 position with key >= j, j = region*k2*T + k2*anchor +
-                 class; starts[F*k2*T] = number of binned prims;
+                 position with key >= j << shift, j = region*k2*T +
+                 k2*anchor + class; starts[F*k2*T] = number of binned
+                 prims;
       big_ids    (max_big,) int32 big-list prim ids (P = empty slot);
       big_n      (1,) int32 live big-list length min(big_count, max_big);
       big_count  () int32 number of big prims (valid, not binnable);
+      zmeta      (3,) float32 (zmin, s, thr_scale) of the exit over the
+                 binned prims' zlb (zeros without ``with_z``);
       diag       {"big_overflow", "true_entries"} () int32 tensors.
     """
     check_id_range(prims)
     if span not in SPANS:
         raise ValueError(f"span must be one of {SPANS}, got {span}")
-    if kind_split and (discs_only or bin_triangles):
-        raise ValueError("kind_split serves the mixed disc + capsule soup: "
-                         "not with discs_only or bin_triangles")
+    if kind_split and (discs_only or bin_triangles or with_z):
+        raise ValueError("kind_split serves the exit-off mixed disc + "
+                         "capsule soup: not with discs_only, bin_triangles "
+                         "or with_z")
     dev = prims.device
     p = prims.count
     tiles_x, tiles_y = grid_shape(width, height)
@@ -182,6 +222,7 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     k2 = span * span
     factor = 2 if kind_split else 1
     n_keys = factor * num_tiles * k2
+    kdtype, shift = key_layout(num_tiles, span, with_z, kind_split)
     tx0, tx1, ty0, ty1 = tile_span(prims, tiles_x, tiles_y)
     is_cap = prims.kind == KIND_CAPSULE
     binnable = binnable_kinds(prims, discs_only, bin_triangles)
@@ -197,15 +238,37 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
         cls = sy * span + sx
     anchor = ty0 * tiles_x + tx0
     base = anchor * k2 + cls
+    if with_z:
+        # pallas_csr6._bin_csr6's float32 expressions (as _bin_csr4's).
+        if zlb is None:
+            zlb = z_lower_bound(prims, with_triangles=bin_triangles)
+        inf = const(np.inf, np.float32, dev)
+        zero = const(0.0, np.float32, dev)
+        zmin = torch.where(is_small, zlb, inf).amin()
+        zmax = torch.where(is_small, zlb, -inf).amax()
+        rngz = zmax - zmin
+        s = torch.where(rngz > 0, const(1 << ZQ, np.float32, dev) / rngz,
+                        zero)
+        # NaN casts to 0, as XLA's convert does.
+        qz = torch.nan_to_num(torch.clamp(torch.floor((zlb - zmin) * s), 0.0,
+                                          float((1 << ZQ) - 1)), nan=0.0)
+        base = (base << ZQ) | qz.to(torch.int32)
+        thr_scale = torch.where(
+            s > 0, const(1.0 - 1e-6, np.float32, dev) / s, zero)
+        zmeta = torch.stack([torch.where(torch.isfinite(zmin), zmin, zero),
+                             s, thr_scale])
+    else:
+        zmeta = torch.zeros(3, dtype=torch.float32, device=dev)
     if kind_split:
         base = base + is_cap.to(torch.int32) * (num_tiles * k2)
     key = torch.where(is_small, base,
-                      torch.where(is_big, n_keys, n_keys + 1))
-    key = key.to(torch.int32)
-    sorted_keys, order = torch.sort(key, stable=False)
+                      torch.where(is_big, n_keys << shift,
+                                  (n_keys + 1) << shift))
+    sorted_keys, order = torch.sort(key.to(kdtype), stable=False)
     order = order.to(torch.int32)
 
-    bounds = torch.arange(n_keys + 2, dtype=torch.int32, device=dev)
+    bounds = (torch.arange(n_keys + 2, dtype=torch.int32, device=dev)
+              << shift).to(kdtype)
     edges = torch.searchsorted(sorted_keys, bounds).to(torch.int32)
     starts = edges[:n_keys + 1]
     n_small = edges[n_keys]
@@ -227,9 +290,33 @@ def bin_csr6(prims: ScreenPrimitives, width: int, height: int,
     diag = dict(
         true_entries=true_entries,
         big_overflow=torch.clamp(big_count - max_big, min=0).to(torch.int32))
-    return dict(order=order, starts=starts, big_ids=big_ids,
-                big_n=big_n.reshape(1).contiguous(), big_count=big_count,
-                diag=diag)
+    return dict(keys=sorted_keys, order=order, starts=starts,
+                big_ids=big_ids, big_n=big_n.reshape(1).contiguous(),
+                big_count=big_count, zmeta=zmeta, diag=diag)
+
+
+def tile_rows(starts, width: int, height: int,
+              span: int = SPAN) -> torch.Tensor:
+    """(T,) int32: the binned rows each tile walks (its own anchor's
+    classes and each neighbour's spill classes that reach it) under a
+    binning at ``span`` (the first ordinal region of ``starts``)."""
+    tiles_x, tiles_y = grid_shape(width, height)
+    k2 = span * span
+    counts = (starts[1:k2 * tiles_x * tiles_y + 1]
+              - starts[:k2 * tiles_x * tiles_y]).to(torch.int64)
+    spill_x, spill_y = class_spill(span)
+    grid = torch.zeros((tiles_y, tiles_x, span, span), dtype=torch.int64,
+                       device=starts.device)
+    grid[:, :, list(spill_y), list(spill_x)] = counts.reshape(
+        tiles_y, tiles_x, k2)
+    # reach[.., dy, dx]: the rows of an anchor whose spill is >= (dx, dy).
+    reach = grid.flip(2, 3).cumsum(2).cumsum(3).flip(2, 3)
+    rows = torch.zeros((tiles_y, tiles_x), dtype=torch.int64,
+                       device=starts.device)
+    for dy in range(min(span, tiles_y)):
+        for dx in range(min(span, tiles_x)):
+            rows[dy:, dx:] += reach[:tiles_y - dy, :tiles_x - dx, dy, dx]
+    return rows.reshape(-1).to(torch.int32)
 
 
 def bin_diagnostics6(prims: ScreenPrimitives, width: int, height: int,
@@ -522,86 +609,155 @@ def _launch(symbol, ptr_args, int_args, device, library="csr6_raster"):
                            + err_fn(err).decode())
 
 
+def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span):
+    """Checks of the 16- and 10-float walks' exit, ``walked`` and split
+    arguments."""
+    if zmeta is not None:
+        if span != 2:
+            raise ValueError("the early exit walks single-class segments: "
+                             "span must be 2")
+        if (zmeta.dtype != torch.float32 or zmeta.shape != (3,)
+                or zmeta.device != device):
+            raise ValueError("zmeta must be (3,) float32 on the table's "
+                             "device")
+    if walked is not None and (walked.dtype != torch.int32
+                               or walked.shape != (num_tiles,)
+                               or walked.device != device
+                               or not walked.is_contiguous()):
+        raise ValueError("walked must be a contiguous (T,) int32 tensor on "
+                         "the table's device")
+    if split_rows < 1:
+        raise ValueError("split_rows must be >= 1")
+
+
+def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
+                 tiles_x, tiles_y, flags, split_rows, device):
+    """Launch a split walk (plan, walk, merge: one C call) of
+    ``csrc/csr6_raster.cu`` -> (depth, index).  ``ptrs`` are the inputs
+    before the outputs, ``aligned`` the (row tensor, row bytes) pairs that
+    cp.async copies; the wrapper's count goes up once per call."""
+    for t, row_bytes in aligned:
+        need = 16 if row_bytes % 16 == 0 else 8  # cp.async copy sizes
+        if t.data_ptr() % need:
+            raise ValueError(f"rows of {row_bytes} B must start {need}-byte "
+                             "aligned: cp.async stages them")
+    num_tiles = tiles_x * tiles_y
+    max_items = ITEMS_PER_TILE * num_tiles
+    depth = torch.empty((height, width), dtype=torch.float32, device=device)
+    index = torch.empty((height, width), dtype=torch.int32, device=device)
+    plan = torch.empty(num_tiles + max_items + 3, dtype=torch.int32,
+                       device=device)
+    partial = torch.empty((max_items, 2, TILE * TILE), dtype=torch.float32,
+                          device=device)
+    _launch(symbol, (*ptrs, depth, index, plan, partial),
+            (big_cap, width, height, tiles_x, tiles_y, *flags, split_rows,
+             max_items), device)
+    wrapper.launches += 1
+    return depth, index
+
+
 def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
-              width, height, span):
+              width, height, span, zmeta, walked, split_rows):
     tiles_x, tiles_y = _check_inputs(table, order, starts, big_ids, big_n,
                                      width, height, span)
+    _check_exit_walk(zmeta, walked, split_rows, table.device,
+                     tiles_x * tiles_y, span)
     if table.device.type == "cpu":
+        if walked is not None:
+            walked.copy_(tile_rows(starts, width, height, span))
         return raster_tiles_plain(table, order, starts, big_ids, big_n,
                                   width, height, bin_triangles, span)
     if table.device.type != "cuda":
         raise ValueError(f"no csr6 kernel for device {table.device}")
     table, order, starts, big_ids, big_n = (
         t.contiguous() for t in (table, order, starts, big_ids, big_n))
-    dev = table.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    _launch("csr6_raster", (table, order, starts, big_ids, big_n, depth,
-                            index),
-            (width, height, tiles_x, tiles_y, int(bin_triangles), span), dev)
-    wrapper.launches += 1
-    return depth, index
+    # The exit's depths shared by a split tile's items: +inf as the
+    # kernel's depth_key.
+    front = None if zmeta is None else torch.full(
+        (tiles_x * tiles_y, TILE * TILE), 0x7F800000, dtype=torch.int32,
+        device=table.device)
+    return _launch_walk(
+        "csr6_raster", wrapper,
+        (table, order, starts, big_ids, big_n, zmeta, front, walked),
+        ((table, 4 * ROW_F),), big_ids.shape[0], width, height, tiles_x,
+        tiles_y, (int(bin_triangles), span), split_rows, table.device)
 
 
 def raster_tiles(table, order, starts, big_ids, big_n, width: int,
-                 height: int, bin_triangles: bool = False, span: int = SPAN):
+                 height: int, bin_triangles: bool = False, span: int = SPAN,
+                 zmeta=None, walked=None, split_rows: int = SPLIT_ROWS):
     """(depth (H, W) f32 +inf-empty, index (H, W) i32 -1-empty) of a
     binning at ``span`` (2, 4 or 8).
 
     CUDA tensors launch the ``csr6_raster`` kernel of
     ``csrc/csr6_raster.cu``; CPU tensors take :func:`raster_tiles_plain`.
+    ``zmeta`` (the exit binning's (3,) float32, span 2) turns the z-bucket
+    early exit on: the kernel walks each tile's nine single-class
+    segments and leaves one once no later row of it can win.  ``walked``,
+    a (T,) int32 tensor, takes each tile's count of binned rows evaluated
+    (all of them on the plain walk).  A tile of more than ``split_rows``
+    rows is walked by several CTAs whose minima are merged (the kernel
+    may take larger items; the result does not depend on it).  With the
+    exit on, those CTAs share their depths as they run, so ``walked``
+    may differ between runs; the images do not.
     ``bin_triangles`` hands the call to :func:`raster_tiles_tri`.
-    ``.launches`` counts launches without ``bin_triangles``."""
+    ``.launches`` counts calls without ``bin_triangles``."""
     if bin_triangles:
         return raster_tiles_tri(table, order, starts, big_ids, big_n, width,
-                                height, span)
+                                height, span, zmeta, walked, split_rows)
     return _raster16(raster_tiles, False, table, order, starts, big_ids,
-                     big_n, width, height, span)
+                     big_n, width, height, span, zmeta, walked, split_rows)
 
 
 raster_tiles.launches = 0
 
 
 def raster_tiles_tri(table, order, starts, big_ids, big_n, width: int,
-                     height: int, span: int = SPAN):
+                     height: int, span: int = SPAN, zmeta=None, walked=None,
+                     split_rows: int = SPLIT_ROWS):
     """:func:`raster_tiles` with ``bin_triangles``: binned rows through the
     triangle-aware dual evaluation, as the big list always is (the
-    mesh-LOD droplets).  ``.launches`` counts launches."""
+    mesh-LOD droplets).  ``.launches`` counts calls."""
     return _raster16(raster_tiles_tri, True, table, order, starts, big_ids,
-                     big_n, width, height, span)
+                     big_n, width, height, span, zmeta, walked, split_rows)
 
 
 raster_tiles_tri.launches = 0
 
 
 def raster_tiles_cap10(table10, big_rows, order, starts, big_n, width: int,
-                       height: int, span: int = SPAN):
+                       height: int, span: int = SPAN, walked=None,
+                       split_rows: int = SPLIT_ROWS):
     """The ``cap_rows10`` walk -> (depth, index): binned rows are the
     10-float rows of :func:`build_table10` gathered by ``order`` (a
     binning at ``span``) through the capsule body of the 16-float walk
     (the same float32 expressions, so the same winners and depth bits),
     the big list the dense 16-float ``big_rows`` (its first ``big_n``
-    live) through the dual evaluation.  CUDA tensors launch the
-    ``csr6_cap10`` kernel of ``csrc/csr6_raster.cu``; CPU tensors take
-    :func:`raster_tiles_cap10_plain`.  ``.launches`` counts launches."""
+    live) through the dual evaluation.  No early exit: the rows carry no
+    zlb lane.  ``walked`` and ``split_rows`` as :func:`raster_tiles`.
+    CUDA tensors launch the ``csr6_cap10`` kernel of
+    ``csrc/csr6_raster.cu``; CPU tensors take
+    :func:`raster_tiles_cap10_plain`.  ``.launches`` counts calls."""
     tiles_x, tiles_y = _check_inputs_narrow(table10, ROW_F10, big_rows,
                                             order, starts, big_n, width,
                                             height, span)
+    _check_exit_walk(None, walked, split_rows, table10.device,
+                     tiles_x * tiles_y, span)
     if table10.device.type == "cpu":
+        if walked is not None:
+            walked.copy_(tile_rows(starts, width, height, span))
         return raster_tiles_cap10_plain(table10, big_rows, order, starts,
                                         big_n, width, height, span)
     if table10.device.type != "cuda":
         raise ValueError(f"no csr6 kernel for device {table10.device}")
     table10, big_rows, order, starts, big_n = (
         t.contiguous() for t in (table10, big_rows, order, starts, big_n))
-    dev = table10.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    _launch("csr6_cap10", (table10, big_rows, order, starts, big_n, depth,
-                           index),
-            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
-    raster_tiles_cap10.launches += 1
-    return depth, index
+    return _launch_walk(
+        "csr6_cap10", raster_tiles_cap10,
+        (table10, big_rows, order, starts, big_n, walked),
+        ((table10, 4 * ROW_F10), (big_rows, 4 * ROW_F)), big_rows.shape[0],
+        width, height, tiles_x, tiles_y, (span,),
+        split_rows, table10.device)
 
 
 raster_tiles_cap10.launches = 0
@@ -1175,18 +1331,46 @@ def check_cap10(cap_rows10: bool, discs_only: bool, bin_triangles: bool,
                          "must be off")
 
 
+def resolve_exit(allow_exit, discs_only: bool = False, span: int = SPAN,
+                 cap_rows10: bool = False, fused_uv: bool = False,
+                 kind_split: bool = False) -> bool:
+    """Whether the walk takes the z-bucket early exit
+    (``pallas_csr6._raster_core6``'s policy): ``None`` turns it on for
+    generic soups at span 2 outside ``cap_rows10``; forced on, it raises
+    where the JAX package raises.  The kind-split walk has none
+    (:func:`_kind_split` raises for it forced on)."""
+    if kind_split:
+        return False
+    if allow_exit is None:
+        return (not discs_only) and span == 2 and not cap_rows10
+    if allow_exit and cap_rows10:
+        raise ValueError("cap_rows10 rows carry no zlb lane: allow_exit "
+                         "must be off")
+    if allow_exit and fused_uv:
+        raise ValueError("fused_uv carries (u, v) through the stride-2 exit "
+                         "merge: allow_exit must be off")
+    if allow_exit and span != 2:
+        raise ValueError(
+            "allow_exit requires span=2: the exit bound needs single-class "
+            "segments, and span=4 would take 100 of them per tile "
+            "((span*(span+1)/2)**2)")
+    return bool(allow_exit)
+
+
 def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   max_big: int, shade_rgb, shade_flag, plain: bool = False,
                   discs_only: bool = False, fused_uv: bool = False,
                   span: int = SPAN, kind_split: bool = False,
-                  bin_triangles: bool = False, cap_rows10: bool = False):
+                  bin_triangles: bool = False, cap_rows10: bool = False,
+                  allow_exit=None):
     """Bin, build the rows and walk the tiles -> (depth, index, uv, diag);
     ``uv`` is None unless ``fused_uv`` (then the winner's lambert (u, v)
     images, +inf where the winner is no disc).  Under ``discs_only``,
     ``kind_split`` and ``cap_rows10`` no (P+1, 16) table exists: the
     binned rows are 8, 9 or 10 floats and the big rows are built at the
     big ids.  ``bin_triangles`` bins small triangles into the 16-float
-    walk (mesh-LOD droplets)."""
+    walk (mesh-LOD droplets).  ``allow_exit`` by :func:`resolve_exit`;
+    the 16-float walk takes the exit (the disc rows walk without it)."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
@@ -1194,8 +1378,15 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
             f"fused_uv requires a resident big list (max_big <= "
             f"{FUSED_MAX_BIG})")
     check_cap10(cap_rows10, discs_only, bin_triangles, None)
+    exit_on = resolve_exit(allow_exit, discs_only, span, cap_rows10,
+                           fused_uv, kind_split)
+    tiles_x, tiles_y = grid_shape(width, height)
+    key_layout(tiles_x * tiles_y, span, exit_on, kind_split)
+    with_z = exit_on and not discs_only
+    zlb = (z_lower_bound(prims, with_triangles=bin_triangles) if with_z
+           else None)
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
-                      kind_split, bin_triangles)
+                      kind_split, bin_triangles, with_z=with_z, zlb=zlb)
     ranges = (binned["order"], binned["starts"])
     uv = None
     if cap_rows10:
@@ -1226,11 +1417,14 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                                 width, height, span)
     else:
         table = build_table16(prims, shade_rgb, shade_flag,
-                              bin_triangles=bin_triangles)
-        walk = raster_tiles_plain if plain else raster_tiles
-        depth, index = walk(table, *ranges, binned["big_ids"],
-                            binned["big_n"], width, height, bin_triangles,
-                            span)
+                              bin_triangles=bin_triangles, zlb=zlb)
+        args = (table, *ranges, binned["big_ids"], binned["big_n"], width,
+                height, bin_triangles, span)
+        if plain:
+            depth, index = raster_tiles_plain(*args)
+        else:
+            depth, index = raster_tiles(
+                *args, zmeta=binned["zmeta"] if with_z else None)
     return depth, index, uv, binned["diag"]
 
 
@@ -1257,7 +1451,8 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                    shade_flag=None, plain: bool = False,
                    discs_only: bool = False, span: int = SPAN,
                    rows8: bool = False, rows9: bool = False,
-                   bin_triangles: bool = False, cap_rows10: bool = False):
+                   bin_triangles: bool = False, cap_rows10: bool = False,
+                   allow_exit=None):
     """Bin, build the rows and walk the tiles -> (depth, index, diag).
 
     ``plain=True`` runs the plain tile walk on any device (the reference
@@ -1267,7 +1462,9 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
     ``cap_rows10`` the 10-float capsule rows (same winners); ``rows8``
     or ``rows9`` the kind-split 9-float rows (binned capsules through the
     renormalized evaluation); ``bin_triangles`` bins small triangles
-    through the dual evaluation (same winners).
+    through the dual evaluation (same winners).  ``allow_exit``: the
+    z-bucket early exit of the 16-float walk (:func:`resolve_exit`; same
+    winners).
     """
     if shade_rgb is None:
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
@@ -1277,9 +1474,10 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
     depth, index, _, diag = _raster_core6(
         prims, width, height, max_big, shade_rgb, shade_flag, plain=plain,
         discs_only=discs_only, span=span,
-        kind_split=_kind_split(rows8, rows9, discs_only, None, bin_triangles,
-                               cap_rows10),
-        bin_triangles=bin_triangles, cap_rows10=cap_rows10)
+        kind_split=_kind_split(rows8, rows9, discs_only, allow_exit,
+                               bin_triangles, cap_rows10),
+        bin_triangles=bin_triangles, cap_rows10=cap_rows10,
+        allow_exit=allow_exit)
     return depth, index, diag
 
 
@@ -1488,8 +1686,9 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     ``rows8`` and ``rows9`` take the kind-split walk (one kernel for
     both: they evaluate the same float32 expressions), ``cap_rows10`` the
     10-float capsule walk, ``bin_triangles`` the binned-triangle 16-float
-    walk, each at ``span``.  ``allow_exit`` has no other effect here (the
-    v6 walks have no depth early exit) beyond the JAX package's checks."""
+    walk, each at ``span``.  ``allow_exit`` (:func:`resolve_exit`; None
+    by the JAX package's policy) turns the z-bucket early exit of the
+    16-float walk on or off; the winners do not change."""
     check_supported(shading)
     check_id_range(prims)
     if three_tone is not None and uniform_look is not None:
@@ -1511,7 +1710,7 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
         prims, camera.width, camera.height, max_big, shade_rgb, shade_flag,
         plain=plain, discs_only=discs_only, fused_uv=fused, span=span,
         kind_split=kind_split, bin_triangles=bin_triangles,
-        cap_rows10=cap_rows10)
+        cap_rows10=cap_rows10, allow_exit=False if fused else allow_exit)
     if fused:
         rgb = shade_uv(camera, shading, depth, uv[0], uv[1], uniform_look)
     else:

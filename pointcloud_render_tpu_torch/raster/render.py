@@ -42,8 +42,10 @@ are ``tile_h``/``tile_w``, ``max_tiles_per_prim`` and ``no_triangles``
 outside ``pallas``; ``entry_capacity`` drops entries under ``pallas4``,
 ``pallas3`` and ``pallas`` and is checked against the frame's
 ``true_entries`` by the pipelines.  Under the v6 backends: ``allow_exit``
-only decides, as in the JAX package, whether a two-tone disc scene may
-take the fused (u, v) shade (forced on, it may not); ``discs_only`` walks
+turns the z-bucket early exit of the 16-float walk on or off (None: on
+for generic soups at span 2, as in the JAX package; the winners do not
+change) and decides whether a two-tone disc scene may take the fused
+(u, v) shade (forced on, it may not); ``discs_only`` walks
 8-float disc rows (capsules ride the big list) and ``uniform_look`` shades
 two-tone scenes from two constant colors; ``bin_triangles`` bins small
 triangles (the mesh-LOD droplets) into the 16-float walk of ``pallas6``
@@ -201,7 +203,8 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
             prims, width, height, max_big=config.max_big,
             discs_only=config.discs_only, span=config.span,
             rows8=config.rows8, rows9=config.rows9,
-            bin_triangles=config.bin_triangles, cap_rows10=config.cap_rows10)
+            bin_triangles=config.bin_triangles, cap_rows10=config.cap_rows10,
+            allow_exit=config.allow_exit)
     else:
         depth, index, _ = _rasterize_diag(prims, width, height, config)
     return depth, index

@@ -5,8 +5,9 @@ rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 v3 disc fast path with and without its exit; the v1 and v2 strip walks,
 16-float and 8-float disc rows, with their saturation exit; the v5
 chunk-binned disc walk, with and without its exit and its fused shade;
-the disc rows at spans 4 and 8) against their
-plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
+the disc rows at spans 4 and 8; the 16- and 10-float walks with their
+tiles split into work items, the 16-float walk with its z-bucket exit)
+against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
 ``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
@@ -41,16 +42,19 @@ from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 # regular package named ``tests`` would shadow ``tests.torch_soups``.
 from torch_soups import (
     CASES,
+    CROSS_FILM,
     NEAR_ORIGIN,
     SPAN8_FILM,
     H,
     W,
     cloud,
+    cross_class_soup,
     disc_soup,
     droplet_soup,
     make_soup,
     mesh_soup,
     morton_soup,
+    split_soup,
     tcam,
     v5_soups,
     wide_disc_soup,
@@ -712,3 +716,101 @@ def test_v5_entry_points_on_card(cuda_device):
         entry_capacity=n)
     np.testing.assert_array_equal(_bits(rgb_c), _bits(rgb))
     np.testing.assert_array_equal(_bits(i_c), _bits(i2))
+
+
+def _exit_case(case, device):
+    """(soup, film) of the exit and split cases."""
+    if case == "cross_class":
+        return cross_class_soup().to(device), CROSS_FILM
+    if case == "split":
+        return split_soup().to(device), (W, H)
+    if case == "mesh":
+        return mesh_soup(tcam()).to(device), (W, H)
+    return make_soup(case).to(device), (W, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", [csr6.SPLIT_ROWS, 64])
+@pytest.mark.parametrize("case", CASES + ["split", "cross_class", "mesh"])
+def test_exit_and_split_walk_matches_plain_on_card(cuda_device, case,
+                                                   split_rows):
+    """csr6_raster (binned triangles on the mesh soup) with its z-bucket
+    exit on and off, its tiles cut into items of ``split_rows`` rows, ==
+    the plain walk bit for bit; ``walked`` is every tile's row count with
+    the exit off and at most that with it on."""
+    soup, (w, h) = _exit_case(case, cuda_device)
+    tri = case == "mesh"
+    b = csr6.bin_csr6(soup, w, h, 1 << 14, bin_triangles=tri, with_z=True)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args = (csr6.build_table16(soup, zeros, zeros[:, 0], bin_triangles=tri),
+            b["order"], b["starts"], b["big_ids"], b["big_n"], w, h, tri)
+    want = csr6.raster_tiles_plain(*args)
+    rows = csr6.tile_rows(b["starts"], w, h)
+    tiles_x, tiles_y = csr6.grid_shape(w, h)
+    for zmeta in (None, b["zmeta"]):
+        walked = torch.full((tiles_x * tiles_y,), -1, dtype=torch.int32,
+                            device=cuda_device)
+        got = csr6.raster_tiles(*args, zmeta=zmeta, walked=walked,
+                                split_rows=split_rows)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      want[1].cpu().numpy())
+        np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+        if zmeta is None:
+            assert torch.equal(walked, rows)
+        else:
+            assert bool(((walked >= 0) & (walked <= rows)).all())
+    if case == "cross_class" and split_rows == csr6.SPLIT_ROWS:
+        # One item: the big disc (depth 1) sets the tile's depths, and the
+        # far discs' segment (depth 5-6) is left after its first chunk.
+        assert int(walked[2 * tiles_x + 2]) < int(rows[2 * tiles_x + 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [2, 4, 8])
+@pytest.mark.parametrize("case", ["split", "dense_tile", "spill"])
+def test_cap10_split_matches_plain_on_card(cuda_device, case, span):
+    """csr6_cap10 with its tiles cut into items of 64 rows == its plain
+    version bit for bit, ``walked`` every tile's row count."""
+    soup, (w, h) = _exit_case(case, cuda_device)
+    b = csr6.bin_csr6(soup, w, h, 1 << 14, span=span)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args = (csr6.build_table10(soup), csr6.build_table16_rows(
+        soup, zeros, zeros[:, 0], b["big_ids"]), b["order"], b["starts"],
+        b["big_n"], w, h, span)
+    tiles_x, tiles_y = csr6.grid_shape(w, h)
+    walked = torch.full((tiles_x * tiles_y,), -1, dtype=torch.int32,
+                        device=cuda_device)
+    got = csr6.raster_tiles_cap10(*args, walked=walked, split_rows=64)
+    want = csr6.raster_tiles_cap10_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(walked, csr6.tile_rows(b["starts"], w, h, span))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["traj_ball", "mesh"])
+def test_default_exit_frames_equal_exit_off_on_card(cuda_device, case):
+    """render_shaded_csr6 by the JAX policy (the exit on) == allow_exit
+    False bit for bit (rgb, depth, index), one csr6_raster launch each."""
+    mesh = case == "mesh"
+    cam = tcam(device=cuda_device)
+    if mesh:
+        soup = mesh_soup(tcam()).to(cuda_device)
+    else:
+        pos, vel = cloud()
+        cam = pipeline.frame_camera(PRESETS["traj_ball"], 120, W, H,
+                                    cuda_device)
+        soup = pipeline.build_primitives(
+            PRESETS["traj_ball"], cam, torch.tensor(pos, device=cuda_device),
+            torch.tensor(vel, device=cuda_device), 120)
+    wrapper = csr6.raster_tiles_tri if mesh else csr6.raster_tiles
+    before = wrapper.launches
+    outs = [csr6.render_shaded_csr6(soup, cam, ShadingConfig(),
+                                    allow_exit=allow, bin_triangles=mesh)
+            for allow in (None, False)]
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))

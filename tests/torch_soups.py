@@ -156,6 +156,63 @@ def disc_soup(cam, ties=40, wide=2, n=300, radius=0.03, ground=True):
 CASES = ["mixed", "spill", "ties", "wide_big", "invalid", "near_clip",
          "dense_tile"]
 
+# The film of the JAX package's test_exit_does_not_skip_cross_class_prims
+# (tests/test_raster.py's W, H).
+CROSS_FILM = (256, 160)
+
+
+def cross_class_soup(seed=0, n_far=300):
+    """The cross-class case of the JAX package's
+    ``test_exit_does_not_skip_cross_class_prims`` on CROSS_FILM: a wide
+    disc at depth 1 on the big list, ``n_far`` far discs (depth 5-6, more
+    than one 256-row chunk) anchored in tile (2, 2) without spill, and one
+    near disc (depth 0.5) anchored there too that spills into tile (3, 2).
+    An early exit inside the anchor's merged range would leave it on the
+    far discs' bucket and skip the near disc."""
+    rng = np.random.default_rng(seed)
+    mid = _screen_discs([128.0], [80.0], [1.0], [400.0])
+    far = _screen_discs(rng.uniform(68, 92, n_far), rng.uniform(68, 92, n_far),
+                        rng.uniform(5.0, 6.0, n_far), np.full(n_far, 2.0))
+    near = _screen_discs([95.5], [80.0], [0.5], [2.0])
+    return ScreenPrimitives.concatenate([mid, far, near])
+
+
+def _screen_capsules(x0, y0, z0, r0, sdx, sdy, sdz, sdr):
+    """Capsules placed directly in screen space (no camera)."""
+    n = len(x0)
+    params = np.zeros((n, 12), np.float32)
+    for k, col in enumerate((x0, y0, z0, r0, sdx, sdy, sdz, sdr)):
+        params[:, k] = col
+    p = params
+    params[:, 8] = np.float32(1.0) / (p[:, 4] * p[:, 4] + p[:, 5] * p[:, 5])
+    x1, y1, r1 = p[:, 0] + p[:, 4], p[:, 1] + p[:, 5], p[:, 3] + p[:, 7]
+    bbox = np.stack([np.minimum(p[:, 0] - p[:, 3], x1 - r1),
+                     np.maximum(p[:, 0] + p[:, 3], x1 + r1),
+                     np.minimum(p[:, 1] - p[:, 3], y1 - r1),
+                     np.maximum(p[:, 1] + p[:, 3], y1 + r1)], axis=1)
+    return convert.soup_from_fields(types.SimpleNamespace(
+        kind=np.ones(n, np.int32), params=params,
+        color=np.full((n, 3), 0.5, np.float32), valid=np.ones(n, bool),
+        bbox=bbox, normal=np.zeros((n, 3), np.float32)))
+
+
+def split_soup(n=6000, seed=31):
+    """Thousands of short capsules over the corner of four tiles of the
+    150x90 film (every spill class, each tile's range far past one work
+    item of 2048 rows), a wide disc at a middle depth on the big list, and
+    a copy of every tenth capsule (exact depth ties between ids)."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0.0, 2.0 * np.pi, n)
+    length = rng.uniform(1.0, 6.0, n)
+    cols = (rng.uniform(22, 42, n), rng.uniform(22, 42, n),
+            np.round(rng.uniform(1.0, 6.0, n), 2), rng.uniform(0.6, 2.0, n),
+            length * np.cos(ang), length * np.sin(ang),
+            rng.uniform(-0.5, 0.5, n), rng.uniform(-0.3, 0.3, n))
+    caps = _screen_capsules(*(np.asarray(c, np.float32) for c in cols))
+    dup = _screen_capsules(*(np.asarray(c[::10], np.float32) for c in cols))
+    wide = _screen_discs([40.0], [30.0], [3.5], [120.0])
+    return ScreenPrimitives.concatenate([wide, caps, dup])
+
 
 def droplet_soup(cam, n=160, seed=13, frame=120, long_caps=12):
     """A traj_vel soup (ground, head discs, tapered tail capsules, 2-segment
