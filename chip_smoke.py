@@ -6,14 +6,16 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
-csr6_raster.cu beside this one and times its csr6_raster and csr6_cap10
-(the C interface before the split walk) on the same inputs wherever this
-run times those kernels, after holding them against the plain version.
+csr6_raster.cu and csr2_raster.cu beside this one's and times its
+csr6_rows9 and csr2_raster (their C interfaces before the split walk) on
+the same inputs wherever this run times those kernels, after holding them
+against the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels (three sources, thirteen kernels) from csrc/ with
-     nvcc, one nvcc per source, started together;
+     nvcc, one nvcc per source (and per parent source under --parent),
+     started together;
   3. hold the csr6 tile kernel against its plain PyTorch version on six
      seeded soups at 1920x1080 and one traj_ball frame (with its z-bucket
      exit off and on, its tiles cut into work items of csr6.SPLIT_ROWS and
@@ -54,18 +56,23 @@ Phases (any failure exits non-zero and prints no result line):
      (csr6_disc8) and 8 advected traj_ball frames with trails
      (csr6_raster) show the loop drives those kernels too;
   8. the droplet slice: (a) the kind-split kernel csr6_rows9 against its
-     plain version at spans 2, 4 and 8 on seeded 1080p traj_vel soups
-     (head discs, tapered tail capsules, trail capsules, exact depth ties,
-     long capsules past each span, invalid rows) and on the seeded soups of
-     phase 3; (b) the traj_vel CLI on phase 5's PLYs, frames 10, 120 and
-     205, default config (csr6_raster over the droplet soup); (c) the
-     droplet lane of bench.py: 1M droplets with 4-segment velocity
-     trails, span and max_big by bench.py's probe, the four-tone reps of
+     plain version at spans 2, 4 and 8, its tiles cut into work items of
+     csr6.SPLIT_ROWS and of SPLIT_FORCED rows, one launch a call, on
+     seeded 1080p traj_vel soups (head discs, tapered tail capsules, trail
+     capsules, exact depth ties, long capsules past each span, invalid
+     rows) and on the seeded soups of phase 3; (b) the traj_vel CLI on
+     phase 5's PLYs, frames 10, 120 and 205, default config (csr6_raster
+     over the droplet soup); (c) the droplet lane of bench.py: 1M
+     droplets with 4-segment velocity trails, span and max_big by
+     bench.py's probe, the four-tone reps of
      frame 20 with their certificate, rows9: certificate 0 and one
      csr6_rows9 launch on each of the 12 frames, the kernel equal to its
      plain version and rows8 equal to rows9 at frames 20, 120 and 219,
      the four-tone shade beside the generic one, the kernel's time,
-     plain time and bound, the stages of one warm frame, warm ms/frame,
+     plain time and bound at frame 120 with the tile rows per kind region
+     and the work items, the split sweep, and the parent's kernel on the
+     same inputs under --parent, the stages of one warm frame, warm
+     ms/frame,
      a trace of one warm frame, and 8 frames of the scan on the lane's
      config (one csr6_rows9 launch each);
   9. the mesh-LOD slice: (a) csr6_raster[bin_triangles] (binned triangles
@@ -126,8 +133,10 @@ Phases (any failure exits non-zero and prints no result line):
      byte-equal to pallas6's);
  11. the strip-tiled backends: (a) csr1_raster (v1), csr2_raster (v2,
      16-float rows, with and without no_triangles) and csr2_disc8 (v2's
-     8-float disc rows), each with its saturation exit on and off,
-     against the plain strip walk bit for bit on phase 3's seeded soups
+     8-float disc rows), each with its saturation exit on and off
+     (csr2_raster also with its passes cut into work items of
+     SPLIT_FORCED rows), against the plain strip walk bit for bit on
+     phase 3's seeded soups
      and the disc scene with ties, on 1,500 wide discs (v1 at max_big
      2048 takes them all, v2 drops those past its 1024), on entries cut
      to 2/3 of true_entries, and on strips of 16x256 and 4x32; (b) the
@@ -137,11 +146,13 @@ Phases (any failure exits non-zero and prints no result line):
      (the frame equals pallas6's, or FramePipeline raises the JAX
      package's RuntimeError after its retries: printed), csr2_raster and
      csr1_raster timed at frame 120 with their exits on and off, their
-     plain time and bounds, and equal to each other; (c) bench.py's disc
-     lane through pallas (max_tiles_per_prim 4, no_triangles,
-     discs_only, entry_capacity by bench.py:427-445's rule): csr2_disc8
-     == plain at frames 0, 120 and 219, pallas frames == pallas6 frames
-     there, the 220-frame scan (certificate 0 on every chunk, one
+     plain time and bounds, and equal to each other, csr2_raster also at
+     frame 205's shape, both times with its strip rows and work items,
+     the split sweep and the parent's csr2_raster (under --parent) on
+     the same inputs; (c) bench.py's disc lane through pallas
+     (max_tiles_per_prim 4, no_triangles, discs_only, entry_capacity by
+     bench.py:427-445's rule): csr2_disc8 == plain at frames 0, 120 and
+     219, pallas frames == pallas6 frames there, the 220-frame scan (certificate 0 on every chunk, one
      csr2_disc8 launch per frame, every u8 frame equal to the pallas6
      scan's without uniform_look) and its frames/s;
  12. the v5 slice: bench.py's disc lane (1M gray splats of radius 0.002
@@ -170,7 +181,8 @@ card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr6_raster's (ms: the default walk,
 with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
 csr3_raster's and the strip kernels' and the v5 kernels' entries add
-ms_exit_off and bound_ms_exit_off, the walk of every entry.
+ms_exit_off and bound_ms_exit_off, the walk of every entry.  "[split]"
+lines time a split walk by split_rows (SPLIT_SWEEP).
 """
 
 from __future__ import annotations
@@ -275,10 +287,10 @@ V3_BLOCKS = (64, 128, 256, 512, 1024)
 # times the walk at SPLIT_SWEEP (the last: one item per tile).
 SPLIT_FORCED = 64
 SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
-# --parent DIR: the parent commit's tree, whose csr6_raster.cu is built
-# beside this one's and timed on the same inputs (its one-CTA-per-tile
-# csr6_raster and csr6_cap10).
-PARENT = {"tree": None, "lib": None}
+# --parent DIR: the parent commit's tree, whose csr6_raster.cu and
+# csr2_raster.cu are built beside this one's and timed on the same inputs
+# (its one-CTA-per-tile csr6_rows9 and csr2_raster).
+PARENT = {"tree": None, "libs": {}}
 
 
 class SmokeFailure(Exception):
@@ -549,79 +561,121 @@ def walk16_bound(soup, kinds, n_rows, big_ids, big_n, n_starts, width,
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def tile_stats(csr6, b, width, height, span, big_n, split_rows=None):
-    """(max, median, p99) of the binned rows per tile and the work items
-    the plan cuts (csrc/csr6_raster.cu csr6_plan_kernel: a tile's big and
-    binned rows in items of max(split_rows, ceil(rows / (3 T))) rows)."""
+def row_stats(rows, prefix="rows"):
+    """{prefix_max, prefix_median, prefix_p99} of per-unit row counts."""
     import torch
 
-    rows = csr6.tile_rows(b["starts"], width, height, span).double()
+    rows = rows.double()
     q = torch.quantile(rows, torch.tensor([0.5, 0.99], dtype=torch.float64,
                                           device=rows.device))
-    total = rows + big_n
+    return {f"{prefix}_max": int(rows.max()), f"{prefix}_median": float(q[0]),
+            f"{prefix}_p99": float(q[1])}
+
+
+def plan_items(rows, big_n, split_rows=None):
+    """(work items, rows per item) of the plan of csrc/split_walk.cuh's
+    split_plan_kernel over units of ``rows`` binned rows each: a unit's
+    big and binned rows in items of w = max(split_rows, ceil(rows / (3 U)))
+    rows, at least one item per unit."""
+    import torch
+
+    from pointcloud_render_tpu_torch.raster import csr6
+
+    total = rows.double() + big_n
     room = (csr6.ITEMS_PER_TILE - 1) * rows.numel()
     w = max(split_rows or csr6.SPLIT_ROWS, -(-int(total.sum()) // room))
-    items = int(torch.clamp(torch.ceil(total / w), min=1).sum())
-    return dict(rows_max=int(rows.max()), rows_median=float(q[0]),
-                rows_p99=float(q[1]), items=items, item_rows=w)
+    return int(torch.clamp(torch.ceil(total / w), min=1).sum()), w
 
 
-def stats_text(st):
-    return (f"tile rows max {st['rows_max']}, median {st['rows_median']:.0f}"
-            f", p99 {st['rows_p99']:.0f}; {st['items']} work items of "
-            f"<= {st['item_rows']} rows")
+def tile_stats(csr6, b, width, height, span, big_n, split_rows=None):
+    """(max, median, p99) of the binned rows per tile and the work items
+    the plan cuts (a tile's big and binned rows in items of
+    max(split_rows, ceil(rows / (3 T))) rows)."""
+    rows = csr6.tile_rows(b["starts"], width, height, span)
+    items, w = plan_items(rows, big_n, split_rows)
+    return dict(row_stats(rows), items=items, item_rows=w)
 
 
-def build_parent(kernels):
-    """Build the parent tree's csr6_raster.cu (--parent) into
-    build/parent/ and load it; nothing without --parent."""
+def stats_text(st, unit="tile"):
+    return (f"{unit} rows max {st['rows_max']}, median "
+            f"{st['rows_median']:.0f}, p99 {st['rows_p99']:.0f}; "
+            f"{st['items']} work items of <= {st['item_rows']} rows")
+
+
+def nvcc_build(kernels, src, out):
+    """Build ``src`` with the port's nvcc flags into ``out`` and load
+    it."""
     import ctypes
 
-    if PARENT["tree"] is None:
-        return
-    src = os.path.join(PARENT["tree"], KERNEL_SOURCE)
-    out = os.path.join(REPO, "build", "parent", "libcsr6_parent.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
                            out, src], capture_output=True, text=True,
                           check=False)
-    check(proc.returncode == 0, f"the parent's {src} does not build:\n"
+    check(proc.returncode == 0, f"{src} does not build:\n"
           + proc.stderr[-2000:])
-    PARENT["lib"] = ctypes.CDLL(out)
+    return ctypes.CDLL(out)
 
 
-def parent_walk(symbol, ptrs, ints, width, height):
-    """One call of the parent's ``symbol`` (csr6_raster or csr6_cap10, its
-    C interface: inputs, depth, index, ints, stream) -> (depth, index)."""
+def build_parent(kernels):
+    """Under --parent, build the parent tree's csr6_raster.cu and
+    csr2_raster.cu (PARENT["libs"]), one nvcc each, started together."""
+    if PARENT["tree"] is None:
+        return
+    jobs = {lib: (os.path.join(PARENT["tree"], src),
+                  os.path.join(REPO, "build", "parent", f"lib{lib}_parent.so"))
+            for lib, src in (("csr6_raster", KERNEL_SOURCE),
+                             ("csr2_raster", STRIP_SOURCE))}
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = {k: pool.submit(nvcc_build, kernels, *v)
+                 for k, v in jobs.items()}
+        for name, fut in built.items():
+            PARENT["libs"][name] = fut.result()
+
+
+def c_call(lib, symbol, ptrs, ints, what):
+    """``symbol`` of the ctypes library ``lib`` on the current stream:
+    pointers (None: null), then ints, then the stream."""
     import ctypes
 
+    import torch
+
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    err = fn(*(None if t is None else t.data_ptr() for t in ptrs), *ints,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"{what} failed to launch: {err}")
+
+
+def parent_walk(symbol, ptrs, ints, width, height, library="csr6_raster",
+                tail=()):
+    """One call of the parent's ``symbol`` in ``library`` (its C interface:
+    inputs, depth, index, ``tail`` pointers, ints, stream) -> (depth,
+    index): csr6_rows9 and csr2_raster before their split walks."""
     import torch
 
     dev = ptrs[0].device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    fn = getattr(PARENT["lib"], symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in ptrs), depth.data_ptr(),
-             index.data_ptr(), *ints, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"the parent's {symbol} failed to launch: {err}")
+    c_call(PARENT["libs"][library], symbol, (*ptrs, depth, index, *tail),
+           ints, f"the parent's {symbol}")
     return depth, index
 
 
-def parent_time(symbol, ptrs, ints, width, height, want, what):
+def parent_time(symbol, ptrs, ints, width, height, want, what,
+                library="csr6_raster", tail=()):
     """The parent's walk == ``want`` bit for bit, then its median time of
     11 (None without --parent)."""
     import torch
 
-    if PARENT["lib"] is None:
+    if not PARENT["libs"]:
         return None
-    got = parent_walk(symbol, ptrs, ints, width, height)
+    got = parent_walk(symbol, ptrs, ints, width, height, library, tail)
     torch.cuda.synchronize()
     check_equal_bits(got, want, f"the parent's {what}")
-    return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height),
-                   11)
+    return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height,
+                                       library, tail), 11)
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
@@ -636,7 +690,7 @@ def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
     ``timing``: ``ms`` and ``bound_ms`` of the exit-on walk (the default
     at span 2; its bound counts the rows the tiles evaluated),
     ``ms_exit_off`` and ``bound_ms_exit_off``, the tile rows and work
-    items, and the parent's time under --parent."""
+    items."""
     import torch
 
     exit_keys = span == 2
@@ -702,10 +756,6 @@ def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
                 ms=time_ms(lambda: csr6.raster_tiles(*args, zmeta=zmeta), 11),
                 bound_ms=bound_on[0], bound_by=bound_on[1], ms_exit_off=ms_off,
                 bound_ms_exit_off=bound_off[0], walked=bound["walked"])
-        out["parent_ms"] = parent_time(
-            "csr6_raster", args[:5],
-            (width, height, *csr6.grid_shape(width, height),
-             int(bin_triangles), span), width, height, want, name)
     return out, got
 
 
@@ -854,10 +904,13 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
     return out, b
 
 
-def compare_rows9(soup, width, height, csr6, max_big, span, timing=False):
-    """csr6_rows9 vs its plain version on one soup at ``span`` -> (dict(err,
-    ms, plain_ms, bound_ms, bound_by), binning); the times and the bound
-    only with ``timing``."""
+def compare_rows9(soup, width, height, csr6, max_big, span, timing=False,
+                  card=""):
+    """csr6_rows9 vs its plain version on one soup at ``span``, its tiles
+    cut at csr6.SPLIT_ROWS and at SPLIT_FORCED rows, one launch a call ->
+    (dict(err, and with ``timing`` ms, plain_ms, bound_ms, bound_by, the
+    tile rows per kind region and the work items, the parent's time under
+    --parent), binning).  ``timing`` also sweeps split_rows."""
     import torch
 
     b = csr6.bin_csr6(soup, width, height, max_big, span=span,
@@ -867,19 +920,42 @@ def compare_rows9(soup, width, height, csr6, max_big, span, timing=False):
     args = (csr6.build_table9(soup, b["order"], b["starts"][-1]),
             csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
             b["starts"], b["big_n"], width, height, span)
-    got = csr6.raster_tiles_rows9(*args)
-    torch.cuda.synchronize()
     want = csr6.raster_tiles_rows9_plain(*args)
     torch.cuda.synchronize()
-    out = dict(err=check_equal_bits(got, want, f"csr6_rows9 span {span}"))
+    out = dict(err=0.0)
+    for split in (csr6.SPLIT_ROWS, SPLIT_FORCED):
+        before = csr6.raster_tiles_rows9.launches
+        got = csr6.raster_tiles_rows9(*args, split_rows=split)
+        torch.cuda.synchronize()
+        what = f"csr6_rows9 span {span}, items of {split} rows"
+        check(csr6.raster_tiles_rows9.launches == before + 1,
+              f"{what}: not one launch")
+        out["err"] = max(out["err"], check_equal_bits(got, want, what))
     if timing:
         bound_ms, bound_by = walk_bound(b, soup, width, height, 36,
                                         (OPS_DISC9, OPS_CAPSULE9), 2,
                                         span=span, id_bytes=0)
+        # Each kind region's tile rows, and the plan over their sum.
+        k2t = span * span * csr6.grid_shape(width, height)[0] * \
+            csr6.grid_shape(width, height)[1]
+        regions = [csr6.tile_rows(st, width, height, span)
+                   for st in (b["starts"][:k2t + 1], b["starts"][k2t:])]
+        items, w = plan_items(regions[0] + regions[1], int(b["big_n"][0]))
         out.update(ms=time_ms(lambda: csr6.raster_tiles_rows9(*args), 11),
                    plain_ms=time_ms(
                        lambda: csr6.raster_tiles_rows9_plain(*args), 1),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, items=items,
+                   item_rows=w, **row_stats(regions[0], "disc_rows"),
+                   **row_stats(regions[1], "capsule_rows"),
+                   **row_stats(regions[0] + regions[1]))
+        tiles_x, tiles_y = csr6.grid_shape(width, height)
+        out["parent_ms"] = parent_time(
+            "csr6_rows9", args[:4],
+            (args[1].shape[0], width, height, tiles_x, tiles_y, span), width,
+            height, want, f"csr6_rows9 span {span}")
+        split_sweep(f"csr6_rows9 span {span}",
+                    lambda w, wk: csr6.raster_tiles_rows9(
+                        *args, split_rows=w), card)
     return out, b
 
 
@@ -887,9 +963,9 @@ def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
     """csr6_cap10 vs its plain version on one soup at ``span``, its tiles
     cut at csr6.SPLIT_ROWS and at SPLIT_FORCED rows, ``walked`` every
     tile's rows -> (dict(err, binned, big, entries, and with ``timing``
-    ms, plain_ms, bound_ms, bound_by, the tile rows and work items, the
-    parent's time under --parent), (depth, index)); the bound counts 17
-    operations per capsule pair, as row 1's, and 40-byte rows."""
+    ms, plain_ms, bound_ms, bound_by, the tile rows and work items),
+    (depth, index)); the bound counts 17 operations per capsule pair, as
+    row 1's, and 40-byte rows."""
     import torch
 
     b = csr6.bin_csr6(soup, width, height, max_big, span=span)
@@ -921,11 +997,6 @@ def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
                    bound_ms=bound_ms, bound_by=bound_by,
                    **tile_stats(csr6, b, width, height, span,
                                 int(b["big_n"][0])))
-        out["parent_ms"] = parent_time(
-            "csr6_cap10", args[:5],
-            (args[1].shape[0], width, height,
-             *csr6.grid_shape(width, height), span), width, height, want,
-            f"csr6_cap10 span {span}")
     return out, got
 
 
@@ -1241,7 +1312,7 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
     for fi in (20, 120, 219):
         soup, cam = soup_fn(fi)
         res, b = compare_rows9(soup, WIDTH, HEIGHT, csr6, max_big, span,
-                               timing=fi == 120)
+                               timing=fi == 120, card=card)
         max_err["csr6_rows9"] = max(max_err["csr6_rows9"], res["err"])
         fb8 = render(soup, cam, dataclasses.replace(cfg, rows9=False,
                                                     rows8=True))
@@ -1262,7 +1333,8 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
         print(f"[droplet] frame {fi}: {soup.count} prims, "
               f"{int(b['starts'][-1])} binned, tile entries discs "
               f"{region[0]} capsules {region[1]}, big list "
-              f"{int(b['big_count'])}; csr6_rows9 == plain bit for bit, "
+              f"{int(b['big_count'])}; csr6_rows9 == plain bit for bit "
+              f"(items of {csr6.SPLIT_ROWS} and {SPLIT_FORCED} rows), "
               f"rows8 == rows9, four-tone rgb within {gap:.3g} of the "
               f"generic shade, {u8} u8 values differ", flush=True)
         if fi == 120:
@@ -1271,6 +1343,18 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
                   f"11), plain {res['plain_ms']:.1f} ms (median of 1), "
                   f"bound {res['bound_ms']:.3f} ms by {res['bound_by']} at "
                   f"the droplet lane's frame-120 shape ({card})", flush=True)
+            print(f"[time] csr6_rows9 at the droplet lane's frame-120 shape: "
+                  f"disc rows per tile max {res['disc_rows_max']}, median "
+                  f"{res['disc_rows_median']:.0f}, p99 "
+                  f"{res['disc_rows_p99']:.0f}; capsule rows max "
+                  f"{res['capsule_rows_max']}, median "
+                  f"{res['capsule_rows_median']:.0f}, p99 "
+                  f"{res['capsule_rows_p99']:.0f}; {stats_text(res)}",
+                  flush=True)
+            if res["parent_ms"] is not None:
+                print(f"[time] csr6_rows9 at the droplet lane's frame-120 "
+                      f"shape: parent {res['parent_ms']:.3f} ms, change "
+                      f"{res['ms']:.3f} ms ({card})", flush=True)
 
     # The main path: the lane's 12 frames through build_primitives +
     # render, certificate read once at the end.
@@ -2595,18 +2679,22 @@ def strip_bound(soup, entries, rows_f, pixels_per_tile, big_ids, big_n,
 
 def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                    max_big=1024, tile=(8, 128), mtp=None, no_triangles=False,
-                   timing=False):
+                   timing=False, card=""):
     """``kernel`` (csr1_raster, csr2_raster or csr2_disc8) with its exit on
     and off vs the plain strip walk (which never exits) on one soup,
     entries past ``cap`` and big prims past ``max_big`` dropped ->
     (dict(err, big_count, entries, and with ``timing``: ms, ms_exit_off,
-    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked), (depth,
-    index)).  ``mtp`` defaults to the kernel's JAX default (v1 8, v2 4)."""
+    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked; for
+    csr2_raster also the strip rows and work items, the parent's times
+    under --parent), (depth, index)).  csr2_raster's
+    passes are also cut into work items of SPLIT_FORCED rows.  ``mtp``
+    defaults to the kernel's JAX default (v1 8, v2 4)."""
     import torch
 
-    from pointcloud_render_tpu_torch.raster import csr, csr2
+    from pointcloud_render_tpu_torch.raster import csr, csr2, csr6
 
     disc = kernel == "csr2_disc8"
+    split = kernel == "csr2_raster"
     mtp = mtp or (8 if kernel == "csr1_raster" else 4)
     th, tw = tile
     b = csr.bin_csr(soup, width, height, th, tw, mtp, max_big,
@@ -2633,22 +2721,31 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
             + (f" entry_capacity {cap}" if cap is not None else ""))
     errs = []
     for exit_on in (False, True):
-        got = wrapper(*args, walked=walked, allow_exit=exit_on, **kw)
-        torch.cuda.synchronize()
-        errs.append(check_equal_bits(
-            got, want, f"{what} exit {'on' if exit_on else 'off'}"))
-        check(bool((walked <= lengths).all()) and (
-            exit_on or torch.equal(walked, lengths)),
-            f"{what}: walked {int(walked.sum())} of {int(lengths.sum())} "
-            f"rows (exit {exit_on})")
+        for items in (None, SPLIT_FORCED) if split else (None,):
+            extra = {} if items is None else dict(split_rows=items)
+            got = wrapper(*args, walked=walked, allow_exit=exit_on, **kw,
+                          **extra)
+            torch.cuda.synchronize()
+            on = (f"{what} exit {'on' if exit_on else 'off'}"
+                  + (f", items of {items} rows" if items else ""))
+            errs.append(check_equal_bits(got, want, on))
+            check(bool((walked <= lengths).all()) and (
+                exit_on or torch.equal(walked, lengths)),
+                f"{on}: walked {int(walked.sum())} of {int(lengths.sum())} "
+                f"rows")
     out = dict(err=max(errs), big_count=int(b["big_count"]),
                entries=int(starts[-1]))
     if timing:
         check(th * tw == 1024, "timed strips must hold 1024 pixels")
+        if split:  # the walked counts of the default walk
+            wrapper(*args, walked=walked, **kw)
         n = int(starts[-1])
         s64 = starts.long()
         pos = torch.arange(n, device=soup.device)
         tile_of = torch.searchsorted(s64, pos, right=True) - 1
+        # The bound's kinds: the first walked[t] rows of each strip (a
+        # split strip's items each walk a slice: the count is exact, the
+        # kinds of the rows are taken from the front of the strip).
         keep = (pos - s64[tile_of]) < walked.long()[tile_of]
         rows_f = 8 if disc else 16
         on, off = (strip_bound(soup, ids, rows_f, th * tw, b["big_ids"],
@@ -2662,16 +2759,45 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                        *args, no_triangles=no_triangles), 2),
                    bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
                    walked=int(keep.sum()))
+    if timing and split:
+        items, w = plan_items(starts[1:] - starts[:-1], int(b["big_n"][0]))
+        out.update(row_stats(starts[1:] - starts[:-1]), items=items,
+                   item_rows=w)
+        tiles_x, tiles_y = csr.strip_grid(width, height, th, tw)
+        for exit_on, key in ((True, "parent_ms"),
+                             (False, "parent_ms_exit_off")):
+            out[key] = parent_time(
+                "csr2_raster", args[:4],
+                (width, height, tiles_x, tiles_y, th, tw, int(no_triangles),
+                 int(exit_on)), width, height, want,
+                f"{what} exit {'on' if exit_on else 'off'}", "csr2_raster",
+                (None,))
+        sweep_rows = lengths.clone()
+        split_sweep(f"{kernel} exit off, {what}",
+                    lambda w, wk: wrapper(*args, allow_exit=False,
+                                          split_rows=w, walked=wk, **kw),
+                    card)
+        split_sweep(f"{kernel} exit on, {what}",
+                    lambda w, wk: wrapper(*args, split_rows=w, walked=wk,
+                                          **kw), card, sweep_rows)
     return out, got
 
 
 def print_strip_times(kernel, r, shape, card):
-    """One [time] line of compare_strips' numbers."""
+    """The [time] lines of compare_strips' numbers."""
     print(f"[time] {kernel} kernel {r['ms']:.3f} ms (median of 11), bound "
           f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']} of "
           f"{r['entries']} rows walked); exit off {r['ms_exit_off']:.3f} ms, "
           f"bound {r['bound_ms_exit_off']:.3f} ms; plain {r['plain_ms']:.1f} "
           f"ms (median of 2), at the {shape} shape ({card})", flush=True)
+    if "items" in r:
+        print(f"[time] {kernel} at the {shape} shape: "
+              f"{stats_text(r, 'strip')} ({card})", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {kernel} at the {shape} shape: parent "
+              f"{r['parent_ms']:.3f} ms, change {r['ms']:.3f} ms; exit off "
+              f"parent {r['parent_ms_exit_off']:.3f} ms, change "
+              f"{r['ms_exit_off']:.3f} ms ({card})", flush=True)
 
 
 STRIP_KERNELS = ("csr1_raster", "csr2_raster", "csr2_disc8")
@@ -2683,7 +2809,7 @@ def strip_kernels_vs_plain(dev, max_err):
     import numpy as np
     import torch
 
-    from pointcloud_render_tpu_torch.raster import csr2
+    from pointcloud_render_tpu_torch.raster import csr2, csr6
     from pointcloud_render_tpu_torch.raster.primitives import (
         ScreenPrimitives,
         discs_from_points,
@@ -2699,8 +2825,9 @@ def strip_kernels_vs_plain(dev, max_err):
                 r, _ = compare_strips(soup, kernel, no_triangles=no_tri)
                 max_err[kernel] = max(max_err[kernel], r["err"])
         print(f"[kernel==plain] csr1_raster, csr2_raster (no_triangles off "
-              f"and on), csr2_disc8 exit on and off {name}: {soup.count} "
-              f"prims ok", flush=True)
+              f"and on; items of {csr6.SPLIT_ROWS} and {SPLIT_FORCED} rows), "
+              f"csr2_disc8 exit on and off {name}: {soup.count} prims ok",
+              flush=True)
     # 1,500 wide discs: v1 takes them all (max_big 2048); v2's fixed big
     # list drops those past 1024, as does its plain version.
     cam = soup_camera(dev)
@@ -2810,6 +2937,12 @@ def v2_flagship(card, dev, inp, out_default, out_v2, counters, max_err):
                   flush=True)
         else:
             raise SmokeFailure(f"frame 205: {big} v2 big prims rendered")
+    # csr2_raster at frame 205's shape (its big list cut at 1024, as the
+    # plain walk's).
+    r, _ = compare_strips(soup, "csr2_raster", mtp=8, no_triangles=True,
+                          timing=True, card=card)
+    max_err["csr2_raster"] = max(max_err["csr2_raster"], r["err"])
+    print_strip_times("csr2_raster", r, "traj_ball frame-205", card)
     # The kernels beside their plain versions at frame 120's shape.
     pcl = p6.load_and_prepare(os.path.join(inp, "frame_0120_b0.ply"))
     cam = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
@@ -2817,7 +2950,7 @@ def v2_flagship(card, dev, inp, out_default, out_v2, counters, max_err):
     timed = {}
     for kernel in ("csr2_raster", "csr1_raster"):
         r, got = compare_strips(soup, kernel, mtp=8, no_triangles=True,
-                                timing=True)
+                                timing=True, card=card)
         max_err[kernel] = max(max_err[kernel], r["err"])
         timed[kernel] = (r, got)
         print_strip_times(kernel, r, "traj_ball frame-120", card)
@@ -3280,18 +3413,21 @@ def run() -> dict:
                 csr5.raster_tiles5_shaded)
 
     # Phase 2: build from the checkout's sources, one nvcc per source (and
-    # the parent's csr6_raster.cu under --parent), all started together.
+    # the parent's csr6_raster.cu and csr2_raster.cu under --parent), all
+    # started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        parent = pool.submit(build_parent, kernels)
+        extra = pool.submit(build_parent, kernels)
         kernels.build_all()
-        parent.result()
+        extra.result()
     for name in kernels.LIBRARIES:
         kernels.load(name)
     print(f"[build] csr6_raster.cu (csr6_raster, csr6_cap10, csr6_disc8, "
           f"csr6_disc8_uv, csr6_rows9, csr4_raster, csr3_raster), "
-          f"csr2_raster.cu (csr2_raster, csr2_disc8, csr1_raster) and "
-          f"csr5_raster.cu (csr5_raster, csr5_shaded) in parallel "
+          f"csr2_raster.cu (csr2_raster, csr2_disc8, csr1_raster), "
+          f"csr5_raster.cu (csr5_raster, "
+          f"csr5_shaded){' and the parent' if PARENT['libs'] else ''} in "
+          f"parallel "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels.LIBRARIES:
         for line in kernels.build_log(name).splitlines():
@@ -3337,7 +3473,8 @@ def run() -> dict:
             max_err["csr6_rows9"] = max(max_err["csr6_rows9"], res["err"])
             print(f"[kernel==plain] csr6_rows9 span {span} {name}: "
                   f"{soup.count} prims, {int(b['starts'][-1])} binned, big "
-                  f"list {int(b['big_count'])} ok", flush=True)
+                  f"list {int(b['big_count'])} ok (items of "
+                  f"{csr6.SPLIT_ROWS} and {SPLIT_FORCED} rows)", flush=True)
             res, _ = compare_cap10(soup, WIDTH, HEIGHT, csr6, 1 << 16, span)
             max_err["csr6_cap10"] = max(max_err["csr6_cap10"], res["err"])
             if span != 2:

@@ -47,26 +47,29 @@
 // copies into a 10-float stride of shared memory.  It has no exit: its
 // rows carry no zlb lane (the JAX package forces the exit off).
 //
-// csr6_raster and csr6_cap10 walk in three or four launches
-// (launch_split_walk).  What bounds them: per-pair arithmetic (below),
-// and how evenly it is spread.  One CTA per tile left a dense tile's
-// whole range on one SM (the traj preset packs trail capsules into a few
-// tiles at the cloud's centre), and staged each chunk synchronously.
-// (1) csr6_plan_kernel sizes every tile's rows (its big rows, then its
-// binned ranges) and cuts a tile of more than split_rows rows into work
-// items, contiguous slices of those rows: the first takes the big list
-// and the first w rows, the others share the rest; (2) csr6_walk_kernel
+// csr6_raster, csr6_cap10 and csr6_rows9 walk in three launches (the
+// split walk of split_walk.cuh).  What bounds them: per-pair arithmetic
+// (below), and how evenly it is spread.  One CTA per tile left a dense
+// tile's whole range on one SM (the traj preset packs trail capsules, the
+// droplet lane its droplets, into a few tiles at the cloud's centre), and
+// staged each chunk synchronously.  (1) split_plan_kernel sizes every
+// tile's rows (its big rows, then its binned ranges: TileRows) and cuts a
+// tile of more than split_rows rows into work items, contiguous slices of
+// those rows: the first takes the big list and the first w rows, the
+// others share the rest; (2) csr6_walk_kernel (csr6_rows9_walk_kernel)
 // runs one persistent CTA per free SM slot, each taking the next item
-// from a counter (with the exit: every tile's first item in one launch,
-// then the others in a second, which test the exit against their own
-// depths and the first item's); (3) csr6_merge_kernel merges a split
-// tile's per-item (depth, id) minima with the walk's own compare, so the
-// image does not depend on the split or the order.  Rows are staged in
-// chunks of 256 through a two-slot ring by cp.async (16 B .cg copies for
-// 64 B rows, 8 B for 40 B rows), the next chunk and the sorted id of the
-// one after in flight while a chunk is evaluated.  TMA does not serve
-// this gather: its copies are boxes of a tensor, and these rows are
-// scattered records found through order[] (one 64 or 40 B row per id).
+// from a counter; (3) csr6_merge_kernel merges a split tile's per-item
+// (depth, id) minima with the walk's own compare, so the image does not
+// depend on the split or the order.  Rows are staged in chunks of 256
+// (341 for 9-float rows: a slot's floats over their 12-float stride,
+// kChunk9) through a two-slot ring by cp.async (16 B .cg copies for 64 B
+// rows, 8 B for 40 B rows, 4 B for 36 B rows), the next
+// chunk (and the sorted id of the one after, where rows are gathered by
+// id) in flight while a chunk is evaluated.  TMA does not serve the
+// gather of csr6_raster and csr6_cap10: its copies are boxes of a tensor,
+// and these rows are scattered records found through order[] (one 64 or
+// 40 B row per id); csr6_rows9's rows sit in sorted order, but a 36 B row
+// is only 4-byte aligned, below the bulk copy's 16.
 // The exit (pallas_csr6's allow_exit, B1): with zmeta the binning's keys
 // carry the z-bucket of each prim's depth lower bound (lane 14), so each
 // single-class segment ascends in bucket; after a chunk whose segment
@@ -128,7 +131,13 @@
 // the exact disc body, capsule [x0, y0, ux, -rho0, uy, rhod, z0, sdz, idf]
 // through the renormalized segment-frame body (ux = sdx*il2,
 // rho = r*sqrt(il2)).  Big rows (wide discs, wide capsules, the ground)
-// keep the exact 16-float evaluation.
+// keep the exact 16-float evaluation.  It takes the split walk
+// (csr6_rows9_walk_kernel): a tile's flat rows are its big rows, its disc
+// ranges, then its capsule ranges, each region sized with its own prefix,
+// chunks never straddling a region boundary; 9-float chunks are staged by
+// 4-byte cp.async copies, consecutive threads on consecutive floats of a
+// range (no order[] gather), into a 12-float stride that the evaluation
+// reads with 16-byte loads.  No exit: its rows carry no zlb lane.
 //
 // Winner per pixel = lexicographic min of (depth, primitive id) with
 // strict compares, so the walk order does not matter (v3: the order is
@@ -146,7 +155,7 @@
 // rows) pairs; row bytes (64 B per row, read once per tile it touches;
 // 40 B under cap_rows10) are small beside that.  Design: rows are staged
 // through shared memory in chunks (one row per thread, gathered by sorted
-// id; by cp.async in csr6_raster and csr6_cap10), every thread keeps the
+// id; by cp.async in the split walks), every thread keeps the
 // (depth, id) minima of its 4 pixels in registers, and all threads read
 // the same staged row (a shared-memory broadcast).  A disc pair must
 // execute 4 operations (dy, dy * dy, + dx * dx, <= r * r; dx and dx * dx
@@ -161,12 +170,16 @@
 // an exit (csr6_raster, csr4_raster, csr3_raster) count 1024 x (the rows
 // their tiles evaluated before their exits, which the kernels report
 // through `walked`) + pixels x (big rows) pairs.
-// Not done yet: the split and the cp.async ring in the disc, rows9, v4
-// and v3 walks, and the early exit in the 8-float disc walk.
+// The split walk with its cp.async ring: csr6_raster, csr6_cap10 and
+// csr6_rows9 here, csr2_raster in csr2_raster.cu.  Not done yet: the
+// split and asynchronous staging in the disc walks (csr6_disc8,
+// csr6_disc8_uv), v4 and v3 here, and csr2_disc8 and csr1_raster there;
+// the early exit in the 8-float disc walk.
 
 #include <cuda_runtime.h>
 
 #include "raster_pairs.cuh"  // clip01, capsule_pair, tri_pair
+#include "split_walk.cuh"    // plan, item counter, cp.async, merge
 
 namespace {
 
@@ -291,22 +304,25 @@ __device__ __forceinline__ void eval_disc_rows(const float4* sh, int count,
 }
 
 constexpr int kRowF9 = 9;
-constexpr int kChunk9 = 512;     // 9-float rows per staged chunk (18 KB)
+constexpr int kStride9 = 12;  // floats per staged 9-float row (48 B)
 constexpr int kRowF10 = 10;
 constexpr int kMaxRanges = 512;  // range slots: span^3 at span 8
 
 // Evaluate staged 9-float rows [0, count) at this thread's pixels:
 // kCap the renormalized capsule body (pallas_csr6._make_row_body9c),
-// else the exact disc body (_make_row_body9d).
+// else the exact disc body (_make_row_body9d).  Rows are staged at a
+// stride of kStride9 floats, so a row is two 16-byte loads and one more.
 template <bool kCap>
 __device__ __forceinline__ void eval_rows9(const float* sh, int count,
                                            float qx, const float* qy,
                                            float* d, float* di) {
   for (int r = 0; r < count; ++r) {
-    const float* row = sh + r * kRowF9;
+    const float* row = sh + r * kStride9;
+    const float4 lo = reinterpret_cast<const float4*>(row)[0];
+    const float4 mid = reinterpret_cast<const float4*>(row)[1];
     if (kCap) {
-      const float x0 = row[0], y0 = row[1], ux = row[2], nr0 = row[3];
-      const float uy = row[4], rhod = row[5], z0 = row[6], sdz = row[7];
+      const float x0 = lo.x, y0 = lo.y, ux = lo.z, nr0 = lo.w;
+      const float uy = mid.x, rhod = mid.y, z0 = mid.z, sdz = mid.w;
       const float idf = row[8];
       const float dx = qx - x0;
       const float dxux = dx * ux;
@@ -330,12 +346,12 @@ __device__ __forceinline__ void eval_rows9(const float* sh, int count,
         }
       }
     } else {
-      const float z = row[2], r2 = row[3], idf = row[4];
-      const float dx = qx - row[0];
+      const float z = lo.z, r2 = lo.w, idf = mid.x;
+      const float dx = qx - lo.x;
       const float dx2 = dx * dx;
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
-        const float dy = qy[k] - row[1];
+        const float dy = qy[k] - lo.y;
         // A capsule row read here has r2 = -rho0 < 0: no cover.
         const bool cov = dx2 + dy * dy <= r2;
         if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
@@ -521,72 +537,6 @@ __device__ __forceinline__ float init_pixels(int tx, int ty, float* qy,
   return static_cast<float>(tx * kTile + (threadIdx.x & (kTile - 1))) + 0.5f;
 }
 
-// The big-list phase over a dense array of big_n 16-float rows.
-__device__ __forceinline__ void walk_big_rows(float4* sh,
-                                              const float* __restrict__ rows,
-                                              int big_n, float qx,
-                                              const float* qy, float* d,
-                                              float* di) {
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    const int tid = threadIdx.x;
-    if (tid < cnt) stage_row(sh, tid, rows, base + tid);
-    __syncthreads();
-    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-csr6_rows9_kernel(const float* __restrict__ rows9,
-                  const float* __restrict__ big_rows,
-                  const int* __restrict__ starts,
-                  const int* __restrict__ big_n_ptr, int big_cap,
-                  float* __restrict__ depth_out, int* __restrict__ index_out,
-                  int width, int height, int tiles_x, int num_tiles,
-                  int span) {
-  // Staged rows: 512 x 9 floats, or 256 x 16 for the big list.
-  __shared__ __align__(16) float sh[kChunk9 * kRowF9];
-  __shared__ int range_start[kMaxRanges];
-  __shared__ int range_cum[kMaxRanges];  // exclusive prefix of lengths
-  __shared__ int warp_tot[kThreads / 32];
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  float qy[kPix], d[kPix], di[kPix];
-  const float qx = init_pixels(tx, ty, qy, d, di);
-
-  // Big list: wide discs and capsules and the ground, exact 16-float rows.
-  walk_big_rows(reinterpret_cast<float4*>(sh), big_rows,
-                min(*big_n_ptr, big_cap), qx, qy, d, di);
-
-  const int n_slots = range_slots(span);
-#pragma unroll 1
-  for (int kind = 0; kind < 2; ++kind) {
-    const int total = size_ranges(span, tile, tx, ty, tiles_x,
-                                  kind * span * span * num_tiles, starts,
-                                  range_start, range_cum, warp_tot);
-    for (int base = 0; base < total; base += kChunk9) {
-      const int cnt = min(kChunk9, total - base);
-      __syncthreads();
-      for (int i = threadIdx.x; i < cnt; i += kThreads) {
-        const float* src =
-            rows9 + static_cast<long long>(
-                        flat_pos(base + i, n_slots, range_start, range_cum)) *
-                        kRowF9;
-#pragma unroll
-        for (int j = 0; j < kRowF9; ++j) sh[i * kRowF9 + j] = src[j];
-      }
-      __syncthreads();
-      if (kind == 0)
-        eval_rows9<false>(sh, cnt, qx, qy, d, di);
-      else
-        eval_rows9<true>(sh, cnt, qx, qy, d, di);
-    }
-  }
-  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
-}
-
 // ---------------------------------------------------------------------------
 // The split walk of csr6_raster (16-float rows, with or without binned
 // triangles) and csr6_cap10 (10-float rows): see the header.
@@ -596,119 +546,30 @@ enum RowMode { kRows16 = 0, kRows16Tri = 1, kRows10 = 2 };
 constexpr int kRing = 2;                   // staged chunks: one in flight
 constexpr int kSlotF = kChunk * kRowF;     // floats per ring slot (16 KB)
 constexpr int kRingBytes = kRing * kSlotF * 4;
-constexpr int kPlanThreads = 1024;
 constexpr int kTilePix = kTile * kTile;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The plan of one call, one CTA: every tile's rows (its live big rows,
-// then its binned ranges), the item size w = max(split_rows,
-// ceil(rows / (max_items - T))) so that no call takes more than
-// max_items items, each tile's item count n_t = max(1, ceil(rows_t / w))
-// and their inclusive prefix.  plan = [items_cum (T) | item_tile
-// (max_items) | n_items, the next item to hand out, w]; walked (null or
-// (T)) is zeroed.
-__global__ void __launch_bounds__(kPlanThreads)
-csr6_plan_kernel(const int* __restrict__ starts,
-                 const int* __restrict__ big_n_ptr, int big_cap,
-                 int tiles_x, int num_tiles, int span, int segs,
-                 int split_rows, int max_items, int* __restrict__ plan,
-                 int* __restrict__ walked) {
-  __shared__ long long warp_sum[kPlanThreads / 32];
-  __shared__ int warp_cnt[kPlanThreads / 32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int per = (num_tiles + kPlanThreads - 1) / kPlanThreads;
-  const int t0 = min(tid * per, num_tiles);
-  const int t1 = min(t0 + per, num_tiles);
-  const int big_n = min(*big_n_ptr, big_cap);
-  const int n_slots = range_slots(span, segs != 0);
-  int* items_cum = plan;
-  int* item_tile = plan + num_tiles;
-  int* sched = plan + num_tiles + max_items;
-
-  long long mine = 0;
-  for (int t = t0; t < t1; ++t) {
+// The binned rows of tile t for split_plan_kernel: its ranges in each of
+// `regions` ordinal regions (two under the kind split of csr6_rows9: the
+// disc ranges, then the capsule ranges).
+struct TileRows {
+  const int* starts;
+  int tiles_x, num_tiles, span, segs, regions;
+  __device__ int operator()(int t) const {
     const int ty = t / tiles_x;
     const int tx = t - ty * tiles_x;
-    int rows = big_n;
-    for (int q = 0; q < n_slots; ++q) {
-      int st, len;
-      tile_range(q, span, t, tx, ty, tiles_x, 0, starts, &st, &len,
-                 segs != 0);
-      rows += len;
+    const int n_slots = range_slots(span, segs != 0);
+    int rows = 0;
+    for (int r = 0; r < regions; ++r) {
+      for (int q = 0; q < n_slots; ++q) {
+        int st, len;
+        tile_range(q, span, t, tx, ty, tiles_x, r * span * span * num_tiles,
+                   starts, &st, &len, segs != 0);
+        rows += len;
+      }
     }
-    items_cum[t] = rows;  // replaced by the prefix below
-    if (walked != nullptr) walked[t] = 0;
-    mine += rows;
+    return rows;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mine += __shfl_xor_sync(0xffffffffu, mine, o);
-  if (lane == 0) warp_sum[warp] = mine;
-  __syncthreads();
-  long long total = 0;
-  for (int w = 0; w < kPlanThreads / 32; ++w) total += warp_sum[w];
-  const long long room = max(max_items - num_tiles, 1);
-  const long long w_rows =
-      max(static_cast<long long>(split_rows), (total + room - 1) / room);
-
-  int cnt = 0;
-  for (int t = t0; t < t1; ++t)
-    cnt += max(1, static_cast<int>((items_cum[t] + w_rows - 1) / w_rows));
-  int v = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) warp_cnt[warp] = v;
-  __syncthreads();
-  int base = v - cnt;
-  for (int w = 0; w < warp; ++w) base += warp_cnt[w];
-  for (int t = t0; t < t1; ++t) {
-    const int n = max(1, static_cast<int>((items_cum[t] + w_rows - 1) /
-                                          w_rows));
-    for (int j = 0; j < n; ++j) item_tile[base + j] = t;
-    base += n;
-    items_cum[t] = base;
-  }
-  if (tid == kPlanThreads - 1) {
-    sched[0] = base;  // items of the call
-    sched[1] = 0;     // the next item to hand out
-    sched[2] = static_cast<int>(w_rows);
-  }
-}
-
-// Depths as ints whose order is the floats' (atomicMin of depths).
-__device__ __forceinline__ int depth_key(float z) {
-  const int i = __float_as_int(z);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float key_depth(int key) {
-  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
-}
+};
 
 // Where flat row f of a work item's tile lives: its live big rows first
 // (csr6_raster: table rows by big_ids; csr6_cap10: the dense big_rows),
@@ -784,6 +645,9 @@ csr6_walk_kernel(const float* __restrict__ table,
   const float thr_scale = segs ? zmeta[2] : 0.0f;
 
   for (;;) {
+    // The item counter, slice and partial write of split_walk.cuh
+    // (next_item, item_slice, write_partial), inline: through the helpers
+    // this kernel took 83 registers instead of 77-79, one CTA fewer per SM.
     __syncthreads();  // the last item is done with s_item, ring and ranges
     if (tid == 0) s_item = atomicAdd(&sched[1], 1);
     __syncthreads();
@@ -944,23 +808,131 @@ csr6_merge_kernel(const int* __restrict__ plan,
   if (n <= 1) return;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
-  const int tid = threadIdx.x;
   float qy[kPix], d[kPix], di[kPix];
   init_pixels(tx, ty, qy, d, di);
-  for (int j = 0; j < n; ++j) {
-    const float* p = partial + static_cast<long long>(first + j) * 2 *
-                                   kTilePix;
-#pragma unroll
-    for (int k = 0; k < kPix; ++k) {
-      const float z = p[tid + kThreads * k];
-      const float id = p[kTilePix + tid + kThreads * k];
-      if ((z < d[k]) || ((z == d[k]) && (id < di[k]))) {
-        d[k] = z;
-        di[k] = id;
-      }
-    }
-  }
+  fold_partials(partial, first, n, d, di);
   write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+}
+
+// The split walk of csr6_rows9 (kind-split 9-float rows in sorted order):
+// persistent CTAs take work items from the plan, as csr6_walk_kernel.  A
+// tile's flat rows are its live big rows (the dense 16-float big_rows,
+// through the dual body), then its disc ranges (region 0, the exact disc
+// body), then its capsule ranges (region 1, from span^2 T on: the
+// renormalized capsule body); chunks never straddle those boundaries.
+// Each region is sized with its own prefix into its own half of the slot
+// arrays (at span 8 the two regions name 2 x 512 range slots).  Rows sit
+// in sorted order, so there is no order[] gather: a 9-float chunk is
+// staged by 4-byte cp.async copies, consecutive threads on consecutive
+// floats of a range (rows are 36 B, only 4-byte aligned), each row at a
+// 12-float stride of the slot (eval_rows9's 16-byte loads); big rows by
+// 16-byte copies.  No exit: the rows carry no zlb lane.
+constexpr int kChunk9 = kSlotF / kStride9;  // 9-float rows per ring slot
+
+__global__ void __launch_bounds__(kThreads, 2)
+csr6_rows9_walk_kernel(const float* __restrict__ rows9,
+                       const float* __restrict__ big_rows,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ big_n_ptr, int big_cap,
+                       int* __restrict__ plan, float* __restrict__ partial,
+                       float* __restrict__ depth_out,
+                       int* __restrict__ index_out, int width, int height,
+                       int tiles_x, int num_tiles, int span, int max_items) {
+  extern __shared__ __align__(16) float ring[];  // kRing x kSlotF floats
+  __shared__ int range_start[2 * kMaxRanges];    // discs, then capsules
+  __shared__ int range_cum[2 * kMaxRanges];
+  __shared__ int warp_tot[kThreads / 32];
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  const int n_slots = range_slots(span);
+  const int* items_cum = plan;
+  const int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+  const int n_items = sched[0];
+  const int big_n = min(*big_n_ptr, big_cap);
+
+  for (;;) {
+    const int item = next_item(sched, &s_item);
+    if (item >= n_items) break;
+    const int tile = item_tile[item];
+    const int first = tile > 0 ? items_cum[tile - 1] : 0;
+    const int n = items_cum[tile] - first;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int n_disc = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                   range_start, range_cum, warp_tot);
+    const int n_cap = size_ranges(span, tile, tx, ty, tiles_x,
+                                  span * span * num_tiles, starts,
+                                  range_start + kMaxRanges,
+                                  range_cum + kMaxRanges, warp_tot);
+    const int disc_end = big_n + n_disc;
+    int lo, hi;
+    item_slice(static_cast<long long>(disc_end) + n_cap, item, first, n, &lo,
+               &hi);
+    float qy[kPix], d[kPix], di[kPix];
+    const float qx = init_pixels(tx, ty, qy, d, di);
+
+    int issue = lo;  // the next flat row to stage
+    // The next chunk [issue, +cnt), capped at hi and at the region's end.
+    auto next_chunk = [&](int* start, int* cnt) {
+      *start = issue;
+      const int end = issue < big_n      ? min(big_n, hi)
+                      : issue < disc_end ? min(disc_end, hi)
+                                         : hi;
+      *cnt = min(issue < big_n ? kChunk : kChunk9, max(end - issue, 0));
+      issue += *cnt;
+    };
+    auto stage = [&](int slot, int start, int cnt) {
+      float* dst = ring + slot * kSlotF;
+      if (start < big_n) {
+        if (tid < cnt) {
+          const float* src =
+              big_rows + static_cast<long long>(start + tid) * kRowF;
+#pragma unroll
+          for (int j = 0; j < kRowF; j += 4)
+            cp_async16(dst + tid * kRowF + j, src + j);
+        }
+      } else {
+        const int reg = start < disc_end ? 0 : 1;
+        const int g0 = start - (reg == 0 ? big_n : disc_end);
+        const int* rs = range_start + reg * kMaxRanges;
+        const int* rc = range_cum + reg * kMaxRanges;
+        for (int j = tid; j < cnt * kRowF9; j += kThreads) {
+          const int r = j / kRowF9;
+          const int lane = j - r * kRowF9;
+          const long long pos = flat_pos(g0 + r, n_slots, rs, rc);
+          cp_async4(dst + r * kStride9 + lane, rows9 + pos * kRowF9 + lane);
+        }
+      }
+      cp_async_commit();
+    };
+
+    int slot = 0, n_start, n_cnt;
+    next_chunk(&n_start, &n_cnt);
+    stage(0, n_start, n_cnt);
+    for (;;) {
+      const int c_start = n_start, c_cnt = n_cnt;
+      if (c_cnt == 0) break;  // the same in every thread
+      cp_async_wait_all();
+      __syncthreads();  // chunk staged and visible; the other slot is free
+      next_chunk(&n_start, &n_cnt);
+      stage(slot ^ 1, n_start, n_cnt);
+      const float* sh = ring + slot * kSlotF;
+      if (c_start < big_n)
+        eval_rows<true, false, true>(reinterpret_cast<const float4*>(sh),
+                                     c_cnt, qx, qy, d, di, nullptr, nullptr);
+      else if (c_start < disc_end)
+        eval_rows9<false>(sh, c_cnt, qx, qy, d, di);
+      else
+        eval_rows9<true>(sh, c_cnt, qx, qy, d, di);
+      slot ^= 1;
+    }
+
+    if (n == 1)
+      write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+    else
+      write_partial(partial, item, d, di);
+  }
 }
 
 // Plan, walk and merge on `st`; returns the first launch error.
@@ -978,21 +950,14 @@ int launch_split_walk(const float* table, const float* big_rows,
       (zmeta && !front) || split_rows < 1 || max_items < num_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles <= 0) return 0;
-  csr6_plan_kernel<<<1, kPlanThreads, 0, st>>>(
-      starts, big_n, big_cap, tiles_x, num_tiles, span, zmeta != nullptr,
-      split_rows, max_items, plan, walked);
+  split_plan_kernel<TileRows><<<1, kPlanThreads, 0, st>>>(
+      TileRows{starts, tiles_x, num_tiles, span, zmeta != nullptr, 1}, big_n,
+      big_cap, num_tiles, split_rows, max_items, plan, walked, num_tiles,
+      zmeta != nullptr ? front : nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // One resident CTA per free slot of every SM (the walk is persistent).
-  static int ctas = 0;
-  if (ctas == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, csr6_walk_kernel<kMode>, kThreads, kRingBytes);
-    ctas = max(sms * per_sm, 1);
-  }
+  static const int ctas =
+      persistent_ctas(csr6_walk_kernel<kMode>, kRingBytes);
   csr6_walk_kernel<kMode><<<min(ctas, max_items), kThreads, kRingBytes,
                             st>>>(
       table, big_rows, order, starts, big_ids, big_n, big_cap, zmeta, plan,
@@ -1278,10 +1243,10 @@ csr3_tile_kernel(const float* __restrict__ rows8,
 // 1) i32 range bounds of a binning at `span` (2, 4 or 8); big_ids (>=
 // *big_n, big_cap slots) i32; big_n one i32 on the device; zmeta null, or
 // (3) f32 (zmin, s, thr_scale) of an exit binning at span 2 (the z-bucket
-// early exit); front, with zmeta, (T, 1024) i32 scratch filled with
-// 0x7f800000 (+inf as a depth_key); walked null or (T) i32, the binned
-// rows each tile evaluated; depth (H, W) f32; index (H, W) i32; plan (T +
-// max_items + 3) i32 and partial (max_items, 2, 1024) f32 scratch;
+// early exit); front, with zmeta, (T, 1024) i32 scratch (the plan
+// resets it); walked null or (T) i32, the binned rows each tile
+// evaluated; depth (H, W) f32; index (H, W) i32; plan (T + max_items +
+// 3) i32 and partial (max_items, 2, 1024) f32 scratch;
 // bin_triangles != 0 evaluates the binned rows through the dual; a tile
 // of more than split_rows rows is cut into items (max_items >= T in all).
 extern "C" int csr6_raster(const float* table, const int* order,
@@ -1411,22 +1376,37 @@ extern "C" int csr6_disc8_uv(const float* table8, const float* big_rows,
 }
 
 // The kind-split walk (rows9, rows8).  rows9 (P, 9) f32 in sorted order
-// (row i = sorted position i); big_rows (big_cap, 16) f32, the first
-// *big_n rows live; starts (2 * span^2 * T + 1) i32 range bounds of a
-// kind-split binning at `span` (2, 4 or 8); depth (H, W) f32; index (H, W)
-// i32.
+// (row i = sorted position i), 4-byte aligned; big_rows (big_cap, 16)
+// f32, 16-byte aligned, the first *big_n rows live; starts (2 * span^2 *
+// T + 1) i32 range bounds of a kind-split binning at `span` (2, 4 or 8);
+// depth (H, W) f32; index (H, W) i32; plan, partial, split_rows and
+// max_items as csr6_raster's.
 extern "C" int csr6_rows9(const float* rows9, const float* big_rows,
                           const int* starts, const int* big_n, float* depth,
-                          int* index, int big_cap, int width, int height,
-                          int tiles_x, int tiles_y, int span, void* stream) {
-  if (span != 2 && span != 4 && span != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
+                          int* index, int* plan, float* partial, int big_cap,
+                          int width, int height, int tiles_x, int tiles_y,
+                          int span, int split_rows, int max_items,
+                          void* stream) {
   const int num_tiles = tiles_x * tiles_y;
+  if ((span != 2 && span != 4 && span != 8) || split_rows < 1 ||
+      max_items < num_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles <= 0) return 0;
-  csr6_rows9_kernel<<<num_tiles, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      rows9, big_rows, starts, big_n, big_cap, depth, index, width, height,
-      tiles_x, num_tiles, span);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  split_plan_kernel<TileRows><<<1, kPlanThreads, 0, st>>>(
+      TileRows{starts, tiles_x, num_tiles, span, 0, 2}, big_n, big_cap,
+      num_tiles, split_rows, max_items, plan, nullptr, 0, nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int ctas = persistent_ctas(csr6_rows9_walk_kernel, kRingBytes);
+  csr6_rows9_walk_kernel<<<min(ctas, max_items), kThreads, kRingBytes, st>>>(
+      rows9, big_rows, starts, big_n, big_cap, plan, partial, depth, index,
+      width, height, tiles_x, num_tiles, span, max_items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr6_merge_kernel<<<num_tiles, kThreads, 0, st>>>(plan, partial, depth,
+                                                    index, width, height,
+                                                    tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Per-pair evaluations shared by the port's tile kernels
-// (csr6_raster.cu, csr2_raster.cu): one (row, pixel) pair of a disc, a
-// capsule or a triangle, in the exact float32 expression order of the
+// (csr6_raster.cu, csr2_raster.cu, csr5_raster.cu): one (row, pixel) pair of a
+// disc, a capsule or a triangle, in the exact float32 expression order of the
 // JAX package's evaluators (pallas_csr._eval_capsule / _eval_tri,
 // pallas_csr4._make_row_body16, cpu_reference.rasterize_reference).
 // Exactness needs IEEE float32 per operation: every includer builds with
@@ -18,17 +18,29 @@ __device__ __forceinline__ float clip01(float v) {
 }
 
 // The capsule body (a disc is a capsule with a zero axis) at one pair,
-// (dx, dy) = (qx - x0, qy - y0): covered, with the depth in *z.
-__device__ __forceinline__ bool capsule_pair(float dx, float dy, float z0,
-                                             float r0, float sdx, float sdy,
-                                             float sdz, float sdr, float il2,
-                                             float* z) {
-  const float t = clip01((dx * sdx + dy * sdy) * il2);
+// (dx, dy) = (qx - x0, qy - y0), with dxs = dx * sdx (the same for a
+// whole pixel column of a row): covered, with the depth in *z.
+__device__ __forceinline__ bool capsule_pair_col(float dx, float dxs,
+                                                 float dy, float z0,
+                                                 float r0, float sdx,
+                                                 float sdy, float sdz,
+                                                 float sdr, float il2,
+                                                 float* z) {
+  const float t = clip01((dxs + dy * sdy) * il2);
   const float cx = dx - t * sdx;
   const float cy = dy - t * sdy;
   const float rad = r0 + sdr * t;
   *z = z0 + sdz * t;
   return cx * cx + cy * cy <= rad * rad;
+}
+
+// capsule_pair_col with dx * sdx evaluated here.
+__device__ __forceinline__ bool capsule_pair(float dx, float dy, float z0,
+                                             float r0, float sdx, float sdy,
+                                             float sdz, float sdr, float il2,
+                                             float* z) {
+  return capsule_pair_col(dx, dx * sdx, dy, z0, r0, sdx, sdy, sdz, sdr, il2,
+                          z);
 }
 
 // The triangle body's coverage at one pair: three edge functions e_k =

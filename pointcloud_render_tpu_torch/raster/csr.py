@@ -260,9 +260,12 @@ def check_walk_inputs(rows, starts, big_rows, big_n, width, height, tile_h,
 
 
 def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
-                  height, tile_h, tile_w, no_triangles, walked, allow_exit):
+                  height, tile_h, tile_w, no_triangles, walked, allow_exit,
+                  split_rows=csr6.SPLIT_ROWS):
     """Launch ``symbol`` of ``csrc/csr2_raster.cu`` on CUDA tensors (the
-    plain walk on CPU tensors) and count the launch on ``wrapper``."""
+    plain walk on CPU tensors) and count the call on ``wrapper``:
+    ``csr2_raster`` takes the split walk (``csr6._launch_walk``),
+    ``csr2_disc8`` and ``csr1_raster`` one CTA per strip."""
     row_widths = (ROW_F_DISC,) if symbol == "csr2_disc8" else (ROW_F,)
     tiles_x, tiles_y = check_walk_inputs(rows, starts, big_rows, big_n,
                                          width, height, tile_h, tile_w,
@@ -277,6 +280,19 @@ def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
     rows, starts, big_rows, big_n = (
         t.contiguous() for t in (rows, starts, big_rows, big_n))
     dev = rows.device
+    if symbol == "csr2_raster":
+        # The split walk: a unit is one pass of 1024 pixels of a strip.
+        # The exit's depths shared by a split unit's items (the kernel's
+        # plan resets those it reads).
+        units = tiles_x * tiles_y * -(-tile_h * tile_w // 1024)
+        front = torch.empty((units, 1024), dtype=torch.int32,
+                            device=dev) if allow_exit else None
+        return csr6._launch_walk(
+            symbol, wrapper, (rows, starts, big_rows, big_n, front, walked),
+            ((rows, 4 * ROW_F), (big_rows, 4 * ROW_F)), big_rows.shape[0],
+            width, height, tiles_x, tiles_y,
+            (tile_h, tile_w, int(no_triangles), int(allow_exit)),
+            split_rows, dev, units, library="csr2_raster")
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     index = torch.empty((height, width), dtype=torch.int32, device=dev)
     csr6._launch(symbol, (rows, starts, big_rows, big_n, depth, index,

@@ -70,21 +70,28 @@ def true_entry_count(prims: ScreenPrimitives, width: int, height: int,
 def raster_tiles2(rows, starts, big_rows, big_n, width: int, height: int,
                   tile_h: int = TILE_H, tile_w: int = TILE_W,
                   no_triangles: bool = False, walked=None,
-                  allow_exit: bool = True):
+                  allow_exit: bool = True,
+                  split_rows: int = csr6.SPLIT_ROWS):
     """The v2 walk -> (depth (H, W) f32 +inf-empty, index (H, W) i32
     -1-empty), as :func:`csr.raster_tiles1` over 16-float rows; 8-float
     disc rows hand the call to :func:`raster_tiles2_disc8`.  CUDA tensors
     launch the ``csr2_raster`` kernel of ``csrc/csr2_raster.cu``; CPU
     tensors take ``csr.raster_strips_plain``.  ``walked`` and
-    ``allow_exit`` as in :func:`csr.raster_tiles1`.  ``.launches`` counts
-    launches over 16-float rows."""
+    ``allow_exit`` as in :func:`csr.raster_tiles1` (``walked`` sums a
+    tile's passes of 1024 pixels).  A pass of a tile with more than
+    ``split_rows`` rows (big rows included) is walked by several CTAs
+    whose minima are merged; with the exit on they share their depths as
+    they run, so ``walked`` may differ between runs, the images do not.
+    ``.launches`` counts calls over 16-float rows."""
+    if split_rows < 1:
+        raise ValueError("split_rows must be >= 1")
     if rows.ndim == 2 and rows.shape[1] == ROW_F_DISC:
         return raster_tiles2_disc8(rows, starts, big_rows, big_n, width,
                                    height, tile_h, tile_w, walked,
                                    allow_exit)
     return csr.launch_strips(raster_tiles2, "csr2_raster", rows, starts,
                              big_rows, big_n, width, height, tile_h, tile_w,
-                             no_triangles, walked, allow_exit)
+                             no_triangles, walked, allow_exit, split_rows)
 
 
 raster_tiles2.launches = 0

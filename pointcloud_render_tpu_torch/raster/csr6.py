@@ -87,11 +87,12 @@ FUSED_MAX_BIG = 511
 F_EMPTY = float(1 << 24)  # > every representable prim id
 # z-bucket bits in the exit's int32 sort key (256 buckets).
 ZQ = 8
-# Rows a work item of the 16- and 10-float walks takes at least: a tile
-# with more rows (its big list and binned ranges) is cut into several
-# items, each walked by its own CTA, whose (depth, id) minima a second
-# pass merges.  ITEMS_PER_TILE bounds the items of one call (the items
-# grow past SPLIT_ROWS rows when a frame would need more).
+# Rows a work item of the 16-, 10- and 9-float walks (and of the v2 strip
+# walk, csr2.py) takes at least: a tile with more rows (its big list and
+# binned ranges) is cut into several items, each walked by its own CTA,
+# whose (depth, id) minima a second pass merges.  ITEMS_PER_TILE bounds
+# the items of one call (the items grow past SPLIT_ROWS rows when a frame
+# would need more).
 SPLIT_ROWS = 2048
 ITEMS_PER_TILE = 4
 # Pair budget of one chunk of the plain rasterizer (bounds its memory).
@@ -610,8 +611,7 @@ def _launch(symbol, ptr_args, int_args, device, library="csr6_raster"):
 
 
 def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span):
-    """Checks of the 16- and 10-float walks' exit, ``walked`` and split
-    arguments."""
+    """Checks of the split walks' exit, ``walked`` and split arguments."""
     if zmeta is not None:
         if span != 2:
             raise ValueError("the early exit walks single-class segments: "
@@ -631,27 +631,33 @@ def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span):
 
 
 def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
-                 tiles_x, tiles_y, flags, split_rows, device):
-    """Launch a split walk (plan, walk, merge: one C call) of
-    ``csrc/csr6_raster.cu`` -> (depth, index).  ``ptrs`` are the inputs
-    before the outputs, ``aligned`` the (row tensor, row bytes) pairs that
-    cp.async copies; the wrapper's count goes up once per call."""
+                 tiles_x, tiles_y, flags, split_rows, device, units=None,
+                 library="csr6_raster"):
+    """Launch a split walk (plan, walk, merge: one C call; csrc/
+    split_walk.cuh) of ``csrc/<library>.cu`` -> (depth, index).  ``ptrs``
+    are the inputs before the outputs, ``aligned`` the (row tensor, row
+    bytes) pairs that the kernel copies asynchronously, ``units`` the
+    1024-pixel units of the plan (the tiles by default); the wrapper's
+    count goes up once per call."""
     for t, row_bytes in aligned:
-        need = 16 if row_bytes % 16 == 0 else 8  # cp.async copy sizes
+        # The copy sizes: 16 B for 64 B rows, 8 B for 40 B, 4 B for 36 B.
+        need = next(n for n in (16, 8, 4) if row_bytes % n == 0)
         if t.data_ptr() % need:
             raise ValueError(f"rows of {row_bytes} B must start {need}-byte "
-                             "aligned: cp.async stages them")
-    num_tiles = tiles_x * tiles_y
-    max_items = ITEMS_PER_TILE * num_tiles
+                             "aligned: the kernel copies them "
+                             "asynchronously")
+    units = units or tiles_x * tiles_y
+    max_items = ITEMS_PER_TILE * units
     depth = torch.empty((height, width), dtype=torch.float32, device=device)
     index = torch.empty((height, width), dtype=torch.int32, device=device)
-    plan = torch.empty(num_tiles + max_items + 3, dtype=torch.int32,
+    # The plan, with room for its ticket order (split_plan_kernel).
+    plan = torch.empty(units + 3 * max_items + 3, dtype=torch.int32,
                        device=device)
     partial = torch.empty((max_items, 2, TILE * TILE), dtype=torch.float32,
                           device=device)
     _launch(symbol, (*ptrs, depth, index, plan, partial),
             (big_cap, width, height, tiles_x, tiles_y, *flags, split_rows,
-             max_items), device)
+             max_items), device, library)
     wrapper.launches += 1
     return depth, index
 
@@ -671,10 +677,10 @@ def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
         raise ValueError(f"no csr6 kernel for device {table.device}")
     table, order, starts, big_ids, big_n = (
         t.contiguous() for t in (table, order, starts, big_ids, big_n))
-    # The exit's depths shared by a split tile's items: +inf as the
-    # kernel's depth_key.
-    front = None if zmeta is None else torch.full(
-        (tiles_x * tiles_y, TILE * TILE), 0x7F800000, dtype=torch.int32,
+    # The exit's depths shared by a split tile's items (the kernel's plan
+    # resets those it reads).
+    front = None if zmeta is None else torch.empty(
+        (tiles_x * tiles_y, TILE * TILE), dtype=torch.int32,
         device=table.device)
     return _launch_walk(
         "csr6_raster", wrapper,
@@ -1210,7 +1216,8 @@ def _check_inputs_rows9(rows9, big_rows, starts, big_n, width, height,
 
 
 def raster_tiles_rows9(rows9, big_rows, starts, big_n, width: int,
-                       height: int, span: int = SPAN):
+                       height: int, span: int = SPAN,
+                       split_rows: int = SPLIT_ROWS):
     """The kind-split walk (rows9 and rows8) -> (depth, index): per tile,
     its disc ranges through the exact disc body, its capsule ranges
     through the renormalized segment-frame body, then the dense 16-float
@@ -1218,10 +1225,13 @@ def raster_tiles_rows9(rows9, big_rows, starts, big_n, width: int,
     body.  ``rows9`` are :func:`build_table9`'s rows in sorted order,
     ``starts`` a ``kind_split`` binning's at ``span``.  CUDA tensors
     launch the ``csr6_rows9`` kernel of ``csrc/csr6_raster.cu``; CPU
-    tensors take :func:`raster_tiles_rows9_plain`.  ``.launches`` counts
-    launches."""
+    tensors take :func:`raster_tiles_rows9_plain`.  A tile of more than
+    ``split_rows`` rows is walked by several CTAs whose minima are merged,
+    as in :func:`raster_tiles`.  ``.launches`` counts calls."""
     tiles_x, tiles_y = _check_inputs_rows9(rows9, big_rows, starts, big_n,
                                            width, height, span)
+    _check_exit_walk(None, None, split_rows, rows9.device,
+                     tiles_x * tiles_y, span)
     if rows9.device.type == "cpu":
         return raster_tiles_rows9_plain(rows9, big_rows, starts, big_n,
                                         width, height, span)
@@ -1229,13 +1239,10 @@ def raster_tiles_rows9(rows9, big_rows, starts, big_n, width: int,
         raise ValueError(f"no csr6 kernel for device {rows9.device}")
     rows9, big_rows, starts, big_n = (
         t.contiguous() for t in (rows9, big_rows, starts, big_n))
-    dev = rows9.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    _launch("csr6_rows9", (rows9, big_rows, starts, big_n, depth, index),
-            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
-    raster_tiles_rows9.launches += 1
-    return depth, index
+    return _launch_walk(
+        "csr6_rows9", raster_tiles_rows9, (rows9, big_rows, starts, big_n),
+        ((rows9, 4 * ROW_F9), (big_rows, 4 * ROW_F)), big_rows.shape[0],
+        width, height, tiles_x, tiles_y, (span,), split_rows, rows9.device)
 
 
 raster_tiles_rows9.launches = 0

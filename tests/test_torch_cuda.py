@@ -5,8 +5,9 @@ rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 v3 disc fast path with and without its exit; the v1 and v2 strip walks,
 16-float and 8-float disc rows, with their saturation exit; the v5
 chunk-binned disc walk, with and without its exit and its fused shade;
-the disc rows at spans 4 and 8; the 16- and 10-float walks with their
-tiles split into work items, the 16-float walk with its z-bucket exit)
+the disc rows at spans 4 and 8; the 16-, 10- and 9-float walks and the
+v2 strip walk with their tiles split into work items, the 16-float walk
+with its z-bucket exit)
 against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
@@ -155,13 +156,17 @@ def test_disc_lane_scan_on_card_equals_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", [csr6.SPLIT_ROWS, 64])
 @pytest.mark.parametrize("span", [2, 4, 8])
 @pytest.mark.parametrize("case", CASES + ["droplets"])
-def test_rows9_kernel_matches_plain_on_card(cuda_device, case, span):
+def test_rows9_kernel_matches_plain_on_card(cuda_device, case, span,
+                                            split_rows):
     """csr6_rows9 against its plain version: depth bits and index, on the
     seeded soups and a traj_vel droplet soup on a 10x8-tile film (ties,
     long capsules on the big list at span 2, binned at span 4, and 5-8
-    tiles long, binned only at span 8; invalid rows)."""
+    tiles long, binned only at span 8; invalid rows), its tiles cut into
+    work items of ``split_rows`` rows (at 64, the dense tile's into more
+    than csr6.ITEMS_PER_TILE items); one launch a call."""
     w, h = SPAN8_FILM if case == "droplets" else (W, H)
     soup = (droplet_soup(tcam(w, h, origin=NEAR_ORIGIN))
             if case == "droplets" else make_soup(case)).to(cuda_device)
@@ -172,13 +177,22 @@ def test_rows9_kernel_matches_plain_on_card(cuda_device, case, span):
             csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
             b["starts"], b["big_n"], w, h, span)
     before = csr6.raster_tiles_rows9.launches
-    got = csr6.raster_tiles_rows9(*args)
+    got = csr6.raster_tiles_rows9(*args, split_rows=split_rows)
     want = csr6.raster_tiles_rows9_plain(*args)
     torch.cuda.synchronize()
     assert csr6.raster_tiles_rows9.launches == before + 1
-    for a, w in zip(got, want):
-        np.testing.assert_array_equal(_bits(a), _bits(w))
+    for a, ref in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(ref))
     assert bool((got[1] >= 0).any())
+    if case == "dense_tile" and split_rows == 64:
+        # The plan's item size (csrc/split_walk.cuh split_plan_kernel).
+        k2t = span * span * csr6.grid_shape(w, h)[0] * csr6.grid_shape(w, h)[1]
+        rows = (csr6.tile_rows(b["starts"][:k2t + 1], w, h, span)
+                + csr6.tile_rows(b["starts"][k2t:], w, h, span)
+                + int(b["big_n"][0]))
+        item = max(split_rows, -(-int(rows.sum()) // (
+            (csr6.ITEMS_PER_TILE - 1) * rows.numel())))
+        assert -(-int(rows.max()) // item) > csr6.ITEMS_PER_TILE
 
 
 @pytest.mark.cuda
@@ -450,15 +464,57 @@ STRIP_WALKS = {
 }
 
 
+# Strip shapes of csr2_raster's split walk with its passes cut into work
+# items of 64 rows (4x24: a thread's pixels in several columns).
+SPLIT_STRIPS = {"v2_split_8x128": (8, 128), "v2_split_16x256": (16, 256),
+                "v2_split_4x32": (4, 32), "v2_split_4x24": (4, 24)}
+
+
+def _check_split_strips(soup, tile_h, tile_w):
+    """csr2_raster with its exit off and on, at csr6.SPLIT_ROWS and at 64
+    rows per work item, == the plain strip walk; one launch a call;
+    ``walked`` is every row times the passes with the exit off, at most
+    that with it on."""
+    b = csr.bin_csr(soup, W, H, tile_h, tile_w, max_tiles_per_prim=8)
+    n = int(b["starts"][-1])
+    args = (csr.pack_rows_generic(soup, b["prims"][:n], b["keys"][:n],
+                                  b["zmin"], b["span"]),
+            b["starts"], csr.pack_big_rows(soup, b["big_ids"]), b["big_n"],
+            W, H, tile_h, tile_w)
+    want = csr.raster_strips_plain(*args)
+    lengths = (b["starts"][1:] - b["starts"][:-1]) * -(-tile_h * tile_w
+                                                       // 1024)
+    for allow_exit in (False, True):
+        for split_rows in (csr6.SPLIT_ROWS, 64):
+            walked = torch.full_like(lengths, -1)
+            before = csr2.raster_tiles2.launches
+            got = csr2.raster_tiles2(*args, walked=walked,
+                                     allow_exit=allow_exit,
+                                     split_rows=split_rows)
+            torch.cuda.synchronize()
+            assert csr2.raster_tiles2.launches == before + 1
+            for a, w in zip(got, want):
+                np.testing.assert_array_equal(_bits(a), _bits(w))
+            if allow_exit:
+                assert bool(((walked >= 0) & (walked <= lengths)).all())
+            else:
+                assert torch.equal(walked, lengths)
+    assert bool((want[1] >= 0).any())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", sorted(STRIP_WALKS))
+@pytest.mark.parametrize("walk", sorted(STRIP_WALKS) + sorted(SPLIT_STRIPS))
 @pytest.mark.parametrize("case", CASES + ["disc_ties"])
 def test_strip_kernels_match_plain_on_card(cuda_device, case, walk):
     """csr1_raster, csr2_raster and csr2_disc8 (with their saturation
     exit) against the plain strip walk (none): depth bits and index, one
-    launch of the wrapper the walk names."""
+    launch of the wrapper the walk names; csr2_raster's split walk also
+    with forced splits, its exit off and on (``SPLIT_STRIPS``)."""
     soup = (disc_soup(tcam()) if case == "disc_ties"
             else make_soup(case)).to(cuda_device)
+    if walk in SPLIT_STRIPS:
+        _check_split_strips(soup, *SPLIT_STRIPS[walk])
+        return
     fn, kw = STRIP_WALKS[walk]
     wrapper = (csr.raster_tiles1 if fn is csr.rasterize_csr
                else csr2.raster_tiles2_disc8 if kw.get("discs_only")
