@@ -6,10 +6,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
-csr6_raster.cu and csr2_raster.cu beside this one's and times its
-csr6_rows9 and csr2_raster (their C interfaces before the split walk) on
-the same inputs wherever this run times those kernels, after holding them
-against the plain version.
+csr6_raster.cu beside this one's and times its csr6_disc8 and
+csr6_disc8_uv (their C interfaces before the split walk: one CTA per
+tile, rows gathered by sorted id) on the same inputs wherever this run
+times those kernels, after holding them against the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -24,9 +24,14 @@ Phases (any failure exits non-zero and prints no result line):
      splits and on the JAX package's cross-class exit case (the exit
      leaves the far discs' segment and the near disc wins), and the two
      disc-row kernels (csr6_disc8, csr6_disc8_uv) against theirs on the
-     seeded soups and a disc scene with exact depth ties and two wide
-     discs on the big list: depth bits, winner index and the (u, v) bits
-     with their +inf markers must be equal;
+     seeded soups, a disc scene with exact depth ties and two wide discs
+     on the big list, and tests/torch_soups.band_soup (discs tangent to
+     the cull's bands, centred on band boundaries, over a ragged bottom
+     band, ties across work items) at spans 2, 4 and 8, their tiles cut
+     into items of csr6.SPLIT_ROWS_DISC and of 64 rows (walked every
+     tile's rows, the band-rows evaluated csr6.band_rows'), csr6_disc8 at
+     span 2 also with the exit forced on: depth bits, winner index and
+     the (u, v) bits with their +inf markers must be equal;
   4. the soup built on the card must equal the soup built on the CPU;
   5. write seeded binary 1M-point PLYs (positions + velocities, the
      traffic of bench.py's flagship lane) and render frames 10, 120 and
@@ -45,8 +50,14 @@ Phases (any failure exits non-zero and prints no result line):
      the walk by split_rows;
   7. the disc lane of bench.py (ground + 1M sphere splats of radius 0.002,
      discs_only, uniform_look, max_big 256): both disc kernels equal their
-     plain versions on the 1M-point cloud at frames 0, 120 and 219; the
-     fused shade equals shade_by_id(uniform_look) bit for bit; then the
+     plain versions on the 1M-point cloud at frames 0, 120 and 219 (as in
+     phase 3), with the tile rows, work items and band-rows per frame; at
+     frame 120 their times (CUDA events per call, and device_ms: calls
+     back to back) beside the all-pairs bound, the bound over the pairs
+     evaluated and the bytes' time, the split sweep (SPLIT_SWEEP_DISC),
+     csr6_disc8 with the exit forced on (rows walked) and the parent's
+     kernels under --parent; the fused shade equals
+     shade_by_id(uniform_look) bit for bit; then the
      220-frame flythrough through TrajectoryScanRenderer at 1920x1080 in
      chunks of 8: certificate 0 on every chunk, one csr6_disc8_uv launch
      per frame, frames equal to the fused walk's plain version (the scan's
@@ -170,9 +181,9 @@ Phases (any failure exits non-zero and prints no result line):
      the superrows walked before the exits (the bound counts their live
      slots); the stages of one warm frame and its ms; csr6_disc8 and
      csr6_disc8_uv at spans 4 and 8 == plain and timed on frame 120's
-     soup, and their entry point render_shaded_csr6(discs_only,
-     uniform_look) at each span: one csr6_disc8_uv launch, == its plain
-     walk bit for bit.
+     soup as in phase 7, and their entry point
+     render_shaded_csr6(discs_only, uniform_look) at each span: one
+     csr6_disc8_uv launch, == its plain walk bit for bit.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
@@ -181,8 +192,15 @@ card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr6_raster's (ms: the default walk,
 with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
 csr3_raster's and the strip kernels' and the v5 kernels' entries add
-ms_exit_off and bound_ms_exit_off, the walk of every entry.  "[split]"
-lines time a split walk by split_rows (SPLIT_SWEEP).
+ms_exit_off and bound_ms_exit_off, the walk of every entry; the disc
+walks' bound_ms is the larger of the pairs the function needs (each
+binned row at the pixel rows whose exact dy test it passes, 32 pixels
+each) and their bytes, and their entries add bound_ms_evaluated (the
+pairs the cull's warp bands evaluate), bound_ms_all_pairs (every pair,
+the bound of their history), bytes_ms, device_ms, ms_exit and
+bound_ms_exit (csr6_disc8, the exit forced on), and under --parent
+parent_ms and parent_device_ms.  "[split]" lines time a split walk by
+split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC).
 """
 
 from __future__ import annotations
@@ -287,10 +305,12 @@ V3_BLOCKS = (64, 128, 256, 512, 1024)
 # times the walk at SPLIT_SWEEP (the last: one item per tile).
 SPLIT_FORCED = 64
 SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
-# --parent DIR: the parent commit's tree, whose csr6_raster.cu and
-# csr2_raster.cu are built beside this one's and timed on the same inputs
-# (its one-CTA-per-tile csr6_rows9 and csr2_raster).
+# --parent DIR: the parent commit's tree, whose csr6_raster.cu is built
+# beside this one's and whose disc walks are timed on the same inputs.
 PARENT = {"tree": None, "libs": {}}
+# The disc walks' split sweep (rows per work item; the last: one item per
+# tile).
+SPLIT_SWEEP_DISC = (256, 512, 1024, 2048, 4096, 8192, 1 << 30)
 
 
 class SmokeFailure(Exception):
@@ -473,6 +493,35 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps):
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    calls enqueued back to back behind a spin kernel (torch.cuda._sleep)
+    that holds the device until the host has enqueued them all, so that no
+    host gap falls between the events (checked: the host must finish
+    enqueueing before the spin ends).  time_ms's events also count the
+    host's time to enqueue a call while the device waits, which is of the
+    order of a walk of a few tenths of a millisecond.  ``fn`` must not
+    synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of SM clocks
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    marks[2].record()
+    torch.cuda.synchronize()
+    check(host_ms < marks[0].elapsed_time(marks[1]),
+          f"device_ms: enqueueing {reps} calls took {host_ms:.1f} ms, past "
+          "the spin: device time not measured")
+    return marks[1].elapsed_time(marks[2]) / reps
+
+
 def region_entries(b, span, regions):
     """Tile entries of the binned rows per ordinal region (one region, or
     discs then capsules under a kind split): each sorted position counts
@@ -617,19 +666,15 @@ def nvcc_build(kernels, src, out):
 
 
 def build_parent(kernels):
-    """Under --parent, build the parent tree's csr6_raster.cu and
-    csr2_raster.cu (PARENT["libs"]), one nvcc each, started together."""
+    """Under --parent, build the parent tree's csr6_raster.cu
+    (PARENT["libs"]), beside this tree's build: its csr6_disc8 and
+    csr6_disc8_uv (one CTA per tile, rows gathered by sorted id) are timed
+    on the same inputs as this tree's."""
     if PARENT["tree"] is None:
         return
-    jobs = {lib: (os.path.join(PARENT["tree"], src),
-                  os.path.join(REPO, "build", "parent", f"lib{lib}_parent.so"))
-            for lib, src in (("csr6_raster", KERNEL_SOURCE),
-                             ("csr2_raster", STRIP_SOURCE))}
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        built = {k: pool.submit(nvcc_build, kernels, *v)
-                 for k, v in jobs.items()}
-        for name, fut in built.items():
-            PARENT["libs"][name] = fut.result()
+    PARENT["libs"]["csr6_raster"] = nvcc_build(
+        kernels, os.path.join(PARENT["tree"], KERNEL_SOURCE),
+        os.path.join(REPO, "build", "parent", "libcsr6_raster_parent.so"))
 
 
 def c_call(lib, symbol, ptrs, ints, what):
@@ -649,33 +694,35 @@ def c_call(lib, symbol, ptrs, ints, what):
 
 
 def parent_walk(symbol, ptrs, ints, width, height, library="csr6_raster",
-                tail=()):
+                images=0):
     """One call of the parent's ``symbol`` in ``library`` (its C interface:
-    inputs, depth, index, ``tail`` pointers, ints, stream) -> (depth,
-    index): csr6_rows9 and csr2_raster before their split walks."""
+    inputs, depth, index, ``images`` more float32 images, ints, stream) ->
+    (depth, index, *images): csr6_disc8 (``images`` 0) and csr6_disc8_uv
+    (2: u, v) before their split walks."""
     import torch
 
     dev = ptrs[0].device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    c_call(PARENT["libs"][library], symbol, (*ptrs, depth, index, *tail),
-           ints, f"the parent's {symbol}")
-    return depth, index
+    outs = [torch.empty((height, width), dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int32,
+                       *[torch.float32] * images)]
+    c_call(PARENT["libs"][library], symbol, (*ptrs, *outs), ints,
+           f"the parent's {symbol}")
+    return tuple(outs)
 
 
 def parent_time(symbol, ptrs, ints, width, height, want, what,
-                library="csr6_raster", tail=()):
+                library="csr6_raster", images=0):
     """The parent's walk == ``want`` bit for bit, then its median time of
     11 (None without --parent)."""
     import torch
 
     if not PARENT["libs"]:
         return None
-    got = parent_walk(symbol, ptrs, ints, width, height, library, tail)
+    got = parent_walk(symbol, ptrs, ints, width, height, library, images)
     torch.cuda.synchronize()
     check_equal_bits(got, want, f"the parent's {what}")
     return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height,
-                                       library, tail), 11)
+                                       library, images), 11)
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
@@ -777,23 +824,24 @@ def print_v6_times(what, r, shape, card):
               flush=True)
 
 
-def split_sweep(what, fn, card, rows=None):
-    """Time ``fn(split_rows, walked)`` at each of SPLIT_SWEEP; one [split]
-    line, with the share of ``rows`` (the tiles' binned rows) walked when
-    given."""
+def split_sweep(what, fn, card, rows=None, sweep=SPLIT_SWEEP,
+                timer=time_ms):
+    """Time ``fn(split_rows, walked)`` at each of ``sweep`` (5 calls by
+    ``timer``); one [split] line, with the share of ``rows`` (the
+    tiles' binned rows) walked when given."""
     import torch
 
     parts = []
-    for w in SPLIT_SWEEP:
+    for w in sweep:
         part = (f"{w if w < 1 << 30 else 'one item per tile'}: "
-                f"{time_ms(lambda w=w: fn(w, None), 5):.3f}")
+                f"{timer(lambda w=w: fn(w, None), 5):.3f}")
         if rows is not None:
             walked = torch.zeros_like(rows)
             fn(w, walked)
             part += (f" ({100.0 * int(walked.sum()) / int(rows.sum()):.1f}%"
                      " walked)")
         parts.append(part)
-    print(f"[split] {what}, ms by split_rows (median of 5): "
+    print(f"[split] {what}, ms by split_rows (5 calls): "
           + ", ".join(parts) + f" ({card})", flush=True)
 
 
@@ -868,40 +916,204 @@ def print_v4_times(what, r, shape, card):
           f"({card})", flush=True)
 
 
+def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
+    """(all-pairs ms, needed-pairs ms, evaluated-pairs ms, bytes ms) of a
+    disc walk on this soup: the least time for every (binned row, tile
+    pixel) pair and every pixel x every live big row (walk_bound's count,
+    the bound of the rows' history); for the pairs the function needs
+    (``pixel_rows`` (binned row, pixel row) pairs that pass the exact dy
+    test, csr6.band_rows with bands of one row, of 32 pixels each at
+    OPS_DISC8, plus the big-list pairs, which no test can skip); for the
+    pairs the walk evaluates (``bands`` band-rows of 32 x BAND_ROWS
+    pixels, plus the same big-list pairs); and for its bytes (every
+    binned row read once, 32 B in sorted order, the big rows, the range
+    starts, ``images`` images written)."""
+    from pointcloud_render_tpu_torch.raster import csr6
+
+    all_pairs = walk_bound(b, soup, width, height, 32, OPS_DISC8, images,
+                           span, id_bytes=0)[0]
+    nb = int(b["big_n"][0])
+    n_tri = int((soup.kind[b["big_ids"][:nb].long()] == 2).sum())
+    pixels = width * height
+    big_ops = pixels * (n_tri * OPS_TRIANGLE16
+                        + (nb - n_tri) * OPS_CAPSULE16)
+    needed = pixel_rows * 32 * OPS_DISC8 + big_ops
+    evaluated = bands * 32 * csr6.BAND_ROWS * OPS_DISC8 + big_ops
+    nbytes = (int(b["starts"][-1]) * 32 + nb * (64 + 4)
+              + b["starts"].numel() * 4 + pixels * 4 * images)
+    return (all_pairs, needed / F32_OPS_PER_S * 1e3,
+            evaluated / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3)
+
+
+# Keys of the kernels line beyond the contract's, where a kernel has them:
+# the exit-off walk of the walks with an exit; the disc walks' all-pairs
+# and evaluated-pairs bounds, bytes' time, device time, forced exit and
+# the parent's time.
+EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
+              "bound_ms_evaluated", "bytes_ms", "device_ms", "ms_exit",
+              "bound_ms_exit", "parent_ms", "parent_device_ms")
+
+
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
-                 span=2):
+                 span=2, card="", sweep=False):
     """csr6_disc8 and csr6_disc8_uv vs their plain versions on one soup
-    binned at ``span`` -> {kernel name: dict(err, ms, plain_ms, bound_ms,
-    bound_by)}; ``flag`` is preshade's disc flag (lane 5 of the disc rows,
-    lane 13 of the big rows), which the (u, v) walk multiplies by."""
+    binned at ``span`` -> ({kernel name: dict(err, ...)}, binning).  Both
+    kernels run with their tiles cut at csr6.SPLIT_ROWS_DISC and at
+    SPLIT_FORCED rows, each equal to its plain version bit for bit (depth,
+    index, (u, v)), ``walked`` every tile's rows and ``bands`` the
+    band-rows csr6.band_rows counts; at span 2 csr6_disc8 also with the
+    exit forced on (the exit binning's keys), ``walked`` within every
+    tile's rows.  ``flag`` is preshade's disc flag (lane 5 of the disc
+    rows, lane 13 of the big rows), which the (u, v) walk multiplies by.
+    With ``timing``: ms (the default walk), plain_ms, bound_ms (the larger
+    of the needed pairs' and the bytes' time, disc_bounds), the bound
+    over the pairs the cull evaluates, the all-pairs bound, the tile rows
+    and work items, the band-rows and needed pixel rows, the device time
+    (device_ms), the parent's kernel under --parent, and at span 2
+    csr6_disc8 with the exit forced on; with ``sweep`` the split sweep of
+    both kernels."""
     import torch
 
-    b = csr6.bin_csr6(soup, width, height, max_big, discs_only=True,
-                      span=span)
-    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
     zeros = torch.zeros((soup.count, 3), device=soup.device)
-    args = (csr6.build_table8(soup, flag),
-            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
-            b["order"], b["starts"], b["big_n"], width, height, span)
-    out = {}
-    for name, kernel, plain, images in (
-            ("csr6_disc8", csr6.raster_tiles_disc8,
-             csr6.raster_tiles_disc8_plain, 2),
-            ("csr6_disc8_uv", csr6.raster_tiles_disc8_uv,
-             csr6.raster_tiles_disc8_uv_plain, 4)):
-        got = kernel(*args)
+
+    def inputs(with_z):
+        b = csr6.bin_csr6(soup, width, height, max_big, discs_only=True,
+                          span=span, with_z=with_z)
+        check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+        return b, (csr6.build_rows8(soup, flag, b["order"]),
+                   csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+                   b["starts"], b["big_n"], width, height, span)
+
+    b, args = inputs(False)
+    rows = csr6.tile_rows(b["starts"], width, height, span)
+    kept = csr6.band_rows(args[0], b["starts"], width, height, span)
+    kernels = {"csr6_disc8": (csr6.raster_tiles_disc8,
+                              csr6.raster_tiles_disc8_plain, 2),
+               "csr6_disc8_uv": (csr6.raster_tiles_disc8_uv,
+                                 csr6.raster_tiles_disc8_uv_plain, 4)}
+    out, wants = {}, {}
+    for name, (kernel, plain, _) in kernels.items():
+        wants[name] = want = plain(*args)
         torch.cuda.synchronize()
-        want = plain(*args)
-        torch.cuda.synchronize()
-        out[name] = dict(err=check_equal_bits(got, want, name))
-        if timing:
-            bound_ms, bound_by = walk_bound(b, soup, width, height, 32,
-                                            OPS_DISC8, images, span)
-            out[name].update(
-                ms=time_ms(lambda k=kernel: k(*args), 11),
-                plain_ms=time_ms(lambda f=plain: f(*args), 2),
-                bound_ms=bound_ms, bound_by=bound_by)
+        err = 0.0
+        for split in (csr6.SPLIT_ROWS_DISC, SPLIT_FORCED):
+            walked = torch.full_like(rows, -1)
+            bands = torch.full_like(rows, -1)
+            got = kernel(*args, walked=walked, bands=bands, split_rows=split)
+            torch.cuda.synchronize()
+            what = f"{name} span {span}, items of {split} rows"
+            err = max(err, check_equal_bits(got, want, what))
+            check(torch.equal(walked, rows),
+                  f"{what}: walked is not every tile's rows")
+            check(torch.equal(bands, kept),
+                  f"{what}: the band-rows evaluated differ from band_rows")
+        out[name] = dict(err=err)
+    exit_run = None
+    if span == 2:
+        # The exit forced on: the exit binning's keys and zmeta.
+        bz, zargs = inputs(True)
+        zwant = csr6.raster_tiles_disc8_plain(*zargs)
+        kept_z = csr6.band_rows(zargs[0], bz["starts"], width, height, span)
+        for split in (csr6.SPLIT_ROWS_DISC, SPLIT_FORCED):
+            walked = torch.full_like(rows, -1)
+            bands = torch.full_like(rows, -1)
+            got = csr6.raster_tiles_disc8(*zargs, zmeta=bz["zmeta"],
+                                          walked=walked, bands=bands,
+                                          split_rows=split)
+            torch.cuda.synchronize()
+            what = f"csr6_disc8 exit on, items of {split} rows"
+            out["csr6_disc8"]["err"] = max(out["csr6_disc8"]["err"],
+                                           check_equal_bits(got, zwant, what))
+            check(bool(((walked >= 0) & (walked <= rows)).all()),
+                  f"{what}: walked outside [0, rows]")
+            check(bool(((bands >= 0) & (bands <= kept_z)).all()),
+                  f"{what}: band-rows outside [0, band_rows]")
+            if split == csr6.SPLIT_ROWS_DISC:
+                exit_run = (zargs, bz, int(walked.sum()), int(bands.sum()))
+    if not timing:
+        return out, b
+    tiles_x, tiles_y = csr6.grid_shape(width, height)
+    table8 = csr6.build_table8(soup, flag)
+    n_rows = int(rows.sum())
+    pixel_rows = int(csr6.band_rows(args[0], b["starts"], width, height,
+                                    span, band=1).sum())
+    for name, (kernel, plain, images) in kernels.items():
+        all_pairs, t_need, t_eval, t_bytes = disc_bounds(
+            b, soup, width, height, images, span, int(kept.sum()),
+            pixel_rows)
+        r = out[name]
+        r.update(ms=time_ms(lambda k=kernel: k(*args), 11),
+                 plain_ms=time_ms(lambda f=plain: f(*args), 2),
+                 bound_ms=max(t_need, t_bytes),
+                 bound_by="operations" if t_need >= t_bytes else "bytes",
+                 bound_ms_all_pairs=all_pairs, bound_ms_evaluated=t_eval,
+                 bytes_ms=t_bytes, entries=n_rows, bands=int(kept.sum()),
+                 pixel_rows=pixel_rows,
+                 **tile_stats(csr6, b, width, height, span,
+                              int(b["big_n"][0]), csr6.SPLIT_ROWS_DISC))
+        r["device_ms"] = device_ms(lambda k=kernel: k(*args), 11)
+        if PARENT["libs"]:
+            pargs = (name, (table8, args[1], b["order"], b["starts"],
+                            b["big_n"]),
+                     (args[1].shape[0], width, height, tiles_x, tiles_y,
+                      span), width, height)
+            r["parent_ms"] = parent_time(*pargs, wants[name],
+                                         f"{name} span {span}",
+                                         images=images - 2)
+            r["parent_device_ms"] = device_ms(
+                lambda p=pargs: parent_walk(*p, images=images - 2), 11)
+        if sweep:
+            split_sweep(f"{name} span {span}, device time",
+                        lambda w, wk, k=kernel: k(*args, split_rows=w), card,
+                        sweep=SPLIT_SWEEP_DISC, timer=device_ms)
+    if exit_run is not None:
+        # The pairs the exit walk needs: those of the rows it walked, taken
+        # as the walked share of every row's (the exit skips whole rows).
+        zargs, bz, walked, bands = exit_run
+        z_rows = int(csr6.band_rows(zargs[0], bz["starts"], width, height,
+                                    span, band=1).sum())
+        _, t_need, _, t_bytes = disc_bounds(
+            bz, soup, width, height, 2, span, bands,
+            z_rows * walked / max(n_rows, 1))
+        out["csr6_disc8"].update(
+            ms_exit=time_ms(lambda: csr6.raster_tiles_disc8(
+                *zargs, zmeta=bz["zmeta"]), 11),
+            device_ms_exit=device_ms(lambda: csr6.raster_tiles_disc8(
+                *zargs, zmeta=bz["zmeta"]), 11),
+            bound_ms_exit=max(t_need, t_bytes), walked=walked,
+            bands_exit=bands)
     return out, b
+
+
+def print_disc_times(name, r, shape, card):
+    """The [time] lines of compare_disc's numbers for one kernel."""
+    print(f"[time] {name} kernel {r['ms']:.3f} ms (median of 11), bound "
+          f"{r['bound_ms']:.3f} ms by {r['bound_by']} (the pairs needed or "
+          f"the bytes {r['bytes_ms']:.3f} ms), bound over the pairs the "
+          f"cull evaluates {r['bound_ms_evaluated']:.3f} ms, all-pairs bound "
+          f"{r['bound_ms_all_pairs']:.3f} ms; plain "
+          f"{r['plain_ms']:.1f} ms (median of 2), at the {shape} shape "
+          f"({card})", flush=True)
+    print(f"[time] {name} at the {shape} shape: {stats_text(r)}; band-rows "
+          f"evaluated {r['bands']} of {8 * r['entries']} "
+          f"({100.0 * r['bands'] / max(8 * r['entries'], 1):.1f}% of the "
+          f"pairs), pixel rows needed {r['pixel_rows']} of "
+          f"{32 * r['entries']} "
+          f"({100.0 * r['pixel_rows'] / max(32 * r['entries'], 1):.1f}%); "
+          f"device time {r['device_ms']:.3f} ms (11 calls back to "
+          f"back) ({card})", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {name} at the {shape} shape: parent "
+              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
+              f" change {r['ms']:.3f} ms (device {r['device_ms']:.3f}) "
+              f"({card})", flush=True)
+    if "ms_exit" in r:
+        print(f"[time] {name} exit forced on at the {shape} shape: "
+              f"{r['ms_exit']:.3f} ms (device {r['device_ms_exit']:.3f}), "
+              f"bound {r['bound_ms_exit']:.3f} ms, "
+              f"{r['walked']} of {r['entries']} tile rows walked "
+              f"({100.0 * r['walked'] / max(r['entries'], 1):.1f}%), "
+              f"band-rows {r['bands_exit']} ({card})", flush=True)
 
 
 def compare_rows9(soup, width, height, csr6, max_big, span, timing=False,
@@ -948,11 +1160,6 @@ def compare_rows9(soup, width, height, csr6, max_big, span, timing=False,
                    item_rows=w, **row_stats(regions[0], "disc_rows"),
                    **row_stats(regions[1], "capsule_rows"),
                    **row_stats(regions[0] + regions[1]))
-        tiles_x, tiles_y = csr6.grid_shape(width, height)
-        out["parent_ms"] = parent_time(
-            "csr6_rows9", args[:4],
-            (args[1].shape[0], width, height, tiles_x, tiles_y, span), width,
-            height, want, f"csr6_rows9 span {span}")
         split_sweep(f"csr6_rows9 span {span}",
                     lambda w, wk: csr6.raster_tiles_rows9(
                         *args, split_rows=w), card)
@@ -1351,10 +1558,6 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
                   f"{res['capsule_rows_median']:.0f}, p99 "
                   f"{res['capsule_rows_p99']:.0f}; {stats_text(res)}",
                   flush=True)
-            if res["parent_ms"] is not None:
-                print(f"[time] csr6_rows9 at the droplet lane's frame-120 "
-                      f"shape: parent {res['parent_ms']:.3f} ms, change "
-                      f"{res['ms']:.3f} ms ({card})", flush=True)
 
     # The main path: the lane's 12 frames through build_primitives +
     # render, certificate read once at the end.
@@ -1532,15 +1735,14 @@ def scan_stages(pipeline, csr6, trajectory, preset, pos, fi, dev, max_big):
                                discs_only=True)
 
     def tables(f):
-        f["table8"] = csr6.build_table8(f["soup"], f["flag"])
+        f["rows8"] = csr6.build_rows8(f["soup"], f["flag"], f["b"]["order"])
         f["big"] = csr6.build_table16_rows(f["soup"], f["rgb"], f["flag"],
                                            f["b"]["big_ids"])
 
     def kernel(f):
         b = f["b"]
         f["depth"], _, f["u"], f["v"] = csr6.raster_tiles_disc8_uv(
-            f["table8"], f["big"], b["order"], b["starts"], b["big_n"],
-            WIDTH, HEIGHT)
+            f["rows8"], f["big"], b["starts"], b["big_n"], WIDTH, HEIGHT)
 
     def shade(f):
         f["lit"] = csr6.shade_uv(f["cam"], shading, f["depth"], f["u"],
@@ -1548,7 +1750,7 @@ def scan_stages(pipeline, csr6, trajectory, preset, pos, fi, dev, max_big):
 
     return [("camera+soup build", build), ("preshade", preshade),
             ("binning (sort, starts, big list)", binning),
-            ("table8 + big rows", tables), ("csr6_disc8_uv kernel", kernel),
+            ("rows8 + big rows", tables), ("csr6_disc8_uv kernel", kernel),
             ("shade_uv", shade),
             ("srgb_encode_u8", lambda f: trajectory.srgb_encode_u8(f["lit"]))]
 
@@ -1613,26 +1815,33 @@ def disc_lane(card, dev, max_err, counters) -> dict:
         soup = pipeline.build_primitives(preset, cam, pos, None, fi)
         rgb_p, flag = csr6.preshade(soup, cam, shading)
         res, b = compare_disc(soup, flag, WIDTH, HEIGHT, csr6, max_big,
-                              timing=fi == 120)
+                              timing=fi == 120, card=card, sweep=fi == 120)
         for kernel, r in res.items():
             max_err[kernel] = max(max_err[kernel], r["err"])
+        rows8 = csr6.build_rows8(soup, flag, b["order"])
+        rows = csr6.tile_rows(b["starts"], WIDTH, HEIGHT)
+        kept = int(csr6.band_rows(rows8, b["starts"], WIDTH, HEIGHT).sum())
         print(f"[disc] frame {fi}: {soup.count} prims, "
               f"{int(b['starts'][-1])} binned, true_entries "
               f"{int(b['diag']['true_entries'])}, big list "
               f"{int(b['big_count'])} of max_big {max_big}; csr6_disc8 and "
-              "csr6_disc8_uv == plain bit for bit", flush=True)
+              "csr6_disc8_uv == plain bit for bit (items of "
+              f"{csr6.SPLIT_ROWS_DISC} and {SPLIT_FORCED} rows; csr6_disc8 "
+              "also with the exit forced on); "
+              + stats_text(tile_stats(csr6, b, WIDTH, HEIGHT, 2,
+                                      int(b["big_n"][0]),
+                                      csr6.SPLIT_ROWS_DISC))
+              + f"; band-rows {kept} of {8 * int(rows.sum())} "
+              f"({100.0 * kept / max(8 * int(rows.sum()), 1):.1f}%)",
+              flush=True)
         if fi == 120:
             timed = res
             for kernel, r in res.items():
-                print(f"[time] {kernel} kernel {r['ms']:.3f} ms (median of "
-                      f"11), plain {r['plain_ms']:.1f} ms (median of 2), "
-                      f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} at "
-                      f"the disc lane's frame-120 shape ({card})", flush=True)
+                print_disc_times(kernel, r, "disc lane's frame-120", card)
         zeros = torch.zeros((soup.count, 3), device=dev)
         depth, index, u, v = csr6.raster_tiles_disc8_uv(
-            csr6.build_table8(soup, flag),
-            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
-            b["order"], b["starts"], b["big_n"], WIDTH, HEIGHT)
+            rows8, csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["starts"], b["big_n"], WIDTH, HEIGHT)
         fused = csr6.shade_uv(cam, shading, depth, u, v, LOOK)
         by_id = csr6.shade_by_id(soup, cam, shading, depth, index, rgb_p,
                                  flag, uniform_look=LOOK)
@@ -2763,15 +2972,6 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
         items, w = plan_items(starts[1:] - starts[:-1], int(b["big_n"][0]))
         out.update(row_stats(starts[1:] - starts[:-1]), items=items,
                    item_rows=w)
-        tiles_x, tiles_y = csr.strip_grid(width, height, th, tw)
-        for exit_on, key in ((True, "parent_ms"),
-                             (False, "parent_ms_exit_off")):
-            out[key] = parent_time(
-                "csr2_raster", args[:4],
-                (width, height, tiles_x, tiles_y, th, tw, int(no_triangles),
-                 int(exit_on)), width, height, want,
-                f"{what} exit {'on' if exit_on else 'off'}", "csr2_raster",
-                (None,))
         sweep_rows = lengths.clone()
         split_sweep(f"{kernel} exit off, {what}",
                     lambda w, wk: wrapper(*args, allow_exit=False,
@@ -2793,11 +2993,6 @@ def print_strip_times(kernel, r, shape, card):
     if "items" in r:
         print(f"[time] {kernel} at the {shape} shape: "
               f"{stats_text(r, 'strip')} ({card})", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {kernel} at the {shape} shape: parent "
-              f"{r['parent_ms']:.3f} ms, change {r['ms']:.3f} ms; exit off "
-              f"parent {r['parent_ms_exit_off']:.3f} ms, change "
-              f"{r['ms_exit_off']:.3f} ms ({card})", flush=True)
 
 
 STRIP_KERNELS = ("csr1_raster", "csr2_raster", "csr2_disc8")
@@ -3336,14 +3531,12 @@ def v5_lane(card, dev, max_err, counters, seeded) -> dict:
     _, flag = csr6.preshade(soups[120], cams[120], shading)
     for span in (4, 8):
         res, b = compare_disc(soups[120], flag, WIDTH, HEIGHT, csr6, 256,
-                              timing=True, span=span)
+                              timing=True, span=span, card=card)
         for kernel, r in res.items():
             max_err[kernel] = max(max_err[kernel], r["err"])
-            print(f"[time] {kernel} span {span} kernel {r['ms']:.3f} ms "
-                  f"(median of 11), plain {r['plain_ms']:.1f} ms, bound "
-                  f"{r['bound_ms']:.3f} ms by {r['bound_by']}; == plain bit "
-                  f"for bit; big list {int(b['big_count'])} at the disc "
-                  f"lane's frame-120 shape ({card})", flush=True)
+            print_disc_times(f"{kernel} span {span}", r,
+                             f"disc lane's frame-120 (big list "
+                             f"{int(b['big_count'])})", card)
         torch.cuda.synchronize()
         reset_counts(counters)
         got = csr6.render_shaded_csr6(soups[120], cams[120], shading,
@@ -3453,15 +3646,28 @@ def run() -> dict:
     # holes) and on a two-tone disc scene: exact ties, two wide discs.
     del seeded["mixed"]
     seeded["disc_ties_wide"] = disc_lane_soup(dev)
+    # Each at spans 2, 4 and 8, with items of csr6.SPLIT_ROWS_DISC and of
+    # SPLIT_FORCED rows, csr6_disc8 at span 2 also with the exit forced on;
+    # and the cull's band soup (discs tangent to its bands, centred on
+    # band boundaries, over a ragged bottom band, ties across items) on
+    # its own film.
     cam = soup_camera(dev)
-    for name, soup in seeded.items():
-        _, flag = csr6.preshade(soup, cam, shading)
-        res, b = compare_disc(soup, flag, WIDTH, HEIGHT, csr6, 1 << 16)
-        for kernel, r in res.items():
-            max_err[kernel] = max(max_err[kernel], r["err"])
-        print(f"[kernel==plain] csr6_disc8, csr6_disc8_uv {name}: "
-              f"{soup.count} prims, big list {int(b['big_count'])} ok",
-              flush=True)
+    ts = torch_soups()
+    disc_cases = [(name, soup, cam, WIDTH, HEIGHT)
+                  for name, soup in seeded.items()]
+    disc_cases.append(("band", ts.band_soup().to(dev),
+                       ts.tcam(device=dev), ts.W, ts.H))
+    for name, soup, c, w, h in disc_cases:
+        _, flag = csr6.preshade(soup, c, shading)
+        for span in csr6.SPANS:
+            res, b = compare_disc(soup, flag, w, h, csr6, 1 << 16,
+                                  span=span)
+            for kernel, r in res.items():
+                max_err[kernel] = max(max_err[kernel], r["err"])
+        print(f"[kernel==plain] csr6_disc8, csr6_disc8_uv {name} ({w}x{h}): "
+              f"{soup.count} prims, big list {int(b['big_count'])} ok (spans "
+              f"2, 4, 8; items of {csr6.SPLIT_ROWS_DISC} and {SPLIT_FORCED} "
+              "rows; csr6_disc8 exit on at span 2)", flush=True)
     # Phase 8 (a): the kind-split kernel at spans 2, 4 and 8 on the same
     # soups and on seeded traj_vel soups.
     # Phase 10 (a): csr6_cap10 at spans 2, 4 and 8 and csr6_raster at 4
@@ -3734,8 +3940,8 @@ def run() -> dict:
         plain_ms=numbers[name]["plain_ms"],
         bound_ms=numbers[name]["bound_ms"],
         bound_by=numbers[name]["bound_by"], library_ms=None,
-        **{k: numbers[name][k] for k in ("ms_exit_off", "bound_ms_exit_off")
-           if k in numbers[name]})
+        **{k: numbers[name][k] for k in EXTRA_KEYS
+           if numbers[name].get(k) is not None})
         for name in REPLACES])
 
 

@@ -422,10 +422,7 @@ csr2_walk_kernel(const float* __restrict__ rows,
       if (lo >= big_n && lo < hi) {
         const float first_low =
             __ldg(&rows[static_cast<long long>(s0 + lo - big_n) * 16 + 14]);
-        bool past = true;
-#pragma unroll
-        for (int k = 0; k < kPix; ++k) past = past && bound_d[k] < first_low;
-        if (__syncthreads_and(past)) hi = lo;
+        if (exit_past(d, bound_d, first_low)) hi = lo;
       }
     }
 
@@ -469,21 +466,12 @@ csr2_walk_kernel(const float* __restrict__ rows,
       eval_strip_rows<kAnyKind, kSharedCol>(sh4, c_cnt, qx, qy, d, di);
       done += c_cnt;
       if (!allow_exit) continue;
-      if (unit_front != nullptr) {
+      bool in_image[kPix];
 #pragma unroll
-        for (int k = 0; k < kPix; ++k) {
-          if (out[k] < 0) continue;
-          const int key = depth_key(d[k]);
-          const int old = atomicMin(&unit_front[tid + kThreads * k], key);
-          bound_d[k] = key_depth(min(old, key));
-        }
-      }
-      const float bound = sh[(c_cnt - 1) * 16 + 14];  // the same for all
-      bool past = true;
-#pragma unroll
-      for (int k = 0; k < kPix; ++k)
-        past = past && fminf(d[k], bound_d[k]) < bound;
-      stop = __syncthreads_and(past);
+      for (int k = 0; k < kPix; ++k) in_image[k] = out[k] >= 0;
+      // The chunk's last bucket_low bounds every later row of the strip.
+      stop = exit_step(unit_front, tid, kThreads, in_image, d, bound_d, true,
+                       sh[(c_cnt - 1) * 16 + 14]);
     }
 
     if (n == 1) {

@@ -48,12 +48,13 @@
 // rows carry no zlb lane (the JAX package forces the exit off).
 //
 // csr6_raster, csr6_cap10 and csr6_rows9 walk in three launches (the
-// split walk of split_walk.cuh).  What bounds them: per-pair arithmetic
-// (below), and how evenly it is spread.  One CTA per tile left a dense
-// tile's whole range on one SM (the traj preset packs trail capsules, the
-// droplet lane its droplets, into a few tiles at the cloud's centre), and
-// staged each chunk synchronously.  (1) split_plan_kernel sizes every
-// tile's rows (its big rows, then its binned ranges: TileRows) and cuts a
+// split walk of split_walk.cuh; the disc walks below in four).  What
+// bounds them: per-pair arithmetic (below), and how evenly it is spread.
+// One CTA per tile left a dense tile's whole range on one SM (the traj
+// preset packs trail capsules, the droplet lane its droplets, into a few
+// tiles at the cloud's centre), and staged each chunk synchronously.
+// (1) split_plan_kernel sizes every tile's rows (its big rows, then its
+// binned ranges: TileRows) and cuts a
 // tile of more than split_rows rows into work items, contiguous slices of
 // those rows: the first takes the big list and the first w rows, the
 // others share the rest; (2) csr6_walk_kernel (csr6_rows9_walk_kernel)
@@ -70,8 +71,10 @@
 // and these rows are scattered records found through order[] (one 64 or
 // 40 B row per id); csr6_rows9's rows sit in sorted order, but a 36 B row
 // is only 4-byte aligned, below the bulk copy's 16.
-// The exit (pallas_csr6's allow_exit, B1): with zmeta the binning's keys
-// carry the z-bucket of each prim's depth lower bound (lane 14), so each
+// The exit (pallas_csr6's allow_exit, B1; csr6_disc8 takes it too, forced
+// on, with the disc's depth, lane 2, as its bound): with zmeta the
+// binning's keys carry the z-bucket of each prim's depth lower bound
+// (lane 14), so each
 // single-class segment ascends in bucket; after a chunk whose segment
 // goes on past it, the CTA takes the rule of csr4_raster below over its
 // in-image pixels (the TPU block counts all 1024; both are sound) and
@@ -118,8 +121,20 @@
 // winning pair (flag = 1/r; lane 5 of a disc row, lane 13 of a big row),
 // +inf when the winner is a triangle or a capsule.  u and v change under
 // the very predicate that changes depth and id, so they are a function
-// of the winning pair alone and the walk order cannot show.  Both reuse
-// the big-list phase below over a dense array of 16-float big rows.
+// of the winning pair alone: the merge of a split tile takes them from
+// the winner merge_pair's compare picks.  Both walk the big list as a
+// dense array of 16-float big rows.  What bounds them: a disc is a few
+// pixels wide, so of the 1024 x tile rows pairs of a tile (1.2M tile
+// rows at the disc lane's frame 120) almost none can be covered, and a
+// tile's rows are its neighbours' spills as well as its own.  Design
+// (csr6_disc_walk_kernel): the rows are built in sorted order
+// (build_rows8), so a tile's ranges are contiguous runs staged by bulk
+// copies, with no order[] gather and no per-row range search; the split
+// walk spreads the dense tiles over persistent CTAs; and each warp owns
+// a band of 4 pixel rows and evaluates only the rows whose disc can
+// reach it (band_live: one exact test per row and warp, 17% of the pairs
+// kept there), so the walk is bound by the pairs it keeps, their merges,
+// and the latency of its barriers and copies.
 //
 // csr6_rows9 replaces pallas_csr6._make_row_body9d / _make_row_body9c
 // (the rows9 mode; rows8's _make_row_body8d / _make_row_body8c evaluate
@@ -169,12 +184,17 @@
 // costs 18 operations, as a big-list one.  The bounds of the walks with
 // an exit (csr6_raster, csr4_raster, csr3_raster) count 1024 x (the rows
 // their tiles evaluated before their exits, which the kernels report
-// through `walked`) + pixels x (big rows) pairs.
-// The split walk with its cp.async ring: csr6_raster, csr6_cap10 and
-// csr6_rows9 here, csr2_raster in csr2_raster.cu.  Not done yet: the
-// split and asynchronous staging in the disc walks (csr6_disc8,
-// csr6_disc8_uv), v4 and v3 here, and csr2_disc8 and csr1_raster there;
-// the early exit in the 8-float disc walk.
+// through `walked`) + pixels x (big rows) pairs.  The disc walks' bound
+// is the pairs the function needs, whatever the walk's bands: 32 x (the
+// (row, pixel row) pairs whose exact dy test passes) + pixels x (big
+// rows), or the bytes if larger; the (row, band) pairs their warps
+// evaluate are reported through `bands`.
+// The split walk: csr6_raster, csr6_cap10 and csr6_rows9 (cp.async ring)
+// and csr6_disc8, csr6_disc8_uv (bulk copies, warp-band cull) here,
+// csr2_raster (bulk copies) in csr2_raster.cu.  Not done yet: the split
+// and asynchronous staging in v4 and v3 here, and in csr2_disc8 and
+// csr1_raster there; the warp-band cull in the other disc-row walks
+// (csr3_raster, csr2_disc8, csr5_raster.cu's).
 
 #include <cuda_runtime.h>
 
@@ -223,10 +243,9 @@ __device__ __forceinline__ bool pair16(const float4& a, const float4& b,
 // discs/capsules and take the capsule body alone, as on the TPU.  kUV
 // also keeps the winner's (u, v): a big-list disc (no triangle, lane 13
 // > 0) gives dx * flag and -dy * flag, any other row +inf.  kLazy (the
-// split walk of csr6_raster) divides a triangle's 1 / iz only at covered
-// pairs: nothing else reads it, and iz > 0 there, so the depth is
-// tri_pair's.  The other walks keep the eager division, with which their
-// kernels were measured.
+// split walks) divides a triangle's 1 / iz only at covered pairs: nothing
+// else reads it, and iz > 0 there, so the depth is tri_pair's.  The other
+// walks keep the eager division, with which their kernels were measured.
 template <bool kTri, bool kUV, bool kLazy = false>
 __device__ __forceinline__ void eval_rows(const float4* sh, int count,
                                           float qx, const float* qy,
@@ -252,6 +271,10 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
           if ((z < d[k]) || ((z == d[k]) && (idf < di[k]))) {
             d[k] = z;
             di[k] = idf;
+            if (kUV) {
+              u[k] = inf;
+              v[k] = inf;
+            }
           }
         }
       }
@@ -274,33 +297,70 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
   }
 }
 
+// The warp-band cull of the disc walks: lane `lane` tests staged disc row
+// r = base + lane ([px, py, z, r*r, ...] at float r * 8) against its
+// warp's band of pixel centres y0 + 0.5 .. y_last (warp-uniform), and the
+// warp takes the ballot.  A row is skipped when fl(dy * dy) > r*r at the
+// band's centre nearest to py (clamp(floor(py) + 0.5, band)), dy = qy -
+// py.  That is exact: qy - py rounds monotonically in qy and keeps its
+// sign, so no centre of the band has a smaller |fl(qy - py)|, fl(dy * dy)
+// is monotone in |dy|, and fl(dx2 + dy2) >= dy2 for every dx2 >= 0 (NaN:
+// no cover), so no pixel of the band passes dx2 + dy * dy <= r*r.  Strict:
+// a pair at equality is covered.  A NaN py or r*r never skips.
+__device__ __forceinline__ unsigned band_live(const float* sh, int base,
+                                              int count, float y_lo,
+                                              float y_hi) {
+  const int r = base + (threadIdx.x & 31);
+  bool live = false;
+  if (r < count) {
+    const float4 a = reinterpret_cast<const float4*>(sh)[r * 2];
+    const float near = fminf(fmaxf(floorf(a.y) + 0.5f, y_lo), y_hi);
+    const float dy = near - a.y;
+    live = !(dy * dy > a.w);
+  }
+  return __ballot_sync(0xffffffffu, live);
+}
+
 // Evaluate staged 8-float disc rows [0, count) (2 x float4 each) at this
-// thread's pixels: pallas_csr6._make_row_body8 / _make_row_body8_uv.
+// thread's kPix pixels (one column, kPix consecutive pixel rows from
+// y_lo: the warp's band): pallas_csr6._make_row_body8 /
+// _make_row_body8_uv, each row only where band_live keeps it for the
+// warp.  Returns the rows the warp evaluated.
 template <bool kUV>
-__device__ __forceinline__ void eval_disc_rows(const float4* sh, int count,
-                                               float qx, const float* qy,
-                                               float* d, float* di, float* u,
-                                               float* v) {
-  for (int r = 0; r < count; ++r) {
-    const float4 a = sh[r * 2 + 0];  // px, py, z, r*r
-    const float4 b = sh[r * 2 + 1];  // idf, flag (1/r), 0, 0
-    const float z = a.z, r2 = a.w, idf = b.x;
-    const float dx = qx - a.x;
-    const float dx2 = dx * dx;
+__device__ __forceinline__ int eval_disc_band(const float* sh, int count,
+                                              float qx, float y_lo,
+                                              float* d, float* di, float* u,
+                                              float* v) {
+  const float4* rows = reinterpret_cast<const float4*>(sh);
+  const float y_hi = y_lo + static_cast<float>(kPix - 1);
+  int evaluated = 0;
+  for (int base = 0; base < count; base += 32) {
+    unsigned m = band_live(sh, base, count, y_lo, y_hi);
+    evaluated += __popc(m);
+    while (m) {
+      const int r = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 a = rows[r * 2 + 0];  // px, py, z, r*r
+      const float4 b = rows[r * 2 + 1];  // idf, flag (1/r), 0, 0
+      const float z = a.z, r2 = a.w, idf = b.x;
+      const float dx = qx - a.x;
+      const float dx2 = dx * dx;
 #pragma unroll
-    for (int k = 0; k < kPix; ++k) {
-      const float dy = qy[k] - a.y;
-      const bool cov = dx2 + dy * dy <= r2;
-      if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
-        d[k] = z;
-        di[k] = idf;
-        if (kUV) {
-          u[k] = dx * b.y;
-          v[k] = -dy * b.y;
+      for (int k = 0; k < kPix; ++k) {
+        const float dy = (y_lo + static_cast<float>(k)) - a.y;
+        const bool cov = dx2 + dy * dy <= r2;
+        if (cov && ((z < d[k]) || ((z == d[k]) && (idf < di[k])))) {
+          d[k] = z;
+          di[k] = idf;
+          if (kUV) {
+            u[k] = dx * b.y;
+            v[k] = -dy * b.y;
+          }
         }
       }
     }
   }
+  return evaluated;
 }
 
 constexpr int kRowF9 = 9;
@@ -507,21 +567,59 @@ __device__ __forceinline__ int flat_pos(int f, int n_slots,
   return range_start[q] + f - range_cum[q];
 }
 
-// Write a tile's (depth, id) minima: index -1 where the depth is +inf.
-__device__ __forceinline__ void write_tile(const float* d, const float* di,
-                                           int tx, int ty, int width,
-                                           int height, float* depth_out,
-                                           int* index_out) {
-  const int px = tx * kTile + (threadIdx.x & (kTile - 1));
+// The exit (zmeta, span 2): the end of the single-class segment that
+// holds flat row f of the `binned` sized rows.
+__device__ __forceinline__ int segment_end(int f, int n_slots,
+                                           const int* range_cum,
+                                           int binned) {
+  const int q = find_slot(f, n_slots, range_cum);
+  return q + 1 < n_slots ? range_cum[q + 1] : binned;
+}
+
+// The exit's bound after a row of depth floor zlb (zmeta = zmin, s,
+// thr_scale): zmin + max(floor((zlb - zmin) * s) - 1, 0) * thr_scale, no
+// later row of its segment being nearer.
+__device__ __forceinline__ float bucket_floor(float zlb, float zmin,
+                                              float zs, float thr_scale) {
+  float qz = floorf((zlb - zmin) * zs) - 1.0f;
+  qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN: no exit
+  return zmin + qz * thr_scale;
+}
+
+// Write this thread's (depth, id) minima, its pixel k at column px, row
+// py0 + dpy * k: index -1 where the depth is +inf; with kUV also the
+// winner's (u, v).
+template <bool kUV = false>
+__device__ __forceinline__ void write_pixels(
+    const float* d, const float* di, const float* u, const float* v, int px,
+    int py0, int dpy, int width, int height, float* depth_out,
+    int* index_out, float* u_out, float* v_out) {
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + (threadIdx.x >> 5) + 8 * k;
+    const int py = py0 + dpy * k;
     if (px < width && py < height) {
       const long long o = static_cast<long long>(py) * width + px;
       depth_out[o] = d[k];
       index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
+      if (kUV) {
+        u_out[o] = u[k];
+        v_out[o] = v[k];
+      }
     }
   }
+}
+
+// Write a tile's minima (and with kUV its (u, v)) from the threads'
+// pixels tid + 256 k.
+template <bool kUV = false>
+__device__ __forceinline__ void write_tile(
+    const float* d, const float* di, int tx, int ty, int width, int height,
+    float* depth_out, int* index_out, const float* u = nullptr,
+    const float* v = nullptr, float* u_out = nullptr,
+    float* v_out = nullptr) {
+  write_pixels<kUV>(d, di, u, v, tx * kTile + (threadIdx.x & (kTile - 1)),
+                    ty * kTile + (threadIdx.x >> 5), kThreads / kTile, width,
+                    height, depth_out, index_out, u_out, v_out);
 }
 
 // This thread's pixel centres (qx; qy per k) and the empty minima.
@@ -750,30 +848,14 @@ csr6_walk_kernel(const float* __restrict__ table,
               sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di, nullptr, nullptr);
         done += c_cnt - r0;
         if (kMode != kRows10 && segs && r0 < c_cnt) {
-          if (tile_front != nullptr) {
-#pragma unroll
-            for (int k = 0; k < kPix; ++k) {
-              if (!in_image[k]) continue;
-              const int key = depth_key(d[k]);
-              const int old = atomicMin(&tile_front[tid + kThreads * k], key);
-              bound_d[k] = key_depth(min(old, key));
-            }
-          }
-          const int g = c_start + c_cnt - 1 - big_n;
-          const int q = find_slot(g, n_slots, range_cum);
           const int seg_end =
-              big_n + (q + 1 < n_slots ? range_cum[q + 1] : binned);
-          if (seg_end > c_start + c_cnt) {  // the segment goes on
-            float qz = floorf((sh[(c_cnt - 1) * kRowF + 14] - zmin) * zs) -
-                       1.0f;
-            qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN: no exit
-            const float thr = zmin + qz * thr_scale;
-            bool past = true;
-#pragma unroll
-            for (int k = 0; k < kPix; ++k)
-              past = past && fminf(d[k], bound_d[k]) < thr;
-            if (__syncthreads_and(past)) skip = min(seg_end, hi);
-          }
+              big_n + segment_end(c_start + c_cnt - 1 - big_n, n_slots,
+                                  range_cum, binned);
+          if (exit_step(tile_front, tid, kThreads, in_image, d, bound_d,
+                        seg_end > c_start + c_cnt,  // the segment goes on
+                        bucket_floor(sh[(c_cnt - 1) * kRowF + 14], zmin, zs,
+                                     thr_scale)))
+            skip = min(seg_end, hi);
         }
       }
       slot ^= 1;
@@ -797,10 +879,13 @@ csr6_walk_kernel(const float* __restrict__ table,
 // The (depth, id) minima of a split tile's items, merged with the walk's
 // own compare (strict, so the result does not depend on the item order)
 // and written to the image; tiles of one item were written by the walk.
+// kUV (csr6_disc8_uv): the items carry the winner's (u, v) too.
+template <bool kUV = false>
 __global__ void __launch_bounds__(kThreads)
 csr6_merge_kernel(const int* __restrict__ plan,
                   const float* __restrict__ partial,
                   float* __restrict__ depth_out, int* __restrict__ index_out,
+                  float* __restrict__ u_out, float* __restrict__ v_out,
                   int width, int height, int tiles_x) {
   const int tile = blockIdx.x;
   const int first = tile > 0 ? plan[tile - 1] : 0;
@@ -808,10 +893,13 @@ csr6_merge_kernel(const int* __restrict__ plan,
   if (n <= 1) return;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
-  float qy[kPix], d[kPix], di[kPix];
+  float qy[kPix], d[kPix], di[kPix], u[kPix], v[kPix];
   init_pixels(tx, ty, qy, d, di);
-  fold_partials(partial, first, n, d, di);
-  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) u[k] = v[k] = __int_as_float(0x7f800000);
+  fold_partials<kUV ? 4 : 2>(partial, first, n, d, di, u, v);
+  write_tile<kUV>(d, di, tx, ty, width, height, depth_out, index_out, u, v,
+                  u_out, v_out);
 }
 
 // The split walk of csr6_rows9 (kind-split 9-float rows in sorted order):
@@ -965,9 +1053,8 @@ int launch_split_walk(const float* table, const float* big_rows,
       num_tiles, span, max_items);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  csr6_merge_kernel<<<num_tiles, kThreads, 0, st>>>(plan, partial, depth,
-                                                    index, width, height,
-                                                    tiles_x);
+  csr6_merge_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+      plan, partial, depth, index, nullptr, nullptr, width, height, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1039,88 +1126,291 @@ csr4_tile_kernel(const float* __restrict__ table,
   write_tile(d, di, tx, ty, width, height, depth_out, index_out);
 }
 
-// The discs_only walk at span 2, 4 or 8: the big list is the dense
-// (big_cap, 16) array big_rows (its first *big_n rows live), binned rows
-// are 8-float rows of table8 gathered by sorted id.  kUV also writes the
-// winner's (u, v).
+// The split walk of csr6_disc8 and csr6_disc8_uv (8-float disc rows in
+// sorted order, the discs_only walk at span 2, 4 or 8): persistent CTAs
+// take work items from the plan, as csr6_walk_kernel.  A tile's flat rows
+// are its live big rows (the dense 16-float big_rows, through the dual
+// body, never culled), then its binned ranges; chunks never straddle that
+// boundary.  Rows sit in sorted order, so every range piece of a chunk is
+// one contiguous run of 32 B rows: warp 0 issues one bulk copy per piece
+// into a ring slot (kDiscChunk rows; a chunk of kChunk big rows is one
+// copy), all completing on the slot's mbarrier, the next chunk in flight
+// while one is evaluated.  Warp w owns the band of pixel rows 4 w .. 4 w
+// + 3 of the tile and lane l its column l (a thread's kPix pixels are one
+// column's); a warp walks a chunk's rows through band_live's cull
+// (eval_disc_band), and a band below the image evaluates nothing.  With
+// zmeta (csr6_disc8 at span 2, the exit forced on) the binned ranges are
+// the nine single-class segments and the exit of csr6_walk_kernel
+// applies, the disc rows' depth (lane 2, their zlb) the bucket's floor;
+// the plan hands a split tile's items out in waves, and an item whose
+// first row's segment already lies past the tile's shared depths skips
+// that segment.  walked (null or (T)) sums the binned rows each tile's
+// items evaluated, bands (null or (T), zeroed by the caller) the (binned
+// row, warp band) pairs.  A tile of one item writes the image; the items
+// of a split tile write their minima (and (u, v)) to `partial`, merged by
+// csr6_merge_kernel<kUV>.  Registers are held to 64 (4 CTAs per SM): the
+// culled walk waits on shared-memory loads and barriers more than it
+// issues, and 32 warps per SM hide that better than 24 (28% faster on the
+// disc lane; a 16-byte spill).
+constexpr int kDiscRowF = 8;
+constexpr int kDiscChunk = kSlotF / kDiscRowF;  // disc rows per ring slot
+
 template <bool kUV>
-__global__ void __launch_bounds__(kThreads)
-csr6_disc_kernel(const float* __restrict__ table8,
-                 const float* __restrict__ big_rows,
-                 const int* __restrict__ order, const int* __restrict__ starts,
-                 const int* __restrict__ big_n_ptr, int big_cap,
-                 float* __restrict__ depth_out, int* __restrict__ index_out,
-                 float* __restrict__ u_out, float* __restrict__ v_out,
-                 int width, int height, int tiles_x, int span) {
-  __shared__ float4 sh[kChunk * 4];
+__global__ void __launch_bounds__(kThreads, 4)
+csr6_disc_walk_kernel(const float* __restrict__ rows8,
+                      const float* __restrict__ big_rows,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ big_n_ptr, int big_cap,
+                      const float* __restrict__ zmeta, int* __restrict__ plan,
+                      float* __restrict__ partial,
+                      float* __restrict__ depth_out,
+                      int* __restrict__ index_out, float* __restrict__ u_out,
+                      float* __restrict__ v_out, int* __restrict__ walked,
+                      int* __restrict__ bands, int* __restrict__ front,
+                      int width, int height, int tiles_x, int num_tiles,
+                      int span, int max_items) {
+  constexpr int kPlanes = kUV ? 4 : 2;
+  extern __shared__ __align__(128) float ring[];  // kRing x kSlotF floats
   __shared__ int range_start[kMaxRanges];
   __shared__ int range_cum[kMaxRanges];
   __shared__ int warp_tot[kThreads / 32];
-  constexpr int kDiscChunk = kChunk * 2;  // 2 x float4 per disc row
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
+  __shared__ int s_item;
+  __shared__ __align__(8) unsigned long long full[kRing];  // a slot landed
   const int tid = threadIdx.x;
-  const int lx = tid & (kTile - 1);
-  const int ly = tid >> 5;
-  const float inf = __int_as_float(0x7f800000);
-
-  const float qx = static_cast<float>(tx * kTile + lx) + 0.5f;
-  float qy[kPix], d[kPix], di[kPix], u[kPix], v[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    qy[k] = static_cast<float>(ty * kTile + ly + 8 * k) + 0.5f;
-    d[k] = inf;
-    di[k] = kEmpty;
-    u[k] = inf;
-    v[k] = inf;
-  }
-
-  // Big list: the ground, capsules and wide discs, merged at every tile.
+  const int lane = tid & 31, warp = tid >> 5;
+  const bool segs = zmeta != nullptr;
+  const int n_slots = range_slots(span, segs);
+  const int* items_cum = plan;
+  const int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+  const int n_items = sched[0];
   const int big_n = min(*big_n_ptr, big_cap);
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh, tid, big_rows, base + tid);
-    __syncthreads();
-    eval_rows<true, kUV>(sh, cnt, qx, qy, d, di, u, v);
+  const float zmin = segs ? zmeta[0] : 0.0f;
+  const float zs = segs ? zmeta[1] : 0.0f;
+  const float thr_scale = segs ? zmeta[2] : 0.0f;
+  const float inf = __int_as_float(0x7f800000);
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
   }
+  unsigned parity = 0;  // bit s: the phase of full[s] waited for next
 
-  const float4* rows8 = reinterpret_cast<const float4*>(table8);
-  // The tile's ranges (tile_range: span 2's four merged ranges, or the
-  // anchor range plus one per neighbour and class row), sized in parallel
-  // and staged across range boundaries, as csr6_walk_kernel walks them.
-  const int n_slots = range_slots(span);
-  const int total = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
-                                range_start, range_cum, warp_tot);
-  for (int base = 0; base < total; base += kDiscChunk) {
-    const int cnt = min(kDiscChunk, total - base);
-    __syncthreads();
-    for (int i = tid; i < cnt; i += kThreads) {
-      const float4* src =
-          rows8 + static_cast<long long>(order[flat_pos(
-                      base + i, n_slots, range_start, range_cum)]) * 2;
-      sh[i * 2 + 0] = src[0];
-      sh[i * 2 + 1] = src[1];
-    }
-    __syncthreads();
-    eval_disc_rows<kUV>(sh, cnt, qx, qy, d, di, u, v);
-  }
-
-  const int px = tx * kTile + lx;
+  for (;;) {
+    const int ticket = next_item(sched, &s_item);  // also publishes `full`
+    if (ticket >= n_items) break;
+    // With the exit the plan hands the items out in waves (ticket_item).
+    const int item = segs ? sched[3 + ticket] : ticket;
+    const int tile = item_tile[item];
+    const int first = tile > 0 ? items_cum[tile - 1] : 0;
+    const int n = items_cum[tile] - first;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int binned = size_ranges(span, tile, tx, ty, tiles_x, 0, starts,
+                                   range_start, range_cum, warp_tot, segs);
+    int lo, hi;
+    item_slice(static_cast<long long>(big_n) + binned, item, first, n, &lo,
+               &hi);
+    // This thread's pixels: column lane, rows y0 .. y0 + kPix - 1 (the
+    // warp's band); pixel k of the tile's 1024 is pix0 + 32 k.
+    const int px = tx * kTile + lane;
+    const int y0 = ty * kTile + warp * kPix;
+    const int pix0 = warp * kPix * kTile + lane;
+    const float qx = static_cast<float>(px) + 0.5f;
+    const float y_lo = static_cast<float>(y0) + 0.5f;
+    const bool band_in = y0 < height;  // the same in the whole warp
+    float qy[kPix], d[kPix], di[kPix], u[kPix], v[kPix], bound_d[kPix];
+    bool in_image[kPix];
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + ly + 8 * k;
-    if (px < width && py < height) {
-      const long long o = static_cast<long long>(py) * width + px;
-      depth_out[o] = d[k];
-      index_out[o] = isinf(d[k]) ? -1 : static_cast<int>(di[k]);
-      if (kUV) {
-        u_out[o] = u[k];
-        v_out[o] = v[k];
+    for (int k = 0; k < kPix; ++k) {
+      qy[k] = y_lo + static_cast<float>(k);
+      d[k] = inf;
+      di[k] = kEmpty;
+      u[k] = inf;
+      v[k] = inf;
+      in_image[k] = px < width && y0 + k < height;
+      // The depths the exit tests besides this item's: the tile's shared
+      // ones when it is split (+inf until then); -inf off the image.
+      bound_d[k] = in_image[k] ? inf : -inf;
+    }
+    int* tile_front = segs && n > 1
+                          ? front + static_cast<long long>(tile) * kTilePix
+                          : nullptr;
+    int skip = lo;  // rows below it are evaluated or skipped by the exit
+    if (tile_front != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        if (in_image[k])
+          bound_d[k] = key_depth(__ldcg(&tile_front[pix0 + kTile * k]));
+      if (lo >= big_n && lo < hi) {
+        // The first row's segment, if the depths the tile's other items
+        // shared already lie nearer than its floor at every pixel.
+        const int f = lo - big_n;
+        const int q = find_slot(f, n_slots, range_cum);
+        const long long pos = range_start[q] + f - range_cum[q];
+        if (exit_past(d, bound_d,
+                      bucket_floor(__ldg(&rows8[pos * kDiscRowF + 2]), zmin,
+                                   zs, thr_scale)))
+          skip = min(big_n + segment_end(f, n_slots, range_cum, binned), hi);
       }
     }
+
+    int issue = lo;  // the next flat row to stage
+    int done = 0;    // binned rows evaluated
+    int evaluated = 0;  // (binned row, band) pairs of this warp
+    // The chunk after the one staged last: [max(issue, skip), +cnt),
+    // capped at hi and at the big/binned boundary.
+    auto next_chunk = [&](int* start, int* cnt) {
+      *start = max(issue, skip);
+      const bool big = *start < big_n;
+      const int end = big ? min(big_n, hi) : hi;
+      *cnt = min(big ? kChunk : kDiscChunk, max(end - *start, 0));
+      issue = *start + *cnt;
+    };
+    auto stage = [&](int slot, int start, int cnt) {
+      if (cnt == 0 || warp != 0) return;
+      float* dst = ring + slot * kSlotF;
+      if (start < big_n) {
+        if (lane == 0)
+          bulk_load(dst, big_rows + static_cast<long long>(start) * kRowF,
+                    cnt * kRowF * 4, &full[slot]);
+        return;
+      }
+      // One copy per range piece of the chunk, issued by the warp's lanes
+      // after lane 0 has armed the slot for the whole chunk.
+      if (lane == 0) mbar_arrive_expect(&full[slot], cnt * kDiscRowF * 4);
+      __syncwarp();
+      const int f0 = start - big_n, f1 = f0 + cnt;
+      const int q0 = find_slot(f0, n_slots, range_cum);
+      const int q1 = find_slot(f1 - 1, n_slots, range_cum);
+      for (int q = q0 + lane; q <= q1; q += 32) {
+        const int a = max(range_cum[q], f0);
+        const int b = min(q + 1 < n_slots ? range_cum[q + 1] : binned, f1);
+        if (b > a)
+          bulk_copy(dst + (a - f0) * kDiscRowF,
+                    rows8 + (static_cast<long long>(range_start[q]) + a -
+                             range_cum[q]) * kDiscRowF,
+                    (b - a) * kDiscRowF * 4, &full[slot]);
+      }
+    };
+
+    int slot = 0, n_start, n_cnt;
+    next_chunk(&n_start, &n_cnt);
+    stage(0, n_start, n_cnt);
+    for (;;) {
+      const int c_start = n_start, c_cnt = n_cnt;
+      if (c_cnt == 0) break;  // the same in every thread
+      mbar_wait(&full[slot], (parity >> slot) & 1u);
+      parity ^= 1u << slot;
+      __syncthreads();  // chunk staged and visible; the other slot is free
+      next_chunk(&n_start, &n_cnt);
+      stage(slot ^ 1, n_start, n_cnt);
+      const float* sh = ring + slot * kSlotF;
+      const int r0 = min(max(skip - c_start, 0), c_cnt);
+      if (c_start < big_n) {
+        if (band_in)
+          eval_rows<true, kUV, true>(
+              reinterpret_cast<const float4*>(sh) + r0 * 4, c_cnt - r0, qx,
+              qy, d, di, u, v);
+      } else {
+        if (band_in)
+          evaluated += eval_disc_band<kUV>(sh + r0 * kDiscRowF, c_cnt - r0,
+                                           qx, y_lo, d, di, u, v);
+        done += c_cnt - r0;
+        if (segs && r0 < c_cnt) {
+          const int end =
+              big_n + segment_end(c_start + c_cnt - 1 - big_n, n_slots,
+                                  range_cum, binned);
+          if (exit_step(tile_front, pix0, kTile, in_image, d, bound_d,
+                        end > c_start + c_cnt,  // the segment goes on
+                        bucket_floor(sh[(c_cnt - 1) * kDiscRowF + 2], zmin,
+                                     zs, thr_scale)))
+            skip = min(end, hi);
+        }
+      }
+      slot ^= 1;
+    }
+
+    if (n == 1)
+      write_pixels<kUV>(d, di, u, v, px, y0, 1, width, height, depth_out,
+                        index_out, u_out, v_out);
+    else
+      write_partial<kPlanes>(partial, item, d, di, u, v, pix0, kTile);
+    if (walked != nullptr && tid == 0 && done > 0)
+      atomicAdd(&walked[tile], done);
+    if (bands != nullptr && lane == 0 && evaluated > 0)
+      atomicAdd(&bands[tile], evaluated);
   }
+}
+
+// rows[t] = TileRows(t) for every tile, one warp per tile (its lanes over
+// the range slots): at span 8 a tile names 512 slots, which the plan's
+// single CTA would size one by one.
+__global__ void __launch_bounds__(kThreads)
+tile_rows_kernel(TileRows rows_of, int* __restrict__ rows) {
+  const int t = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (t >= rows_of.num_tiles) return;
+  const int ty = t / rows_of.tiles_x;
+  const int tx = t - ty * rows_of.tiles_x;
+  const int n_slots = range_slots(rows_of.span, rows_of.segs != 0);
+  int sum = 0;
+  for (int q = lane; q < n_slots; q += 32) {
+    int st, len;
+    tile_range(q, rows_of.span, t, tx, ty, rows_of.tiles_x, 0,
+               rows_of.starts, &st, &len, rows_of.segs != 0);
+    sum += len;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) rows[t] = sum;
+}
+
+// The plan's rows of tile t, sized by tile_rows_kernel.
+struct RowsOfTile {
+  const int* rows;
+  __device__ int operator()(int t) const { return rows[t]; }
+};
+
+// Plan, walk and merge of the disc walks on `st`; returns the first
+// launch error.  The tiles' rows are sized into the head of `partial`
+// (as ints), which the walk overwrites only after the plan has read them.
+template <bool kUV>
+int disc_walk(const float* rows8, const float* big_rows, const int* starts,
+              const int* big_n, int big_cap, const float* zmeta, int* front,
+              int* walked, int* bands, float* depth, int* index, float* u,
+              float* v, int* plan, float* partial, int width, int height,
+              int tiles_x, int tiles_y, int span, int split_rows,
+              int max_items, cudaStream_t st) {
+  const int num_tiles = tiles_x * tiles_y;
+  if ((span != 2 && span != 4 && span != 8) || (zmeta && span != 2) ||
+      (zmeta && !front) || split_rows < 1 || max_items < num_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_tiles <= 0) return 0;
+  int* rows = reinterpret_cast<int*>(partial);
+  constexpr int kTilesPerCta = kThreads / 32;
+  tile_rows_kernel<<<(num_tiles + kTilesPerCta - 1) / kTilesPerCta, kThreads,
+                     0, st>>>(
+      TileRows{starts, tiles_x, num_tiles, span, zmeta != nullptr, 1}, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_plan_kernel<RowsOfTile><<<1, kPlanThreads, 0, st>>>(
+      RowsOfTile{rows}, big_n, big_cap, num_tiles, split_rows, max_items,
+      plan, walked, num_tiles, zmeta != nullptr ? front : nullptr,
+      zmeta != nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int ctas =
+      persistent_ctas(csr6_disc_walk_kernel<kUV>, kRingBytes);
+  csr6_disc_walk_kernel<kUV><<<min(ctas, max_items), kThreads, kRingBytes,
+                               st>>>(
+      rows8, big_rows, starts, big_n, big_cap, zmeta, plan, partial, depth,
+      index, u, v, walked, bands, front, width, height, tiles_x, num_tiles,
+      span, max_items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr6_merge_kernel<kUV><<<num_tiles, kThreads, 0, st>>>(
+      plan, partial, depth, index, u, v, width, height, tiles_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The v3 walk (see the header): the big list in rank order through the
@@ -1337,42 +1627,45 @@ extern "C" int csr4_raster(const float* table, const int* entries,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The discs_only walk.  table8 (P+1, 8) f32 with row P all zero; big_rows
-// (big_cap, 16) f32, the first *big_n rows live; order, starts, big_n and
-// span as csr6_raster's; depth (H, W) f32; index (H, W) i32.
-extern "C" int csr6_disc8(const float* table8, const float* big_rows,
-                          const int* order, const int* starts,
-                          const int* big_n, float* depth, int* index,
-                          int big_cap, int width, int height, int tiles_x,
-                          int tiles_y, int span, void* stream) {
-  if (span != 2 && span != 4 && span != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
-  csr6_disc_kernel<false><<<num_tiles, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      table8, big_rows, order, starts, big_n, big_cap, depth, index, nullptr,
-      nullptr, width, height, tiles_x, span);
-  return static_cast<int>(cudaGetLastError());
+// The discs_only walk (split, culled).  rows8 (>= starts[-1], 8) f32 disc
+// rows in sorted order (row i = sorted position i), 16-byte aligned;
+// big_rows (big_cap, 16) f32, 16-byte aligned, the first *big_n rows
+// live; starts, big_n and span as csr6_raster's; zmeta null, or (3) f32
+// of an exit binning at span 2, with front (T, 1024) i32 scratch; walked
+// null or (T) i32, the binned rows each tile evaluated; bands null or (T)
+// i32 zeroed, the (binned row, warp band) pairs each tile evaluated;
+// depth (H, W) f32; index (H, W) i32; plan (T + 3 max_items + 3) i32 and
+// partial (max_items, 2, 1024) f32 scratch; split_rows and max_items as
+// csr6_raster's.
+extern "C" int csr6_disc8(const float* rows8, const float* big_rows,
+                          const int* starts, const int* big_n,
+                          const float* zmeta, int* front, int* walked,
+                          int* bands, float* depth, int* index, int* plan,
+                          float* partial, int big_cap, int width, int height,
+                          int tiles_x, int tiles_y, int span, int split_rows,
+                          int max_items, void* stream) {
+  return disc_walk<false>(rows8, big_rows, starts, big_n, big_cap, zmeta,
+                          front, walked, bands, depth, index, nullptr,
+                          nullptr, plan, partial, width, height, tiles_x,
+                          tiles_y, span, split_rows, max_items,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// csr6_disc8 that also writes the winner's lambert (u, v) images (H, W)
-// f32: +inf where empty or where the winner is no disc.
-extern "C" int csr6_disc8_uv(const float* table8, const float* big_rows,
-                             const int* order, const int* starts,
-                             const int* big_n, float* depth, int* index,
-                             float* u, float* v, int big_cap, int width,
+// csr6_disc8 (no exit) that also writes the winner's lambert (u, v)
+// images (H, W) f32: +inf where empty or where the winner is no disc;
+// partial (max_items, 4, 1024) f32.
+extern "C" int csr6_disc8_uv(const float* rows8, const float* big_rows,
+                             const int* starts, const int* big_n,
+                             int* walked, int* bands, float* depth,
+                             int* index, float* u, float* v, int* plan,
+                             float* partial, int big_cap, int width,
                              int height, int tiles_x, int tiles_y, int span,
-                             void* stream) {
-  if (span != 2 && span != 4 && span != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
-  csr6_disc_kernel<true><<<num_tiles, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      table8, big_rows, order, starts, big_n, big_cap, depth, index, u, v,
-      width, height, tiles_x, span);
-  return static_cast<int>(cudaGetLastError());
+                             int split_rows, int max_items, void* stream) {
+  return disc_walk<true>(rows8, big_rows, starts, big_n, big_cap, nullptr,
+                         nullptr, walked, bands, depth, index, u, v, plan,
+                         partial, width, height, tiles_x, tiles_y, span,
+                         split_rows, max_items,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The kind-split walk (rows9, rows8).  rows9 (P, 9) f32 in sorted order
@@ -1404,9 +1697,8 @@ extern "C" int csr6_rows9(const float* rows9, const float* big_rows,
       width, height, tiles_x, num_tiles, span, max_items);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  csr6_merge_kernel<<<num_tiles, kThreads, 0, st>>>(plan, partial, depth,
-                                                    index, width, height,
-                                                    tiles_x);
+  csr6_merge_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+      plan, partial, depth, index, nullptr, nullptr, width, height, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 

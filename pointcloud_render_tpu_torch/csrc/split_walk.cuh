@@ -1,5 +1,6 @@
 // Pieces shared by the port's split walks (csr6_raster.cu: csr6_raster,
-// csr6_cap10, csr6_rows9; csr2_raster.cu: csr2_raster).  A split walk
+// csr6_cap10, csr6_rows9, csr6_disc8, csr6_disc8_uv; csr2_raster.cu:
+// csr2_raster).  A split walk
 // runs in three launches:
 //   (1) split_plan_kernel sizes every unit of pixels (a 32x32 tile, or a
 //       1024-pixel pass of a strip) in rows, its live big rows included,
@@ -7,14 +8,15 @@
 //       contiguous slices of those rows;
 //   (2) a walk kernel of persistent CTAs takes the items in order from an
 //       atomic counter (next_item), stages each item's rows through a ring
-//       of shared-memory slots (cp.async here; the strip walk may take
-//       Hopper's bulk copy, completed on an mbarrier) and keeps the
+//       of shared-memory slots (cp.async, or Hopper's bulk copy completed
+//       on an mbarrier where the rows sit in sorted order) and keeps the
 //       (depth, id) minima of its unit's pixels in registers;
 //   (3) a merge kernel folds a split unit's per-item minima
 //       (fold_partials) with merge_pair, the walk's own strict compare, so
 //       the image does not depend on the split or on the item order.
 // Walks with an early exit share a split unit's depths through `front`
-// (depth_key ints, atomicMin), which the plan resets.
+// (depth_key ints, atomicMin), which the plan resets, and decide the exit
+// with exit_step and exit_past.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,7 +64,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Hopper's bulk copy (the TMA unit's one-dimensional form): one thread
 // moves `bytes` (a multiple of 16, both addresses 16-byte aligned) from
 // global to shared memory and the copy completes on an mbarrier that
-// expects that many bytes.
+// expects that many bytes (bulk_load: one copy, one arrival; a chunk of
+// several copies arrives once for all their bytes, mbar_arrive_expect,
+// before its bulk_copy calls).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -80,19 +84,33 @@ __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          int bytes,
-                                          unsigned long long* bar) {
+// Arrive on `bar` and raise the bytes its phase waits for by `bytes`.
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   int bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One bulk copy completing on `bar`, whose phase already expects its
+// bytes (mbar_arrive_expect).
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes,
+                                          unsigned long long* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          int bytes,
+                                          unsigned long long* bar) {
+  mbar_arrive_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // Wait until the phase of `bar` with this parity has completed.
@@ -288,32 +306,91 @@ __device__ __forceinline__ void item_slice(long long rows, int item,
 }
 
 // Fold the (depth, id) minima of items [first, first + n) of `partial`
-// ((items, 2, kUnitPix) floats) into this thread's pixels tid + 256 k.
+// ((items, kPlanes, kUnitPix) floats) into this thread's pixels tid + 256
+// k.  With kPlanes 4 the items also carry the winner's (u, v), which are
+// taken where merge_pair takes the item's minimum (they change only under
+// the predicate that changes depth and id).
+template <int kPlanes = 2>
 __device__ __forceinline__ void fold_partials(const float* __restrict__
                                                   partial,
                                               int first, int n, float* d,
-                                              float* di) {
+                                              float* di, float* u = nullptr,
+                                              float* v = nullptr) {
   for (int j = 0; j < n; ++j) {
     const float* p =
-        partial + static_cast<long long>(first + j) * 2 * kUnitPix;
+        partial + static_cast<long long>(first + j) * kPlanes * kUnitPix;
 #pragma unroll
     for (int k = 0; k < kUnitPixPerThread; ++k) {
       const int o = threadIdx.x + kWalkThreads * k;
+      const float d0 = d[k], di0 = di[k];
       merge_pair(true, p[o], p[kUnitPix + o], &d[k], &di[k]);
+      // merge_pair took the item's minimum exactly when (d, di) changed:
+      // a strictly smaller depth, or the same depth and a smaller id.
+      if (kPlanes == 4 && (d[k] != d0 || di[k] != di0)) {
+        u[k] = p[2 * kUnitPix + o];
+        v[k] = p[3 * kUnitPix + o];
+      }
     }
   }
 }
 
-// This thread's minima as item `item`'s partial.
-__device__ __forceinline__ void write_partial(float* __restrict__ partial,
-                                              int item, const float* d,
-                                              const float* di) {
-  float* out = partial + static_cast<long long>(item) * 2 * kUnitPix;
+// This thread's minima (and with kPlanes 4 its (u, v)) as item `item`'s
+// partial; its pixel k is p0 + dp * k of the unit.
+template <int kPlanes = 2>
+__device__ __forceinline__ void write_partial(
+    float* __restrict__ partial, int item, const float* d, const float* di,
+    const float* u = nullptr, const float* v = nullptr,
+    int p0 = threadIdx.x, int dp = kWalkThreads) {
+  float* out = partial + static_cast<long long>(item) * kPlanes * kUnitPix;
 #pragma unroll
   for (int k = 0; k < kUnitPixPerThread; ++k) {
-    out[threadIdx.x + kWalkThreads * k] = d[k];
-    out[kUnitPix + threadIdx.x + kWalkThreads * k] = di[k];
+    const int o = p0 + dp * k;
+    out[o] = d[k];
+    out[kUnitPix + o] = di[k];
+    if (kPlanes == 4) {
+      out[2 * kUnitPix + o] = u[k];
+      out[3 * kUnitPix + o] = v[k];
+    }
   }
+}
+
+// ---- the early exit --------------------------------------------------------
+
+// Whether every pixel of the CTA lies nearer than `bound`, at this item's
+// minimum d or at the depths the unit's other items shared (bound_d: +inf
+// in a unit of one item, -inf off the image, so those pixels never hold
+// the exit).  Strict: at equality a later row with a lower id could win.
+// A barrier of the whole CTA.
+__device__ __forceinline__ bool exit_past(const float* d,
+                                          const float* bound_d,
+                                          float bound) {
+  bool past = true;
+#pragma unroll
+  for (int k = 0; k < kUnitPixPerThread; ++k)
+    past = past && fminf(d[k], bound_d[k]) < bound;
+  return __syncthreads_and(past) != 0;
+}
+
+// The step of a walk with an exit after a binned chunk: fold this
+// thread's minima into the unit's shared depths (unit_front, null in a
+// unit of one item; pixel k at p0 + dp * k, in-image ones only) and
+// lower bound_d to the result, then, where rows past the chunk could be
+// left (`goes_on`, the same in every thread), whether they may be:
+// exit_past against `bound`, the least depth any of them can have.
+__device__ __forceinline__ bool exit_step(int* unit_front, int p0, int dp,
+                                          const bool* in_image,
+                                          const float* d, float* bound_d,
+                                          bool goes_on, float bound) {
+  if (unit_front != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kUnitPixPerThread; ++k) {
+      if (!in_image[k]) continue;
+      const int key = depth_key(d[k]);
+      const int old = atomicMin(&unit_front[p0 + dp * k], key);
+      bound_d[k] = key_depth(min(old, key));
+    }
+  }
+  return goes_on && exit_past(d, bound_d, bound);
 }
 
 // One resident CTA per free slot of every SM: the grid of a persistent

@@ -23,7 +23,8 @@ package and are torch ops here:
    ``diag`` with ``big_overflow`` and ``true_entries``;
 3. ``build_table16`` — ``pallas_csr4._build_table16``: (P+1, 16) rows;
    under ``cap_rows10`` ``build_table10`` ((P+1, 10) capsule rows), under
-   ``discs_only`` ``build_table8`` ((P+1, 8) disc rows), each with
+   ``discs_only`` ``build_rows8`` ((P, 8) disc rows in sorted order:
+   ``build_table8``'s rows gathered by ``order``), each with
    ``build_table16_rows`` (16-float rows at the big ids only);
 4. the tile walk: ``raster_tiles`` (16-float rows), ``raster_tiles_cap10``
    (10-float rows), ``raster_tiles_rows9`` (9-float rows),
@@ -39,8 +40,9 @@ The 16-float walk takes the TPU kernel's z-bucket early exit
 JAX package): each tile walks its nine single-class segments, each
 ascending in the z-bucket of its rows' depth lower bound, and leaves a
 segment once no later row of it can win a pixel.  The exit never changes
-a winner; the plain versions walk every row.  The disc rows, the
-kind-split rows and ``cap_rows10`` walk without it.
+a winner; the plain versions walk every row.  The disc rows take it
+only forced on (span 2, not the fused (u, v) walk); the kind-split rows
+and ``cap_rows10`` walk without it.
 
 Contract: winner per pixel = lexicographic min of (depth, primitive id);
 depth +inf and index -1 where empty.  Ids ride the rows as float32, so a
@@ -95,6 +97,12 @@ ZQ = 8
 # would need more).
 SPLIT_ROWS = 2048
 ITEMS_PER_TILE = 4
+# Rows a work item of the disc walks (csr6_disc8, csr6_disc8_uv) takes at
+# least: a disc row costs about a quarter of a capsule row.
+SPLIT_ROWS_DISC = 1024
+# Pixel rows of a warp's band in the disc walks (the pixels of one
+# thread, consecutive rows of one column): the unit of their cull.
+BAND_ROWS = 4
 # Pair budget of one chunk of the plain rasterizer (bounds its memory).
 PLAIN_PAIR_CHUNK = 1 << 23
 
@@ -495,6 +503,25 @@ def build_table8(prims: ScreenPrimitives, shade_flag) -> torch.Tensor:
                                          device=dev)]).contiguous()
 
 
+def build_rows8(prims: ScreenPrimitives, shade_flag, order) -> torch.Tensor:
+    """(P, 8) float32 disc rows in sorted order, ``build_table8(...)
+    [order]`` bit for bit: row i is prim ``order[i]``'s, built from its
+    gathered inputs in one pass (the walks stage a tile's ranges as
+    contiguous runs, so the kernel gathers nothing).  Positions past the
+    binned prefix hold their big or invalid prims' rows, which no walk
+    reads."""
+    ids = order.long()
+    p = prims.params[:, 0:4][ids]
+    r = p[:, 3]
+    rows = torch.cat([
+        p[:, 0:3], (r * r)[:, None], order.to(torch.float32)[:, None],
+        shade_flag[ids][:, None],
+        torch.zeros((ids.shape[0], 2), dtype=torch.float32,
+                    device=prims.device)], dim=1)
+    return torch.where(prims.valid[ids][:, None], rows,
+                       torch.zeros_like(rows)).contiguous()
+
+
 def build_table9(prims: ScreenPrimitives, order, n_small) -> torch.Tensor:
     """(P, 9) float32 kind-split rows in sorted order (the rows9 walk;
     ``pallas_csr6._rows9_columns`` gathered as ``_raster_core6`` does):
@@ -610,8 +637,10 @@ def _launch(symbol, ptr_args, int_args, device, library="csr6_raster"):
                            + err_fn(err).decode())
 
 
-def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span):
-    """Checks of the split walks' exit, ``walked`` and split arguments."""
+def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span,
+                     bands=None):
+    """Checks of the split walks' exit, ``walked`` (and the disc walks'
+    ``bands``) and split arguments."""
     if zmeta is not None:
         if span != 2:
             raise ValueError("the early exit walks single-class segments: "
@@ -620,27 +649,29 @@ def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span):
                 or zmeta.device != device):
             raise ValueError("zmeta must be (3,) float32 on the table's "
                              "device")
-    if walked is not None and (walked.dtype != torch.int32
-                               or walked.shape != (num_tiles,)
-                               or walked.device != device
-                               or not walked.is_contiguous()):
-        raise ValueError("walked must be a contiguous (T,) int32 tensor on "
-                         "the table's device")
+    for name, t in (("walked", walked), ("bands", bands)):
+        if t is not None and (t.dtype != torch.int32
+                              or t.shape != (num_tiles,)
+                              or t.device != device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (T,) int32 "
+                             "tensor on the table's device")
     if split_rows < 1:
         raise ValueError("split_rows must be >= 1")
 
 
 def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
                  tiles_x, tiles_y, flags, split_rows, device, units=None,
-                 library="csr6_raster"):
+                 library="csr6_raster", uv=False):
     """Launch a split walk (plan, walk, merge: one C call; csrc/
-    split_walk.cuh) of ``csrc/<library>.cu`` -> (depth, index).  ``ptrs``
-    are the inputs before the outputs, ``aligned`` the (row tensor, row
-    bytes) pairs that the kernel copies asynchronously, ``units`` the
-    1024-pixel units of the plan (the tiles by default); the wrapper's
-    count goes up once per call."""
+    split_walk.cuh) of ``csrc/<library>.cu`` -> (depth, index), with
+    ``uv`` (depth, index, u, v).  ``ptrs`` are the inputs before the
+    outputs, ``aligned`` the (row tensor, row bytes) pairs that the kernel
+    copies asynchronously, ``units`` the 1024-pixel units of the plan (the
+    tiles by default); the wrapper's count goes up once per call."""
     for t, row_bytes in aligned:
-        # The copy sizes: 16 B for 64 B rows, 8 B for 40 B, 4 B for 36 B.
+        # The copy sizes: 16 B for 64 B and 32 B rows, 8 B for 40 B, 4 B
+        # for 36 B.
         need = next(n for n in (16, 8, 4) if row_bytes % n == 0)
         if t.data_ptr() % need:
             raise ValueError(f"rows of {row_bytes} B must start {need}-byte "
@@ -648,18 +679,21 @@ def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
                              "asynchronously")
     units = units or tiles_x * tiles_y
     max_items = ITEMS_PER_TILE * units
-    depth = torch.empty((height, width), dtype=torch.float32, device=device)
-    index = torch.empty((height, width), dtype=torch.int32, device=device)
+    outs = [torch.empty((height, width), dtype=torch.float32, device=device),
+            torch.empty((height, width), dtype=torch.int32, device=device)]
+    if uv:
+        outs += [torch.empty((height, width), dtype=torch.float32,
+                             device=device) for _ in range(2)]
     # The plan, with room for its ticket order (split_plan_kernel).
     plan = torch.empty(units + 3 * max_items + 3, dtype=torch.int32,
                        device=device)
-    partial = torch.empty((max_items, 2, TILE * TILE), dtype=torch.float32,
-                          device=device)
-    _launch(symbol, (*ptrs, depth, index, plan, partial),
+    partial = torch.empty((max_items, 4 if uv else 2, TILE * TILE),
+                          dtype=torch.float32, device=device)
+    _launch(symbol, (*ptrs, *outs, plan, partial),
             (big_cap, width, height, tiles_x, tiles_y, *flags, split_rows,
              max_items), device, library)
     wrapper.launches += 1
-    return depth, index
+    return tuple(outs)
 
 
 def _raster16(wrapper, bin_triangles, table, order, starts, big_ids, big_n,
@@ -769,56 +803,85 @@ def raster_tiles_cap10(table10, big_rows, order, starts, big_n, width: int,
 raster_tiles_cap10.launches = 0
 
 
-def _raster_disc8(wrapper, with_uv, table8, big_rows, order, starts, big_n,
-                  width, height, span):
-    tiles_x, tiles_y = _check_inputs_narrow(table8, ROW_F_DISC, big_rows,
-                                            order, starts, big_n, width,
-                                            height, span)
-    if table8.device.type == "cpu":
-        return _disc8_plain(with_uv, table8, big_rows, order, starts, big_n,
-                            width, height, span)
-    if table8.device.type != "cuda":
-        raise ValueError(f"no csr6 kernel for device {table8.device}")
-    table8, big_rows, order, starts, big_n = (
-        t.contiguous() for t in (table8, big_rows, order, starts, big_n))
-    dev = table8.device
-    n_out = 3 if with_uv else 1
-    outs = [torch.empty((height, width), dtype=torch.float32, device=dev)
-            for _ in range(n_out)]
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    _launch("csr6_disc8_uv" if with_uv else "csr6_disc8",
-            (table8, big_rows, order, starts, big_n, outs[0], index,
-             *outs[1:]),
-            (big_rows.shape[0], width, height, tiles_x, tiles_y, span), dev)
-    wrapper.launches += 1
-    return (outs[0], index, *outs[1:])
+def _raster_disc8(wrapper, with_uv, rows8, big_rows, starts, big_n, width,
+                  height, span, zmeta, walked, bands, split_rows):
+    tiles_x, tiles_y = _check_inputs_rows8(rows8, big_rows, starts, big_n,
+                                           width, height, span)
+    _check_exit_walk(zmeta, walked, split_rows, rows8.device,
+                     tiles_x * tiles_y, span, bands)
+    if rows8.device.type == "cpu":
+        if walked is not None:
+            walked.copy_(tile_rows(starts, width, height, span))
+        if bands is not None:
+            bands.copy_(band_rows(rows8, starts, width, height, span))
+        return _disc8_plain(with_uv, rows8, big_rows, starts, big_n, width,
+                            height, span)
+    if rows8.device.type != "cuda":
+        raise ValueError(f"no csr6 kernel for device {rows8.device}")
+    rows8, big_rows, starts, big_n = (
+        t.contiguous() for t in (rows8, big_rows, starts, big_n))
+    if bands is not None:
+        bands.zero_()
+    aligned = ((rows8, 4 * ROW_F_DISC), (big_rows, 4 * ROW_F))
+    if with_uv:
+        return _launch_walk(
+            "csr6_disc8_uv", wrapper,
+            (rows8, big_rows, starts, big_n, walked, bands), aligned,
+            big_rows.shape[0], width, height, tiles_x, tiles_y, (span,),
+            split_rows, rows8.device, uv=True)
+    # The exit's depths shared by a split tile's items (the kernel's plan
+    # resets those it reads).
+    front = None if zmeta is None else torch.empty(
+        (tiles_x * tiles_y, TILE * TILE), dtype=torch.int32,
+        device=rows8.device)
+    return _launch_walk(
+        "csr6_disc8", wrapper,
+        (rows8, big_rows, starts, big_n, zmeta, front, walked, bands),
+        aligned, big_rows.shape[0], width, height, tiles_x, tiles_y, (span,),
+        split_rows, rows8.device)
 
 
-def raster_tiles_disc8(table8, big_rows, order, starts, big_n, width: int,
-                       height: int, span: int = SPAN):
-    """The ``discs_only`` walk -> (depth, index): binned rows are the
-    8-float disc rows of :func:`build_table8` gathered by ``order`` (a
-    binning at ``span``), the big list the dense 16-float ``big_rows``
-    (its first ``big_n`` rows live).  CUDA tensors launch the
-    ``csr6_disc8`` kernel of ``csrc/csr6_raster.cu``; CPU tensors take
-    :func:`raster_tiles_disc8_plain`.  ``.launches`` counts launches."""
-    return _raster_disc8(raster_tiles_disc8, False, table8, big_rows, order,
-                         starts, big_n, width, height, span)
+def raster_tiles_disc8(rows8, big_rows, starts, big_n, width: int,
+                       height: int, span: int = SPAN, zmeta=None,
+                       walked=None, bands=None,
+                       split_rows: int = SPLIT_ROWS_DISC):
+    """The ``discs_only`` walk -> (depth, index).
+
+    Both versions take the binned disc rows in sorted order,
+    :func:`build_rows8` (``build_table8(...)[order]``, the JAX package's
+    gathered rows), with the range ``starts`` of a binning at ``span``,
+    and the big list as the dense 16-float ``big_rows`` (its first
+    ``big_n`` rows live).  CUDA tensors launch the ``csr6_disc8`` kernel
+    of ``csrc/csr6_raster.cu`` (a split walk, its rows staged by bulk
+    copies, each warp culling the rows that miss its band of pixel rows);
+    CPU tensors take :func:`raster_tiles_disc8_plain`.  ``zmeta`` (an exit
+    binning's, span 2) turns the z-bucket early exit on, as in
+    :func:`raster_tiles`; ``walked`` takes each tile's count of binned
+    rows evaluated, ``bands`` its count of (binned row, warp band) pairs
+    evaluated (:func:`band_rows` on the plain walk, which walks every
+    row); ``split_rows`` as :func:`raster_tiles`.  ``.launches`` counts
+    calls."""
+    return _raster_disc8(raster_tiles_disc8, False, rows8, big_rows, starts,
+                         big_n, width, height, span, zmeta, walked, bands,
+                         split_rows)
 
 
 raster_tiles_disc8.launches = 0
 
 
-def raster_tiles_disc8_uv(table8, big_rows, order, starts, big_n, width: int,
-                          height: int, span: int = SPAN):
-    """:func:`raster_tiles_disc8` that also carries the winner's lambert
-    plane coordinates -> (depth, index, u, v): u = (qx - px) * flag and
-    v = -(qy - py) * flag at the winning pair for discs (binned, or wide
-    on the big list), +inf for triangle and capsule winners and where
-    empty.  CUDA tensors launch the ``csr6_disc8_uv`` kernel; CPU tensors
-    take :func:`raster_tiles_disc8_uv_plain`."""
-    return _raster_disc8(raster_tiles_disc8_uv, True, table8, big_rows,
-                         order, starts, big_n, width, height, span)
+def raster_tiles_disc8_uv(rows8, big_rows, starts, big_n, width: int,
+                          height: int, span: int = SPAN, walked=None,
+                          bands=None, split_rows: int = SPLIT_ROWS_DISC):
+    """:func:`raster_tiles_disc8` (no exit) that also carries the winner's
+    lambert plane coordinates -> (depth, index, u, v): u = (qx - px) *
+    flag and v = -(qy - py) * flag at the winning pair for discs (binned,
+    or wide on the big list), +inf for triangle and capsule winners and
+    where empty.  CUDA tensors launch the ``csr6_disc8_uv`` kernel; CPU
+    tensors take :func:`raster_tiles_disc8_uv_plain`.  ``.launches``
+    counts calls."""
+    return _raster_disc8(raster_tiles_disc8_uv, True, rows8, big_rows,
+                         starts, big_n, width, height, span, None, walked,
+                         bands, split_rows)
 
 
 raster_tiles_disc8_uv.launches = 0
@@ -1159,13 +1222,12 @@ def raster_tiles_cap10_plain(table10, big_rows, order, starts, big_n,
     return _merge_plain(groups, width, height, dev, False)
 
 
-def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
-                 height, span):
-    _check_inputs_narrow(table8, ROW_F_DISC, big_rows, order, starts, big_n,
-                         width, height, span)
-    dev = table8.device
-    ids, rect = _binned_rects(order, starts, width, height, span)
-    binned = table8[ids]
+def _disc8_plain(with_uv, rows8, big_rows, starts, big_n, width, height,
+                 span):
+    _check_inputs_rows8(rows8, big_rows, starts, big_n, width, height, span)
+    dev = rows8.device
+    _, rect = _binned_layout(starts, width, height, span)
+    binned = rows8[:rect[0].shape[0]]
     nb = int(big_n[0])
     big = big_rows[:nb]
     groups = [
@@ -1175,44 +1237,107 @@ def _disc8_plain(with_uv, table8, big_rows, order, starts, big_n, width,
     return _merge_plain(groups, width, height, dev, with_uv)
 
 
-def raster_tiles_disc8_plain(table8, big_rows, order, starts, big_n,
-                             width: int, height: int, span: int = SPAN):
-    """Plain PyTorch version of :func:`raster_tiles_disc8`, on any device:
-    the disc body over each binned row's window, the 16-float body over
-    the live big rows, merged as in :func:`raster_tiles_plain`."""
-    return _disc8_plain(False, table8, big_rows, order, starts, big_n, width,
+def raster_tiles_disc8_plain(rows8, big_rows, starts, big_n, width: int,
+                             height: int, span: int = SPAN):
+    """Plain PyTorch version of :func:`raster_tiles_disc8`, on any device
+    (the same sorted rows): the disc body over each binned row's window,
+    the 16-float body over the live big rows, merged as in
+    :func:`raster_tiles_plain`."""
+    return _disc8_plain(False, rows8, big_rows, starts, big_n, width,
                         height, span)
 
 
-def raster_tiles_disc8_uv_plain(table8, big_rows, order, starts, big_n,
-                                width: int, height: int, span: int = SPAN):
+def raster_tiles_disc8_uv_plain(rows8, big_rows, starts, big_n, width: int,
+                                height: int, span: int = SPAN):
     """Plain PyTorch version of :func:`raster_tiles_disc8_uv`: (u, v) are
     taken at the one pair that wins (depth, id), +inf elsewhere."""
-    return _disc8_plain(True, table8, big_rows, order, starts, big_n, width,
-                        height, span)
+    return _disc8_plain(True, rows8, big_rows, starts, big_n, width, height,
+                        span)
+
+
+def band_keeps(py, r2, y_lo, band: int = BAND_ROWS):
+    """The disc walks' cull (``csrc/csr6_raster.cu`` band_live): whether a
+    disc row at ``py`` with squared radius ``r2`` is evaluated over the
+    band of ``band`` pixel centres from ``y_lo``: not when fl(dy * dy) >
+    r2 at the band's centre nearest to py, which no pixel of the band can
+    then pass (exact; NaN never skips).  With ``band`` 1 it is the exact
+    test of one pixel row."""
+    y_hi = y_lo + float(band - 1)
+    near = torch.minimum(torch.maximum(torch.floor(py) + 0.5, y_lo), y_hi)
+    dy = near - py
+    return ~(dy * dy > r2)
+
+
+def band_rows(rows8, starts, width: int, height: int,
+              span: int = SPAN, band: int = BAND_ROWS) -> torch.Tensor:
+    """(T,) int32: the (binned row, warp band) pairs each tile's disc walk
+    evaluates with every row walked: per tile, each binned row of its
+    ranges (:func:`tile_rows`) at each band of ``band`` pixel rows inside
+    the image that :func:`band_keeps` keeps.  With ``band`` 1: the (row,
+    pixel row) pairs that some pixel of the row could cover, the work the
+    function needs whatever the band."""
+    tiles_x, tiles_y = grid_shape(width, height)
+    dev = starts.device
+    _, (c0, c1, r0, r1) = _binned_layout(starts, width, height, span)
+    rows = rows8[:c0.shape[0]]
+    py, r2 = rows[:, 1], rows[:, 3]
+    tx0, ty0 = c0 // TILE, r0 // TILE
+    nx = (c1 - c0 + TILE - 1) // TILE  # tile columns the row is walked in
+    ny = (r1 - r0 + TILE - 1) // TILE
+    counts = torch.zeros(tiles_x * tiles_y, dtype=torch.int64, device=dev)
+    for dy in range(span):
+        ty = ty0 + dy
+        live = dy < ny
+        kept = torch.zeros_like(ty)
+        for b in range(TILE // band):
+            y0 = ty * TILE + b * band
+            keep = band_keeps(py, r2, y0.to(torch.float32) + 0.5, band)
+            kept += (keep & (y0 < height)).to(torch.int64)
+        for dx in range(span):
+            sel = live & (dx < nx)
+            counts.index_add_(0, (ty * tiles_x + tx0 + dx)[sel], kept[sel])
+    return counts.to(torch.int32)
+
+
+def _check_sorted_rows(name, rows, row_f, big_rows, starts, big_n, width,
+                       height, span, regions=1):
+    """Checks of the walks over binned rows in sorted order (``name``: the
+    disc walks' rows8, or rows9 with the kind split's two ordinal
+    ``regions``), with a dense 16-float big list and the range starts of a
+    binning at ``span``."""
+    if span not in SPANS:
+        raise ValueError(f"span must be one of {SPANS}, got {span}")
+    if (rows.dtype != torch.float32 or rows.ndim != 2
+            or rows.shape[1] != row_f):
+        raise ValueError(f"{name} must be (P, {row_f}) float32")
+    if (big_rows.dtype != torch.float32 or big_rows.ndim != 2
+            or big_rows.shape[1] != ROW_F):
+        raise ValueError("big_rows must be (B, 16) float32")
+    for label, t in (("starts", starts), ("big_n", big_n)):
+        if t.dtype != torch.int32 or t.ndim != 1:
+            raise ValueError(f"{label} must be a 1-D int32 tensor")
+    tiles_x, tiles_y = grid_shape(width, height)
+    if starts.shape[0] != regions * tiles_x * tiles_y * span * span + 1:
+        raise ValueError(
+            "starts does not match "
+            + ("a kind-split binning of " if regions == 2 else "")
+            + "the tile grid at this span")
+    if big_n.shape[0] != 1:
+        raise ValueError("big_n must hold one element")
+    _check_one_device(rows, big_rows, starts, big_n)
+    return tiles_x, tiles_y
+
+
+def _check_inputs_rows8(rows8, big_rows, starts, big_n, width, height,
+                        span):
+    return _check_sorted_rows("rows8", rows8, ROW_F_DISC, big_rows, starts,
+                              big_n, width, height, span)
 
 
 def _check_inputs_rows9(rows9, big_rows, starts, big_n, width, height,
                         span):
-    if span not in SPANS:
-        raise ValueError(f"span must be one of {SPANS}, got {span}")
-    if (rows9.dtype != torch.float32 or rows9.ndim != 2
-            or rows9.shape[1] != ROW_F9):
-        raise ValueError("rows9 must be (P, 9) float32")
-    if (big_rows.dtype != torch.float32 or big_rows.ndim != 2
-            or big_rows.shape[1] != ROW_F):
-        raise ValueError("big_rows must be (B, 16) float32")
-    for name, t in (("starts", starts), ("big_n", big_n)):
-        if t.dtype != torch.int32 or t.ndim != 1:
-            raise ValueError(f"{name} must be a 1-D int32 tensor")
-    tiles_x, tiles_y = grid_shape(width, height)
-    if starts.shape[0] != 2 * tiles_x * tiles_y * span * span + 1:
-        raise ValueError("starts does not match a kind-split binning of "
-                         "the tile grid at this span")
-    if big_n.shape[0] != 1:
-        raise ValueError("big_n must hold one element")
-    _check_one_device(rows9, big_rows, starts, big_n)
-    return tiles_x, tiles_y
+    return _check_sorted_rows("rows9", rows9, ROW_F9, big_rows, starts,
+                              big_n, width, height, span, regions=2)
 
 
 def raster_tiles_rows9(rows9, big_rows, starts, big_n, width: int,
@@ -1376,8 +1501,9 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
     ``kind_split`` and ``cap_rows10`` no (P+1, 16) table exists: the
     binned rows are 8, 9 or 10 floats and the big rows are built at the
     big ids.  ``bin_triangles`` bins small triangles into the 16-float
-    walk (mesh-LOD droplets).  ``allow_exit`` by :func:`resolve_exit`;
-    the 16-float walk takes the exit (the disc rows walk without it)."""
+    walk (mesh-LOD droplets).  ``allow_exit`` by :func:`resolve_exit`:
+    the 16-float walk and, forced on, the non-fused disc walk at span 2
+    take the exit."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
@@ -1389,7 +1515,7 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                            fused_uv, kind_split)
     tiles_x, tiles_y = grid_shape(width, height)
     key_layout(tiles_x * tiles_y, span, exit_on, kind_split)
-    with_z = exit_on and not discs_only
+    with_z = exit_on
     zlb = (z_lower_bound(prims, with_triangles=bin_triangles) if with_z
            else None)
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
@@ -1410,18 +1536,20 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
         depth, index = walk(rows9, big_rows, binned["starts"],
                             binned["big_n"], width, height, span)
     elif discs_only:
-        table8 = build_table8(prims, shade_flag)
+        rows8 = build_rows8(prims, shade_flag, binned["order"])
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
                                       binned["big_ids"])
+        args = (rows8, big_rows, binned["starts"], binned["big_n"], width,
+                height, span)
         if fused_uv:
             walk = raster_tiles_disc8_uv_plain if plain \
                 else raster_tiles_disc8_uv
-            depth, index, *uv = walk(table8, big_rows, *ranges,
-                                     binned["big_n"], width, height, span)
+            depth, index, *uv = walk(*args)
+        elif plain:
+            depth, index = raster_tiles_disc8_plain(*args)
         else:
-            walk = raster_tiles_disc8_plain if plain else raster_tiles_disc8
-            depth, index = walk(table8, big_rows, *ranges, binned["big_n"],
-                                width, height, span)
+            depth, index = raster_tiles_disc8(
+                *args, zmeta=binned["zmeta"] if with_z else None)
     else:
         table = build_table16(prims, shade_rgb, shade_flag,
                               bin_triangles=bin_triangles, zlb=zlb)

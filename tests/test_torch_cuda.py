@@ -5,9 +5,10 @@ rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 v3 disc fast path with and without its exit; the v1 and v2 strip walks,
 16-float and 8-float disc rows, with their saturation exit; the v5
 chunk-binned disc walk, with and without its exit and its fused shade;
-the disc rows at spans 4 and 8; the 16-, 10- and 9-float walks and the
-v2 strip walk with their tiles split into work items, the 16-float walk
-with its z-bucket exit)
+the disc rows at spans 4 and 8; the 16-, 10-, 9- and 8-float walks and
+the v2 strip walk with their tiles split into work items, the 16-float
+walk and the disc walk with their z-bucket exit, the disc walks' cull on
+discs tangent to its bands)
 against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
@@ -48,6 +49,7 @@ from torch_soups import (
     SPAN8_FILM,
     H,
     W,
+    band_soup,
     cloud,
     cross_class_soup,
     disc_soup,
@@ -113,9 +115,9 @@ def test_disc8_kernels_match_plain_on_card(cuda_device, case):
     b = csr6.bin_csr6(soup, W, H, 256, discs_only=True)
     assert int(b["diag"]["big_overflow"]) == 0
     zeros = torch.zeros((soup.count, 3), device=cuda_device)
-    args = (csr6.build_table8(soup, flag),
+    args = (csr6.build_rows8(soup, flag, b["order"]),
             csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
-            b["order"], b["starts"], b["big_n"], W, H)
+            b["starts"], b["big_n"], W, H)
     for wrapper, plain in (
             (csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain),
             (csr6.raster_tiles_disc8_uv, csr6.raster_tiles_disc8_uv_plain)):
@@ -620,9 +622,9 @@ def test_disc8_kernels_at_wide_spans_match_plain_on_card(cuda_device, case,
     b = csr6.bin_csr6(soup, w, h, 1024, discs_only=True, span=span)
     assert int(b["diag"]["big_overflow"]) == 0
     zeros = torch.zeros((soup.count, 3), device=cuda_device)
-    args = (csr6.build_table8(soup, flag),
+    args = (csr6.build_rows8(soup, flag, b["order"]),
             csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
-            b["order"], b["starts"], b["big_n"], w, h, span)
+            b["starts"], b["big_n"], w, h, span)
     for wrapper, plain in (
             (csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain),
             (csr6.raster_tiles_disc8_uv, csr6.raster_tiles_disc8_uv_plain)):
@@ -634,6 +636,58 @@ def test_disc8_kernels_at_wide_spans_match_plain_on_card(cuda_device, case,
         for a, w_ in zip(got, want):
             np.testing.assert_array_equal(_bits(a), _bits(w_))
         assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", [csr6.SPLIT_ROWS_DISC, 64])
+@pytest.mark.parametrize("span", [2, 4, 8])
+@pytest.mark.parametrize("case", ["band", "disc_ties", "dense_tile"])
+def test_disc8_split_cull_matches_plain_on_card(cuda_device, case, span,
+                                                split_rows):
+    """csr6_disc8 and csr6_disc8_uv with their tiles cut into items of
+    ``split_rows`` rows == their plain versions bit for bit (depth, index,
+    (u, v)) on discs tangent to the cull's bands, centred on band
+    boundaries, at the ragged bottom edge, with exact ties across items;
+    ``walked`` is every tile's row count and ``bands`` :func:`band_rows`;
+    at span 2 csr6_disc8 also with the exit forced on (the exit binning),
+    walking at most every tile's rows."""
+    soup = {"band": band_soup, "disc_ties": lambda: disc_soup(tcam()),
+            "dense_tile": lambda: make_soup("dense_tile")}[case]()
+    soup = soup.to(cuda_device)
+    _, flag = csr6.preshade(soup, tcam(device=cuda_device), ShadingConfig())
+    b = csr6.bin_csr6(soup, W, H, 256, discs_only=True, span=span,
+                      with_z=span == 2)
+    assert int(b["diag"]["big_overflow"]) == 0
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    args = (csr6.build_rows8(soup, flag, b["order"]),
+            csr6.build_table16_rows(soup, zeros, flag, b["big_ids"]),
+            b["starts"], b["big_n"], W, H, span)
+    rows = csr6.tile_rows(b["starts"], W, H, span)
+    kept = csr6.band_rows(args[0], b["starts"], W, H, span)
+    runs = [(csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain, None),
+            (csr6.raster_tiles_disc8_uv, csr6.raster_tiles_disc8_uv_plain,
+             None)]
+    if span == 2:
+        runs.append((csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_plain,
+                     b["zmeta"]))
+    for wrapper, plain, zmeta in runs:
+        walked = torch.full_like(rows, -1)
+        bands = torch.full_like(rows, -1)
+        kw = dict(walked=walked, bands=bands, split_rows=split_rows)
+        if zmeta is not None:
+            kw["zmeta"] = zmeta
+        got = wrapper(*args, **kw)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        for a, w_ in zip(got, want, strict=True):
+            np.testing.assert_array_equal(_bits(a), _bits(w_))
+        assert bool((got[1] >= 0).any())
+        if zmeta is None:
+            assert torch.equal(walked, rows)
+            assert torch.equal(bands, kept)
+        else:
+            assert bool(((walked >= 0) & (walked <= rows)).all())
+            assert bool(((bands >= 0) & (bands <= kept)).all())
 
 
 @pytest.mark.cuda

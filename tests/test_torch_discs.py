@@ -3,8 +3,11 @@ the fused (u, v) shade, ``uniform_look``) and ``scene/dynamics.py``, held
 against the JAX package on the CPU.
 
 * Binning with ``discs_only`` (capsules ride the big list) matches
-  ``pallas_csr6._bin_csr6`` / ``bin_diagnostics6``.
-* ``build_table8`` and ``build_table16_rows`` are bit-equal to the JAX rows.
+  ``pallas_csr6._bin_csr6`` / ``bin_diagnostics6``, with and without the
+  exit's z-bucket keys.
+* ``build_table8`` and ``build_table16_rows`` are bit-equal to the JAX rows,
+  ``build_rows8`` (the sorted rows the walks take) to ``build_table8``'s
+  rows in sorted order; the warp-band cull of the disc kernels is exact.
 * The plain 8-float walks equal ``cpu_reference.rasterize_reference`` bit
   for bit (exact ties, wide discs and capsules on the big list) and the
   interpret-mode ``discs_only`` Pallas walk.
@@ -22,6 +25,8 @@ against the JAX package on the CPU.
   ``shade_by_id`` path, on a film where wide discs reach 5-8 tiles.
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +55,7 @@ from tests.torch_soups import (
     H,
     SPAN8_FILM,
     W,
+    band_soup,
     disc_soup,
     make_soup,
     tcam,
@@ -64,29 +70,56 @@ def _disc_walk_inputs(soup, w, h, max_big=256, flag=None, span=2):
     b = csr6.bin_csr6(soup, w, h, max_big, discs_only=True, span=span)
     zeros = torch.zeros((soup.count, 3))
     flag = torch.zeros(soup.count) if flag is None else flag
-    table8 = csr6.build_table8(soup, flag)
+    rows8 = csr6.build_rows8(soup, flag, b["order"])
     big_rows = csr6.build_table16_rows(soup, zeros, flag, b["big_ids"])
-    return (table8, big_rows, b["order"], b["starts"], b["big_n"], w, h), b
+    return (rows8, big_rows, b["starts"], b["big_n"], w, h), b
 
 
+@functools.cache
+def _jax_discs_overflow(max_big):
+    """The JAX package's discs_only overflow count of the wide_big soup
+    (the same with and without the exit keys)."""
+    return jax.jit(lambda s: jcsr6.bin_diagnostics6(
+        s, W, H, max_big=max_big, discs_only=True))(
+            jax_soup(make_soup("wide_big")))
+
+
+@pytest.mark.parametrize("with_z", [False, True])
 @pytest.mark.parametrize("max_big", [8, 256])
-def test_discs_only_binning_matches_jax(max_big):
+def test_discs_only_binning_matches_jax(max_big, with_z):
     """Big count, overflow and true_entries equal the JAX binning's; every
-    valid capsule lands on the big list."""
+    valid capsule lands on the big list.  With ``with_z`` (the exit forced
+    on): the int32 exit keys, ``zmeta`` bits and range starts equal
+    ``_bin_csr6(discs_only=True, with_z=True)``'s, and every key holds the
+    same prim ids."""
     soup = make_soup("wide_big")
     jsoup = jax_soup(soup)
-    b = csr6.bin_csr6(soup, W, H, max_big, discs_only=True)
+    b = csr6.bin_csr6(soup, W, H, max_big, discs_only=True, with_z=with_z)
     tiles_x, tiles_y = csr6.grid_shape(W, H)
-    # Integer results: one jit each instead of op-by-op dispatch.
-    keys, _, _, jbig_count, _, jn_small = jax.jit(
+    shift = jcsr6.ZQ if with_z else 0
+    # Integer results and float32 reductions with no multiply-add to
+    # contract: one jit each instead of op-by-op dispatch.
+    keys, prims, _, jbig_count, zmeta, jn_small = jax.jit(
         lambda s: jcsr6._bin_csr6(
             s, 32, 32, tiles_x * tiles_y, tiles_x, tiles_y, max_big=max_big,
-            discs_only=True, with_z=False))(jsoup)
-    jovf = jax.jit(lambda s: jcsr6.bin_diagnostics6(
-        s, W, H, max_big=max_big, discs_only=True))(jsoup)
+            discs_only=True, with_z=with_z))(jsoup)
+    jovf = _jax_discs_overflow(max_big)
     n_small = int(np.asarray(jn_small))
-    classes = np.bincount(np.asarray(keys)[:n_small].astype(np.int64) % 4,
-                          minlength=4)
+    keys = np.asarray(keys).astype(np.int64)
+    classes = np.bincount((keys[:n_small] >> shift) % 4, minlength=4)
+    if with_z:
+        assert b["keys"].dtype == torch.int32
+        np.testing.assert_array_equal(b["zmeta"].numpy().view(np.int32),
+                                      np.asarray(zmeta).view(np.int32))
+        np.testing.assert_array_equal(
+            b["starts"].numpy(), np.searchsorted(
+                keys, np.arange(tiles_x * tiles_y * 4 + 1) << shift))
+        ours = np.lexsort((b["order"].numpy(), b["keys"].numpy()))
+        theirs = np.lexsort((np.asarray(prims), keys))
+        np.testing.assert_array_equal(b["keys"].numpy()[ours], keys[theirs])
+        np.testing.assert_array_equal(b["order"].numpy()[ours],
+                                      np.asarray(prims)[theirs])
+        assert len(np.unique(keys[:n_small] & ((1 << shift) - 1))) > 4
     assert int(b["big_count"]) == int(np.asarray(jbig_count))
     assert int(b["starts"][-1]) == n_small
     assert int(b["diag"]["big_overflow"]) == int(np.asarray(jovf))
@@ -141,6 +174,51 @@ def test_disc_tables_match_jax():
     np.testing.assert_array_equal(
         rows.numpy().view(np.int32),
         csr6.build_table16(soup, rgb, flag)[ids.long()].numpy().view(np.int32))
+
+
+def test_sorted_disc_rows_and_band_cull():
+    """build_rows8 == build_table8(...)[order] bit for bit (the rows the
+    disc kernels stage, and the plain walks read, in sorted order); the
+    warp-band cull (band_keeps, the kernels' test mirrored) keeps a (disc
+    row, band) pair exactly when a pixel centre of the band passes the
+    disc test at dx = 0, on band_soup's tangent, one-below and
+    boundary-centred discs and NaN rows; band_rows counts the kept pairs
+    of the bands inside the image, at most 8 per tile row; with bands of
+    one row it counts the (row, pixel row) pairs that pass the exact dy
+    test, between one and BAND_ROWS per kept band."""
+    soup = band_soup()
+    _, flag = csr6.preshade(soup, tcam(), ShadingConfig())
+    b = csr6.bin_csr6(soup, W, H, 256, discs_only=True)
+    rows = csr6.build_rows8(soup, flag, b["order"])
+    np.testing.assert_array_equal(
+        rows.numpy().view(np.int32),
+        csr6.build_table8(soup, flag)[b["order"].long()].numpy()
+        .view(np.int32))
+    py = torch.cat([rows[:, 1], torch.tensor([np.nan, 40.0])])
+    r2 = torch.cat([rows[:, 3], torch.tensor([4.0, np.nan])])
+    tangent = 0
+    for y0 in range(0, H + 4, 4):
+        keep = csr6.band_keeps(py, r2, torch.tensor(y0 + 0.5))
+        dy2 = [((y0 + k + 0.5) - py) ** 2 for k in range(csr6.BAND_ROWS)]
+        cover = torch.stack([d <= r2 for d in dy2]).any(dim=0)
+        np.testing.assert_array_equal(
+            keep.numpy(), (cover | py.isnan() | r2.isnan()).numpy())
+        tangent += int((torch.stack(dy2).amin(dim=0) == r2).sum())
+    assert tangent > 50  # pairs kept at equality
+    counts = csr6.band_rows(rows, b["starts"], W, H)
+    tiles = csr6.tile_rows(b["starts"], W, H)
+    assert bool((counts <= 8 * tiles).all()) and 0 < int(counts.sum()) \
+        < 4 * int(tiles.sum())
+    # The bottom tile row holds rows 64-89: band 7 (92-95) lies below.
+    tiles_x, _ = csr6.grid_shape(W, H)
+    assert bool((counts[-tiles_x:] <= 7 * tiles[-tiles_x:]).all())
+    for y in (0, 37, 89):
+        np.testing.assert_array_equal(
+            csr6.band_keeps(py, r2, torch.tensor(y + 0.5), band=1).numpy(),
+            ((((y + 0.5) - py) ** 2 <= r2) | py.isnan() | r2.isnan()).numpy())
+    pixel_rows = csr6.band_rows(rows, b["starts"], W, H, band=1)
+    assert bool((counts <= pixel_rows).all())
+    assert bool((pixel_rows <= csr6.BAND_ROWS * counts).all())
 
 
 @pytest.mark.parametrize("case", ["disc_ties", "wide_big", "invalid"])
@@ -345,8 +423,8 @@ def test_disc8_wrapper_dispatch():
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
         with pytest.raises(ValueError, match="no csr6 kernel"):
-            wrapper(*(a.to("meta") for a in args[:5]), W, H)
-        with pytest.raises(ValueError, match="table8"):
+            wrapper(*(a.to("meta") for a in args[:4]), W, H)
+        with pytest.raises(ValueError, match="rows8"):
             wrapper(args[0][:, :4], *args[1:])
         with pytest.raises(ValueError, match="big_rows"):
             wrapper(args[0], args[1][:, :8], *args[2:])
@@ -404,16 +482,26 @@ def test_discs_only_wide_span_binning_matches_jax(span):
     assert int(b["big_count"]) < int(narrower["big_count"])
 
 
+@functools.cache
+def _wide_disc_references():
+    """(soup, flag, oracle depth, oracle index, span-2 (u, v)) of the
+    wide-disc film, shared by the span-4 and span-8 cases."""
+    soup = wide_disc_soup()
+    w, h = SPAN8_FILM
+    d_o, i_o = cpu_reference.rasterize_reference(numpy_soup(soup), w, h)
+    _, flag = csr6.preshade(soup, tcam(w, h), ShadingConfig())
+    args2, _ = _disc_walk_inputs(soup, w, h, 1024, flag)
+    return soup, flag, d_o, i_o, csr6.raster_tiles_disc8_uv(*args2)[2:]
+
+
 @pytest.mark.parametrize("span", [4, 8])
 def test_plain_disc8_wide_spans_match_oracle(span):
     """Both plain 8-float walks at spans 4 and 8 equal the NumPy oracle
     bit for bit and the 16-float walk at the same span; (u, v) equal the
     span-2 walk's (the same winners, wide discs binned or big)."""
-    soup = wide_disc_soup()
+    soup, flag, d_o, i_o, (u2, v2) = _wide_disc_references()
     w, h = SPAN8_FILM
-    d_o, i_o = cpu_reference.rasterize_reference(numpy_soup(soup), w, h)
     assert (i_o >= 0).mean() > 0.5
-    _, flag = csr6.preshade(soup, tcam(w, h), ShadingConfig())
     args, b = _disc_walk_inputs(soup, w, h, 1024, flag, span)
     assert int(b["diag"]["big_overflow"]) == 0
     depth, index = csr6.raster_tiles_disc8(*args, span=span)
@@ -424,8 +512,6 @@ def test_plain_disc8_wide_spans_match_oracle(span):
     np.testing.assert_array_equal(i_uv.numpy(), i_o)
     np.testing.assert_array_equal(d_uv.numpy().view(np.int32),
                                   d_o.view(np.int32))
-    args2, _ = _disc_walk_inputs(soup, w, h, 1024, flag)
-    _, _, u2, v2 = csr6.raster_tiles_disc8_uv(*args2)
     for a, b2 in ((u, u2), (v, v2)):
         np.testing.assert_array_equal(a.numpy().view(np.int32),
                                       b2.numpy().view(np.int32))

@@ -12,7 +12,8 @@ with ``allow_exit``), held against the JAX package on the CPU.
   bit (depth bits and index), ``walked`` the rows of every tile.
 * ``render_shaded_csr6`` with ``allow_exit=None`` (on by the JAX policy)
   equals ``allow_exit=False`` bit for bit; the policy raises where the JAX
-  one raises.
+  one raises.  The ``discs_only`` walk with the exit forced on equals the
+  exit-off frame and the oracle.
 The CUDA kernel's exit and split run only on a card: ``test_torch_cuda.py``.
 """
 
@@ -40,6 +41,7 @@ from tests.torch_soups import (
     CROSS_FILM,
     H,
     W,
+    band_soup,
     cloud,
     cross_class_soup,
     make_soup,
@@ -166,6 +168,37 @@ def test_default_exit_frames_equal_exit_off(case):
     np.testing.assert_array_equal(fb.rgb.numpy(), outs[0][0].numpy())
 
 
+def test_discs_only_exit_frame_equals_exit_off_and_oracle():
+    """The non-fused disc walk with the exit forced on (span 2): the
+    binning takes the exit keys, and the frame equals the exit-off frame
+    (rgb, depth, index) and the oracle bit for bit; the plain walk reports
+    every tile's rows as walked."""
+    soup = band_soup()
+    cam = tcam()
+    outs = [csr6.render_shaded_csr6(soup, cam, ShadingConfig(),
+                                    discs_only=True, allow_exit=allow)
+            for allow in (True, False)]
+    for a, b in zip(*(o[:3] for o in outs)):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      b.numpy().view(np.int32))
+    d_o, i_o = cpu_reference.rasterize_reference(numpy_soup(soup), W, H)
+    np.testing.assert_array_equal(outs[0][2].numpy(), i_o)
+    np.testing.assert_array_equal(outs[0][1].numpy().view(np.int32),
+                                  d_o.view(np.int32))
+    b = csr6.bin_csr6(soup, W, H, 256, discs_only=True, with_z=True)
+    rows8 = csr6.build_rows8(soup, torch.zeros(soup.count), b["order"])
+    big = csr6.build_table16_rows(soup, torch.zeros((soup.count, 3)),
+                                  torch.zeros(soup.count), b["big_ids"])
+    walked = torch.full((csr6.tile_rows(b["starts"], W, H).shape[0],), -1,
+                        dtype=torch.int32)
+    depth, index = csr6.raster_tiles_disc8(
+        rows8, big, b["starts"], b["big_n"], W, H, zmeta=b["zmeta"],
+        walked=walked, split_rows=64)
+    np.testing.assert_array_equal(index.numpy(), i_o)
+    np.testing.assert_array_equal(walked.numpy(),
+                                  csr6.tile_rows(b["starts"], W, H).numpy())
+
+
 def test_exit_policy_and_errors():
     soup = make_soup("mixed")
     cam = tcam()
@@ -177,6 +210,9 @@ def test_exit_policy_and_errors():
     assert not csr6.resolve_exit(True, kind_split=True)
     with pytest.raises(ValueError, match="requires span=2"):
         csr6.render_shaded_csr6(soup, cam, sh, allow_exit=True, span=4)
+    with pytest.raises(ValueError, match="requires span=2"):
+        csr6.render_shaded_csr6(soup, cam, sh, allow_exit=True, span=8,
+                                discs_only=True)
     with pytest.raises(ValueError, match="requires span=2"):
         check_config(RasterConfig(allow_exit=True, span=8))
     with pytest.raises(ValueError, match="cap_rows10 rows carry no zlb"):
@@ -195,12 +231,20 @@ def test_exit_policy_and_errors():
     with pytest.raises(ValueError, match="too large for the int32 v6 key"):
         csr6.bin_csr6(soup, side, side, with_z=True)
     for match, kw in (("allow_exit requires span=2", dict(span=4)),
+                      ("allow_exit requires span=2",
+                       dict(span=8, discs_only=True)),
                       ("too large for the int32 v6 key",
                        dict(width=side, height=side))):
         with pytest.raises(ValueError, match=match):
             jcsr6.rasterize_pallas_csr6(
                 jax_soup(soup), kw.get("width", W), kw.get("height", H),
-                allow_exit=True, span=kw.get("span", 2), interpret=True)
+                allow_exit=True, span=kw.get("span", 2), interpret=True,
+                discs_only=kw.get("discs_only", False))
+    # The fused (u, v) walk carries no exit, in both packages.
+    with pytest.raises(ValueError, match="fused_uv carries"):
+        jcsr6._raster_core6(jax_soup(soup), W, H, 32, 32, 1, 256, True,
+                            None, None, max_big=256, discs_only=True,
+                            allow_exit=True, fused_uv=True)
     # The wrapper's own checks.
     b = csr6.bin_csr6(soup, W, H, 256, with_z=True, span=2)
     table = csr6.build_table16(soup, zeros, zeros[:, 0])

@@ -1,8 +1,9 @@
 """The ``split_rows`` argument of the kind-split walk
-(``csr6.raster_tiles_rows9``) and of the v2 strip walk
-(``csr2.raster_tiles2``), whose CUDA kernels cut dense tiles into work
-items: it must be at least 1, and on CPU tensors, which take the plain
-walks, no split changes a bit.  The judge is the NumPy oracle
+(``csr6.raster_tiles_rows9``), of the disc walks
+(``csr6.raster_tiles_disc8``, ``raster_tiles_disc8_uv``) and of the v2
+strip walk (``csr2.raster_tiles2``), whose CUDA kernels cut dense tiles
+into work items: it must be at least 1, and on CPU tensors, which take
+the plain walks, no split changes a bit.  The judge is the NumPy oracle
 (``cpu_reference``; its cap8 capsule evaluation for the kind-split rows).
 No XLA compile and no interpret-mode call: these tests take a few
 seconds.
@@ -18,7 +19,14 @@ from pointcloud_render_tpu.raster import cpu_reference
 from pointcloud_render_tpu_torch.raster import csr, csr2, csr6
 from tests.torch_jax import numpy_soup
 from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
-from tests.torch_soups import NEAR_ORIGIN, H, W, droplet_soup, tcam
+from tests.torch_soups import (
+    NEAR_ORIGIN,
+    H,
+    W,
+    band_soup,
+    droplet_soup,
+    tcam,
+)
 
 SPAN = 4  # the droplet lane's span
 
@@ -54,8 +62,23 @@ def _strip_case():
     return (args, *cpu_reference.rasterize_reference(numpy_soup(soup), W, H))
 
 
+@functools.cache
+def _disc_case():
+    """(walk arguments, oracle depth, oracle index) of the cull's band
+    soup through the disc walks (sorted 8-float rows, span 2)."""
+    soup = band_soup()
+    b = csr6.bin_csr6(soup, W, H, 64, discs_only=True)
+    zeros = torch.zeros((soup.count, 3))
+    args = (csr6.build_rows8(soup, zeros[:, 0], b["order"]),
+            csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
+            b["starts"], b["big_n"], W, H)
+    return (args, *cpu_reference.rasterize_reference(numpy_soup(soup), W, H))
+
+
 WALKS = {"rows9": (csr6.raster_tiles_rows9, _rows9_case),
-         "v2": (csr2.raster_tiles2, _strip_case)}
+         "v2": (csr2.raster_tiles2, _strip_case),
+         "disc8": (csr6.raster_tiles_disc8, _disc_case),
+         "disc8_uv": (csr6.raster_tiles_disc8_uv, _disc_case)}
 
 
 @pytest.mark.parametrize("walk", sorted(WALKS))
@@ -73,7 +96,7 @@ def test_cpu_walk_ignores_split_rows(walk, split_rows):
     fn, case = WALKS[walk]
     args, d_o, i_o = case()
     before = fn.launches
-    depth, index = fn(*args, split_rows=split_rows)
+    depth, index = fn(*args, split_rows=split_rows)[:2]
     assert fn.launches == before
     assert (i_o >= 0).any()
     np.testing.assert_array_equal(index.numpy(), i_o)

@@ -153,6 +153,41 @@ def disc_soup(cam, ties=40, wide=2, n=300, radius=0.03, ground=True):
     return ScreenPrimitives.concatenate(parts)
 
 
+def band_soup(seed=23, n=90):
+    """Screen-space discs on the W x H film against the disc walks' cull
+    by bands of 4 pixel rows (tile rows 4b .. 4b + 3): ``n`` discs tangent
+    to the nearest pixel centre of the band beyond a band boundary (r * r
+    == fl(dy * dy) there, on a pixel column where dx = 0: covered at
+    equality), ``n`` whose radius is one float below that, ``n`` centred
+    on band boundaries, and discs over the ragged bottom tile row (rows
+    64-89: its band 6 is cut at row 89, band 7 lies below the image), each
+    three times at the same depth (exact ties, split across work items),
+    over the white ground and one wide disc on the big list."""
+    rng = np.random.default_rng(seed)
+    px = (rng.integers(4, W - 4, n) + 0.5).astype(np.float32)
+    edge = (rng.integers(1, H // 4, n) * 4).astype(np.float32)
+    off = rng.uniform(0.05, 3.45, n).astype(np.float32)
+    above = rng.random(n) < 0.5
+    # A disc above the boundary reaches the centre edge + 0.5 below it; one
+    # below it (past the band [edge - 4, edge - 1]) reaches edge - 0.5.
+    py = np.where(above, edge - off, edge + off).astype(np.float32)
+    near = np.where(above, edge + np.float32(0.5), edge - np.float32(0.5))
+    tangent = np.abs(near.astype(np.float32) - py).astype(np.float32)
+    inside = np.nextafter(tangent, np.float32(0))
+    centred = rng.uniform(0.4, 3.0, n).astype(np.float32)
+    bottom_y = rng.uniform(80.0, 92.0, n // 3).astype(np.float32)
+    bottom_x = rng.uniform(0.0, W, n // 3).astype(np.float32)
+    cols = [np.concatenate(c) for c in zip(
+        (px, py, tangent), (px, py, inside), (px, edge, centred),
+        (bottom_x, bottom_y, rng.uniform(0.5, 3.0, n // 3)))]
+    z = np.round(rng.uniform(1.0, 3.0, cols[0].shape[0]), 1)
+    discs = _screen_discs(cols[0], cols[1], z, cols[2])
+    wide = _screen_discs([70.0], [40.0], [2.0], [60.0])
+    cam = tcam()
+    return ScreenPrimitives.concatenate(
+        [ground_plane(cam, 10.0, (0, 0, -0.5)), wide, discs, discs, discs])
+
+
 CASES = ["mixed", "spill", "ties", "wide_big", "invalid", "near_clip",
          "dense_tile"]
 
