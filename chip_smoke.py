@@ -6,10 +6,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
-csr6_raster.cu beside this one's and times its csr6_disc8 and
-csr6_disc8_uv (their C interfaces before the split walk: one CTA per
-tile, rows gathered by sorted id) on the same inputs wherever this run
-times those kernels, after holding them against the plain version.
+csr6_raster.cu and csr2_raster.cu beside this tree's and times its
+csr3_raster and csr2_disc8 (their C interfaces before the split walk: one
+CTA per tile, synchronous staging) with the exit on and off on the same
+inputs wherever this run times those kernels, after holding them against
+the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -55,8 +56,8 @@ Phases (any failure exits non-zero and prints no result line):
      frame 120 their times (CUDA events per call, and device_ms: calls
      back to back) beside the all-pairs bound, the bound over the pairs
      evaluated and the bytes' time, the split sweep (SPLIT_SWEEP_DISC),
-     csr6_disc8 with the exit forced on (rows walked) and the parent's
-     kernels under --parent; the fused shade equals
+     csr6_disc8 with the exit forced on (rows walked); the fused shade
+     equals
      shade_by_id(uniform_look) bit for bit; then the
      220-frame flythrough through TrajectoryScanRenderer at 1920x1080 in
      chunks of 8: certificate 0 on every chunk, one csr6_disc8_uv launch
@@ -132,16 +133,22 @@ Phases (any failure exits non-zero and prints no result line):
      history buffer fills during it; certificate 0, one csr6_raster
      launch per frame, a traced chunk synchronises once), and 762,601
      points raising the 2^24 ValueError; (c) the v3 disc fast path:
-     csr3_raster with its exit on and off against its plain version on
-     phase 3's disc scene with exact ties, its wide-disc soup and its
-     capsule + triangle soup (big lists), on entries cut to 2/3 of
-     true_entries, and on bench.py's disc lane at frames 0, 120 and 219
-     (entry_capacity by bench.py:407-425's rule), pallas3 frames equal
-     to pallas6 frames there, the kernel's time with its exit at five
-     block sizes and without it, the 220-frame pallas3 scan (certificate
-     0, one csr3_raster launch per frame, frames equal to the pallas6
-     scan's), and the example CLI with --backend pallas3 (PNGs
-     byte-equal to pallas6's);
+     csr3_raster (a split walk with a warp-band cull) with its exit on
+     and off, its tiles cut into items of csr3.SPLIT_ROWS and of 64 rows,
+     against its plain version (depth bits, entry image; walked every
+     tile's run and bands csr3.band_rows3 with the exit off) on phase 3's
+     disc scene with exact ties, its wide-disc soup and its capsule +
+     triangle soup (big lists), on entries cut to 2/3 of true_entries,
+     on the tests' band soup, dense tile, exact ties and 48 identical
+     discs in one tile (items of 1, 7 and 64 rows; the first copy wins),
+     and on bench.py's disc lane at frames 0, 120 and 219 (entry_capacity
+     by bench.py:407-425's rule), pallas3 frames equal to pallas6 frames
+     there; at frame 120 the kernel's time with its exit at five block
+     sizes and without it, its device time, its bounds, the cull's kept
+     share, the split sweep and, under --parent, the parent's kernel;
+     the 220-frame pallas3 scan (certificate 0, one csr3_raster launch
+     per frame, frames equal to the pallas6 scan's), and the example CLI
+     with --backend pallas3 (PNGs byte-equal to pallas6's);
  11. the strip-tiled backends: (a) csr1_raster (v1), csr2_raster (v2,
      16-float rows, with and without no_triangles) and csr2_disc8 (v2's
      8-float disc rows), each with its saturation exit on and off
@@ -150,7 +157,12 @@ Phases (any failure exits non-zero and prints no result line):
      phase 3's seeded soups
      and the disc scene with ties, on 1,500 wide discs (v1 at max_big
      2048 takes them all, v2 drops those past its 1024), on entries cut
-     to 2/3 of true_entries, and on strips of 16x256 and 4x32; (b) the
+     to 2/3 of true_entries, and on strips of 16x256 and 4x32;
+     csr2_disc8 (a split walk with a warp cull) also with its passes cut
+     into items of 64 rows, bands equal to csr.segment_rows with the
+     exit off, and on the tests' band, segment (discs tangent to the
+     warps' column boundaries), dense-tile and tie soups at strips of
+     8x128, 16x256 and 4x32 with items of 1, 7 and 64 rows; (b) the
      traj_ball CLI with --backend pallas on phase 5's PLYs at frames 10
      and 120 (records ok, PNGs byte-equal to phase 5's pallas6 PNGs, one
      csr2_raster launch per frame), frame 205 decided by v2's big list
@@ -159,13 +171,15 @@ Phases (any failure exits non-zero and prints no result line):
      csr1_raster timed at frame 120 with their exits on and off, their
      plain time and bounds, and equal to each other, csr2_raster also at
      frame 205's shape, both times with its strip rows and work items,
-     the split sweep and the parent's csr2_raster (under --parent) on
-     the same inputs; (c) bench.py's disc lane through pallas
+     and the split sweep; (c) bench.py's disc lane through pallas
      (max_tiles_per_prim 4, no_triangles, discs_only, entry_capacity by
      bench.py:427-445's rule): csr2_disc8 == plain at frames 0, 120 and
-     219, pallas frames == pallas6 frames there, the 220-frame scan (certificate 0 on every chunk, one
-     csr2_disc8 launch per frame, every u8 frame equal to the pallas6
-     scan's without uniform_look) and its frames/s;
+     219 (as in (a)), pallas frames == pallas6 frames there; at frame
+     120 its time with the exit on and off, device time, bounds, the
+     cull's kept share, the split sweep and, under --parent, the
+     parent's kernel; the 220-frame scan (certificate 0 on every chunk,
+     one csr2_disc8 launch per frame, every u8 frame equal to the
+     pallas6 scan's without uniform_look) and its frames/s;
  12. the v5 slice: bench.py's disc lane (1M gray splats of radius 0.002
      and the ground) put in Morton order by the port's spatial_sort
      (timed once per cloud), frames 0, 120, 199 and 219 at 1920x1080:
@@ -192,15 +206,23 @@ card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr6_raster's (ms: the default walk,
 with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
 csr3_raster's and the strip kernels' and the v5 kernels' entries add
-ms_exit_off and bound_ms_exit_off, the walk of every entry; the disc
-walks' bound_ms is the larger of the pairs the function needs (each
-binned row at the pixel rows whose exact dy test it passes, 32 pixels
-each) and their bytes, and their entries add bound_ms_evaluated (the
-pairs the cull's warp bands evaluate), bound_ms_all_pairs (every pair,
-the bound of their history), bytes_ms, device_ms, ms_exit and
-bound_ms_exit (csr6_disc8, the exit forced on), and under --parent
-parent_ms and parent_device_ms.  "[split]" lines time a split walk by
-split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC).
+ms_exit_off and bound_ms_exit_off, the walk of every entry.  The
+disc-row walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8, the
+v5 kernels) are bounded by the pairs their function needs, whatever the
+walk: 32 pixels per (binned row or live slot, pixel row, 32-column
+segment) that the exact test can cover (csr6.band_rows and
+csr3.band_rows3 with bands of one row, csr.segment_rows with segments
+of one row), plus every pixel x every live big row, or their bytes if
+larger; with an exit, scaled by the share of rows walked (v5: over the
+superrows walked).  Their entries add bound_ms_all_pairs (every pair of
+the rows walked, the bound of their history) and bytes_ms; the culled
+walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8) add
+bound_ms_evaluated (the pairs their cull evaluates) and device_ms
+(device_ms_exit_off for csr3_raster and csr2_disc8); csr6_disc8 adds
+ms_exit and bound_ms_exit (the exit forced on); under --parent
+csr3_raster and csr2_disc8 add parent_ms, parent_device_ms,
+parent_ms_exit_off and parent_device_ms_exit_off.  "[split]" lines time
+a split walk by split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC).
 """
 
 from __future__ import annotations
@@ -305,8 +327,9 @@ V3_BLOCKS = (64, 128, 256, 512, 1024)
 # times the walk at SPLIT_SWEEP (the last: one item per tile).
 SPLIT_FORCED = 64
 SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
-# --parent DIR: the parent commit's tree, whose csr6_raster.cu is built
-# beside this one's and whose disc walks are timed on the same inputs.
+# --parent DIR: the parent commit's tree, whose csr6_raster.cu and
+# csr2_raster.cu are built beside this one's and whose csr3_raster and
+# csr2_disc8 are timed on the same inputs.
 PARENT = {"tree": None, "libs": {}}
 # The disc walks' split sweep (rows per work item; the last: one item per
 # tile).
@@ -666,15 +689,17 @@ def nvcc_build(kernels, src, out):
 
 
 def build_parent(kernels):
-    """Under --parent, build the parent tree's csr6_raster.cu
-    (PARENT["libs"]), beside this tree's build: its csr6_disc8 and
-    csr6_disc8_uv (one CTA per tile, rows gathered by sorted id) are timed
-    on the same inputs as this tree's."""
+    """Under --parent, build the parent tree's csr6_raster.cu and
+    csr2_raster.cu (PARENT["libs"]), beside this tree's build: their
+    csr6_disc8, csr6_disc8_uv, csr3_raster and csr2_disc8 are timed on
+    the same inputs as this tree's."""
     if PARENT["tree"] is None:
         return
-    PARENT["libs"]["csr6_raster"] = nvcc_build(
-        kernels, os.path.join(PARENT["tree"], KERNEL_SOURCE),
-        os.path.join(REPO, "build", "parent", "libcsr6_raster_parent.so"))
+    for name, src in (("csr6_raster", KERNEL_SOURCE),
+                      ("csr2_raster", STRIP_SOURCE)):
+        PARENT["libs"][name] = nvcc_build(
+            kernels, os.path.join(PARENT["tree"], src),
+            os.path.join(REPO, "build", "parent", f"lib{name}_parent.so"))
 
 
 def c_call(lib, symbol, ptrs, ints, what):
@@ -694,35 +719,38 @@ def c_call(lib, symbol, ptrs, ints, what):
 
 
 def parent_walk(symbol, ptrs, ints, width, height, library="csr6_raster",
-                images=0):
+                images=0, tail=0):
     """One call of the parent's ``symbol`` in ``library`` (its C interface:
-    inputs, depth, index, ``images`` more float32 images, ints, stream) ->
-    (depth, index, *images): csr6_disc8 (``images`` 0) and csr6_disc8_uv
-    (2: u, v) before their split walks."""
+    inputs, depth, index, ``images`` more float32 images, ``tail`` null
+    pointers, ints, stream) -> (depth, index, *images): csr6_disc8
+    (``images`` 0) and csr6_disc8_uv (2: u, v) before their split walks,
+    csr3_raster and csr2_disc8 (``tail`` 1: a null walked) before
+    theirs."""
     import torch
 
     dev = ptrs[0].device
     outs = [torch.empty((height, width), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32,
                        *[torch.float32] * images)]
-    c_call(PARENT["libs"][library], symbol, (*ptrs, *outs), ints,
-           f"the parent's {symbol}")
+    c_call(PARENT["libs"][library], symbol, (*ptrs, *outs, *[None] * tail),
+           ints, f"the parent's {symbol}")
     return tuple(outs)
 
 
 def parent_time(symbol, ptrs, ints, width, height, want, what,
-                library="csr6_raster", images=0):
+                library="csr6_raster", images=0, tail=0):
     """The parent's walk == ``want`` bit for bit, then its median time of
     11 (None without --parent)."""
     import torch
 
     if not PARENT["libs"]:
         return None
-    got = parent_walk(symbol, ptrs, ints, width, height, library, images)
+    got = parent_walk(symbol, ptrs, ints, width, height, library, images,
+                      tail)
     torch.cuda.synchronize()
     check_equal_bits(got, want, f"the parent's {what}")
     return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height,
-                                       library, images), 11)
+                                       library, images, tail), 11)
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
@@ -818,10 +846,6 @@ def print_v6_times(what, r, shape, card):
     line += f"; plain {r['plain_ms']:.1f} ms, at the {shape} shape ({card})"
     print(line, flush=True)
     print(f"[time] {what} at the {shape} shape: {stats_text(r)}", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {what} at the {shape} shape: parent "
-              f"{r['parent_ms']:.3f} ms, change {r['ms']:.3f} ms ({card})",
-              flush=True)
 
 
 def split_sweep(what, fn, card, rows=None, sweep=SPLIT_SWEEP,
@@ -946,12 +970,15 @@ def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
 
 
 # Keys of the kernels line beyond the contract's, where a kernel has them:
-# the exit-off walk of the walks with an exit; the disc walks' all-pairs
-# and evaluated-pairs bounds, bytes' time, device time, forced exit and
-# the parent's time.
+# the exit-off walk of the walks with an exit; the disc-row walks' bound
+# over every pair (the bound of their history) and over the pairs their
+# cull evaluates, bytes' time, device time (exit on and off), forced exit
+# and the parent's time (exit on and off, per call and on the device).
 EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
-              "bound_ms_evaluated", "bytes_ms", "device_ms", "ms_exit",
-              "bound_ms_exit", "parent_ms", "parent_device_ms")
+              "bound_ms_evaluated", "bytes_ms", "device_ms",
+              "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
+              "parent_device_ms", "parent_ms_exit_off",
+              "parent_device_ms_exit_off")
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
@@ -969,9 +996,8 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
     of the needed pairs' and the bytes' time, disc_bounds), the bound
     over the pairs the cull evaluates, the all-pairs bound, the tile rows
     and work items, the band-rows and needed pixel rows, the device time
-    (device_ms), the parent's kernel under --parent, and at span 2
-    csr6_disc8 with the exit forced on; with ``sweep`` the split sweep of
-    both kernels."""
+    (device_ms), and at span 2 csr6_disc8 with the exit forced on; with
+    ``sweep`` the split sweep of both kernels."""
     import torch
 
     zeros = torch.zeros((soup.count, 3), device=soup.device)
@@ -991,9 +1017,9 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
                               csr6.raster_tiles_disc8_plain, 2),
                "csr6_disc8_uv": (csr6.raster_tiles_disc8_uv,
                                  csr6.raster_tiles_disc8_uv_plain, 4)}
-    out, wants = {}, {}
+    out = {}
     for name, (kernel, plain, _) in kernels.items():
-        wants[name] = want = plain(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
         err = 0.0
         for split in (csr6.SPLIT_ROWS_DISC, SPLIT_FORCED):
@@ -1032,8 +1058,6 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
                 exit_run = (zargs, bz, int(walked.sum()), int(bands.sum()))
     if not timing:
         return out, b
-    tiles_x, tiles_y = csr6.grid_shape(width, height)
-    table8 = csr6.build_table8(soup, flag)
     n_rows = int(rows.sum())
     pixel_rows = int(csr6.band_rows(args[0], b["starts"], width, height,
                                     span, band=1).sum())
@@ -1052,16 +1076,6 @@ def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
                  **tile_stats(csr6, b, width, height, span,
                               int(b["big_n"][0]), csr6.SPLIT_ROWS_DISC))
         r["device_ms"] = device_ms(lambda k=kernel: k(*args), 11)
-        if PARENT["libs"]:
-            pargs = (name, (table8, args[1], b["order"], b["starts"],
-                            b["big_n"]),
-                     (args[1].shape[0], width, height, tiles_x, tiles_y,
-                      span), width, height)
-            r["parent_ms"] = parent_time(*pargs, wants[name],
-                                         f"{name} span {span}",
-                                         images=images - 2)
-            r["parent_device_ms"] = device_ms(
-                lambda p=pargs: parent_walk(*p, images=images - 2), 11)
         if sweep:
             split_sweep(f"{name} span {span}, device time",
                         lambda w, wk, k=kernel: k(*args, split_rows=w), card,
@@ -1102,11 +1116,6 @@ def print_disc_times(name, r, shape, card):
           f"({100.0 * r['pixel_rows'] / max(32 * r['entries'], 1):.1f}%); "
           f"device time {r['device_ms']:.3f} ms (11 calls back to "
           f"back) ({card})", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {name} at the {shape} shape: parent "
-              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
-              f" change {r['ms']:.3f} ms (device {r['device_ms']:.3f}) "
-              f"({card})", flush=True)
     if "ms_exit" in r:
         print(f"[time] {name} exit forced on at the {shape} shape: "
               f"{r['ms_exit']:.3f} ms (device {r['device_ms_exit']:.3f}), "
@@ -1121,8 +1130,8 @@ def compare_rows9(soup, width, height, csr6, max_big, span, timing=False,
     """csr6_rows9 vs its plain version on one soup at ``span``, its tiles
     cut at csr6.SPLIT_ROWS and at SPLIT_FORCED rows, one launch a call ->
     (dict(err, and with ``timing`` ms, plain_ms, bound_ms, bound_by, the
-    tile rows per kind region and the work items, the parent's time under
-    --parent), binning).  ``timing`` also sweeps split_rows."""
+    tile rows per kind region and the work items), binning).  ``timing``
+    also sweeps split_rows."""
     import torch
 
     b = csr6.bin_csr6(soup, width, height, max_big, span=span,
@@ -1208,11 +1217,12 @@ def compare_cap10(soup, width, height, csr6, max_big, span, timing=False):
 
 
 def v3_bound(soup, b, entries_walked, width, height):
-    """(bound ms, "operations" | "bytes") of the v3 walk: 1024 pixels x
-    the entries walked at OPS_DISC8 operations, every pixel x every live
-    big row (18 operations for a triangle, 17 otherwise); bytes: the 16
-    bytes of each walked entry row the walk reads, the big rows, the
-    starts, two output images."""
+    """(bound ms, "operations" | "bytes") of every pair of the v3 walk
+    (the bound of its history, bound_ms_all_pairs): 1024 pixels x the
+    entries walked at OPS_DISC8 operations, every pixel x every live big
+    row (18 operations for a triangle, 17 otherwise); bytes: the 16 bytes
+    of each walked entry row the walk reads, the big rows, the starts,
+    two output images."""
     nb = int(b["big_n"][0])
     n_tri = int((soup.kind[b["big_ids"][:nb].long()] == 2).sum())
     pixels = width * height
@@ -1224,14 +1234,44 @@ def v3_bound(soup, b, entries_walked, width, height):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def big_ops(soup, big_ids, big_n, width, height):
+    """float32 operations of every pixel x every live big row (18 for a
+    triangle through the dual, 17 otherwise)."""
+    nb = int(big_n[0])
+    n_tri = int((soup.kind[big_ids[:nb].long()] == 2).sum())
+    return width * height * (n_tri * OPS_TRIANGLE16
+                             + (nb - n_tri) * OPS_CAPSULE16)
+
+
+def floor_bound(pixel_rows, big, nbytes):
+    """(bound ms, "operations" | "bytes", bytes ms) of a disc-row walk by
+    the pairs its function needs: ``pixel_rows`` (binned row, pixel row,
+    32-column segment) triples that the exact test can cover, 32 pixels
+    each at OPS_DISC8, plus ``big`` big-list operations, which no test
+    can skip; or ``nbytes`` over the memory rate where that is larger."""
+    t_ops = (pixel_rows * 32 * OPS_DISC8 + big) / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", t_bytes)
+
+
 def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
-               what=""):
+               what="", splits=None, card="", sweep=False):
     """csr3_raster with its exit on and off vs its plain version (which
-    never exits) on one soup, entries past ``cap`` dropped ->
-    (dict(err, and with ``timing``: ms, ms_exit_off, plain_ms, bound_ms,
-    bound_ms_exit_off, bound_by, entries, walked, blocks), binning).
-    ``blocks`` holds (block, ms, entries walked) of the exit-on walk at
-    each of V3_BLOCKS."""
+    never exits) on one soup, entries past ``cap`` dropped, its tiles cut
+    into items of csr3.SPLIT_ROWS and of SPLIT_FORCED rows (or of each of
+    ``splits``) -> (dict(err, and with ``timing``: ms, ms_exit_off,
+    plain_ms, device_ms, device_ms_exit_off, bound_ms, bound_ms_exit_off,
+    bound_by, bound_ms_all_pairs, bound_ms_evaluated, bytes_ms, entries,
+    walked, bands, pixel_rows, blocks, the parent's times under
+    --parent), binning).  ``walked`` is every tile's run and ``bands``
+    csr3.band_rows3 with the exit off, at most those with it on.
+    ``blocks`` holds (block, device ms, entries walked) of the exit-on
+    walk at each of V3_BLOCKS.  The bounds: the pairs the function needs
+    (csr3.band_rows3 with bands of one row, 32 pixels each; exit on:
+    scaled by the share of entries walked) or the bytes; the (entry, band)
+    pairs the cull evaluates; every pair of the walked entries (the old
+    bound, v3_bound)."""
     import torch
 
     b = csr3.bin_csr_2x2(soup, width, height, max_big=1 << 16)
@@ -1243,42 +1283,126 @@ def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
     args = (rows[:entries.shape[0]],
             csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
             starts, b["big_n"], b["zmeta"], width, height, b["zq_bits"])
-    check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
+    if width == WIDTH:
+        check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
     want = csr3.raster_tiles3_plain(*args)
     lengths = starts[1:] - starts[:-1]
-    walked = torch.empty_like(lengths)
+    kept = csr3.band_rows3(args[0], starts, width, height)
     errs = []
-    for exit_on in (True, False):
-        got = csr3.raster_tiles3(*args, walked=walked, allow_exit=exit_on)
-        torch.cuda.synchronize()
-        errs.append(check_equal_bits(
-            got, want, f"csr3_raster {what} exit {'on' if exit_on else 'off'}"
-            + (f" entry_capacity {cap}" if cap is not None else "")))
-        check(bool((walked <= lengths).all()) and (
-            exit_on or torch.equal(walked, lengths)),
-            f"csr3_raster {what}: walked {int(walked.sum())} of "
-            f"{int(lengths.sum())} entries (exit {exit_on})")
+    for split in splits or (csr3.SPLIT_ROWS, SPLIT_FORCED):
+        for exit_on in (True, False):
+            walked = torch.full_like(lengths, -1)
+            bands = torch.full_like(lengths, -1)
+            got = csr3.raster_tiles3(*args, walked=walked, bands=bands,
+                                     allow_exit=exit_on, split_rows=split)
+            torch.cuda.synchronize()
+            on = (f"csr3_raster {what} exit {'on' if exit_on else 'off'}, "
+                  f"items of {split} rows"
+                  + (f", entry_capacity {cap}" if cap is not None else ""))
+            errs.append(check_equal_bits(got, want, on))
+            check(bool(((walked >= 0) & (walked <= lengths)).all()) and (
+                exit_on or torch.equal(walked, lengths)),
+                f"{on}: walked {int(walked.sum())} of {int(lengths.sum())} "
+                "entries")
+            check(bool(((bands >= 0) & (bands <= kept)).all()) and (
+                exit_on or torch.equal(bands, kept)),
+                f"{on}: band-rows {int(bands.sum())}, band_rows3 "
+                f"{int(kept.sum())}")
     out = dict(err=max(errs))
-    if timing:
-        n = int(starts[-1])
-        blocks = []
-        for block in V3_BLOCKS:
-            csr3.raster_tiles3(*args, walked=walked, block=block)
-            blocks.append((block, time_ms(
-                lambda k=block: csr3.raster_tiles3(*args, block=k), 11),
-                int(walked.sum())))
-        csr3.raster_tiles3(*args, walked=walked)
-        n_walked = int(walked.sum())
-        on, off = (v3_bound(soup, b, e, width, height)
-                   for e in (n_walked, n))
-        out.update(ms=time_ms(lambda: csr3.raster_tiles3(*args), 11),
-                   ms_exit_off=time_ms(lambda: csr3.raster_tiles3(
-                       *args, allow_exit=False), 11),
-                   plain_ms=time_ms(lambda: csr3.raster_tiles3_plain(*args),
-                                    2),
-                   bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
-                   entries=n, walked=n_walked, blocks=blocks)
+    if not timing:
+        return out, b
+    n = int(starts[-1])
+    blocks = []
+    walked = torch.empty_like(lengths)
+    bands = torch.empty_like(lengths)
+    for block in V3_BLOCKS:
+        csr3.raster_tiles3(*args, walked=walked, block=block)
+        blocks.append((block, device_ms(
+            lambda k=block: csr3.raster_tiles3(*args, block=k), 11),
+            int(walked.sum())))
+    csr3.raster_tiles3(*args, walked=walked, bands=bands)
+    n_walked, n_bands = int(walked.sum()), int(bands.sum())
+    pixel_rows = int(csr3.band_rows3(args[0], starts, width, height,
+                                     band=1).sum())
+    big = big_ops(soup, b["big_ids"], b["big_n"], width, height)
+    fixed = (int(b["big_n"][0]) * 64 + starts.numel() * 4
+             + width * height * 4 * 2)
+    on = floor_bound(pixel_rows * n_walked / max(n, 1), big,
+                     n_walked * 16 + fixed)
+    off = floor_bound(pixel_rows, big, n * 16 + fixed)
+    out.update(ms=time_ms(lambda: csr3.raster_tiles3(*args), 11),
+               ms_exit_off=time_ms(lambda: csr3.raster_tiles3(
+                   *args, allow_exit=False), 11),
+               device_ms=device_ms(lambda: csr3.raster_tiles3(*args), 11),
+               device_ms_exit_off=device_ms(lambda: csr3.raster_tiles3(
+                   *args, allow_exit=False), 11),
+               plain_ms=time_ms(lambda: csr3.raster_tiles3_plain(*args), 2),
+               bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
+               bytes_ms=on[2],
+               bound_ms_all_pairs=v3_bound(soup, b, n_walked, width,
+                                           height)[0],
+               bound_ms_evaluated=(n_bands * 32 * csr6.BAND_ROWS * OPS_DISC8
+                                   + big) / F32_OPS_PER_S * 1e3,
+               entries=n, walked=n_walked, bands=n_bands,
+               bands_exit_off=int(kept.sum()), pixel_rows=pixel_rows,
+               blocks=blocks, **tile_stats_runs(lengths, b["big_n"],
+                                                csr3.SPLIT_ROWS))
+    if sweep:
+        split_sweep(f"csr3_raster exit off, {what}, device time",
+                    lambda w, wk: csr3.raster_tiles3(
+                        *args, allow_exit=False, split_rows=w, walked=wk),
+                    card, sweep=SPLIT_SWEEP_DISC, timer=device_ms)
+        split_sweep(f"csr3_raster exit on, {what}, device time",
+                    lambda w, wk: csr3.raster_tiles3(*args, split_rows=w,
+                                                     walked=wk), card,
+                    lengths, sweep=SPLIT_SWEEP_DISC, timer=device_ms)
+    if PARENT["libs"]:
+        tiles_x, tiles_y = csr6.grid_shape(width, height)
+        for exit_on, key in ((1, "parent_ms"), (0, "parent_ms_exit_off")):
+            pargs = ("csr3_raster", args[:5],
+                     (args[1].shape[0], width, height, tiles_x, tiles_y,
+                      exit_on, csr3.EXIT_BLOCK), width, height)
+            out[key] = parent_time(*pargs, want, f"csr3_raster {what} exit "
+                                   f"{'on' if exit_on else 'off'}", tail=1)
+            out[key.replace("_ms", "_device_ms")] = device_ms(
+                lambda p=pargs: parent_walk(*p, tail=1), 11)
     return out, b
+
+
+def tile_stats_runs(lengths, big_n, split_rows):
+    """The rows per unit and work items of a walk whose units are runs of
+    ``lengths`` rows (v3's tiles, v2's strip passes)."""
+    items, w = plan_items(lengths, int(big_n[0]), split_rows)
+    return dict(row_stats(lengths), items=items, item_rows=w)
+
+
+def print_cull_times(name, r, shape, card, pairs_per_row):
+    """The [time] lines of the culled walks' (csr3_raster, csr2_disc8)
+    device times, bounds, cull and parent."""
+    print(f"[time] {name} at the {shape} shape: device {r['device_ms']:.3f} "
+          f"ms (11 calls back to back), exit off {r['device_ms_exit_off']:.3f}"
+          f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']} (the pairs "
+          f"needed, {r['pixel_rows']} pixel-row segments of 32 pixels with "
+          f"every row walked, scaled by the walked share; bytes "
+          f"{r['bytes_ms']:.4f}), exit off {r['bound_ms_exit_off']:.4f}; "
+          f"over the pairs the cull evaluates {r['bound_ms_evaluated']:.4f};"
+          f" every pair {r['bound_ms_all_pairs']:.4f} ({card})", flush=True)
+    share = 100.0 * r["bands_exit_off"] / max(pairs_per_row * r["entries"],
+                                              1)
+    print(f"[time] {name} at the {shape} shape: {stats_text(r, 'unit')}; "
+          f"the cull keeps {r['bands_exit_off']} of "
+          f"{pairs_per_row * r['entries']} (row, warp) pairs ({share:.1f}%) "
+          f"with every row walked, {r['bands']} evaluated with the exit "
+          f"({r['walked']} of {r['entries']} rows walked); pixel-row "
+          f"segments needed {r['pixel_rows']} ({card})", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {name} at the {shape} shape: parent "
+              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
+              f" exit off {r['parent_ms_exit_off']:.3f} (device "
+              f"{r['parent_device_ms_exit_off']:.3f}); change "
+              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
+              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
+              f"({card})", flush=True)
 
 
 def exit_split_soups(dev, csr6, csr4, max_err):
@@ -2740,6 +2864,35 @@ def v3_lane(card, dev, max_err, counters, tmp, seeded) -> dict:
     compare_v3(soup, WIDTH, HEIGHT, csr3, csr6, cap=cap, what="ties")
     print(f"[kernel==plain] csr3_raster exit on and off disc_ties_wide, "
           f"entries cut to {cap} (2/3 of true_entries) ok", flush=True)
+    # Forced splits on the tests' film: the cull's band soup, a dense
+    # tile, exact ties, and 48 identical discs cut across work items in
+    # front of a cover that lets the exit leave the tile (the first copy,
+    # id 0, must win their pixels).
+    ts = torch_soups()
+    forced = {"band": ts.band_soup(), "dense_tile": ts.make_soup("dense_tile"),
+              "disc_ties": ts.disc_soup(ts.tcam()),
+              "tie_tile": ts.tie_tile_soup()}
+    for name, small in forced.items():
+        small = small.to(dev)
+        res, b = compare_v3(small, ts.W, ts.H, csr3, csr6,
+                            splits=(1, 7, SPLIT_FORCED), what=name)
+        max_err["csr3_raster"] = max(max_err["csr3_raster"], res["err"])
+        if name == "tie_tile":
+            zeros = torch.zeros((small.count, 3), device=dev)
+            rows = csr3.pack_rows8(small, b["entries"], b["big_ids"], zeros,
+                                   zeros[:, 0], (0.0, 0.0, 0.0))
+            depth, ent = csr3.raster_tiles3(
+                rows[:b["entries"].shape[0]], csr6.build_table16_rows(
+                    small, zeros, zeros[:, 0], b["big_ids"]), b["starts"],
+                b["big_n"], b["zmeta"], ts.W, ts.H, b["zq_bits"],
+                split_rows=1)
+            ids = csr3.resolve_ids(ent, depth, b["entries"], b["big_ids"])
+            check(int(ids[41, 40]) == 0, "csr3_raster tie_tile: the first "
+                  f"copy does not win its pixel ({int(ids[41, 40])})")
+        print(f"[kernel==plain] csr3_raster exit on and off {name} "
+              f"({ts.W}x{ts.H}): {small.count} prims, "
+              f"{int(b['starts'][-1])} entries, items of 1, 7 and "
+              f"{SPLIT_FORCED} rows ok", flush=True)
 
     # bench.py's disc lane, as phase 7.
     n = DISC_POINTS
@@ -2768,7 +2921,8 @@ def v3_lane(card, dev, max_err, counters, tmp, seeded) -> dict:
         cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
         s = pipeline.build_primitives(preset, cam, pos, None, fi)
         res, b = compare_v3(s, WIDTH, HEIGHT, csr3, csr6, cap=capacity,
-                            timing=fi == 120, what=f"disc lane frame {fi}")
+                            timing=fi == 120, what=f"disc lane frame {fi}",
+                            card=card, sweep=True)
         max_err["csr3_raster"] = max(max_err["csr3_raster"], res["err"])
         fb3, diag = render(s, cam, cfg3, return_diag=True)
         fb6 = render(s, cam, cfg6)
@@ -2783,16 +2937,18 @@ def v3_lane(card, dev, max_err, counters, tmp, seeded) -> dict:
         if fi == 120:
             timed = res
             for block, ms, walked in res["blocks"]:
-                print(f"[time] csr3_raster exit block {block}: {ms:.3f} ms "
-                      f"(median of 11), {walked} of {res['entries']} entries "
-                      f"walked ({card})", flush=True)
+                print(f"[time] csr3_raster exit block {block}: device "
+                      f"{ms:.3f} ms (11 calls back to back), {walked} of "
+                      f"{res['entries']} entries walked ({card})", flush=True)
             print(f"[time] csr3_raster kernel {res['ms']:.3f} ms (block "
-                  f"{csr3.EXIT_BLOCK}), bound {res['bound_ms']:.3f} ms by "
+                  f"{csr3.EXIT_BLOCK}), bound {res['bound_ms']:.4f} ms by "
                   f"{res['bound_by']} ({res['walked']} of {res['entries']} "
                   f"entries walked); exit off {res['ms_exit_off']:.3f} ms, "
-                  f"bound {res['bound_ms_exit_off']:.3f} ms; plain "
+                  f"bound {res['bound_ms_exit_off']:.4f} ms; plain "
                   f"{res['plain_ms']:.1f} ms, at the disc lane's frame-120 "
                   f"shape ({card})", flush=True)
+            print_cull_times("csr3_raster", res, "disc lane frame-120", card,
+                             csr6.TILE // csr6.BAND_ROWS)
 
     # The flythrough through pallas3: warm-up chunk, then 220 frames.
     film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
@@ -2888,22 +3044,30 @@ def strip_bound(soup, entries, rows_f, pixels_per_tile, big_ids, big_n,
 
 def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                    max_big=1024, tile=(8, 128), mtp=None, no_triangles=False,
-                   timing=False, card=""):
+                   timing=False, card="", splits=None):
     """``kernel`` (csr1_raster, csr2_raster or csr2_disc8) with its exit on
     and off vs the plain strip walk (which never exits) on one soup,
     entries past ``cap`` and big prims past ``max_big`` dropped ->
     (dict(err, big_count, entries, and with ``timing``: ms, ms_exit_off,
-    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked; for
-    csr2_raster also the strip rows and work items, the parent's times
-    under --parent), (depth, index)).  csr2_raster's
-    passes are also cut into work items of SPLIT_FORCED rows.  ``mtp``
-    defaults to the kernel's JAX default (v1 8, v2 4)."""
+    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked; for the split
+    walks also the strip rows and work items; for csr2_disc8 also
+    device_ms, device_ms_exit_off, bound_ms_all_pairs, bound_ms_evaluated,
+    bytes_ms, bands, pixel_rows and the parent's times under --parent),
+    (depth, index)).  The split walks (csr2_raster, csr2_disc8) also run
+    with their passes cut into work items of SPLIT_FORCED rows (or of each
+    of ``splits``); csr2_disc8's ``bands`` must be csr.segment_rows with
+    the exit off and at most that with it on.  ``mtp`` defaults to the
+    kernel's JAX default (v1 8, v2 4).  csr2_disc8's bound is the pairs
+    its function needs (csr.segment_rows with segments of one pixel row,
+    32 pixels each; exit on: scaled by the share of rows walked) or the
+    bytes; bound_ms_all_pairs every pair of the rows walked (the old
+    bound), bound_ms_evaluated the (row, warp) pairs of its cull."""
     import torch
 
     from pointcloud_render_tpu_torch.raster import csr, csr2, csr6
 
     disc = kernel == "csr2_disc8"
-    split = kernel == "csr2_raster"
+    split = kernel != "csr1_raster"
     mtp = mtp or (8 if kernel == "csr1_raster" else 4)
     th, tw = tile
     b = csr.bin_csr(soup, width, height, th, tw, mtp, max_big,
@@ -2924,14 +3088,21 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
     kw = {} if disc else dict(no_triangles=no_triangles)
     want = csr.raster_strips_plain(*args, no_triangles=no_triangles)
     # A tile of more than 1024 pixels walks its rows once per 1024.
-    lengths = (starts[1:] - starts[:-1]) * -(-th * tw // 1024)
+    passes = -(-th * tw // 1024)
+    lengths = (starts[1:] - starts[:-1]) * passes
+    kept = (csr.segment_rows(rows, starts, width, height, th, tw) if disc
+            else None)
     walked = torch.empty_like(lengths)
     what = (f"{kernel} {th}x{tw} max_tiles_per_prim {mtp}"
             + (f" entry_capacity {cap}" if cap is not None else ""))
     errs = []
     for exit_on in (False, True):
-        for items in (None, SPLIT_FORCED) if split else (None,):
+        for items in ((None, *(splits or (SPLIT_FORCED,))) if split
+                      else (None,)):
             extra = {} if items is None else dict(split_rows=items)
+            bands = torch.full_like(lengths, -1)
+            if disc:
+                extra["bands"] = bands
             got = wrapper(*args, walked=walked, allow_exit=exit_on, **kw,
                           **extra)
             torch.cuda.synchronize()
@@ -2942,6 +3113,11 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                 exit_on or torch.equal(walked, lengths)),
                 f"{on}: walked {int(walked.sum())} of {int(lengths.sum())} "
                 f"rows")
+            if disc:
+                check(bool(((bands >= 0) & (bands <= kept)).all()) and (
+                    exit_on or torch.equal(bands, kept)),
+                    f"{on}: (row, warp) pairs {int(bands.sum())}, "
+                    f"segment_rows {int(kept.sum())}")
     out = dict(err=max(errs), big_count=int(b["big_count"]),
                entries=int(starts[-1]))
     if timing:
@@ -2968,27 +3144,65 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                        *args, no_triangles=no_triangles), 2),
                    bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
                    walked=int(keep.sum()))
+        if disc:
+            n_walked = int(keep.sum())
+            bands = torch.empty_like(lengths)
+            wrapper(*args, bands=bands, **kw)
+            pixel_rows = int(csr.segment_rows(rows, starts, width, height,
+                                              th, tw, seg_rows=1).sum())
+            big = big_ops(soup, b["big_ids"], b["big_n"], width, height)
+            fixed = (int(b["big_n"][0]) * 64 + starts.numel() * 4
+                     + width * height * 4 * 2)
+            f_on = floor_bound(pixel_rows * n_walked / max(n, 1), big,
+                               n_walked * 32 + fixed)
+            f_off = floor_bound(pixel_rows, big, n * 32 + fixed)
+            out.update(
+                bound_ms=f_on[0], bound_by=f_on[1], bound_ms_exit_off=f_off[0],
+                bytes_ms=f_on[2], bound_ms_all_pairs=on[0],
+                bound_ms_evaluated=(int(bands.sum()) * 128 * OPS_DISC8 + big)
+                / F32_OPS_PER_S * 1e3,
+                device_ms=device_ms(lambda: wrapper(*args, **kw), 11),
+                device_ms_exit_off=device_ms(lambda: wrapper(
+                    *args, allow_exit=False, **kw), 11),
+                bands=int(bands.sum()), bands_exit_off=int(kept.sum()),
+                pixel_rows=pixel_rows)
+            if PARENT["libs"]:
+                tiles_x, tiles_y = csr.strip_grid(width, height, th, tw)
+                for exit_on, key in ((1, "parent_ms"),
+                                     (0, "parent_ms_exit_off")):
+                    pargs = ("csr2_disc8", args[:4],
+                             (width, height, tiles_x, tiles_y, th, tw, 0,
+                              exit_on), width, height)
+                    out[key] = parent_time(*pargs, want, f"{what} exit "
+                                           f"{'on' if exit_on else 'off'}",
+                                           library="csr2_raster", tail=1)
+                    out[key.replace("_ms", "_device_ms")] = device_ms(
+                        lambda p=pargs: parent_walk(
+                            *p, library="csr2_raster", tail=1), 11)
     if timing and split:
-        items, w = plan_items(starts[1:] - starts[:-1], int(b["big_n"][0]))
-        out.update(row_stats(starts[1:] - starts[:-1]), items=items,
-                   item_rows=w)
+        out.update(tile_stats_runs(starts[1:] - starts[:-1], b["big_n"],
+                                   csr2.SPLIT_ROWS_DISC if disc
+                                   else csr6.SPLIT_ROWS))
         sweep_rows = lengths.clone()
+        timer = device_ms if disc else time_ms
+        sweep = SPLIT_SWEEP_DISC if disc else SPLIT_SWEEP
         split_sweep(f"{kernel} exit off, {what}",
                     lambda w, wk: wrapper(*args, allow_exit=False,
                                           split_rows=w, walked=wk, **kw),
-                    card)
+                    card, sweep=sweep, timer=timer)
         split_sweep(f"{kernel} exit on, {what}",
                     lambda w, wk: wrapper(*args, split_rows=w, walked=wk,
-                                          **kw), card, sweep_rows)
+                                          **kw), card, sweep_rows,
+                    sweep=sweep, timer=timer)
     return out, got
 
 
 def print_strip_times(kernel, r, shape, card):
     """The [time] lines of compare_strips' numbers."""
     print(f"[time] {kernel} kernel {r['ms']:.3f} ms (median of 11), bound "
-          f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']} of "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['walked']} of "
           f"{r['entries']} rows walked); exit off {r['ms_exit_off']:.3f} ms, "
-          f"bound {r['bound_ms_exit_off']:.3f} ms; plain {r['plain_ms']:.1f} "
+          f"bound {r['bound_ms_exit_off']:.4f} ms; plain {r['plain_ms']:.1f} "
           f"ms (median of 2), at the {shape} shape ({card})", flush=True)
     if "items" in r:
         print(f"[time] {kernel} at the {shape} shape: "
@@ -3062,6 +3276,23 @@ def strip_kernels_vs_plain(dev, max_err):
                 max_err[kernel] = max(max_err[kernel], r["err"])
         print(f"[kernel==plain] csr2_raster, csr2_disc8 {name}: entries cut "
               "to 2/3 of true_entries, strips of 16x256 and 4x32 ok",
+              flush=True)
+    # csr2_disc8's forced splits and cull on the tests' film: discs tangent
+    # to the warps' row bands and column segments, a dense tile, exact
+    # ties, at strips of 8x128, 16x256 and 4x32.
+    ts = torch_soups()
+    forced = {"band": ts.band_soup(), "segment": ts.segment_soup(),
+              "dense_tile": ts.make_soup("dense_tile"),
+              "disc_ties": ts.disc_soup(ts.tcam())}
+    for name, small in forced.items():
+        small = small.to(dev)
+        for tile, mtp in (((8, 128), 4), ((16, 256), 8), ((4, 32), 8)):
+            r, _ = compare_strips(small, "csr2_disc8", ts.W, ts.H, tile=tile,
+                                  mtp=mtp, splits=(1, 7, SPLIT_FORCED))
+            max_err["csr2_disc8"] = max(max_err["csr2_disc8"], r["err"])
+        print(f"[kernel==plain] csr2_disc8 exit on and off {name} "
+              f"({ts.W}x{ts.H}): {small.count} prims, strips of 8x128, "
+              f"16x256 and 4x32, items of 1, 7 and {SPLIT_FORCED} rows ok",
               flush=True)
 
 
@@ -3208,7 +3439,7 @@ def v2_disc_lane(card, dev, max_err, counters) -> dict:
         cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
         s = pipeline.build_primitives(preset, cam, pos, None, fi)
         r, _ = compare_strips(s, "csr2_disc8", cap=capacity,
-                              timing=fi == 120)
+                              timing=fi == 120, card=card)
         max_err["csr2_disc8"] = max(max_err["csr2_disc8"], r["err"])
         fb2, diag = render(s, cam, cfg2, return_diag=True)
         equal_buffers(fb2, render(s, cam, cfg6),
@@ -3222,6 +3453,7 @@ def v2_disc_lane(card, dev, max_err, counters) -> dict:
         if fi == 120:
             timed = r
             print_strip_times("csr2_disc8", r, "disc lane frame-120", card)
+            print_cull_times("csr2_disc8", r, "disc lane frame-120", card, 8)
     film = dict(frames_per_chunk=SCAN_CHUNK, width=WIDTH, height=HEIGHT,
                 device="cuda")
     scan = trajectory.TrajectoryScanRenderer(preset, cfg2, **film)
@@ -3249,16 +3481,22 @@ def v2_disc_lane(card, dev, max_err, counters) -> dict:
 
 
 def v5_bound(soup, b, tab, walked, width, height, n_images):
-    """(bound ms, "operations" | "bytes", live slots) of one v5 walk in
-    which tile t evaluates the first ``walked[t]`` superrows of its run:
-    1024 pixels x each live slot of those superrows (a finite depth: not
-    a pad slot of a singleton row or a chunk's tail, nor an inert slot of
-    a non-binnable prim, which the plain walk drops) at OPS_DISC5, and
-    every pixel x every live big row at its body's operations; bytes: the
-    live slots (32 B each) and chunk id of each walked superrow, the big
-    rows (17 floats and a kind), the range starts, ``n_images`` output
-    floats per pixel."""
+    """The bounds of one v5 walk in which tile t evaluates the first
+    ``walked[t]`` superrows of its run -> dict(bound_ms, bound_by,
+    bound_ms_all_pairs, bytes_ms, live_slots, pixel_rows).  bound_ms: the
+    pairs the function needs, each live slot of those superrows (a finite
+    depth: not a pad slot of a singleton row or a chunk's tail, nor an
+    inert slot of a non-binnable prim, which the plain walk drops) at the
+    pixel rows of its 32 x 32 tile whose exact dy test it passes
+    (csr6.band_keeps with bands of one row), 32 pixels each at OPS_DISC5,
+    and every pixel x every live big row at its body's operations; or the
+    bytes where larger: the live slots (32 B each) and chunk id of each
+    walked superrow, the big rows (17 floats and a kind), the range
+    starts, ``n_images`` output floats per pixel.  bound_ms_all_pairs:
+    1024 pixels x each live slot instead (the bound of its history)."""
     import torch
+
+    from pointcloud_render_tpu_torch.raster import csr5, csr6
 
     starts = b["starts"].long()
     lengths = starts[1:] - starts[:-1]
@@ -3266,19 +3504,32 @@ def v5_bound(soup, b, tab, walked, width, height, n_images):
     tile = torch.repeat_interleave(
         torch.arange(lengths.numel(), device=starts.device), lengths)
     offset = torch.arange(n, device=starts.device) - starts[:-1][tile]
-    rows = b["chunks"][:n][offset < walked.long()[tile]].long()
+    sel = offset < walked.long()[tile]
+    rows = b["chunks"][:n][sel].long()
     live_per_row = (tab[:, 2::8] < float("inf")).sum(dim=1)
     slots = int(live_per_row[rows].sum())
     nb = int(b["big_n"][0])
     n_tri = int((soup.kind[b["big_list"][:nb].long()] == 2).sum())
     pixels = width * height
-    ops = (1024 * slots * OPS_DISC5
-           + pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16))
+    big = pixels * (n_tri * OPS_TRIANGLE16 + (nb - n_tri) * OPS_CAPSULE16)
     nbytes = (slots * 32 + rows.numel() * 4 + nb * (17 * 4 + 4)
               + b["starts"].numel() * 4 + pixels * 4 * n_images)
-    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
-            "bytes", slots)
+    all_pairs = max((1024 * slots * OPS_DISC5 + big) / F32_OPS_PER_S * 1e3,
+                    nbytes / BYTES_PER_S * 1e3)
+    # The live slots' pixel rows: their tile's 32 rows inside the image.
+    tiles_x = csr5.grid5(width, height, csr6.TILE, csr6.TILE)[0]
+    sl = tab[rows].reshape(rows.numel(), -1, 8)
+    py, r, live = sl[..., 1], sl[..., 3], sl[..., 2] < float("inf")
+    r2 = r * r
+    ty = (tile[sel] // tiles_x)[:, None]
+    pixel_rows = 0
+    for k in range(csr6.TILE):
+        y = ty * csr6.TILE + k
+        keep = csr6.band_keeps(py, r2, y.to(torch.float32) + 0.5, band=1)
+        pixel_rows += int((keep & live & (y < height)).sum())
+    bound, by, t_bytes = floor_bound(pixel_rows, big, nbytes)
+    return dict(bound_ms=bound, bound_by=by, bound_ms_all_pairs=all_pairs,
+                bytes_ms=t_bytes, live_slots=slots, pixel_rows=pixel_rows)
 
 
 def compare_v5(soup, cam, width, height, max_big, uniform=None,
@@ -3325,19 +3576,23 @@ def compare_v5(soup, cam, width, height, max_big, uniform=None,
         out[name] = dict(err=err)
         if timing:
             rows = int(walked[True].sum())
-            bound, by, slots = v5_bound(soup, b, tab, walked[True], width,
-                                        height, 5 if fused else 2)
-            bound_off, _, slots_off = v5_bound(soup, b, tab, lengths, width,
-                                               height, 5 if fused else 2)
+            on = v5_bound(soup, b, tab, walked[True], width, height,
+                          5 if fused else 2)
+            off = v5_bound(soup, b, tab, lengths, width, height,
+                           5 if fused else 2)
             out[name].update(
                 ms=time_ms(lambda k=kernel: k(*args, **kw), 11),
                 ms_exit_off=time_ms(
                     lambda k=kernel: k(*args, allow_exit=False, **kw), 11),
                 plain_ms=time_ms(lambda: csr5.raster_tiles5_plain(
                     *args, fused=fused, **kw), 1),
-                bound_ms=bound, bound_by=by, bound_ms_exit_off=bound_off,
-                entries=n, walked=rows, live_slots=slots,
-                live_slots_exit_off=slots_off)
+                bound_ms=on["bound_ms"], bound_by=on["bound_by"],
+                bound_ms_exit_off=off["bound_ms"],
+                bound_ms_all_pairs=on["bound_ms_all_pairs"],
+                bytes_ms=on["bytes_ms"], entries=n, walked=rows,
+                live_slots=on["live_slots"],
+                live_slots_exit_off=off["live_slots"],
+                pixel_rows=on["pixel_rows"])
     return out, b
 
 
@@ -3485,11 +3740,14 @@ def v5_lane(card, dev, max_err, counters, seeded) -> dict:
     for name, r in timed.items():
         max_err[name] = max(max_err[name], r["err"])
         print(f"[time] {name} kernel {r['ms']:.3f} ms (median of 11), "
-              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']}"
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} (the pairs "
+              f"needed: {r['pixel_rows']} slot pixel rows of 32 pixels; "
+              f"bytes {r['bytes_ms']:.4f}; every pair of the live slots "
+              f"{r['bound_ms_all_pairs']:.4f}) ({r['walked']}"
               f" of {r['entries']} superrows walked before the exits, "
               f"{r['walked'] / r['entries']:.3f}, holding {r['live_slots']} "
               f"live slots); exit off {r['ms_exit_off']:.3f} ms, bound "
-              f"{r['bound_ms_exit_off']:.3f} ms ({r['live_slots_exit_off']} "
+              f"{r['bound_ms_exit_off']:.4f} ms ({r['live_slots_exit_off']} "
               f"live slots); plain {r['plain_ms']:.1f} "
               f"ms, at the disc lane's frame-120 shape in Morton order "
               f"({card})", flush=True)

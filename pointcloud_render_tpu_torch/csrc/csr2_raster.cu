@@ -4,11 +4,12 @@
 //     16-float rows [params 0..11, id, kind, bucket_low, 0] (the split
 //     walk below);
 //   * csr2_disc8 replaces the same kernel over its discs_only 8-float
-//     rows [px, py, z, r*r, id, bucket_low, 0, 0];
+//     rows [px, py, z, r*r, id, bucket_low, 0, 0] (the same split walk,
+//     its disc rows culled per warp);
 //   * csr1_raster replaces pallas_csr._make_kernel (v1): the generic rows
-//     again, staged 128 at a time (v1's DMA chunk) instead of 512.
-// csr2_disc8 and csr1_raster run one CTA per tile (strip_kernel) and
-// stage synchronously: moving them onto the split walk is not done yet.
+//     again, staged 128 at a time (v1's DMA chunk).
+// csr1_raster alone runs one CTA per strip (strip_kernel) and stages
+// synchronously: moving it onto the split walk is not done yet.
 // Binning (raster/csr.py's bin_csr, the JAX package's _bin_csr): a prim
 // whose bbox covers at most max_tiles_per_prim tiles is expanded into one
 // entry per tile, and the (tile * 16 + depth bucket) keys are sorted
@@ -35,28 +36,34 @@
 // `walked` reports the rows each tile evaluated before its exits (summed
 // over its passes).
 //
-// csr2_raster's split walk (split_walk.cuh: plan, persistent walk,
-// merge).  One CTA per tile left a dense strip's whole range on one SM
-// (traj_ball's cloud projects to the frame's centre).  A unit is one
-// pass of 1024 pixels of a strip; split_plan_kernel cuts a unit of more
-// than split_rows rows (its big rows, then its range) into work items;
-// csr2_walk_kernel's persistent CTAs take them from a counter, and
-// csr2_merge_kernel folds a split unit's per-item minima.  A strip's rows
-// are one contiguous run of 64 B rows, 16-byte aligned, so a chunk of 256
-// rows is one bulk copy (cp.async.bulk, the TMA unit's one-dimensional
-// form) issued by one thread into a two-slot ring and completed on an
-// mbarrier, the next chunk in flight while one is evaluated.  The exit
-// across a split unit's items: each folds its minima into the unit's
-// `front` depths (reset by the plan) by atomicMin after every chunk and
-// tests the rule against them (never below the unit's final depths, so
-// the rule stays sound: every in-image depth below the bound), one
-// barrier per chunk; alone, an item holding a slice of a strip would see
-// the pixels other items cover as empty and never leave.  The plan hands
-// the items out in waves, front to back (see csr2_walk_kernel).  Where
-// the strip width divides 256, a thread's 4 pixels share a column, so dx
-// and dx * sdx are evaluated once per row (the expression order of
-// capsule_pair unchanged); a triangle's 1 / iz only at covered pairs,
-// where it is tri_pair's depth.
+// csr2_raster's and csr2_disc8's split walk (split_walk.cuh: plan,
+// persistent walk, merge).  One CTA per tile left a dense strip's whole
+// range on one SM (traj_ball's cloud projects to the frame's centre).  A
+// unit is one pass of 1024 pixels of a strip; split_plan_kernel cuts a
+// unit of more than split_rows rows (its big rows, then its range) into
+// work items; csr2_walk_kernel's persistent CTAs take them from a
+// counter, and csr2_merge_kernel folds a split unit's per-item minima.  A
+// strip's rows are one contiguous run of 64 B (or 32 B disc) rows,
+// 16-byte aligned, so a chunk of 256 rows (512 disc rows: the same 16 KB)
+// is one bulk copy (cp.async.bulk, the TMA unit's one-dimensional form)
+// issued by one thread into a two-slot ring and completed on an mbarrier,
+// the next chunk in flight while one is evaluated.  The exit across a
+// split unit's items: each folds its minima into the unit's `front`
+// depths (reset by the plan) by atomicMin after every chunk and tests the
+// rule against them (never below the unit's final depths, so the rule
+// stays sound: every in-image depth below the bound), one barrier per
+// chunk; alone, an item holding a slice of a strip would see the pixels
+// other items cover as empty and never leave.  The plan hands the items
+// out in waves, front to back (see csr2_walk_kernel).  Where the strip
+// width divides 256, a thread's 4 pixels share a column, so dx and dx *
+// sdx are evaluated once per row (the expression order of capsule_pair
+// unchanged); a triangle's 1 / iz only at covered pairs, where it is
+// tri_pair's depth.  csr2_disc8's cull: a disc is a few pixels wide and a
+// strip's rows are all its discs, so of the 1024 x rows pairs of a unit
+// almost none can be covered.  Each warp holds a block of 32 columns x 4
+// rows (at strip widths 32-256; elsewhere the 16-float layout) and
+// evaluates only the rows whose disc can reach the box of its pixel
+// centres (eval_disc_rows: one exact test per row and warp).
 //
 // Winner per pixel = lexicographic min of (depth, primitive id) with
 // strict compares, so the walk order does not matter; index -1 where the
@@ -66,9 +73,12 @@
 //
 // What bounds it on an H100: per-pair arithmetic, as in csr6_raster.cu
 // (17 float32 operations per capsule pair, 18 per triangle pair, 4 per
-// disc pair; csr2_disc8 and csr1_raster evaluate dx per pixel, not per
-// column), over 1024 pixels x the rows each tile walked before its exit,
-// plus every pixel x every live big row.
+// disc pair; csr1_raster evaluates dx per pixel, not per column), over
+// 1024 pixels x the rows each tile walked before its exit, plus every
+// pixel x every live big row.  csr2_disc8's floor is the pairs the
+// function needs: 32 pixels per (binned row, pixel row, 32-column
+// segment) that the exact test can cover (csr.segment_rows with segments
+// of one pixel row), plus every pixel x every live big row, or the bytes.
 
 #include <cuda_runtime.h>
 
@@ -114,24 +124,10 @@ __device__ __forceinline__ void eval_row16(const float4* row, const float* qx,
   }
 }
 
-// One staged 8-float disc row [px, py, z, r*r, id, bucket_low, 0, 0]
-// (pallas_csr2._eval_disc_row).
-__device__ __forceinline__ void eval_row8(const float4* row, const float* qx,
-                                          const float* qy, float* d,
-                                          float* di) {
-  const float4 a = row[0];  // px, py, z, r*r
-  const float idf = row[1].x;
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const float dx = qx[k] - a.x;
-    const float dy = qy[k] - a.y;
-    merge_pair(dx * dx + dy * dy <= a.w, a.z, idf, &d[k], &di[k]);
-  }
-}
-
-// rows (>= starts[T], kRowF) f32 in sorted order; big_rows (>= *big_n,
-// 16) f32; staged kChunk rows at a time.
-template <int kRowF, int kChunk, bool kAnyKind>
+// The walk of csr1_raster, one CTA per strip: rows (>= starts[T], 16) f32
+// in sorted order; big_rows (>= *big_n, 16) f32; staged kChunk rows (v1's
+// DMA chunk) at a time, synchronously.
+template <bool kAnyKind>
 __global__ void __launch_bounds__(kThreads)
 strip_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
              const float* __restrict__ big_rows,
@@ -139,10 +135,12 @@ strip_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
              int* __restrict__ index_out, int* __restrict__ walked, int width,
              int height, int tiles_x, int tile_h, int tile_w,
              int allow_exit) {
+  constexpr int kChunk = 128;
+  constexpr int kRowF = 16;
   constexpr int kRowF4 = kRowF / 4;
   constexpr int kStage = kChunk * kRowF4;  // float4 slots of the staging
   constexpr int kBigChunk = kStage / 4;    // 16-float big rows per stage
-  constexpr int kBoundLane = kRowF == 16 ? 14 : 5;
+  constexpr int kBoundLane = 14;
   __shared__ float4 sh[kStage];
   __shared__ float warp_max[kThreads / 32];
   const float inf = __int_as_float(0x7f800000);
@@ -195,12 +193,8 @@ strip_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
       for (int i = tid; i < cnt * kRowF4; i += kThreads)
         sh[i] = rows4[static_cast<long long>(s + base) * kRowF4 + i];
       __syncthreads();
-      for (int r = 0; r < cnt; ++r) {
-        if constexpr (kRowF == 16)
-          eval_row16<kAnyKind>(sh + r * 4, qx, qy, d, di);
-        else
-          eval_row8(sh + r * 2, qx, qy, d, di);
-      }
+      for (int r = 0; r < cnt; ++r)
+        eval_row16<kAnyKind>(sh + r * 4, qx, qy, d, di);
       // The saturation exit, decided by the whole CTA.
       if (!allow_exit) continue;
       bool empty = false;
@@ -238,44 +232,13 @@ strip_kernel(const float* __restrict__ rows, const int* __restrict__ starts,
   if (walked != nullptr && tid == 0) walked[tile] = walked_sum;
 }
 
-template <int kRowF, int kChunk>
-int launch(const float* rows, const int* starts, const float* big_rows,
-           const int* big_n, float* depth, int* index, int* walked,
-           int width, int height, int tiles_x, int tiles_y, int tile_h,
-           int tile_w, int no_triangles, int allow_exit, void* stream) {
-  if (tile_h < 1 || tile_w < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kRowF == 16 && !no_triangles)
-    strip_kernel<kRowF, kChunk, true><<<num_tiles, kThreads, 0, st>>>(
-        rows, starts, big_rows, big_n, depth, index, walked, width, height,
-        tiles_x, tile_h, tile_w, allow_exit);
-  else
-    strip_kernel<kRowF, kChunk, false><<<num_tiles, kThreads, 0, st>>>(
-        rows, starts, big_rows, big_n, depth, index, walked, width, height,
-        tiles_x, tile_h, tile_w, allow_exit);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// The split walk of csr2_raster (see the header).  A unit is one pass of
-// 1024 pixels of a strip: unit u = strip * passes + pass.
+// The split walk of csr2_raster and csr2_disc8 (see the header).  A unit
+// is one pass of 1024 pixels of a strip: unit u = strip * passes + pass.
 
-constexpr int kWalkChunk = 256;               // 64 B rows per ring slot
-constexpr int kWalkSlotF = kWalkChunk * 16;   // floats per slot (16 KB)
+constexpr int kWalkSlotF = 256 * 16;  // floats per ring slot (16 KB)
 constexpr int kWalkRingBytes = 2 * kWalkSlotF * 4;
-
-// The binned rows of unit u for split_plan_kernel: its strip's range.
-struct StripRows {
-  const int* starts;
-  int passes;
-  __device__ int operator()(int u) const {
-    const int t = u / passes;
-    return starts[t + 1] - starts[t];
-  }
-};
+constexpr int kBigChunk = kWalkSlotF / 16;  // 64 B big rows per slot
 
 // The image offset of pixel p of strip (tx, ty), -1 outside the strip or
 // the image.
@@ -329,27 +292,104 @@ __device__ __forceinline__ void eval_strip_rows(const float4* sh, int count,
   }
 }
 
+// Where this thread's pixels lie in a unit: pixel k is p0 + dp * k.  The
+// 16-float walk takes tid + 256 k.  The disc walk, where the strip width
+// is 32, 64, 128 or 256, gives each warp a block of 32 columns x 4
+// consecutive rows (rows 4 (w / S) + k of the unit, columns 32 (w % S) +
+// lane, S = tile_w / 32), so that its cull skips rows on both axes; at
+// other widths tid + 256 k.
+template <int kRowF>
+__device__ __forceinline__ void unit_layout(int tile_w, int* p0, int* dp) {
+  if (kRowF == 8 &&
+      (tile_w == 32 || tile_w == 64 || tile_w == 128 || tile_w == 256)) {
+    const int s = tile_w / 32, w = threadIdx.x >> 5;
+    *p0 = (w / s) * 4 * tile_w + (w % s) * 32 + (threadIdx.x & 31);
+    *dp = tile_w;
+  } else {
+    *p0 = threadIdx.x;
+    *dp = kThreads;
+  }
+}
+
+// Staged 8-float disc rows [0, count) ([px, py, z, r*r, id, bucket_low,
+// 0, 0], pallas_csr2._eval_disc_row) at this thread's pixels, each row
+// only where the warp's cull keeps it: lane `lane` tests row base + lane
+// against the box [xlo, xhi] x [ylo, yhi] of the pixel centres the warp
+// holds in the strip and the image (warp-uniform; `live` false when it
+// holds none), and the warp takes the ballot.  A row is skipped when
+// fl(fl(dx * dx) + fl(dy * dy)) > r*r at the box's centre nearest to
+// (px, py) (clamp(floor(p) + 0.5, box) per axis).  That is exact, as
+// csr6_raster.cu's band_live: fl(q - p) is monotone in q and keeps its
+// sign, so no centre of the box has a smaller |fl(dx)| or |fl(dy)|, the
+// squares and their sum round monotonically, and the body tests that
+// very sum (NaN: live, and no cover).  Under kSharedCol the thread's
+// pixels share qx[0].  Returns the rows the warp evaluated.
+template <bool kSharedCol>
+__device__ __forceinline__ int eval_disc_rows(const float* sh, int count,
+                                              const float* qx,
+                                              const float* qy, bool live,
+                                              float xlo, float xhi,
+                                              float ylo, float yhi,
+                                              float* d, float* di) {
+  const float4* rows = reinterpret_cast<const float4*>(sh);
+  int evaluated = 0;
+  for (int base = 0; base < count; base += 32) {
+    const int t = base + (threadIdx.x & 31);
+    bool keep = false;
+    if (live && t < count) {
+      const float4 a = rows[t * 2];
+      const float dx = fminf(fmaxf(floorf(a.x) + 0.5f, xlo), xhi) - a.x;
+      const float dy = fminf(fmaxf(floorf(a.y) + 0.5f, ylo), yhi) - a.y;
+      keep = !(dx * dx + dy * dy > a.w);
+    }
+    unsigned m = __ballot_sync(0xffffffffu, keep);
+    evaluated += __popc(m);
+    while (m) {
+      const int r = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 a = rows[r * 2];  // px, py, z, r*r
+      const float idf = rows[r * 2 + 1].x;
+      const float dx0 = qx[0] - a.x;
+      const float dx20 = dx0 * dx0;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const float dx = qx[kSharedCol ? 0 : k] - a.x;
+        const float dx2 = kSharedCol ? dx20 : dx * dx;
+        const float dy = qy[k] - a.y;
+        merge_pair(dx2 + dy * dy <= a.w, a.z, idf, &d[k], &di[k]);
+      }
+    }
+  }
+  return evaluated;
+}
+
 // Persistent CTAs take work items from the plan; an item is the slice
 // [lo, hi) of its unit's flat rows (the live big rows, then the strip's
-// range), staged 256 rows at a time through two shared-memory slots, the
-// next chunk in flight while one is evaluated.  The saturation exit after
-// each binned chunk (allow_exit): every in-image pixel of the unit is
-// covered and the chunk's last bucket_low is strictly above its deepest
-// pixel, i.e. every in-image depth is below that bound.  The depths
-// tested are the item's own, and for a split unit the minima its items
-// fold into `front` by atomicMin after each chunk (never below the
-// unit's final depths, so the rule stays sound).  An item that exits
-// skips the rest of its slice; an item whose first row's bucket_low
-// already lies past the shared depths skips all of it.  With the exit the
-// plan hands the items out in waves (every unit's first item, then every
-// unit's second, ...), so that a split unit's deep items start after its
-// front ones have filled `front`: started at once, they walked 45% of
-// the rows at traj_ball frame 120 against 31% for one CTA per strip.  A
-// unit of one item writes the image, the
-// items of a split unit their minima to `partial` (csr2_merge_kernel).
-// walked (null or (T)) sums the binned rows evaluated per strip.
-template <bool kAnyKind, bool kSharedCol>
-__global__ void __launch_bounds__(kThreads, 2)
+// range), staged by bulk copies through two 16 KB shared-memory slots
+// (256 big or 16-float rows, 512 8-float disc rows), the next chunk in
+// flight while one is evaluated.  kRowF 8 (csr2_disc8) evaluates its disc
+// rows through eval_disc_rows' cull and counts the (row, warp) pairs it
+// evaluated in `bands` (null or (T), zeroed; summed over a strip's
+// passes and items).  The saturation exit after each binned chunk
+// (allow_exit): every in-image pixel of the unit is covered and the
+// chunk's last bucket_low (lane 14 of a 16-float row, 5 of a disc row) is
+// strictly above its deepest pixel, i.e. every in-image depth is below
+// that bound.  The depths tested are the item's own, and for a split unit
+// the minima its items fold into `front` by atomicMin after each chunk
+// (never below the unit's final depths, so the rule stays sound).  An
+// item that exits skips the rest of its slice; an item whose first row's
+// bucket_low already lies past the shared depths skips all of it.  With
+// the exit the plan hands csr2_raster's items out in waves (every unit's
+// first item, then every unit's second, ...), so that a split unit's deep
+// items start after its front ones have filled `front`: started at once,
+// they walked 45% of the rows at traj_ball frame 120 against 31% for one
+// CTA per strip.  csr2_disc8's go out in plan order: on the disc lane,
+// whose exit leaves few rows, the waves made it slower (PERF.md).  A unit
+// of one item writes the image, the items of a split
+// unit their minima to `partial` (csr2_merge_kernel).  walked (null or
+// (T)) sums the binned rows evaluated per strip.
+template <int kRowF, bool kAnyKind, bool kSharedCol>
+__global__ void __launch_bounds__(kThreads, kRowF == 8 ? 4 : 2)
 csr2_walk_kernel(const float* __restrict__ rows,
                  const int* __restrict__ starts,
                  const float* __restrict__ big_rows,
@@ -357,9 +397,11 @@ csr2_walk_kernel(const float* __restrict__ rows,
                  int* __restrict__ plan,
                  float* __restrict__ partial, float* __restrict__ depth_out,
                  int* __restrict__ index_out, int* __restrict__ walked,
-                 int* __restrict__ front, int width, int height, int tiles_x,
-                 int num_units, int passes, int tile_h, int tile_w,
-                 int max_items, int allow_exit) {
+                 int* __restrict__ bands, int* __restrict__ front, int width,
+                 int height, int tiles_x, int num_units, int passes,
+                 int tile_h, int tile_w, int max_items, int allow_exit) {
+  constexpr int kChunkRows = kWalkSlotF / kRowF;  // binned rows per slot
+  constexpr int kBoundLane = kRowF == 16 ? 14 : 5;  // bucket_low
   extern __shared__ __align__(16) float ring[];  // 2 x kWalkSlotF floats
   __shared__ int s_item;
   const int tid = threadIdx.x;
@@ -369,6 +411,8 @@ csr2_walk_kernel(const float* __restrict__ rows,
   const int n_items = sched[0];
   const int big_n = min(*big_n_ptr, big_cap);
   const float inf = __int_as_float(0x7f800000);
+  int p0, dp;  // this thread's pixel k of a unit: p0 + dp * k
+  unit_layout<kRowF>(tile_w, &p0, &dp);
   __shared__ __align__(8) unsigned long long full[2];  // a slot landed
   if (tid == 0) {
     mbar_init(&full[0], 1);
@@ -380,8 +424,9 @@ csr2_walk_kernel(const float* __restrict__ rows,
   for (;;) {
     const int ticket = next_item(sched, &s_item);  // also publishes `full`
     if (ticket >= n_items) break;
-    // With the exit the plan hands the items out in waves (ticket_item).
-    const int item = allow_exit ? sched[3 + ticket] : ticket;
+    // With the exit the plan hands csr2_raster's items out in waves
+    // (ticket_item).
+    const int item = kRowF == 16 && allow_exit ? sched[3 + ticket] : ticket;
     const int unit = item_unit[item];
     const int first = unit > 0 ? items_cum[unit - 1] : 0;
     const int n = items_cum[unit] - first;
@@ -395,9 +440,11 @@ csr2_walk_kernel(const float* __restrict__ rows,
                first, n, &lo, &hi);
     float qx[kPix], qy[kPix], d[kPix], di[kPix], bound_d[kPix];
     int out[kPix];
+    // The disc walk's cull box: the warp's pixel centres in the image.
+    float xlo = inf, xhi = -inf, ylo = inf, yhi = -inf;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      const int p = pb + tid + k * kThreads;
+      const int p = pb + p0 + dp * k;
       out[k] = strip_pixel(p, tx, ty, tile_h, tile_w, width, height);
       qx[k] = static_cast<float>(tx * tile_w + p % tile_w) + 0.5f;
       qy[k] = static_cast<float>(ty * tile_h + p / tile_w) + 0.5f;
@@ -406,7 +453,23 @@ csr2_walk_kernel(const float* __restrict__ rows,
       // The depths the exit tests besides this item's: the unit's shared
       // ones when it is split (+inf until then); -inf off the image.
       bound_d[k] = out[k] >= 0 ? inf : -inf;
+      if (kRowF == 8 && out[k] >= 0) {
+        xlo = fminf(xlo, qx[k]);
+        xhi = fmaxf(xhi, qx[k]);
+        ylo = fminf(ylo, qy[k]);
+        yhi = fmaxf(yhi, qy[k]);
+      }
     }
+    if (kRowF == 8) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        xlo = fminf(xlo, __shfl_xor_sync(0xffffffffu, xlo, o));
+        xhi = fmaxf(xhi, __shfl_xor_sync(0xffffffffu, xhi, o));
+        ylo = fminf(ylo, __shfl_xor_sync(0xffffffffu, ylo, o));
+        yhi = fmaxf(yhi, __shfl_xor_sync(0xffffffffu, yhi, o));
+      }
+    }
+    const bool warp_live = xlo <= xhi;  // the warp holds an image pixel
     int* unit_front = allow_exit && n > 1
                           ? front + static_cast<long long>(unit) * kBlockPix
                           : nullptr;
@@ -418,10 +481,11 @@ csr2_walk_kernel(const float* __restrict__ rows,
 #pragma unroll
       for (int k = 0; k < kPix; ++k)
         if (out[k] >= 0)
-          bound_d[k] = key_depth(__ldcg(&unit_front[tid + kThreads * k]));
+          bound_d[k] = key_depth(__ldcg(&unit_front[p0 + dp * k]));
       if (lo >= big_n && lo < hi) {
-        const float first_low =
-            __ldg(&rows[static_cast<long long>(s0 + lo - big_n) * 16 + 14]);
+        const float first_low = __ldg(
+            &rows[static_cast<long long>(s0 + lo - big_n) * kRowF +
+                  kBoundLane]);
         if (exit_past(d, bound_d, first_low)) hi = lo;
       }
     }
@@ -429,19 +493,24 @@ csr2_walk_kernel(const float* __restrict__ rows,
     int issue = lo;     // the next flat row to stage
     bool stop = false;  // the exit was taken: stage and evaluate no more
     int done = 0;       // binned rows evaluated
+    int evaluated = 0;  // (binned row, warp) pairs of this warp (discs)
     auto next_chunk = [&](int* start, int* cnt) {
       *start = issue;
-      const int end = stop ? issue : issue < big_n ? min(big_n, hi) : hi;
-      *cnt = min(kWalkChunk, max(end - issue, 0));
+      const bool big = issue < big_n;
+      const int end = stop ? issue : big ? min(big_n, hi) : hi;
+      *cnt = min(big ? kBigChunk : kChunkRows, max(end - issue, 0));
       issue += *cnt;
     };
     auto stage = [&](int slot, int start, int cnt) {
+      if (tid != 0 || cnt == 0) return;
       float* dst = ring + slot * kWalkSlotF;
-      const float* src =
-          start < big_n ? big_rows + static_cast<long long>(start) * 16
-                        : rows + static_cast<long long>(s0 + start - big_n) *
-                                     16;
-      if (tid == 0 && cnt > 0) bulk_load(dst, src, cnt * 64, &full[slot]);
+      if (start < big_n)
+        bulk_load(dst, big_rows + static_cast<long long>(start) * 16,
+                  cnt * 64, &full[slot]);
+      else
+        bulk_load(dst,
+                  rows + static_cast<long long>(s0 + start - big_n) * kRowF,
+                  cnt * kRowF * 4, &full[slot]);
     };
 
     int slot = 0, n_start, n_cnt;
@@ -463,15 +532,19 @@ csr2_walk_kernel(const float* __restrict__ rows,
         eval_strip_rows<true, kSharedCol>(sh4, c_cnt, qx, qy, d, di);
         continue;
       }
-      eval_strip_rows<kAnyKind, kSharedCol>(sh4, c_cnt, qx, qy, d, di);
+      if constexpr (kRowF == 16)
+        eval_strip_rows<kAnyKind, kSharedCol>(sh4, c_cnt, qx, qy, d, di);
+      else
+        evaluated += eval_disc_rows<kSharedCol>(sh, c_cnt, qx, qy, warp_live,
+                                                xlo, xhi, ylo, yhi, d, di);
       done += c_cnt;
       if (!allow_exit) continue;
       bool in_image[kPix];
 #pragma unroll
       for (int k = 0; k < kPix; ++k) in_image[k] = out[k] >= 0;
       // The chunk's last bucket_low bounds every later row of the strip.
-      stop = exit_step(unit_front, tid, kThreads, in_image, d, bound_d, true,
-                       sh[(c_cnt - 1) * 16 + 14]);
+      stop = exit_step(unit_front, p0, dp, in_image, d, bound_d, true,
+                       sh[(c_cnt - 1) * kRowF + kBoundLane]);
     }
 
     if (n == 1) {
@@ -483,10 +556,12 @@ csr2_walk_kernel(const float* __restrict__ rows,
         }
       }
     } else {
-      write_partial(partial, item, d, di);
+      write_partial(partial, item, d, di, nullptr, nullptr, p0, dp);
     }
     if (walked != nullptr && tid == 0 && done > 0)
       atomicAdd(&walked[strip], done);
+    if (kRowF == 8 && bands != nullptr && (tid & 31) == 0 && evaluated > 0)
+      atomicAdd(&bands[strip], evaluated);
   }
 }
 
@@ -525,20 +600,69 @@ csr2_merge_kernel(const int* __restrict__ plan,
   }
 }
 
-template <bool kAnyKind, bool kSharedCol>
+template <int kRowF, bool kAnyKind, bool kSharedCol>
 void launch_walk2(const float* rows, const int* starts, const float* big_rows,
                   const int* big_n, int big_cap, int* plan, float* partial,
-                  float* depth,
-                  int* index, int* walked, int* front, int width, int height,
-                  int tiles_x, int num_units, int passes, int tile_h,
-                  int tile_w, int max_items, int allow_exit, cudaStream_t st) {
+                  float* depth, int* index, int* walked, int* bands,
+                  int* front, int width, int height, int tiles_x,
+                  int num_units, int passes, int tile_h, int tile_w,
+                  int max_items, int allow_exit, cudaStream_t st) {
   static const int ctas = persistent_ctas(
-      csr2_walk_kernel<kAnyKind, kSharedCol>, kWalkRingBytes);
-  csr2_walk_kernel<kAnyKind, kSharedCol>
+      csr2_walk_kernel<kRowF, kAnyKind, kSharedCol>, kWalkRingBytes);
+  csr2_walk_kernel<kRowF, kAnyKind, kSharedCol>
       <<<min(ctas, max_items), kThreads, kWalkRingBytes, st>>>(
           rows, starts, big_rows, big_n, big_cap, plan, partial, depth, index,
-          walked, front, width, height, tiles_x, num_units, passes, tile_h,
-          tile_w, max_items, allow_exit);
+          walked, bands, front, width, height, tiles_x, num_units, passes,
+          tile_h, tile_w, max_items, allow_exit);
+}
+
+// Plan, walk and merge of a v2 split walk over kRowF-float rows on
+// `stream`; returns the first launch error.
+template <int kRowF>
+int strip_walk(const float* rows, const int* starts, const float* big_rows,
+               const int* big_n, int* front, int* walked, int* bands,
+               float* depth, int* index, int* plan, float* partial,
+               int big_cap, int width, int height, int tiles_x, int tiles_y,
+               int tile_h, int tile_w, int no_triangles, int allow_exit,
+               int split_rows, int max_items, void* stream) {
+  if (tile_h < 1 || tile_w < 1 || split_rows < 1 || (allow_exit && !front))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  const int passes = (tile_h * tile_w + kBlockPix - 1) / kBlockPix;
+  const int num_units = num_tiles * passes;
+  if (max_items < num_units) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  split_plan_kernel<StripRows><<<1, kPlanThreads, 0, st>>>(
+      StripRows{starts, passes}, big_n, big_cap, num_units, split_rows,
+      max_items, plan, walked, num_tiles, allow_exit ? front : nullptr,
+      kRowF == 16 && allow_exit);  // the waves (see csr2_walk_kernel)
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // A thread's 4 pixels share a column when the strip width divides 256
+  // (tid + 256 k; the disc walk's blocks of 4 rows are such widths).
+  const bool shared_col = kThreads % tile_w == 0;
+  using Walk = void (*)(const float*, const int*, const float*, const int*,
+                        int, int*, float*, float*, int*, int*, int*, int*,
+                        int, int, int, int, int, int, int, int, int,
+                        cudaStream_t);
+  // Disc rows (kRowF 8) have no kind lane: no triangle instances.
+  Walk walk = shared_col ? launch_walk2<kRowF, false, true>
+                         : launch_walk2<kRowF, false, false>;
+  if constexpr (kRowF == 16) {
+    if (!no_triangles)
+      walk = shared_col ? launch_walk2<kRowF, true, true>
+                        : launch_walk2<kRowF, true, false>;
+  }
+  walk(rows, starts, big_rows, big_n, big_cap, plan, partial, depth, index,
+       walked, bands, front, width, height, tiles_x, num_units, passes,
+       tile_h, tile_w, max_items, allow_exit, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr2_merge_kernel<<<num_units, kThreads, 0, st>>>(
+      plan, partial, depth, index, width, height, tiles_x, passes, tile_h,
+      tile_w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -549,7 +673,7 @@ void launch_walk2(const float* rows, const int* starts, const float* big_rows,
 // row-major); big_rows (>= *big_n, 16) f32; big_n one i32 on the device;
 // depth (H, W) f32; index (H, W) i32; walked null or (T) i32, each tile's
 // count of rows evaluated before its exit (summed over its passes, and
-// for csr2_raster over its work items); no_triangles != 0 evaluates the
+// for the split walks over their work items); no_triangles != 0 evaluates the
 // binned 16-float rows through the capsule body alone; allow_exit == 0
 // walks every row.
 
@@ -567,66 +691,52 @@ extern "C" int csr2_raster(const float* rows, const int* starts,
                            int height, int tiles_x, int tiles_y, int tile_h,
                            int tile_w, int no_triangles, int allow_exit,
                            int split_rows, int max_items, void* stream) {
-  if (tile_h < 1 || tile_w < 1 || split_rows < 1 || (allow_exit && !front))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = tiles_x * tiles_y;
-  if (num_tiles <= 0) return 0;
-  const int passes = (tile_h * tile_w + kBlockPix - 1) / kBlockPix;
-  const int num_units = num_tiles * passes;
-  if (max_items < num_units) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  split_plan_kernel<StripRows><<<1, kPlanThreads, 0, st>>>(
-      StripRows{starts, passes}, big_n, big_cap, num_units, split_rows,
-      max_items, plan, walked, num_tiles, allow_exit ? front : nullptr,
-      allow_exit);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // A thread's 4 pixels (tid + 256 k) share a column when the strip width
-  // divides 256.
-  const bool shared_col = kThreads % tile_w == 0;
-  void (*walk)(const float*, const int*, const float*, const int*, int,
-               int*, float*, float*, int*, int*, int*, int, int, int, int,
-               int, int, int, int, int, cudaStream_t) =
-      launch_walk2<true, false>;
-  if (no_triangles && shared_col)
-    walk = launch_walk2<false, true>;
-  else if (no_triangles)
-    walk = launch_walk2<false, false>;
-  else if (shared_col)
-    walk = launch_walk2<true, true>;
-  walk(rows, starts, big_rows, big_n, big_cap, plan, partial, depth, index,
-       walked, front, width, height, tiles_x, num_units, passes, tile_h,
-       tile_w, max_items, allow_exit, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  csr2_merge_kernel<<<num_units, kThreads, 0, st>>>(
-      plan, partial, depth, index, width, height, tiles_x, passes, tile_h,
-      tile_w);
-  return static_cast<int>(cudaGetLastError());
+  return strip_walk<16>(rows, starts, big_rows, big_n, front, walked,
+                        nullptr, depth, index, plan, partial, big_cap, width,
+                        height, tiles_x, tiles_y, tile_h, tile_w,
+                        no_triangles, allow_exit, split_rows, max_items,
+                        stream);
 }
 
-// The discs_only walk of v2 over 8-float disc rows (no_triangles unused).
+// The same split walk over v2's discs_only 8-float disc rows (16-byte
+// aligned; no_triangles unused), culled per warp: bands null or (T) i32
+// zeroed, the (binned row, warp) pairs each strip evaluated (summed over
+// its passes); the rest as csr2_raster's.
 extern "C" int csr2_disc8(const float* rows, const int* starts,
                           const float* big_rows, const int* big_n,
-                          float* depth, int* index, int* walked, int width,
-                          int height, int tiles_x, int tiles_y, int tile_h,
-                          int tile_w, int no_triangles, int allow_exit,
+                          int* front, int* walked, int* bands, float* depth,
+                          int* index, int* plan, float* partial, int big_cap,
+                          int width, int height, int tiles_x, int tiles_y,
+                          int tile_h, int tile_w, int no_triangles,
+                          int allow_exit, int split_rows, int max_items,
                           void* stream) {
-  return launch<8, 512>(rows, starts, big_rows, big_n, depth, index, walked,
-                        width, height, tiles_x, tiles_y, tile_h, tile_w,
-                        no_triangles, allow_exit, stream);
+  return strip_walk<8>(rows, starts, big_rows, big_n, front, walked, bands,
+                       depth, index, plan, partial, big_cap, width, height,
+                       tiles_x, tiles_y, tile_h, tile_w, no_triangles,
+                       allow_exit, split_rows, max_items, stream);
 }
 
-// v1: the generic walk staged in chunks of 128 rows.
+// v1: the generic walk, one CTA per strip.
 extern "C" int csr1_raster(const float* rows, const int* starts,
                            const float* big_rows, const int* big_n,
                            float* depth, int* index, int* walked, int width,
                            int height, int tiles_x, int tiles_y, int tile_h,
                            int tile_w, int no_triangles, int allow_exit,
                            void* stream) {
-  return launch<16, 128>(rows, starts, big_rows, big_n, depth, index, walked,
-                         width, height, tiles_x, tiles_y, tile_h, tile_w,
-                         no_triangles, allow_exit, stream);
+  if (tile_h < 1 || tile_w < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int num_tiles = tiles_x * tiles_y;
+  if (num_tiles <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!no_triangles)
+    strip_kernel<true><<<num_tiles, kThreads, 0, st>>>(
+        rows, starts, big_rows, big_n, depth, index, walked, width, height,
+        tiles_x, tile_h, tile_w, allow_exit);
+  else
+    strip_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+        rows, starts, big_rows, big_n, depth, index, walked, width, height,
+        tiles_x, tile_h, tile_w, allow_exit);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* csr2_error_string(int code) {

@@ -106,11 +106,17 @@
 // with a strict < on depth, so the first (lowest-id) pair at the least
 // depth wins without an id compare (a disc's depth is constant over its
 // footprint).  The kernel writes the winner's ENTRY: its sorted position,
-// -(rank + 2) for a big winner, INT32_MAX where nothing won.  The early
-// exit checks once per block of `block` entries (the TPU: once per
-// 512-entry DMA chunk): the block's last entry's bucket, one bucket
-// back, stops the run when zmin + qz * thr_scale >= dmax (>=: a later
-// entry at equal depth cannot displace a winner under strict <).
+// -(rank + 2) for a big winner, INT32_MAX where nothing won.  It takes
+// the split walk and the disc walks' warp-band cull (csr3_walk_kernel): a
+// tile's run is one contiguous range of 32 B rows, staged by bulk copies;
+// a split tile's items fold into the first winner of the whole walk,
+// (depth, walk_order3 of the entry) (csr3_merge_kernel).  The early exit
+// checks once per `block` entries of the run (the TPU: once per
+// 512-entry DMA chunk): the last entry's bucket, one bucket back, stops
+// an item when zmin + qz * thr_scale > the depth of every in-image pixel
+// (strict, unlike the TPU's >=: under a split the tile's shared depth at
+// a pixel may come from a later item, and an entry of this item at that
+// depth would win).
 //
 // csr6_disc8 replaces pallas_csr6._make_row_body8 (the discs_only walk at
 // span 2, 4 or 8, its ranges walked as csr6_raster's: binned rows are
@@ -175,26 +181,26 @@
 // the same staged row (a shared-memory broadcast).  A disc pair must
 // execute 4 operations (dy, dy * dy, + dx * dx, <= r * r; dx and dx * dx
 // are per row and thread, not per pixel) and a disc row is 32 B, staged
-// 512 at a time (v3: 16 B of its entry row, 128 per exit block by
-// default).  A rows9 capsule pair must
+// 512 at a time (v3 too, of which it reads 16 B).  A rows9 capsule pair must
 // execute 16 (dy, a and g (2 each, with dx * ux and dx * uy per column),
 // the clip (2), a - t, d2 (3), rad (2), d2 <= rad * rad (2), rad > 0; its
 // depth z is read only at covered pairs).
 // A binned triangle pair (csr6_raster or csr4_raster with bin_triangles)
 // costs 18 operations, as a big-list one.  The bounds of the walks with
-// an exit (csr6_raster, csr4_raster, csr3_raster) count 1024 x (the rows
-// their tiles evaluated before their exits, which the kernels report
-// through `walked`) + pixels x (big rows) pairs.  The disc walks' bound
-// is the pairs the function needs, whatever the walk's bands: 32 x (the
-// (row, pixel row) pairs whose exact dy test passes) + pixels x (big
-// rows), or the bytes if larger; the (row, band) pairs their warps
+// an exit (csr6_raster, csr4_raster) count 1024 x (the rows their tiles
+// evaluated before their exits, which the kernels report through
+// `walked`) + pixels x (big rows) pairs.  The disc walks' and
+// csr3_raster's bound is the pairs the function needs, whatever the
+// walk's bands: 32 x (the (row, pixel row) pairs whose exact dy test
+// passes) + pixels x (big rows), or the bytes if larger (with an exit,
+// scaled by the share of rows walked); the (row, band) pairs their warps
 // evaluate are reported through `bands`.
 // The split walk: csr6_raster, csr6_cap10 and csr6_rows9 (cp.async ring)
-// and csr6_disc8, csr6_disc8_uv (bulk copies, warp-band cull) here,
-// csr2_raster (bulk copies) in csr2_raster.cu.  Not done yet: the split
-// and asynchronous staging in v4 and v3 here, and in csr2_disc8 and
-// csr1_raster there; the warp-band cull in the other disc-row walks
-// (csr3_raster, csr2_disc8, csr5_raster.cu's).
+// and csr6_disc8, csr6_disc8_uv, csr3_raster (bulk copies, warp-band
+// cull) here, csr2_raster and csr2_disc8 (bulk copies; csr2_disc8 with a
+// warp cull) in csr2_raster.cu.  Not done yet: the split and asynchronous
+// staging in v4 here and in csr1_raster there; a warp cull in
+// csr5_raster.cu's disc walks.
 
 #include <cuda_runtime.h>
 
@@ -1413,114 +1419,307 @@ int disc_walk(const float* rows8, const float* big_rows, const int* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The v3 walk (see the header): the big list in rank order through the
-// 16-float dual, then the tile's stable run of entry-indexed disc rows
-// (rows8: [px, py, z, r*r, c0, c1, c2, flag], only the first float4
-// read), both with a strict < on depth, tracking the winner's entry.
-// With allow_exit the run stops after a block of `block` entries once
-// zmin + max(floor((z_last - zmin) * s) - 1, 0) * thr_scale >= dmax.
+// ---------------------------------------------------------------------------
+// The split walk of csr3_raster (v3; see the header).  A unit is one
+// tile; its flat rows are its live big rows in rank order, then its
+// stable run rows8[starts[t], starts[t+1]) (StripRows with one pass).
 constexpr int kImax = 2147483647;
-constexpr int kMaxBlock3 = kChunk * 4;  // entries that fit the staging
+constexpr int kMaxBlock3 = 1024;  // entries between two exit checks, at most
 
-__global__ void __launch_bounds__(kThreads)
-csr3_tile_kernel(const float* __restrict__ rows8,
-                 const float* __restrict__ big_rows,
-                 const int* __restrict__ starts,
-                 const int* __restrict__ big_n_ptr, int big_cap,
-                 const float* __restrict__ zmeta,
-                 float* __restrict__ depth_out, int* __restrict__ ent_out,
-                 int* __restrict__ walked, int width, int height, int tiles_x,
-                 int allow_exit, int block) {
-  __shared__ float4 sh[kChunk * 4];
-  __shared__ float warp_max[kThreads / 32];
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  float qy[kPix], d[kPix], unused[kPix];
-  int e[kPix];
-  const float qx = init_pixels(tx, ty, qy, d, unused);
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) e[k] = kImax;
+// The order of the v3 walk over winner encodings: big winners -(rank + 2)
+// first, by rank, then binned entries by sorted position, then kImax
+// (nothing won).  The walk meets rows in this order, so under its strict
+// < on depth the first winner at the least depth is the least (depth,
+// walk_order3) pair, whichever item of a split tile met it.
+__device__ __forceinline__ int walk_order3(int e) {
+  return e >= 0 ? e : (-e - 2) + (-kImax - 1);
+}
 
-  // Big list in rank order: strict <, so the first (lowest-rank, lowest
-  // id) big prim at the least depth wins; big winners travel as
-  // -(rank + 2).
-  const int big_n = min(*big_n_ptr, big_cap);
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh, tid, big_rows, base + tid);
-    __syncthreads();
-    for (int r = 0; r < cnt; ++r) {
-      const float4 a = sh[r * 4 + 0], b = sh[r * 4 + 1];
-      const float4 c = sh[r * 4 + 2], f = sh[r * 4 + 3];
+// Staged 16-float big rows [0, count), ranks rank0.., at this thread's
+// pixels: the dual evaluation with a strict < on depth alone (the first,
+// lowest-rank big prim at the least depth wins), the winner's entry
+// -(rank + 2).
+__device__ __forceinline__ void eval_big3(const float4* sh, int count,
+                                          int rank0, float qx,
+                                          const float* qy, float* d,
+                                          int* e) {
+  for (int r = 0; r < count; ++r) {
+    const float4 a = sh[r * 4 + 0], b = sh[r * 4 + 1];
+    const float4 c = sh[r * 4 + 2], f = sh[r * 4 + 3];
 #pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        float z, dx, dy;
-        if (pair16<true>(a, b, c, f, qx, qy[k], &z, &dx, &dy) && z < d[k]) {
-          d[k] = z;
-          e[k] = -(base + r + 2);
-        }
+    for (int k = 0; k < kPix; ++k) {
+      float z, dx, dy;
+      if (pair16<true>(a, b, c, f, qx, qy[k], &z, &dx, &dy) && z < d[k]) {
+        d[k] = z;
+        e[k] = -(rank0 + r + 2);
       }
     }
   }
+}
 
-  // The tile's run [s, s + n), in order.
-  const float zmin = zmeta[0], zs = zmeta[1], thr_scale = zmeta[2];
-  const int s = starts[tile];
-  const int n = starts[tile + 1] - s;
-  const float4* rows = reinterpret_cast<const float4*>(rows8);
-  int done = n;  // entries evaluated before the exit
-  for (int base = 0; base < n; base += block) {
-    const int cnt = min(block, n - base);
-    __syncthreads();
-    for (int i = tid; i < cnt; i += kThreads)
-      sh[i] = rows[static_cast<long long>(s + base + i) * 2];
-    __syncthreads();
-    for (int r = 0; r < cnt; ++r) {
-      const float4 a = sh[r];  // px, py, z, r*r
+// Staged 8-float entry rows [0, count) (sorted positions e0..) at this
+// thread's band (eval_disc_band's pixels): the disc body with a strict <
+// on depth, in entry order, each row only where band_live keeps it for
+// the warp.  Returns the rows the warp evaluated.
+__device__ __forceinline__ int eval_disc_band3(const float* sh, int count,
+                                               int e0, float qx, float y_lo,
+                                               float* d, int* e) {
+  const float4* rows = reinterpret_cast<const float4*>(sh);
+  const float y_hi = y_lo + static_cast<float>(kPix - 1);
+  int evaluated = 0;
+  for (int base = 0; base < count; base += 32) {
+    unsigned m = band_live(sh, base, count, y_lo, y_hi);
+    evaluated += __popc(m);
+    while (m) {
+      const int r = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 a = rows[r * 2];  // px, py, z, r*r
       const float dx = qx - a.x;
       const float dx2 = dx * dx;
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
-        const float dy = qy[k] - a.y;
+        const float dy = (y_lo + static_cast<float>(k)) - a.y;
         if ((dx2 + dy * dy <= a.w) && a.z < d[k]) {
           d[k] = a.z;
-          e[k] = s + base + r;
+          e[k] = e0 + r;
         }
       }
     }
-    if (allow_exit) {
-      // dmax over the tile's 1024 pixels (a NaN depth never wins).
-      float m = fmaxf(fmaxf(d[0], d[1]), fmaxf(d[2], d[3]));
+  }
+  return evaluated;
+}
+
+// Persistent CTAs take work items from the plan, as csr6_disc_walk_kernel:
+// an item is the slice [lo, hi) of its tile's flat rows, staged by bulk
+// copies (a tile's run is one contiguous range of 32 B rows in sorted
+// order; big rows 64 B) through a two-slot ring, the next chunk in flight
+// while one is evaluated; each warp owns a band of kPix pixel rows and
+// evaluates the run's rows that band_live keeps.  The exit (allow_exit):
+// after every `block` entries of the run (counted from the run's start)
+// the item folds its depths into the tile's `front` (a split tile's; the
+// plan resets it) and stops when every in-image pixel lies strictly
+// nearer than zmin + max(floor((z_last - zmin) * s) - 1, 0) * thr_scale,
+// z_last the last evaluated entry's depth: every later entry of the run
+// sits in the same or a later bucket, at least that deep.  Strict: the
+// front may hold a depth that a later item met, and an entry of this item
+// at that same depth has a lower position and wins (the single-CTA walk
+// could stop at >=; a split walk cannot).  An item whose first entry's
+// floor already lies past the shared depths skips its slice.  The items
+// go out in plan order, the exit on or off: handing them out in waves,
+// as csr2_raster does, made this walk slower on the disc lane (PERF.md),
+// whose exit leaves few rows.  A tile of one item writes
+// the image; the items of a split tile write (depth, entry bits) to
+// `partial` (csr3_merge_kernel).  walked (null or (T)) sums the entries
+// each tile's items evaluated, bands (null or (T), zeroed) the (entry,
+// warp band) pairs.
+__global__ void __launch_bounds__(kThreads, 4)
+csr3_walk_kernel(const float* __restrict__ rows8,
+                 const float* __restrict__ big_rows,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 const float* __restrict__ zmeta, int* __restrict__ plan,
+                 float* __restrict__ partial, float* __restrict__ depth_out,
+                 int* __restrict__ ent_out, int* __restrict__ walked,
+                 int* __restrict__ bands, int* __restrict__ front, int width,
+                 int height, int tiles_x, int num_tiles, int max_items,
+                 int allow_exit, int block) {
+  extern __shared__ __align__(128) float ring[];  // kRing x kSlotF floats
+  __shared__ int s_item;
+  __shared__ __align__(8) unsigned long long full[kRing];  // a slot landed
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int* items_cum = plan;
+  const int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+  const int n_items = sched[0];
+  const int big_n = min(*big_n_ptr, big_cap);
+  const float zmin = zmeta[0], zs = zmeta[1], thr_scale = zmeta[2];
+  const float inf = __int_as_float(0x7f800000);
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  unsigned parity = 0;  // bit s: the phase of full[s] waited for next
+
+  for (;;) {
+    const int item = next_item(sched, &s_item);  // also publishes `full`
+    if (item >= n_items) break;
+    const int tile = item_tile[item];
+    const int first = tile > 0 ? items_cum[tile - 1] : 0;
+    const int n = items_cum[tile] - first;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int s0 = starts[tile];
+    int lo, hi;
+    item_slice(static_cast<long long>(big_n) + starts[tile + 1] - s0, item,
+               first, n, &lo, &hi);
+    // This thread's pixels: column lane, rows y0 .. y0 + kPix - 1 (the
+    // warp's band); pixel k of the tile's 1024 is pix0 + 32 k.
+    const int px = tx * kTile + lane;
+    const int y0 = ty * kTile + warp * kPix;
+    const int pix0 = warp * kPix * kTile + lane;
+    const float qx = static_cast<float>(px) + 0.5f;
+    const float y_lo = static_cast<float>(y0) + 0.5f;
+    const bool band_in = y0 < height;  // the same in the whole warp
+    float qy[kPix], d[kPix], bound_d[kPix];
+    int e[kPix];
+    bool in_image[kPix];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0) warp_max[warp] = m;
-      __syncthreads();
-      float dmax = warp_max[0];
+    for (int k = 0; k < kPix; ++k) {
+      qy[k] = y_lo + static_cast<float>(k);
+      d[k] = inf;
+      e[k] = kImax;
+      in_image[k] = px < width && y0 + k < height;
+      // The depths the exit tests besides this item's: the tile's shared
+      // ones when it is split (+inf until then); -inf off the image.
+      bound_d[k] = in_image[k] ? inf : -inf;
+    }
+    int* tile_front = allow_exit && n > 1
+                          ? front + static_cast<long long>(tile) * kTilePix
+                          : nullptr;
+    if (tile_front != nullptr) {
 #pragma unroll
-      for (int w = 1; w < kThreads / 32; ++w) dmax = fmaxf(dmax, warp_max[w]);
-      float qz = floorf((sh[cnt - 1].z - zmin) * zs) - 1.0f;
-      qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN (jnp.maximum), no exit
-      if (zmin + qz * thr_scale >= dmax) {  // the same for every thread
-        done = base + cnt;
-        break;
+      for (int k = 0; k < kPix; ++k)
+        if (in_image[k])
+          bound_d[k] = key_depth(__ldcg(&tile_front[pix0 + kTile * k]));
+      if (lo >= big_n && lo < hi &&
+          exit_past(d, bound_d,
+                    bucket_floor(__ldg(&rows8[static_cast<long long>(
+                                                  s0 + lo - big_n) *
+                                                  kDiscRowF + 2]),
+                                 zmin, zs, thr_scale)))
+        hi = lo;
+    }
+
+    int issue = lo;       // the next flat row to stage
+    bool stop = false;    // the exit was taken: stage and evaluate no more
+    int done = 0;         // entries evaluated
+    int evaluated = 0;    // (entry, band) pairs of this warp
+    auto next_chunk = [&](int* start, int* cnt) {
+      *start = issue;
+      const bool big = issue < big_n;
+      const int end = stop ? issue : big ? min(big_n, hi) : hi;
+      *cnt = min(big ? kChunk : kDiscChunk, max(end - issue, 0));
+      issue += *cnt;
+    };
+    auto stage = [&](int slot, int start, int cnt) {
+      if (tid != 0 || cnt == 0) return;
+      float* dst = ring + slot * kSlotF;
+      if (start < big_n)
+        bulk_load(dst, big_rows + static_cast<long long>(start) * kRowF,
+                  cnt * kRowF * 4, &full[slot]);
+      else
+        bulk_load(dst,
+                  rows8 + static_cast<long long>(s0 + start - big_n) *
+                              kDiscRowF,
+                  cnt * kDiscRowF * 4, &full[slot]);
+    };
+
+    int slot = 0, n_start, n_cnt;
+    next_chunk(&n_start, &n_cnt);
+    stage(0, n_start, n_cnt);
+    for (;;) {
+      const int c_start = n_start, c_cnt = n_cnt;
+      if (c_cnt == 0) break;  // the same in every thread
+      mbar_wait(&full[slot], (parity >> slot) & 1u);
+      parity ^= 1u << slot;
+      __syncthreads();  // chunk staged and visible; the other slot is free
+      next_chunk(&n_start, &n_cnt);
+      stage(slot ^ 1, n_start, n_cnt);
+      const float* sh = ring + slot * kSlotF;
+      slot ^= 1;
+      if (stop) continue;  // a chunk staged before the exit
+      if (c_start < big_n) {
+        if (band_in)
+          eval_big3(reinterpret_cast<const float4*>(sh), c_cnt, c_start, qx,
+                    qy, d, e);
+        continue;
+      }
+      // The run's entries, in pieces that end where the exit is checked:
+      // at every multiple of `block` of the run, and at the item's end
+      // (its depths folded for the tile's later items).
+      const int o0 = c_start - big_n;  // run offset of the chunk
+      for (int r = 0; r < c_cnt;) {
+        const int r1 = allow_exit
+                           ? min(c_cnt, ((o0 + r) / block + 1) * block - o0)
+                           : c_cnt;
+        if (band_in)
+          evaluated += eval_disc_band3(sh + r * kDiscRowF, r1 - r,
+                                       s0 + o0 + r, qx, y_lo, d, e);
+        done += r1 - r;
+        r = r1;
+        if (allow_exit && ((o0 + r) % block == 0 || c_start + r == hi) &&
+            exit_step(tile_front, pix0, kTile, in_image, d, bound_d,
+                      c_start + r < hi,  // entries of the item left
+                      bucket_floor(sh[(r - 1) * kDiscRowF + 2], zmin, zs,
+                                   thr_scale))) {
+          stop = true;
+          break;
+        }
       }
     }
-  }
-  if (walked != nullptr && tid == 0) walked[tile] = done;
 
-  const int px = tx * kTile + (tid & (kTile - 1));
+    if (n == 1) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (in_image[k]) {
+          const long long o = static_cast<long long>(y0 + k) * width + px;
+          depth_out[o] = d[k];
+          ent_out[o] = e[k];
+        }
+      }
+    } else {
+      // The entry's bits ride the partial's id plane (walk_order3 compares
+      // them as ints in the merge).
+      float ef[kPix];
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) ef[k] = __int_as_float(e[k]);
+      write_partial(partial, item, d, ef, nullptr, nullptr, pix0, kTile);
+    }
+    if (walked != nullptr && tid == 0 && done > 0)
+      atomicAdd(&walked[tile], done);
+    if (bands != nullptr && lane == 0 && evaluated > 0)
+      atomicAdd(&bands[tile], evaluated);
+  }
+}
+
+// A split tile's per-item (depth, entry) winners folded into the tile's:
+// the least depth, and at equal depth the least walk_order3, the first
+// winner of the walk over the whole tile whatever the slicing (the big
+// rows may fall in any items).  Tiles of one item were written by the
+// walk.
+__global__ void __launch_bounds__(kThreads)
+csr3_merge_kernel(const int* __restrict__ plan,
+                  const float* __restrict__ partial,
+                  float* __restrict__ depth_out, int* __restrict__ ent_out,
+                  int width, int height, int tiles_x) {
+  const int tile = blockIdx.x;
+  const int first = tile > 0 ? plan[tile - 1] : 0;
+  const int n = plan[tile] - first;
+  if (n <= 1) return;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int py = ty * kTile + (tid >> 5) + 8 * k;
+    const int o = threadIdx.x + kThreads * k;
+    float d = __int_as_float(0x7f800000);
+    int e = kImax;
+    for (int j = 0; j < n; ++j) {
+      const float* p =
+          partial + static_cast<long long>(first + j) * 2 * kTilePix;
+      const float pd = p[o];
+      const int pe = __float_as_int(p[kTilePix + o]);
+      if (pd < d || (pd == d && walk_order3(pe) < walk_order3(e))) {
+        d = pd;
+        e = pe;
+      }
+    }
+    const int px = tx * kTile + (o & (kTile - 1));
+    const int py = ty * kTile + (o >> 5);
     if (px < width && py < height) {
-      const long long o = static_cast<long long>(py) * width + px;
-      depth_out[o] = d[k];
-      ent_out[o] = e[k];
+      const long long out = static_cast<long long>(py) * width + px;
+      depth_out[out] = d;
+      ent_out[out] = e;
     }
   }
 }
@@ -1576,27 +1775,48 @@ extern "C" int csr6_cap10(const float* table10, const float* big_rows,
       static_cast<cudaStream_t>(stream));
 }
 
-// The v3 walk.  rows8 (>= starts[T], 8) f32 entry-indexed rows; big_rows
-// (big_cap, 16) f32 in rank order, the first *big_n rows live; starts
-// (T+1) i32 per-tile runs; zmeta (3) f32 (zmin, s, thr_scale); depth
-// (H, W) f32; ent (H, W) i32 winning entries (-(rank + 2) for big
-// winners, INT32_MAX where empty); walked null or (T) i32, each tile's
-// count of entries evaluated before its exit; allow_exit != 0 turns the
-// z-bucket early exit on, checked after every `block` entries (1..1024).
+// The v3 walk (split, culled).  rows8 (>= starts[T], 8) f32
+// entry-indexed rows, 16-byte aligned; big_rows (big_cap, 16) f32 in rank
+// order, 16-byte aligned, the first *big_n rows live; starts (T+1) i32
+// per-tile runs; zmeta (3) f32 (zmin, s, thr_scale); front, with
+// allow_exit, (T, 1024) i32 scratch (the plan resets it); walked null or
+// (T) i32, each tile's count of entries evaluated before its exit; bands
+// null or (T) i32 zeroed, the (entry, warp band) pairs each tile
+// evaluated; depth (H, W) f32; ent (H, W) i32 winning entries (-(rank +
+// 2) for big winners, INT32_MAX where empty); plan (T + 3 max_items + 3)
+// i32 and partial (max_items, 2, 1024) f32 scratch; allow_exit != 0 turns
+// the z-bucket early exit on, checked after every `block` entries
+// (1..1024); a tile of more than split_rows rows is cut into items
+// (max_items >= T in all).
 extern "C" int csr3_raster(const float* rows8, const float* big_rows,
                            const int* starts, const int* big_n,
-                           const float* zmeta, float* depth, int* ent,
-                           int* walked, int big_cap, int width, int height,
-                           int tiles_x, int tiles_y, int allow_exit,
-                           int block, void* stream) {
-  if (block < 1 || block > kMaxBlock3)
-    return static_cast<int>(cudaErrorInvalidValue);
+                           const float* zmeta, int* front, int* walked,
+                           int* bands, float* depth, int* ent, int* plan,
+                           float* partial, int big_cap, int width,
+                           int height, int tiles_x, int tiles_y,
+                           int allow_exit, int block, int split_rows,
+                           int max_items, void* stream) {
   const int num_tiles = tiles_x * tiles_y;
+  if (block < 1 || block > kMaxBlock3 || split_rows < 1 ||
+      max_items < num_tiles || (allow_exit && !front))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles <= 0) return 0;
-  csr3_tile_kernel<<<num_tiles, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      rows8, big_rows, starts, big_n, big_cap, zmeta, depth, ent, walked,
-      width, height, tiles_x, allow_exit, block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  split_plan_kernel<StripRows><<<1, kPlanThreads, 0, st>>>(
+      StripRows{starts, 1}, big_n, big_cap, num_tiles, split_rows,
+      max_items, plan, walked, num_tiles, allow_exit ? front : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int ctas = persistent_ctas(csr3_walk_kernel, kRingBytes);
+  csr3_walk_kernel<<<min(ctas, max_items), kThreads, kRingBytes, st>>>(
+      rows8, big_rows, starts, big_n, big_cap, zmeta, plan, partial, depth,
+      ent, walked, bands, front, width, height, tiles_x, num_tiles,
+      max_items, allow_exit, block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr3_merge_kernel<<<num_tiles, kThreads, 0, st>>>(plan, partial, depth,
+                                                    ent, width, height,
+                                                    tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 

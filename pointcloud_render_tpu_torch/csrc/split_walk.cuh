@@ -1,6 +1,6 @@
 // Pieces shared by the port's split walks (csr6_raster.cu: csr6_raster,
-// csr6_cap10, csr6_rows9, csr6_disc8, csr6_disc8_uv; csr2_raster.cu:
-// csr2_raster).  A split walk
+// csr6_cap10, csr6_rows9, csr6_disc8, csr6_disc8_uv, csr3_raster;
+// csr2_raster.cu: csr2_raster, csr2_disc8).  A split walk
 // runs in three launches:
 //   (1) split_plan_kernel sizes every unit of pixels (a 32x32 tile, or a
 //       1024-pixel pass of a strip) in rows, its live big rows included,
@@ -285,6 +285,18 @@ split_plan_kernel(RowsOf rows_of, const int* __restrict__ big_n_ptr,
       ticket_item[atomicAdd(&wave[j], 1)] = first + j;
   }
 }
+
+// The binned rows of unit u for split_plan_kernel where a tile's rows are
+// one range [starts[t], starts[t+1]) walked by `passes` units of 1024
+// pixels (a v2 strip's passes; a v3 tile, one pass).
+struct StripRows {
+  const int* starts;
+  int passes;
+  __device__ int operator()(int u) const {
+    const int t = u / passes;
+    return starts[t + 1] - starts[t];
+  }
+};
 
 // The next ticket of a persistent CTA's item counter (the same in every
 // thread).  Starts with a barrier: the CTA's last item is done with its

@@ -261,18 +261,33 @@ def check_walk_inputs(rows, starts, big_rows, big_n, width, height, tile_h,
 
 def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
                   height, tile_h, tile_w, no_triangles, walked, allow_exit,
-                  split_rows=csr6.SPLIT_ROWS):
+                  split_rows=csr6.SPLIT_ROWS, bands=None):
     """Launch ``symbol`` of ``csrc/csr2_raster.cu`` on CUDA tensors (the
     plain walk on CPU tensors) and count the call on ``wrapper``:
-    ``csr2_raster`` takes the split walk (``csr6._launch_walk``),
-    ``csr2_disc8`` and ``csr1_raster`` one CTA per strip."""
-    row_widths = (ROW_F_DISC,) if symbol == "csr2_disc8" else (ROW_F,)
+    ``csr2_raster`` and ``csr2_disc8`` take the split walk
+    (``csr6._launch_walk``; ``csr2_disc8`` also reports ``bands``, which
+    CPU tensors take from :func:`segment_rows`), ``csr1_raster`` one CTA
+    per strip."""
+    disc = symbol == "csr2_disc8"
+    row_widths = (ROW_F_DISC,) if disc else (ROW_F,)
     tiles_x, tiles_y = check_walk_inputs(rows, starts, big_rows, big_n,
                                          width, height, tile_h, tile_w,
                                          walked, row_widths)
+    if split_rows < 1:
+        raise ValueError("split_rows must be >= 1")
+    if bands is not None and (bands.dtype != torch.int32
+                              or bands.shape != (tiles_x * tiles_y,)
+                              or bands.device != rows.device
+                              or not bands.is_contiguous()):
+        raise ValueError("bands must be a contiguous (T,) int32 tensor on "
+                         "the rows' device")
     if rows.device.type == "cpu":
-        if walked is not None:
-            walked.copy_(starts[1:] - starts[:-1])
+        if walked is not None:  # every row, once per pass of 1024 pixels
+            walked.copy_((starts[1:] - starts[:-1])
+                         * -(-tile_h * tile_w // UNIT_PIX))
+        if bands is not None:
+            bands.copy_(segment_rows(rows, starts, width, height, tile_h,
+                                     tile_w))
         return _plain_strip_walk(rows, starts, big_rows, big_n, width,
                                  height, tile_h, tile_w, no_triangles)
     if rows.device.type != "cuda":
@@ -280,17 +295,22 @@ def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
     rows, starts, big_rows, big_n = (
         t.contiguous() for t in (rows, starts, big_rows, big_n))
     dev = rows.device
-    if symbol == "csr2_raster":
+    if symbol != "csr1_raster":
         # The split walk: a unit is one pass of 1024 pixels of a strip.
         # The exit's depths shared by a split unit's items (the kernel's
         # plan resets those it reads).
         units = tiles_x * tiles_y * -(-tile_h * tile_w // 1024)
         front = torch.empty((units, 1024), dtype=torch.int32,
                             device=dev) if allow_exit else None
+        ptrs = (rows, starts, big_rows, big_n, front, walked)
+        if disc:
+            if bands is not None:
+                bands.zero_()
+            ptrs += (bands,)
         return csr6._launch_walk(
-            symbol, wrapper, (rows, starts, big_rows, big_n, front, walked),
-            ((rows, 4 * ROW_F), (big_rows, 4 * ROW_F)), big_rows.shape[0],
-            width, height, tiles_x, tiles_y,
+            symbol, wrapper, ptrs,
+            ((rows, 4 * rows.shape[1]), (big_rows, 4 * ROW_F)),
+            big_rows.shape[0], width, height, tiles_x, tiles_y,
             (tile_h, tile_w, int(no_triangles), int(allow_exit)),
             split_rows, dev, units, library="csr2_raster")
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -302,6 +322,111 @@ def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
                  library="csr2_raster")
     wrapper.launches += 1
     return depth, index
+
+
+# Pixels of a unit of the strip walks (a pass of a strip), and a warp's
+# share of them.
+UNIT_PIX = 1024
+WARPS = 8
+
+
+def _unit_layout(tile_w: int, device) -> torch.Tensor:
+    """(8, 128) int64: the unit pixels of each warp of csr2_disc8
+    (``csrc/csr2_raster.cu`` unit_layout): at strip widths 32, 64, 128
+    and 256 a block of 32 columns x 4 rows (warp w: rows 4 (w // S) + k,
+    columns 32 (w % S) + lane, S = tile_w // 32), else tid + 256 k."""
+    w = torch.arange(WARPS, device=device)[:, None, None]
+    lane = torch.arange(32, device=device)[None, :, None]
+    k = torch.arange(4, device=device)[None, None, :]
+    if tile_w in (32, 64, 128, 256):
+        s = tile_w // 32
+        i = ((w // s) * 4 + k) * tile_w + (w % s) * 32 + lane
+    else:
+        i = w * 32 + lane + 256 * k
+    return i.reshape(WARPS, 128)
+
+
+def _footprints(width, height, tile_h, tile_w, seg_rows, device):
+    """((T, F, 4) float32 boxes (xlo, xhi, ylo, yhi) of pixel centres,
+    (T, F) bool: the box holds a pixel of the strip and the image) of each
+    strip's footprints: with ``seg_rows`` None the warps of csr2_disc8's
+    units (a unit per pass of 1024 pixels), their pixels inside the image;
+    with ``seg_rows`` 1 the 32-column segments of each pixel row (clipped
+    to the strip and the image)."""
+    tiles_x, tiles_y = strip_grid(width, height, tile_h, tile_w)
+    tx = torch.arange(tiles_x * tiles_y, device=device) % tiles_x
+    ty = torch.arange(tiles_x * tiles_y, device=device) // tiles_x
+    inf = float("inf")
+    if seg_rows is None:
+        npix = tile_h * tile_w
+        passes = -(-npix // UNIT_PIX)
+        i = _unit_layout(tile_w, device)
+        p = (torch.arange(passes, device=device)[:, None, None] * UNIT_PIX
+             + i[None]).reshape(-1, 128)  # (F, 128)
+        col = tx[:, None, None] * tile_w + (p % tile_w)[None]
+        row = ty[:, None, None] * tile_h + (p // tile_w)[None]
+        valid = (p < npix)[None] & (col < width) & (row < height)
+        qx = col.to(torch.float32) + 0.5
+        qy = row.to(torch.float32) + 0.5
+        box = torch.stack([torch.where(valid, qx, inf).amin(-1),
+                           torch.where(valid, qx, -inf).amax(-1),
+                           torch.where(valid, qy, inf).amin(-1),
+                           torch.where(valid, qy, -inf).amax(-1)], dim=-1)
+        return box, valid.any(-1)
+    if seg_rows != 1:
+        raise ValueError("seg_rows must be None or 1")
+    segs = -(-tile_w // 32)
+    r = torch.arange(tile_h, device=device).repeat_interleave(segs)
+    j = torch.arange(segs, device=device).repeat(tile_h)
+    c0 = tx[:, None] * tile_w + 32 * j[None]
+    c1 = torch.minimum(torch.minimum(c0 + 31, tx[:, None] * tile_w
+                                     + tile_w - 1),
+                       torch.full_like(c0, width - 1))
+    row = ty[:, None] * tile_h + r[None]
+    box = torch.stack([c0.to(torch.float32) + 0.5,
+                       c1.to(torch.float32) + 0.5,
+                       row.to(torch.float32) + 0.5,
+                       row.to(torch.float32) + 0.5], dim=-1)
+    return box, (c0 <= c1) & (row < height)
+
+
+def box_keeps(px, py, r2, box):
+    """csr2_disc8's cull (``csrc/csr2_raster.cu`` eval_disc_rows): whether
+    a disc row at (px, py) with squared radius r2 is evaluated for a
+    footprint whose pixel centres lie in ``box`` = (xlo, xhi, ylo, yhi):
+    not when fl(fl(dx * dx) + fl(dy * dy)) > r2 at the box's centre
+    nearest to the disc's (per axis clamp(floor(p) + 0.5, box)), which no
+    centre of the box can then pass (exact; NaN never skips)."""
+    xlo, xhi, ylo, yhi = box.unbind(-1)
+    dx = torch.minimum(torch.maximum(torch.floor(px) + 0.5, xlo), xhi) - px
+    dy = torch.minimum(torch.maximum(torch.floor(py) + 0.5, ylo), yhi) - py
+    return ~(dx * dx + dy * dy > r2)
+
+
+def segment_rows(rows, starts, width: int, height: int,
+                 tile_h: int = TILE_H, tile_w: int = TILE_W,
+                 seg_rows=None) -> torch.Tensor:
+    """(T,) int32: the (binned disc row, footprint) pairs of each strip
+    that :func:`box_keeps` keeps, every row of the strip's range at each
+    footprint that holds an image pixel.  With ``seg_rows`` None the
+    footprints are csr2_disc8's warps in each pass of the strip: the pairs
+    its cull evaluates with every row walked (its ``bands``).  With
+    ``seg_rows`` 1 they are the 32-column segments of each pixel row: the
+    (row, pixel row, segment) pairs that some pixel of the disc could
+    cover, the work the function needs."""
+    dev = starts.device
+    n = int(starts[-1])
+    box, live = _footprints(width, height, tile_h, tile_w, seg_rows, dev)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(starts.to(torch.int64), pos, right=True) - 1
+    px, py, r2 = rows[:n, 0], rows[:n, 1], rows[:n, 3]
+    kept = torch.zeros(n, dtype=torch.int64, device=dev)
+    for f in range(box.shape[1]):
+        keep = box_keeps(px, py, r2, box[tile, f]) & live[tile, f]
+        kept += keep.to(torch.int64)
+    counts = torch.zeros(starts.shape[0] - 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, tile, kept)
+    return counts.to(torch.int32)
 
 
 def raster_tiles1(rows, starts, big_rows, big_n, width: int, height: int,

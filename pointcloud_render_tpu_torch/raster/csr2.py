@@ -39,6 +39,10 @@ from pointcloud_render_tpu_torch.raster.csr import (
 from pointcloud_render_tpu_torch.raster.primitives import ScreenPrimitives
 
 MAX_TILES_PER_PRIM = 4  # rasterize_pallas_csr2's default
+# Rows a work item of csr2_disc8 takes at least: with its exit on (the
+# default), 4,096-8,192 and one item per strip pass were the fastest on
+# bench.py's disc lane on an H100; with it off, 512-2,048 (PERF.md §6).
+SPLIT_ROWS_DISC = 8192
 
 def pack_rows_disc(prims: ScreenPrimitives, sorted_prims, sorted_keys,
                    zmin, span) -> torch.Tensor:
@@ -70,8 +74,7 @@ def true_entry_count(prims: ScreenPrimitives, width: int, height: int,
 def raster_tiles2(rows, starts, big_rows, big_n, width: int, height: int,
                   tile_h: int = TILE_H, tile_w: int = TILE_W,
                   no_triangles: bool = False, walked=None,
-                  allow_exit: bool = True,
-                  split_rows: int = csr6.SPLIT_ROWS):
+                  allow_exit: bool = True, split_rows=None):
     """The v2 walk -> (depth (H, W) f32 +inf-empty, index (H, W) i32
     -1-empty), as :func:`csr.raster_tiles1` over 16-float rows; 8-float
     disc rows hand the call to :func:`raster_tiles2_disc8`.  CUDA tensors
@@ -79,19 +82,20 @@ def raster_tiles2(rows, starts, big_rows, big_n, width: int, height: int,
     tensors take ``csr.raster_strips_plain``.  ``walked`` and
     ``allow_exit`` as in :func:`csr.raster_tiles1` (``walked`` sums a
     tile's passes of 1024 pixels).  A pass of a tile with more than
-    ``split_rows`` rows (big rows included) is walked by several CTAs
+    ``split_rows`` rows (big rows included; ``csr6.SPLIT_ROWS`` by
+    default, ``SPLIT_ROWS_DISC`` for disc rows) is walked by several CTAs
     whose minima are merged; with the exit on they share their depths as
     they run, so ``walked`` may differ between runs, the images do not.
     ``.launches`` counts calls over 16-float rows."""
-    if split_rows < 1:
-        raise ValueError("split_rows must be >= 1")
     if rows.ndim == 2 and rows.shape[1] == ROW_F_DISC:
-        return raster_tiles2_disc8(rows, starts, big_rows, big_n, width,
-                                   height, tile_h, tile_w, walked,
-                                   allow_exit)
-    return csr.launch_strips(raster_tiles2, "csr2_raster", rows, starts,
-                             big_rows, big_n, width, height, tile_h, tile_w,
-                             no_triangles, walked, allow_exit, split_rows)
+        return raster_tiles2_disc8(
+            rows, starts, big_rows, big_n, width, height, tile_h, tile_w,
+            walked, allow_exit,
+            split_rows=SPLIT_ROWS_DISC if split_rows is None else split_rows)
+    return csr.launch_strips(
+        raster_tiles2, "csr2_raster", rows, starts, big_rows, big_n, width,
+        height, tile_h, tile_w, no_triangles, walked, allow_exit,
+        csr6.SPLIT_ROWS if split_rows is None else split_rows)
 
 
 raster_tiles2.launches = 0
@@ -100,13 +104,19 @@ raster_tiles2.launches = 0
 def raster_tiles2_disc8(rows, starts, big_rows, big_n, width: int,
                         height: int, tile_h: int = TILE_H,
                         tile_w: int = TILE_W, walked=None,
-                        allow_exit: bool = True):
+                        allow_exit: bool = True, bands=None,
+                        split_rows: int = SPLIT_ROWS_DISC):
     """:func:`raster_tiles2` over the ``discs_only`` 8-float disc rows
     (covered where dx * dx + dy * dy <= r * r): the ``csr2_disc8`` kernel
-    on CUDA tensors.  ``.launches`` counts launches."""
+    on CUDA tensors, a split walk whose warps each skip the rows that
+    cannot reach their pixels.  ``bands``, a (T,) int32 tensor, takes each
+    tile's count of (binned row, warp) pairs evaluated (summed over its
+    passes; ``csr.segment_rows`` on the plain walk, which walks every
+    row); ``split_rows`` as :func:`raster_tiles2`.  ``.launches`` counts
+    calls."""
     return csr.launch_strips(raster_tiles2_disc8, "csr2_disc8", rows, starts,
                              big_rows, big_n, width, height, tile_h, tile_w,
-                             False, walked, allow_exit)
+                             False, walked, allow_exit, split_rows, bands)
 
 
 raster_tiles2_disc8.launches = 0

@@ -20,8 +20,9 @@ tracks the winning ENTRY (its sorted position; big winners as
 2. ``pack_rows8``   — ``_pack_rows8``: the entry-indexed rows, then the
    big rows, then the background row;
 3. ``raster_tiles3`` — the ``csr3_raster`` kernel of
-   ``csrc/csr6_raster.cu`` on CUDA tensors (with the z-bucket early
-   exit), :func:`raster_tiles3_plain` on CPU tensors;
+   ``csrc/csr6_raster.cu`` on CUDA tensors (a split walk with the
+   z-bucket early exit and a warp-band cull), :func:`raster_tiles3_plain`
+   on CPU tensors; :func:`band_rows3` counts the cull's kept pairs;
 4. ``resolve_ids`` and the shade of ``render_shaded_csr3``.
 
 Exactness preconditions (the JAX package's): an exact-depth tie between a
@@ -58,9 +59,16 @@ ROW_F = 8  # px, py, z, r^2, c0, c1, c2, flag
 DEFAULT_MAX_BIG = 1024
 IMAX = 2147483647  # the entry image's empty marker
 # Entries the kernel walks between two checks of the early exit (1..1024;
-# the output does not depend on it): 64 and 128 were the fastest of 64-1024
-# on bench.py's disc lane on an H100 (PERF.md §6).
-EXIT_BLOCK = 128
+# the output does not depend on it): 256 and 512 were the fastest of
+# 64-1024 on bench.py's disc lane on an H100, by device time (PERF.md §6).
+EXIT_BLOCK = 256
+MAX_BLOCK = 1024
+# Rows (big and binned) a work item of the kernel's split walk takes at
+# least: a tile with more is walked by several CTAs whose winners a second
+# pass merges.  With the exit on, 4,096-8,192 and one item per tile were
+# the fastest on bench.py's disc lane on an H100 (smaller items walk more
+# before the exit); with it off, 512-2,048 (PERF.md §6).
+SPLIT_ROWS = 8192
 
 
 def bin_csr_2x2(prims: ScreenPrimitives, width: int, height: int,
@@ -221,7 +229,8 @@ def _check_inputs3(rows8, big_rows, starts, big_n, zmeta, width, height):
 
 def raster_tiles3(rows8, big_rows, starts, big_n, zmeta, width: int,
                   height: int, zq: int, walked=None, allow_exit: bool = True,
-                  block: int = EXIT_BLOCK):
+                  block: int = EXIT_BLOCK, bands=None,
+                  split_rows: int = SPLIT_ROWS):
     """The v3 walk -> (depth (H, W) f32 +inf-empty, entry (H, W) i32):
     per tile, the live big rows ``big_rows[:big_n]`` in rank order
     through the 16-float dual evaluation, then the tile's stable run
@@ -229,25 +238,38 @@ def raster_tiles3(rows8, big_rows, starts, big_n, zmeta, width: int,
     strict ``<`` on depth.  The entry image holds the winner's sorted
     position, ``-(rank + 2)`` for a big winner and ``IMAX`` where nothing
     won.  With ``zq`` > 0 and ``allow_exit`` the kernel stops a tile's
-    run once the next bucket's depth floor reaches the tile's worst
+    run once the next bucket's depth floor lies past the tile's worst
     winner (it never changes a winner; ``allow_exit=False`` times the
-    full walk; ``block`` entries are walked between two checks).  CUDA
-    tensors launch the ``csr3_raster`` kernel of
-    ``csrc/csr6_raster.cu``; CPU tensors take :func:`raster_tiles3_plain`.
-    ``walked``, a (T,) int32 tensor, takes each tile's count of entries
-    evaluated before its exit (the whole run on the plain walk).
-    ``.launches`` counts launches."""
+    full walk; ``block`` entries, 1..1024, are walked between two
+    checks).  CUDA tensors launch the ``csr3_raster`` kernel of
+    ``csrc/csr6_raster.cu`` (a split walk: a tile of more than
+    ``split_rows`` rows is walked by several CTAs whose winners are
+    merged, each warp skipping the entries that miss its band of pixel
+    rows); CPU tensors take :func:`raster_tiles3_plain`.  ``walked``, a
+    (T,) int32 tensor, takes each tile's count of entries evaluated
+    before its exit (the whole run on the plain walk; with the exit on a
+    split tile's items share their depths as they run, so it may differ
+    between runs, the images do not), ``bands`` its count of (entry, warp
+    band) pairs evaluated (:func:`band_rows3` on the plain walk).
+    ``.launches`` counts calls."""
     tiles_x, tiles_y = _check_inputs3(rows8, big_rows, starts, big_n, zmeta,
                                       width, height)
-    if walked is not None and (walked.dtype != torch.int32
-                               or walked.shape != (tiles_x * tiles_y,)
-                               or walked.device != rows8.device
-                               or not walked.is_contiguous()):
-        raise ValueError("walked must be a contiguous (T,) int32 tensor on "
-                         "the rows' device")
+    for name, t in (("walked", walked), ("bands", bands)):
+        if t is not None and (t.dtype != torch.int32
+                              or t.shape != (tiles_x * tiles_y,)
+                              or t.device != rows8.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (T,) int32 "
+                             "tensor on the rows' device")
+    if not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"block must be in 1..{MAX_BLOCK}, got {block}")
+    if split_rows < 1:
+        raise ValueError("split_rows must be >= 1")
     if rows8.device.type == "cpu":
         if walked is not None:
             walked.copy_(starts[1:] - starts[:-1])
+        if bands is not None:
+            bands.copy_(band_rows3(rows8, starts, width, height))
         return raster_tiles3_plain(rows8, big_rows, starts, big_n, zmeta,
                                    width, height, zq)
     if rows8.device.type != "cuda":
@@ -255,17 +277,46 @@ def raster_tiles3(rows8, big_rows, starts, big_n, zmeta, width: int,
     rows8, big_rows, starts, big_n, zmeta = (
         t.contiguous() for t in (rows8, big_rows, starts, big_n, zmeta))
     dev = rows8.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    ent = torch.empty((height, width), dtype=torch.int32, device=dev)
-    csr6._launch("csr3_raster", (rows8, big_rows, starts, big_n, zmeta,
-                                 depth, ent, walked),
-                 (big_rows.shape[0], width, height, tiles_x, tiles_y,
-                  int(allow_exit and zq > 0), block), dev)
-    raster_tiles3.launches += 1
-    return depth, ent
+    exit_on = int(allow_exit and zq > 0)
+    if bands is not None:
+        bands.zero_()
+    # The exit's depths shared by a split tile's items (the kernel's plan
+    # resets those it reads).
+    front = torch.empty((tiles_x * tiles_y, TILE * TILE), dtype=torch.int32,
+                        device=dev) if exit_on else None
+    return csr6._launch_walk(
+        "csr3_raster", raster_tiles3,
+        (rows8, big_rows, starts, big_n, zmeta, front, walked, bands),
+        ((rows8, 4 * ROW_F), (big_rows, 4 * csr6.ROW_F)), big_rows.shape[0],
+        width, height, tiles_x, tiles_y, (exit_on, block), split_rows, dev)
 
 
 raster_tiles3.launches = 0
+
+
+def band_rows3(rows8, starts, width: int, height: int,
+               band: int = csr6.BAND_ROWS) -> torch.Tensor:
+    """(T,) int32: the (entry, warp band) pairs each tile's v3 walk
+    evaluates with every entry walked: each entry of the tile's run at
+    each band of ``band`` pixel rows inside the image that
+    ``csr6.band_keeps`` keeps (``csr6.band_rows`` over v3's per-tile
+    runs).  With ``band`` 1: the (entry, pixel row) pairs that some pixel
+    of the entry's disc could cover, the work the function needs."""
+    tiles_x, tiles_y = csr6.grid_shape(width, height)
+    dev = starts.device
+    n = int(starts[-1])
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(starts.to(torch.int64), pos, right=True) - 1
+    ty = tile // tiles_x
+    py, r2 = rows8[:n, 1], rows8[:n, 3]
+    kept = torch.zeros(n, dtype=torch.int64, device=dev)
+    for b in range(TILE // band):
+        y0 = ty * TILE + b * band
+        keep = csr6.band_keeps(py, r2, y0.to(torch.float32) + 0.5, band)
+        kept += (keep & (y0 < height)).to(torch.int64)
+    counts = torch.zeros(tiles_x * tiles_y, dtype=torch.int64, device=dev)
+    counts.index_add_(0, tile, kept)
+    return counts.to(torch.int32)
 
 
 def _first_winner(groups, n, dev):

@@ -54,9 +54,11 @@ from tests.torch_soups import (
     TARGET,
     H,
     W,
+    band_soup,
     cloud,
     droplet_soup,
     make_soup,
+    segment_soup,
     tcam,
 )
 
@@ -340,3 +342,63 @@ def test_wrappers_dispatch_and_validate():
         big_soup = dataclasses.replace(
             soup, kind=torch.zeros((), dtype=torch.int32).expand(1 << 24))
         csr2.rasterize_csr2(big_soup, W, H)
+
+
+@pytest.mark.parametrize("tile", [(8, 128), (16, 256), (4, 32)])
+def test_segment_counter_matches_brute_force(tile):
+    """csr.segment_rows (csr2_disc8's warp cull, counted on the CPU) keeps
+    a (disc row, warp) pair exactly when a pixel of the warp inside the
+    strip and the image passes the disc test (a warp holds 32 columns x
+    4 rows of a unit at these strip widths), on discs tangent to the
+    warps' column boundaries (segment_soup) and to their row boundaries
+    (band_soup); with segments of one row, exactly when a pixel of the
+    row's 32-column segment passes.  The CPU wrapper reports the warp
+    counts as ``bands``."""
+    th, tw = tile
+    tiles_x, tiles_y = csr.strip_grid(W, H, th, tw)
+    for soup in (segment_soup(), band_soup()):
+        b = csr.bin_csr(soup, W, H, th, tw, 8, force_tri_big=True,
+                        force_capsule_big=True)
+        n = int(b["starts"][-1])
+        rows = csr2.pack_rows_disc(soup, b["prims"][:n], b["keys"][:n],
+                                   b["zmin"], b["span"])
+        starts = b["starts"].numpy().astype(np.int64)
+        t = np.searchsorted(starts, np.arange(n), side="right") - 1
+        tx, ty = t % tiles_x, t // tiles_x
+        px, py, r2 = (rows[:, c].numpy() for c in (0, 1, 3))
+        s = tw // 32
+        lane = np.arange(32)
+        for seg_rows in (None, 1):
+            want = np.zeros(tiles_x * tiles_y, np.int64)
+            if seg_rows is None:  # each pass's 8 warps: 32 cols x 4 rows
+                blocks = [(p * 1024 + ((w // s) * 4 + k) * tw
+                           + (w % s) * 32 + lane)
+                          for p in range(-(-th * tw // 1024))
+                          for w in range(8) for k in [np.arange(4)[:, None]]]
+            else:  # each pixel row's 32-column segments
+                blocks = [r * tw + j * 32 + lane[None, :]
+                          for r in range(th) for j in range(-(-tw // 32))]
+            for unit_pix in blocks:
+                unit_pix = unit_pix.reshape(-1)
+                col_in = unit_pix % tw
+                inside = (unit_pix < th * tw) & (col_in < tw)
+                if seg_rows == 1:
+                    inside &= (unit_pix // tw) == (unit_pix[0] // tw)
+                col = tx[:, None] * tw + col_in[None]
+                row = ty[:, None] * th + (unit_pix // tw)[None]
+                ok = inside[None] & (col < W) & (row < H)
+                dx = (col.astype(np.float32) + np.float32(0.5)) - px[:, None]
+                dy = (row.astype(np.float32) + np.float32(0.5)) - py[:, None]
+                hit = ((dx * dx + dy * dy <= r2[:, None]) & ok).any(axis=1)
+                np.add.at(want, t, hit)
+            got = csr.segment_rows(rows, b["starts"], W, H, th, tw,
+                                   seg_rows=seg_rows)
+            np.testing.assert_array_equal(got.numpy(), want)
+            assert int(got.sum()) > 0
+        bands = torch.full((tiles_x * tiles_y,), -1, dtype=torch.int32)
+        csr2.raster_tiles2_disc8(rows, b["starts"],
+                                 csr.pack_big_rows(soup, b["big_ids"]),
+                                 b["big_n"], W, H, th, tw, bands=bands)
+        np.testing.assert_array_equal(
+            bands.numpy(),
+            csr.segment_rows(rows, b["starts"], W, H, th, tw).numpy())

@@ -5,10 +5,11 @@ rows, 8-float disc rows, disc rows with the fused (u, v), kind-split
 v3 disc fast path with and without its exit; the v1 and v2 strip walks,
 16-float and 8-float disc rows, with their saturation exit; the v5
 chunk-binned disc walk, with and without its exit and its fused shade;
-the disc rows at spans 4 and 8; the 16-, 10-, 9- and 8-float walks and
-the v2 strip walk with their tiles split into work items, the 16-float
-walk and the disc walk with their z-bucket exit, the disc walks' cull on
-discs tangent to its bands)
+the disc rows at spans 4 and 8; the 16-, 10-, 9- and 8-float walks, the
+v2 strip walks and the v3 walk with their tiles split into work items,
+the 16-float walk and the disc walk with their z-bucket exit, the disc
+walks', v3's and v2's disc cull on discs tangent to their bands and
+column segments, v3's exact ties across work items)
 against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
@@ -57,8 +58,10 @@ from torch_soups import (
     make_soup,
     mesh_soup,
     morton_soup,
+    segment_soup,
     split_soup,
     tcam,
+    tie_tile_soup,
     v5_soups,
     wide_disc_soup,
 )
@@ -924,3 +927,132 @@ def test_default_exit_frames_equal_exit_off_on_card(cuda_device, case):
     assert wrapper.launches == before + 2
     for a, b in zip(outs[0][:3], outs[1][:3]):
         np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def _v3_args(soup, device):
+    b = csr3.bin_csr_2x2(soup, W, H, max_big=1 << 14)
+    zeros = torch.zeros((soup.count, 3), device=device)
+    rows = csr3.pack_rows8(soup, b["entries"], b["big_ids"], zeros,
+                           zeros[:, 0], (0.0, 0.0, 0.0))
+    return (rows[:b["entries"].shape[0]], csr6.build_table16_rows(
+        soup, zeros, zeros[:, 0], b["big_ids"]), b["starts"], b["big_n"],
+        b["zmeta"], W, H, b["zq_bits"]), b
+
+
+def _check_v3_split(args, split_rows, blocks=(csr3.EXIT_BLOCK, 5)):
+    """csr3_raster with its tiles cut into items of ``split_rows`` rows,
+    exit off and on (at each of ``blocks``) == raster_tiles3_plain bit
+    for bit (depth, entry image); one launch a call; ``walked`` every
+    tile's run and ``bands`` band_rows3 with the exit off, at most those
+    with it on."""
+    starts = args[2]
+    lengths = starts[1:] - starts[:-1]
+    kept = csr3.band_rows3(args[0], starts, W, H)
+    want = csr3.raster_tiles3_plain(*args)
+    for exit_on, block in [(False, csr3.EXIT_BLOCK)] + [
+            (True, k) for k in blocks]:
+        walked = torch.full_like(lengths, -1)
+        bands = torch.full_like(lengths, -1)
+        before = csr3.raster_tiles3.launches
+        got = csr3.raster_tiles3(*args, walked=walked, bands=bands,
+                                 allow_exit=exit_on, block=block,
+                                 split_rows=split_rows)
+        torch.cuda.synchronize()
+        assert csr3.raster_tiles3.launches == before + 1
+        for a, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(_bits(a), _bits(w))
+        if exit_on:
+            assert bool(((walked >= 0) & (walked <= lengths)).all())
+            assert bool(((bands >= 0) & (bands <= kept)).all())
+        else:
+            assert torch.equal(walked, lengths)
+            assert torch.equal(bands, kept)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", [1, 7, 64])
+@pytest.mark.parametrize("case", CASES + ["disc_ties", "band"])
+def test_v3_split_cull_matches_plain_on_card(cuda_device, case, split_rows):
+    """csr3_raster's split walk (items of 1, 7 and 64 rows: many items per
+    dense tile, exact ties across them), its warp-band cull (band_soup:
+    discs tangent to the bands, centred on band boundaries, over the
+    ragged bottom band) and its exit at blocks of 128 and 5 entries ==
+    the plain walk bit for bit."""
+    soup = {"disc_ties": lambda: disc_soup(tcam()),
+            "band": band_soup}.get(case, lambda: make_soup(case))()
+    args, _ = _v3_args(soup.to(cuda_device), cuda_device)
+    want = _check_v3_split(args, split_rows)
+    assert bool((want[1] != csr3.IMAX).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", [1, 7])
+def test_v3_tie_across_items_on_card(cuda_device, split_rows):
+    """48 identical discs in one tile, their entries cut across many work
+    items, in front of a cover that lets the exit leave the tile's deep
+    entries: the lowest entry (the first copy, id 0) wins its pixels with
+    the exit on and off, as on the plain walk."""
+    soup = tie_tile_soup().to(cuda_device)
+    args, b = _v3_args(soup, cuda_device)
+    tiles_x, _ = csr6.grid_shape(W, H)
+    tile = tiles_x + 1
+    run = int(b["starts"][tile + 1] - b["starts"][tile])
+    assert run > 48
+    want = _check_v3_split(args, split_rows)
+    ids = csr3.resolve_ids(want[1], want[0], b["entries"], b["big_ids"])
+    assert int(ids[41, 40]) == 0 and float(want[0][41, 40]) == 0.5
+    assert int(want[1][41, 40]) == int(b["starts"][tile])
+
+
+# Strip shapes of csr2_disc8's split walk (16x256: four passes of 1024
+# pixels per strip; 4x32: one warp of pixels per strip) and their
+# max_tiles_per_prim.
+DISC_STRIPS = {"8x128": (8, 128, 4), "16x256": (16, 256, 8),
+               "4x32": (4, 32, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip", sorted(DISC_STRIPS))
+@pytest.mark.parametrize("case", CASES + ["disc_ties", "band", "segment"])
+def test_v2_disc8_split_cull_matches_plain_on_card(cuda_device, case, strip):
+    """csr2_disc8's split walk (items of 1, 7 and 64 rows and the
+    default), its warp cull (discs tangent to the warps' column and row
+    boundaries) and its saturation exit == the plain strip walk bit for
+    bit; one launch a call; ``walked`` every strip's rows times its
+    passes and ``bands`` csr.segment_rows with the exit off, at most
+    those with it on."""
+    th, tw, mtp = DISC_STRIPS[strip]
+    soup = {"disc_ties": lambda: disc_soup(tcam()), "band": band_soup,
+            "segment": segment_soup}.get(case, lambda: make_soup(case))()
+    soup = soup.to(cuda_device)
+    b = csr.bin_csr(soup, W, H, th, tw, mtp, force_tri_big=True,
+                    force_capsule_big=True)
+    n = int(b["starts"][-1])
+    args = (csr2.pack_rows_disc(soup, b["prims"][:n], b["keys"][:n],
+                                b["zmin"], b["span"]),
+            b["starts"], csr.pack_big_rows(soup, b["big_ids"]), b["big_n"],
+            W, H, th, tw)
+    want = csr.raster_strips_plain(*args)
+    lengths = (b["starts"][1:] - b["starts"][:-1]) * -(-th * tw // 1024)
+    kept = csr.segment_rows(args[0], b["starts"], W, H, th, tw)
+    for split_rows in (1, 7, 64, csr2.SPLIT_ROWS_DISC):
+        for allow_exit in (False, True):
+            walked = torch.full_like(lengths, -1)
+            bands = torch.full_like(lengths, -1)
+            before = csr2.raster_tiles2_disc8.launches
+            got = csr2.raster_tiles2_disc8(*args, walked=walked,
+                                           allow_exit=allow_exit,
+                                           bands=bands,
+                                           split_rows=split_rows)
+            torch.cuda.synchronize()
+            assert csr2.raster_tiles2_disc8.launches == before + 1
+            for a, w in zip(got, want, strict=True):
+                np.testing.assert_array_equal(_bits(a), _bits(w))
+            if allow_exit:
+                assert bool(((walked >= 0) & (walked <= lengths)).all())
+                assert bool(((bands >= 0) & (bands <= kept)).all())
+            else:
+                assert torch.equal(walked, lengths)
+                assert torch.equal(bands, kept)
+    assert bool((want[1] >= 0).any())

@@ -1,7 +1,8 @@
 """The ``split_rows`` argument of the kind-split walk
 (``csr6.raster_tiles_rows9``), of the disc walks
-(``csr6.raster_tiles_disc8``, ``raster_tiles_disc8_uv``) and of the v2
-strip walk (``csr2.raster_tiles2``), whose CUDA kernels cut dense tiles
+(``csr6.raster_tiles_disc8``, ``raster_tiles_disc8_uv``), of the v2
+strip walks (``csr2.raster_tiles2``, ``raster_tiles2_disc8``) and of the
+v3 walk (``csr3.raster_tiles3``), whose CUDA kernels cut dense tiles
 into work items: it must be at least 1, and on CPU tensors, which take
 the plain walks, no split changes a bit.  The judge is the NumPy oracle
 (``cpu_reference``; its cap8 capsule evaluation for the kind-split rows).
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from pointcloud_render_tpu.raster import cpu_reference
-from pointcloud_render_tpu_torch.raster import csr, csr2, csr6
+from pointcloud_render_tpu_torch.raster import csr, csr2, csr3, csr6
 from tests.torch_jax import numpy_soup
 from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_soups import (
@@ -63,27 +64,78 @@ def _strip_case():
 
 
 @functools.cache
+def _band_oracle():
+    """(band_soup, oracle depth, oracle index)."""
+    soup = band_soup()
+    return (soup, *cpu_reference.rasterize_reference(numpy_soup(soup), W,
+                                                     H))
+
+
+@functools.cache
 def _disc_case():
     """(walk arguments, oracle depth, oracle index) of the cull's band
     soup through the disc walks (sorted 8-float rows, span 2)."""
-    soup = band_soup()
+    soup, d_o, i_o = _band_oracle()
     b = csr6.bin_csr6(soup, W, H, 64, discs_only=True)
     zeros = torch.zeros((soup.count, 3))
     args = (csr6.build_rows8(soup, zeros[:, 0], b["order"]),
             csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
             b["starts"], b["big_n"], W, H)
-    return (args, *cpu_reference.rasterize_reference(numpy_soup(soup), W, H))
+    return args, d_o, i_o
 
 
-WALKS = {"rows9": (csr6.raster_tiles_rows9, _rows9_case),
-         "v2": (csr2.raster_tiles2, _strip_case),
-         "disc8": (csr6.raster_tiles_disc8, _disc_case),
-         "disc8_uv": (csr6.raster_tiles_disc8_uv, _disc_case)}
+@functools.cache
+def _strip_disc_case():
+    """The band soup through v2's discs_only walk (8-float rows on 8x128
+    strips)."""
+    soup, d_o, i_o = _band_oracle()
+    b = csr.bin_csr(soup, W, H, max_tiles_per_prim=4, force_tri_big=True,
+                    force_capsule_big=True)
+    n = int(b["starts"][-1])
+    rows = csr2.pack_rows_disc(soup, b["prims"][:n], b["keys"][:n],
+                               b["zmin"], b["span"])
+    args = (rows, b["starts"], csr.pack_big_rows(soup, b["big_ids"]),
+            b["big_n"], W, H)
+    return args, d_o, i_o
+
+
+@functools.cache
+def _v3_case():
+    """The band soup through the v3 walk (entry-indexed rows; its big ids
+    sit below its binned ones, so the resolved ids are the oracle's)."""
+    soup, d_o, i_o = _band_oracle()
+    b = csr3.bin_csr_2x2(soup, W, H)
+    zeros = torch.zeros((soup.count, 3))
+    rows = csr3.pack_rows8(soup, b["entries"], b["big_ids"], zeros,
+                           zeros[:, 0], (0.0, 0.0, 0.0))
+    args = (rows[:b["entries"].shape[0]],
+            csr6.build_table16_rows(soup, zeros, zeros[:, 0], b["big_ids"]),
+            b["starts"], b["big_n"], b["zmeta"], W, H, b["zq_bits"])
+    return args, d_o, i_o, b
+
+
+def _ids(out):
+    return out[:2]
+
+
+def _v3_ids(out):
+    b = _v3_case()[3]
+    return out[0], csr3.resolve_ids(out[1], out[0], b["entries"],
+                                    b["big_ids"])
+
+
+# walk: (wrapper, case, (depth, index) of its output).
+WALKS = {"rows9": (csr6.raster_tiles_rows9, _rows9_case, _ids),
+         "v2": (csr2.raster_tiles2, _strip_case, _ids),
+         "disc8": (csr6.raster_tiles_disc8, _disc_case, _ids),
+         "disc8_uv": (csr6.raster_tiles_disc8_uv, _disc_case, _ids),
+         "v2_disc8": (csr2.raster_tiles2_disc8, _strip_disc_case, _ids),
+         "v3": (csr3.raster_tiles3, _v3_case, _v3_ids)}
 
 
 @pytest.mark.parametrize("walk", sorted(WALKS))
 def test_split_rows_below_one_raises(walk):
-    fn, case = WALKS[walk]
+    fn, case, _ = WALKS[walk]
     with pytest.raises(ValueError, match="split_rows"):
         fn(*case()[0], split_rows=0)
 
@@ -93,10 +145,10 @@ def test_split_rows_below_one_raises(walk):
 def test_cpu_walk_ignores_split_rows(walk, split_rows):
     """CPU tensors take the plain walk, whatever the split, and launch
     nothing: winners and depth bits equal the oracle's."""
-    fn, case = WALKS[walk]
-    args, d_o, i_o = case()
+    fn, case, ids = WALKS[walk]
+    args, d_o, i_o = case()[:3]
     before = fn.launches
-    depth, index = fn(*args, split_rows=split_rows)[:2]
+    depth, index = ids(fn(*args, split_rows=split_rows))
     assert fn.launches == before
     assert (i_o >= 0).any()
     np.testing.assert_array_equal(index.numpy(), i_o)

@@ -45,6 +45,7 @@ from tests.torch_soups import (
     CASES,
     H,
     W,
+    band_soup,
     cloud,
     disc_soup,
     make_soup,
@@ -266,3 +267,45 @@ def test_wrappers_dispatch_and_knob_errors():
     check_config(RasterConfig(cap_rows10=True, cap10_carry=True, span=8))
     check_config(RasterConfig(backend="pallas3", tile_h=32, tile_w=32,
                               unroll=8, chunk_rows=1024))
+
+
+def test_v3_band_counter_matches_brute_force():
+    """band_rows3 (the v3 walk's warp-band cull, counted on the CPU) keeps
+    an (entry, band) pair of a band that starts inside the image exactly
+    when a pixel centre of the band passes the disc test at dx = 0 (the
+    ragged bottom band tests all its rows), on band_soup's tangent,
+    one-below and boundary-centred discs; with bands of one row it counts
+    the (entry, pixel row) pairs that pass.  The CPU wrapper reports those
+    counts as ``bands``, and ``block`` outside 1..1024 raises."""
+    soup = band_soup()
+    b = csr3.bin_csr_2x2(soup, W, H)
+    zeros = torch.zeros((soup.count, 3))
+    rows = csr3.pack_rows8(soup, b["entries"], b["big_ids"], zeros,
+                           zeros[:, 0], (0.0, 0.0, 0.0))
+    n = int(b["starts"][-1])
+    starts = b["starts"].numpy().astype(np.int64)
+    tile = np.searchsorted(starts, np.arange(n), side="right") - 1
+    tiles_x, tiles_y = csr6.grid_shape(W, H)
+    py, r2 = rows[:n, 1].numpy(), rows[:n, 3].numpy()
+    for band in (csr6.BAND_ROWS, 1):
+        want = np.zeros(tiles_x * tiles_y, np.int64)
+        for bi in range(csr6.TILE // band):
+            y0 = (tile // tiles_x) * csr6.TILE + bi * band
+            hit = np.zeros(n, bool)
+            for k in range(band):
+                dy = ((y0 + k).astype(np.float32) + np.float32(0.5)) - py
+                hit |= dy * dy <= r2
+            np.add.at(want, tile, hit & (y0 < H))
+        got = csr3.band_rows3(rows, b["starts"], W, H, band=band)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert int(got.sum()) > 0
+    args = (rows[:n], csr6.build_table16_rows(soup, zeros, zeros[:, 0],
+                                              b["big_ids"]),
+            b["starts"], b["big_n"], b["zmeta"], W, H, b["zq_bits"])
+    bands = torch.full((tiles_x * tiles_y,), -1, dtype=torch.int32)
+    csr3.raster_tiles3(*args, bands=bands)
+    np.testing.assert_array_equal(
+        bands.numpy(), csr3.band_rows3(rows, b["starts"], W, H).numpy())
+    for block in (0, csr3.MAX_BLOCK + 1):
+        with pytest.raises(ValueError, match="block"):
+            csr3.raster_tiles3(*args, block=block)

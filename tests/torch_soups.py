@@ -188,6 +188,60 @@ def band_soup(seed=23, n=90):
         [ground_plane(cam, 10.0, (0, 0, -0.5)), wide, discs, discs, discs])
 
 
+def segment_soup(seed=29, n=60):
+    """Screen-space discs on the W x H film against csr2_disc8's cull by
+    warp blocks of 32 columns (columns 32 j .. 32 j + 31 of an 8 x 128
+    strip): ``n`` discs tangent to the nearest pixel centre beyond a
+    32-column boundary (r * r == fl(dx * dx) there, on a pixel row where
+    dy = 0: covered at equality), ``n`` whose radius is one float below
+    that, ``n`` centred on column boundaries, and discs over the ragged
+    right strip (columns 128-149), each three times at the same depth
+    (exact ties, split across work items), over the white ground and one
+    wide disc on the big list."""
+    rng = np.random.default_rng(seed)
+    py = (rng.integers(4, H - 4, n) + 0.5).astype(np.float32)
+    edge = (rng.integers(1, (W - 1) // 32 + 1, n) * 32).astype(np.float32)
+    off = rng.uniform(0.05, 3.45, n).astype(np.float32)
+    left = rng.random(n) < 0.5
+    # A disc left of the boundary reaches the centre edge + 0.5 right of
+    # it; one right of it reaches edge - 0.5.
+    px = np.where(left, edge - off, edge + off).astype(np.float32)
+    near = np.where(left, edge + np.float32(0.5), edge - np.float32(0.5))
+    tangent = np.abs(near.astype(np.float32) - px).astype(np.float32)
+    inside = np.nextafter(tangent, np.float32(0))
+    centred = rng.uniform(0.4, 3.0, n).astype(np.float32)
+    right_x = rng.uniform(124.0, 152.0, n // 3).astype(np.float32)
+    right_y = rng.uniform(0.0, H, n // 3).astype(np.float32)
+    cols = [np.concatenate(c) for c in zip(
+        (px, py, tangent), (px, py, inside), (edge, py, centred),
+        (right_x, right_y, rng.uniform(0.5, 3.0, n // 3)))]
+    z = np.round(rng.uniform(1.0, 3.0, cols[0].shape[0]), 1)
+    discs = _screen_discs(cols[0], cols[1], z, cols[2])
+    wide = _screen_discs([70.0], [40.0], [2.0], [60.0])
+    cam = tcam()
+    return ScreenPrimitives.concatenate(
+        [ground_plane(cam, 10.0, (0, 0, -0.5)), wide, discs, discs, discs])
+
+
+def tie_tile_soup(copies=48):
+    """Screen-space discs in tile (1, 1) of the W x H film for the v3
+    walk's split: ``copies`` identical discs (the same centre, radius and
+    depth: an exact tie, its entries cut across many work items), a
+    cover of the whole tile in front of the deep discs (so the exit can
+    leave the run) and deep discs behind it, over no ground."""
+    rng = np.random.default_rng(41)
+    k = 40
+    px = np.concatenate([np.full(copies, 40.5), rng.uniform(33, 63, k),
+                         [48.0]]).astype(np.float32)
+    py = np.concatenate([np.full(copies, 41.5), rng.uniform(33, 63, k),
+                         [48.0]]).astype(np.float32)
+    z = np.concatenate([np.full(copies, 0.5), rng.uniform(3.0, 4.0, k),
+                        [2.0]]).astype(np.float32)
+    r = np.concatenate([np.full(copies, 3.0), np.full(k, 2.0),
+                        [23.0]]).astype(np.float32)
+    return _screen_discs(px, py, z, r)
+
+
 CASES = ["mixed", "spill", "ties", "wide_big", "invalid", "near_clip",
          "dense_tile"]
 
