@@ -6,11 +6,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
-csr6_raster.cu and csr2_raster.cu beside this tree's and times its
-csr3_raster and csr2_disc8 (their C interfaces before the split walk: one
-CTA per tile, synchronous staging) with the exit on and off on the same
-inputs wherever this run times those kernels, after holding them against
-the plain version.
+csr6_raster.cu and csr5_raster.cu beside this tree's and times its
+csr4_raster, csr5_raster and csr5_shaded (their C interfaces before the
+split walk: one CTA per tile, synchronous staging) with the exit on and
+off on the same inputs wherever this run times those kernels, after
+holding them against the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -82,14 +82,15 @@ Phases (any failure exits non-zero and prints no result line):
      plain version and rows8 equal to rows9 at frames 20, 120 and 219,
      the four-tone shade beside the generic one, the kernel's time,
      plain time and bound at frame 120 with the tile rows per kind region
-     and the work items, the split sweep, and the parent's kernel on the
-     same inputs under --parent, the stages of one warm frame, warm
+     and the work items, the split sweep, the stages of one warm frame, warm
      ms/frame,
      a trace of one warm frame, and 8 frames of the scan on the lane's
      config (one csr6_rows9 launch each);
   9. the mesh-LOD slice: (a) csr6_raster[bin_triangles] (binned triangles
-     through the dual evaluation) and csr4_raster (the v4 walk, with its
-     z-bucket early exit), each with and without bin_triangles, against
+     through the dual evaluation) and csr4_raster (the v4 split walk, with
+     its z-bucket early exit on and off, its tiles cut into items of
+     csr6.SPLIT_ROWS4 and of SPLIT_FORCED rows), each with and without
+     bin_triangles, against
      their plain versions bit for bit on seeded 1080p mesh-LOD soups
      (3,000 droplets, 300 of them twice for exact ties, a dozen near the
      camera whose triangles ride the big list and whose near clip leaves
@@ -108,10 +109,13 @@ Phases (any failure exits non-zero and prints no result line):
      launch each); (c) the traj_ball CLI with --backend pallas4 on phase
      5's 1M-point PLYs: its PNGs equal phase 5's (pallas6) byte for byte,
      FramePipeline's buffers equal at frames 120 and 205 (205 through the
-     max_big self-heal), csr4_raster's time and bound with the exit on
-     (the bound counts the entries its tiles walked before their exits,
-     which the kernel reports) and off, and its plain time, at frames 120
-     and 205, and a mesh-LOD soup of 13,026
+     max_big self-heal), csr4_raster == plain (items of the default and
+     of SPLIT_FORCED rows, exit on and off), its time per call and on the
+     device and its bound with the exit on (the bound counts the entries
+     its tiles' items walked before their exits, which the kernel
+     reports) and off, its plain time, tile rows and work items, at frames
+     120 and 205, the split sweep at frame 120 and, under --parent, the
+     parent's kernel, and a mesh-LOD soup of 13,026
      droplets (one past the 2^24-row id limit) must raise ValueError;
  10. the history-trail slice: (a) csr6_cap10 (the 10-float cap_rows10
      walk) at spans 2, 4 and 8 and csr6_raster at spans 4 and 8 against
@@ -145,7 +149,7 @@ Phases (any failure exits non-zero and prints no result line):
      by bench.py:407-425's rule), pallas3 frames equal to pallas6 frames
      there; at frame 120 the kernel's time with its exit at five block
      sizes and without it, its device time, its bounds, the cull's kept
-     share, the split sweep and, under --parent, the parent's kernel;
+     share and the split sweep;
      the 220-frame pallas3 scan (certificate 0, one csr3_raster launch
      per frame, frames equal to the pallas6 scan's), and the example CLI
      with --backend pallas3 (PNGs byte-equal to pallas6's);
@@ -176,8 +180,7 @@ Phases (any failure exits non-zero and prints no result line):
      bench.py:427-445's rule): csr2_disc8 == plain at frames 0, 120 and
      219 (as in (a)), pallas frames == pallas6 frames there; at frame
      120 its time with the exit on and off, device time, bounds, the
-     cull's kept share, the split sweep and, under --parent, the
-     parent's kernel; the 220-frame scan (certificate 0 on every chunk,
+     cull's kept share and the split sweep; the 220-frame scan (certificate 0 on every chunk,
      one csr2_disc8 launch per frame, every u8 frame equal to the
      pallas6 scan's without uniform_look) and its frames/s;
  12. the v5 slice: bench.py's disc lane (1M gray splats of radius 0.002
@@ -189,11 +192,16 @@ Phases (any failure exits non-zero and prints no result line):
      csr5_shaded launch each; every frame without overflow equal to the
      pallas6 frame of the same soup (depth bits, index) and its rgb to
      shade_framebuffer on its buffers bit for bit; rasterize_csr5 once
-     (csr5_raster); csr5_raster and csr5_shaded == their plain version
-     bit for bit with their exits on and off at frame 120 and on phase
-     3's soups in their own and in Morton order, timed at frame 120 with
-     the superrows walked before the exits (the bound counts their live
-     slots); the stages of one warm frame and its ms; csr6_disc8 and
+     (csr5_raster); csr5_raster and csr5_shaded (split walks with a warp
+     cull) == their plain version bit for bit with their exits on and off
+     and their tiles cut into items of csr6.SPLIT_ROWS5 and of
+     SPLIT_FORCED rows (walked every tile's run and bands
+     csr5.block_slots5 with the exit off) at frame 120 and on phase 3's
+     soups in their own and in Morton order, timed at frame 120 per call
+     and on the device with the superrows walked before the exits (the
+     bound counts their live slots), the cull's kept share, the tile rows
+     and work items, the split sweep and, under --parent, the parent's
+     kernels; the stages of one warm frame and its ms; csr6_disc8 and
      csr6_disc8_uv at spans 4 and 8 == plain and timed on frame 120's
      soup as in phase 7, and their entry point
      render_shaded_csr6(discs_only, uniform_look) at each span: one
@@ -206,7 +214,10 @@ card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr6_raster's (ms: the default walk,
 with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
 csr3_raster's and the strip kernels' and the v5 kernels' entries add
-ms_exit_off and bound_ms_exit_off, the walk of every entry.  The
+ms_exit_off and bound_ms_exit_off, the walk of every entry;
+csr4_raster's (traj_ball frame 120) adds device_ms, device_ms_exit_off
+and frame 205's walk (ms, device_ms, bound_ms, bound_by, ms_exit_off,
+device_ms_exit_off, bound_ms_exit_off, each suffixed _frame205).  The
 disc-row walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8, the
 v5 kernels) are bounded by the pairs their function needs, whatever the
 walk: 32 pixels per (binned row or live slot, pixel row, 32-column
@@ -216,13 +227,14 @@ of one row), plus every pixel x every live big row, or their bytes if
 larger; with an exit, scaled by the share of rows walked (v5: over the
 superrows walked).  Their entries add bound_ms_all_pairs (every pair of
 the rows walked, the bound of their history) and bytes_ms; the culled
-walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8) add
-bound_ms_evaluated (the pairs their cull evaluates) and device_ms
-(device_ms_exit_off for csr3_raster and csr2_disc8); csr6_disc8 adds
-ms_exit and bound_ms_exit (the exit forced on); under --parent
-csr3_raster and csr2_disc8 add parent_ms, parent_device_ms,
-parent_ms_exit_off and parent_device_ms_exit_off.  "[split]" lines time
-a split walk by split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC).
+walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8, the v5
+kernels) add bound_ms_evaluated (the pairs their cull evaluates) and
+device_ms (device_ms_exit_off for csr3_raster, csr2_disc8 and the v5
+kernels); csr6_disc8 adds ms_exit and bound_ms_exit (the exit forced
+on); under --parent csr4_raster, csr5_raster and csr5_shaded add
+parent_ms, parent_device_ms, parent_ms_exit_off and
+parent_device_ms_exit_off.  "[split]" lines time a split walk by
+split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
 from __future__ import annotations
@@ -328,12 +340,15 @@ V3_BLOCKS = (64, 128, 256, 512, 1024)
 SPLIT_FORCED = 64
 SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
 # --parent DIR: the parent commit's tree, whose csr6_raster.cu and
-# csr2_raster.cu are built beside this one's and whose csr3_raster and
-# csr2_disc8 are timed on the same inputs.
+# csr5_raster.cu are built beside this one's and whose csr4_raster,
+# csr5_raster and csr5_shaded are timed on the same inputs.
 PARENT = {"tree": None, "libs": {}}
 # The disc walks' split sweep (rows per work item; the last: one item per
 # tile).
 SPLIT_SWEEP_DISC = (256, 512, 1024, 2048, 4096, 8192, 1 << 30)
+# The v5 walks' split sweep (rows, big and superrows of 16 slots, per work
+# item; the last: one item per tile).
+SPLIT_SWEEP5 = (32, 64, 128, 256, 512, 1024, 1 << 30)
 
 
 class SmokeFailure(Exception):
@@ -690,13 +705,13 @@ def nvcc_build(kernels, src, out):
 
 def build_parent(kernels):
     """Under --parent, build the parent tree's csr6_raster.cu and
-    csr2_raster.cu (PARENT["libs"]), beside this tree's build: their
-    csr6_disc8, csr6_disc8_uv, csr3_raster and csr2_disc8 are timed on
-    the same inputs as this tree's."""
+    csr5_raster.cu (PARENT["libs"]), beside this tree's build: their
+    csr4_raster, csr5_raster and csr5_shaded are timed on the same inputs
+    as this tree's."""
     if PARENT["tree"] is None:
         return
     for name, src in (("csr6_raster", KERNEL_SOURCE),
-                      ("csr2_raster", STRIP_SOURCE)):
+                      ("csr5_raster", V5_SOURCE)):
         PARENT["libs"][name] = nvcc_build(
             kernels, os.path.join(PARENT["tree"], src),
             os.path.join(REPO, "build", "parent", f"lib{name}_parent.so"))
@@ -719,38 +734,38 @@ def c_call(lib, symbol, ptrs, ints, what):
 
 
 def parent_walk(symbol, ptrs, ints, width, height, library="csr6_raster",
-                images=0, tail=0):
+                rgb=False, tail=0):
     """One call of the parent's ``symbol`` in ``library`` (its C interface:
-    inputs, depth, index, ``images`` more float32 images, ``tail`` null
-    pointers, ints, stream) -> (depth, index, *images): csr6_disc8
-    (``images`` 0) and csr6_disc8_uv (2: u, v) before their split walks,
-    csr3_raster and csr2_disc8 (``tail`` 1: a null walked) before
-    theirs."""
+    inputs, depth, index, with ``rgb`` an (H, W, 3) float32 image, ``tail``
+    null pointers, ints, stream) -> (depth, index[, rgb]): csr4_raster,
+    csr5_raster and csr5_shaded (``tail`` 1: a null walked) before their
+    split walks, one CTA per tile."""
     import torch
 
     dev = ptrs[0].device
     outs = [torch.empty((height, width), dtype=dt, device=dev)
-            for dt in (torch.float32, torch.int32,
-                       *[torch.float32] * images)]
+            for dt in (torch.float32, torch.int32)]
+    if rgb:
+        outs.append(torch.empty((height, width, 3), dtype=torch.float32,
+                                device=dev))
     c_call(PARENT["libs"][library], symbol, (*ptrs, *outs, *[None] * tail),
            ints, f"the parent's {symbol}")
     return tuple(outs)
 
 
 def parent_time(symbol, ptrs, ints, width, height, want, what,
-                library="csr6_raster", images=0, tail=0):
+                library="csr6_raster", rgb=False, tail=0):
     """The parent's walk == ``want`` bit for bit, then its median time of
     11 (None without --parent)."""
     import torch
 
     if not PARENT["libs"]:
         return None
-    got = parent_walk(symbol, ptrs, ints, width, height, library, images,
-                      tail)
+    got = parent_walk(symbol, ptrs, ints, width, height, library, rgb, tail)
     torch.cuda.synchronize()
     check_equal_bits(got, want, f"the parent's {what}")
     return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height,
-                                       library, images, tail), 11)
+                                       library, rgb, tail), 11)
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
@@ -870,14 +885,20 @@ def split_sweep(what, fn, card, rows=None, sweep=SPLIT_SWEEP,
 
 
 def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
-               cap=None, timing=False):
+               cap=None, timing=False, card="", sweep=False, what=""):
     """csr4_raster vs its plain version on one soup (entries past ``cap``
-    dropped) -> (dict(err, ms, plain_ms, bound_ms, bound_by, ms_exit_off,
-    bound_ms_exit_off), (depth, index)); the kernel runs with its z-bucket
-    exit (the plain version has none).  With ``timing``, ``ms`` and
+    dropped), its tiles cut into items of csr6.SPLIT_ROWS4 and of
+    SPLIT_FORCED rows, each with its z-bucket exit on and off (the plain
+    version has none) -> (dict(err[, timing keys]), (depth, index) of the
+    default walk); ``walked`` every tile's entries with the exit off, at
+    most those with it on.  With ``timing``: ``ms`` / ``device_ms`` and
     ``bound_ms`` are the exit-on walk's (the bound counts the entries the
-    tiles evaluated before their exits, as the kernel reports them), and
-    ``ms_exit_off`` and ``bound_ms_exit_off`` the walk of every entry."""
+    tiles' items evaluated before their exits, as the kernel reports
+    them; triangles under ``bin_triangles`` in the share of all entries),
+    ``ms_exit_off`` / ``device_ms_exit_off`` and ``bound_ms_exit_off``
+    the walk of every entry, the tile rows and work items, and under
+    --parent the parent's kernel on the same inputs; with ``sweep`` the
+    split sweep."""
     import torch
 
     b = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
@@ -890,54 +911,90 @@ def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
                                bin_triangles=bin_triangles)
     args = (table, entries, starts, b["big_ids"], b["big_n"], b["zmeta"],
             width, height, b["zq_bits"], bin_triangles)
-    check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
-    got = csr4.raster_tiles4(*args)
-    torch.cuda.synchronize()
+    off = args[:8] + (0, bin_triangles)
+    if width == WIDTH:
+        check(b["zq_bits"] == 4, f"zq_bits {b['zq_bits']} at 1080p, want 4")
     want = csr4.raster_tiles4_plain(*args)
     torch.cuda.synchronize()
-    what = "csr4_raster" + (" bin_triangles" if bin_triangles else "") + (
-        f" entry_capacity {cap}" if cap is not None else "")
-    out = dict(err=check_equal_bits(got, want, what))
+    what = ("csr4_raster" + (" bin_triangles" if bin_triangles else "")
+            + (f" {what}" if what else "")
+            + (f" entry_capacity {cap}" if cap is not None else ""))
+    lengths = starts[1:] - starts[:-1]
+    errs, got = [], None
+    for split in (csr6.SPLIT_ROWS4, SPLIT_FORCED):
+        for a, exit_on in ((args, True), (off, False)):
+            walked = torch.full_like(lengths, -1)
+            out = csr4.raster_tiles4(*a, walked=walked, split_rows=split)
+            torch.cuda.synchronize()
+            on = (f"{what} exit {'on' if exit_on else 'off'}, items of "
+                  f"{split} rows")
+            errs.append(check_equal_bits(out, want, on))
+            check(bool(((walked >= 0) & (walked <= lengths)).all()) and (
+                exit_on or torch.equal(walked, lengths)),
+                f"{on}: walked {int(walked.sum())} of {int(lengths.sum())} "
+                "entries")
+            got = got or out
+    out = dict(err=max(errs))
     if timing:
         n = int(starts[-1])
-        off = args[:8] + (0, bin_triangles)
-        lengths = starts[1:] - starts[:-1]
         walked = torch.empty_like(lengths)
-        csr4.raster_tiles4(*off, walked=walked)
-        check(torch.equal(walked, lengths),
-              f"{what}: the walk without the exit skipped entries")
         csr4.raster_tiles4(*args, walked=walked)
-        check(bool((walked <= lengths).all()),
-              f"{what}: a tile walked past its range")
-        # The entries each tile evaluated: the first walked[t] of its range.
-        s64 = starts.long()
-        pos = torch.arange(n, device=soup.device)
-        tile = torch.searchsorted(s64, pos, right=True) - 1
-        keep = (pos - s64[tile]) < walked.long()[tile]
-        n_walked = int(keep.sum())
-        bounds = [walk16_bound(soup, soup.kind[ids.long()], rows,
-                               b["big_ids"], b["big_n"], starts.numel(),
-                               width, height, bin_triangles)
-                  for ids, rows in ((entries[:n][keep], n_walked),
-                                    (entries[:n], n))]
+        n_walked = int(walked.sum())
+        kinds = soup.kind[entries[:n].long()]
+        bounds = [walk16_bound(soup, kinds, rows, b["big_ids"], b["big_n"],
+                               starts.numel(), width, height, bin_triangles,
+                               walked=rows)
+                  for rows in (n_walked, n)]
         out.update(ms=time_ms(lambda: csr4.raster_tiles4(*args), 11),
+                   device_ms=device_ms(lambda: csr4.raster_tiles4(*args), 11),
                    ms_exit_off=time_ms(lambda: csr4.raster_tiles4(*off), 11),
+                   device_ms_exit_off=device_ms(
+                       lambda: csr4.raster_tiles4(*off), 11),
                    plain_ms=time_ms(lambda: csr4.raster_tiles4_plain(*args),
                                     1),
                    bound_ms=bounds[0][0], bound_by=bounds[0][1],
                    bound_ms_exit_off=bounds[1][0], entries=n,
-                   walked=n_walked)
+                   walked=n_walked,
+                   **tile_stats_runs(lengths, b["big_n"], csr6.SPLIT_ROWS4))
+        if PARENT["libs"]:
+            tiles_x, tiles_y = csr6.grid_shape(width, height)
+            for a, key, label in ((args, "parent_ms", "exit on"),
+                                  (off, "parent_ms_exit_off", "exit off")):
+                pargs = ("csr4_raster", a[:6],
+                         (width, height, tiles_x, tiles_y, a[8],
+                          int(bin_triangles)), width, height)
+                out[key] = parent_time(*pargs, want, f"{what} {label}",
+                                       tail=1)
+                out[key.replace("_ms", "_device_ms")] = device_ms(
+                    lambda p=pargs: parent_walk(*p, tail=1), 11)
+    if sweep:
+        split_sweep(f"{what} exit off", lambda w, wk: csr4.raster_tiles4(
+            *off, split_rows=w, walked=wk), card)
+        split_sweep(f"{what} exit on", lambda w, wk: csr4.raster_tiles4(
+            *args, split_rows=w, walked=wk), card, lengths)
     return out, got
 
 
 def print_v4_times(what, r, shape, card):
-    """One [time] line of compare_v4's numbers."""
-    print(f"[time] {what} kernel {r['ms']:.3f} ms (median of 11), bound "
-          f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['walked']} of "
-          f"{r['entries']} tile entries walked before the exits); exit off "
-          f"{r['ms_exit_off']:.3f} ms, bound {r['bound_ms_exit_off']:.3f} "
-          f"ms; plain {r['plain_ms']:.1f} ms, at the {shape} shape "
-          f"({card})", flush=True)
+    """The [time] lines of compare_v4's numbers."""
+    print(f"[time] {what} kernel {r['ms']:.3f} ms (median of 11; device "
+          f"{r['device_ms']:.3f}), bound {r['bound_ms']:.3f} ms by "
+          f"{r['bound_by']} ({r['walked']} of {r['entries']} tile entries "
+          f"walked before the exits, "
+          f"{100.0 * r['walked'] / max(r['entries'], 1):.1f}%); exit off "
+          f"{r['ms_exit_off']:.3f} ms (device {r['device_ms_exit_off']:.3f}"
+          f"), bound {r['bound_ms_exit_off']:.3f} ms; plain "
+          f"{r['plain_ms']:.1f} ms, at the {shape} shape ({card})",
+          flush=True)
+    print(f"[time] {what} at the {shape} shape: {stats_text(r)}", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {what} at the {shape} shape: parent "
+              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
+              f" exit off {r['parent_ms_exit_off']:.3f} (device "
+              f"{r['parent_device_ms_exit_off']:.3f}); change "
+              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
+              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
+              f"({card})", flush=True)
 
 
 def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
@@ -974,11 +1031,16 @@ def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
 # over every pair (the bound of their history) and over the pairs their
 # cull evaluates, bytes' time, device time (exit on and off), forced exit
 # and the parent's time (exit on and off, per call and on the device).
+# csr4_raster also gives frame 205's walk (FRAME205_KEYS, suffixed
+# _frame205).
+FRAME205_KEYS = ("ms", "device_ms", "bound_ms", "bound_by", "ms_exit_off",
+                 "device_ms_exit_off", "bound_ms_exit_off")
 EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "bound_ms_evaluated", "bytes_ms", "device_ms",
               "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
               "parent_device_ms", "parent_ms_exit_off",
-              "parent_device_ms_exit_off")
+              "parent_device_ms_exit_off",
+              *(f"{k}_frame205" for k in FRAME205_KEYS))
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
@@ -1263,8 +1325,7 @@ def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
     ``splits``) -> (dict(err, and with ``timing``: ms, ms_exit_off,
     plain_ms, device_ms, device_ms_exit_off, bound_ms, bound_ms_exit_off,
     bound_by, bound_ms_all_pairs, bound_ms_evaluated, bytes_ms, entries,
-    walked, bands, pixel_rows, blocks, the parent's times under
-    --parent), binning).  ``walked`` is every tile's run and ``bands``
+    walked, bands, pixel_rows, blocks), binning).  ``walked`` is every tile's run and ``bands``
     csr3.band_rows3 with the exit off, at most those with it on.
     ``blocks`` holds (block, device ms, entries walked) of the exit-on
     walk at each of V3_BLOCKS.  The bounds: the pairs the function needs
@@ -1356,16 +1417,6 @@ def compare_v3(soup, width, height, csr3, csr6, cap=None, timing=False,
                     lambda w, wk: csr3.raster_tiles3(*args, split_rows=w,
                                                      walked=wk), card,
                     lengths, sweep=SPLIT_SWEEP_DISC, timer=device_ms)
-    if PARENT["libs"]:
-        tiles_x, tiles_y = csr6.grid_shape(width, height)
-        for exit_on, key in ((1, "parent_ms"), (0, "parent_ms_exit_off")):
-            pargs = ("csr3_raster", args[:5],
-                     (args[1].shape[0], width, height, tiles_x, tiles_y,
-                      exit_on, csr3.EXIT_BLOCK), width, height)
-            out[key] = parent_time(*pargs, want, f"csr3_raster {what} exit "
-                                   f"{'on' if exit_on else 'off'}", tail=1)
-            out[key.replace("_ms", "_device_ms")] = device_ms(
-                lambda p=pargs: parent_walk(*p, tail=1), 11)
     return out, b
 
 
@@ -1378,7 +1429,7 @@ def tile_stats_runs(lengths, big_n, split_rows):
 
 def print_cull_times(name, r, shape, card, pairs_per_row):
     """The [time] lines of the culled walks' (csr3_raster, csr2_disc8)
-    device times, bounds, cull and parent."""
+    device times, bounds and cull."""
     print(f"[time] {name} at the {shape} shape: device {r['device_ms']:.3f} "
           f"ms (11 calls back to back), exit off {r['device_ms_exit_off']:.3f}"
           f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']} (the pairs "
@@ -1395,14 +1446,6 @@ def print_cull_times(name, r, shape, card, pairs_per_row):
           f"with every row walked, {r['bands']} evaluated with the exit "
           f"({r['walked']} of {r['entries']} rows walked); pixel-row "
           f"segments needed {r['pixel_rows']} ({card})", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {name} at the {shape} shape: parent "
-              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
-              f" exit off {r['parent_ms_exit_off']:.3f} (device "
-              f"{r['parent_device_ms_exit_off']:.3f}); change "
-              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
-              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
-              f"({card})", flush=True)
 
 
 def exit_split_soups(dev, csr6, csr4, max_err):
@@ -2474,7 +2517,9 @@ def v4_flagship(card, dev, inp, out_default, out_v4, counters, max_err):
         soup = pipeline.build_primitives(preset, cam, pcl[:, :3], pcl[:, 3:],
                                          fi)
         r, _ = compare_v4(soup, WIDTH, HEIGHT, csr6, csr4,
-                          p4.raster_config.max_big, False, timing=True)
+                          p4.raster_config.max_big, False, timing=True,
+                          card=card, sweep=fi == 120,
+                          what=f"traj_ball frame {fi}")
         max_err["csr4_raster"] = max(max_err["csr4_raster"], r["err"])
         timed4[fi] = r
         print_v4_times("csr4_raster", r, f"traj_ball frame-{fi}", card)
@@ -2503,7 +2548,9 @@ def v4_flagship(card, dev, inp, out_default, out_v4, counters, max_err):
           f"ValueError (auto and pallas4); {MESH_MAX_DROPLETS} is the most "
           f"a frame holds", flush=True)
     del soup
-    return dict(timed4[120], launches=launches)
+    # Frame 205 (the self-healed big list) beside frame 120's numbers.
+    f205 = {f"{k}_frame205": timed4[205][k] for k in FRAME205_KEYS}
+    return dict(timed4[120], launches=launches, **f205)
 
 
 def traj_stages(csr6, pipeline, trails_mod, prims_mod, preset, pcl, hist,
@@ -3052,7 +3099,7 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
     plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked; for the split
     walks also the strip rows and work items; for csr2_disc8 also
     device_ms, device_ms_exit_off, bound_ms_all_pairs, bound_ms_evaluated,
-    bytes_ms, bands, pixel_rows and the parent's times under --parent),
+    bytes_ms, bands and pixel_rows),
     (depth, index)).  The split walks (csr2_raster, csr2_disc8) also run
     with their passes cut into work items of SPLIT_FORCED rows (or of each
     of ``splits``); csr2_disc8's ``bands`` must be csr.segment_rows with
@@ -3166,19 +3213,6 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                     *args, allow_exit=False, **kw), 11),
                 bands=int(bands.sum()), bands_exit_off=int(kept.sum()),
                 pixel_rows=pixel_rows)
-            if PARENT["libs"]:
-                tiles_x, tiles_y = csr.strip_grid(width, height, th, tw)
-                for exit_on, key in ((1, "parent_ms"),
-                                     (0, "parent_ms_exit_off")):
-                    pargs = ("csr2_disc8", args[:4],
-                             (width, height, tiles_x, tiles_y, th, tw, 0,
-                              exit_on), width, height)
-                    out[key] = parent_time(*pargs, want, f"{what} exit "
-                                           f"{'on' if exit_on else 'off'}",
-                                           library="csr2_raster", tail=1)
-                    out[key.replace("_ms", "_device_ms")] = device_ms(
-                        lambda p=pargs: parent_walk(
-                            *p, library="csr2_raster", tail=1), 11)
     if timing and split:
         out.update(tile_stats_runs(starts[1:] - starts[:-1], b["big_n"],
                                    csr2.SPLIT_ROWS_DISC if disc
@@ -3533,12 +3567,19 @@ def v5_bound(soup, b, tab, walked, width, height, n_images):
 
 
 def compare_v5(soup, cam, width, height, max_big, uniform=None,
-               timing=False):
+               timing=False, card="", sweep=False):
     """csr5_raster and csr5_shaded (``uniform`` the uniform color, or None)
-    vs their plain version, each with its exit on and off -> ({kernel
-    name: dict(err[, ms, ms_exit_off, plain_ms, bound_ms, bound_by,
-    bound_ms_exit_off, entries, walked])}, binning); ``walked`` never
-    passes a tile's run and is the whole run with the exit off."""
+    vs their plain version, each with its tiles cut into items of
+    csr6.SPLIT_ROWS5 and of SPLIT_FORCED rows and its exit on and off ->
+    ({kernel name: dict(err[, timing keys])}, binning); ``walked`` never
+    passes a tile's run and is the whole run with the exit off, ``bands``
+    csr5.block_slots5 with the exit off and at most that with it on.
+    With ``timing``: ms and device_ms (exit on and off), plain_ms, the
+    bounds of v5_bound over the superrows walked (exit on) and over all
+    (exit off), bound_ms_evaluated (the (slot, warp block) pairs the cull
+    kept with the exit on, 128 pixels each), the cull's kept share with
+    the exit off, the tile rows and work items and, under --parent, the
+    parent's kernel on the same inputs; with ``sweep`` the split sweep."""
     import torch
 
     from pointcloud_render_tpu_torch.raster import csr5, csr6
@@ -3553,6 +3594,7 @@ def compare_v5(soup, cam, width, height, max_big, uniform=None,
     args = (tab, b["chunks"], b["starts"], bp, kinds, b["big_n"], meta,
             width, height)
     lengths = b["starts"][1:] - b["starts"][:-1]
+    kept = csr5.block_slots5(tab, b["chunks"], b["starts"], width, height)
     n = int(b["starts"][-1])
     out = {}
     for name, kernel, fused, kw in (
@@ -3560,40 +3602,117 @@ def compare_v5(soup, cam, width, height, max_big, uniform=None,
             ("csr5_shaded", csr5.raster_tiles5_shaded, True,
              {"uniform": uniform is not None})):
         want = csr5.raster_tiles5_plain(*args, fused=fused, **kw)
-        walked = {}
-        for exit_on in (True, False):
-            walked[exit_on] = torch.full_like(lengths, -1)
-            got = kernel(*args, allow_exit=exit_on, walked=walked[exit_on],
-                         **kw)
-            torch.cuda.synchronize()
-            err = check_equal_bits(got, want, f"{name} exit "
-                                   f"{'on' if exit_on else 'off'}")
-            check(bool((walked[exit_on] >= 0).all()
-                       & (walked[exit_on] <= lengths).all()),
-                  f"{name}: a tile walked past its run")
-        check(torch.equal(walked[False], lengths),
-              f"{name}: the walk without the exit skipped superrows")
-        out[name] = dict(err=err)
+        errs = []
+        for split in (csr6.SPLIT_ROWS5, SPLIT_FORCED):
+            for exit_on in (True, False):
+                walked = torch.full_like(lengths, -1)
+                bands = torch.full_like(lengths, -1)
+                got = kernel(*args, allow_exit=exit_on, walked=walked,
+                             bands=bands, split_rows=split, **kw)
+                torch.cuda.synchronize()
+                on = (f"{name} exit {'on' if exit_on else 'off'}, items of "
+                      f"{split} rows")
+                errs.append(check_equal_bits(got, want, on))
+                check(bool(((walked >= 0) & (walked <= lengths)).all())
+                      and (exit_on or torch.equal(walked, lengths)),
+                      f"{on}: walked {int(walked.sum())} of {n} superrows")
+                check(bool(((bands >= 0) & (bands <= kept)).all())
+                      and (exit_on or torch.equal(bands, kept)),
+                      f"{on}: kept pairs {int(bands.sum())}, block_slots5 "
+                      f"{int(kept.sum())}")
+        out[name] = dict(err=max(errs))
         if timing:
-            rows = int(walked[True].sum())
-            on = v5_bound(soup, b, tab, walked[True], width, height,
+            walked = torch.empty_like(lengths)
+            bands = torch.empty_like(lengths)
+            kernel(*args, walked=walked, bands=bands, **kw)
+            rows = int(walked.sum())
+            on = v5_bound(soup, b, tab, walked, width, height,
                           5 if fused else 2)
             off = v5_bound(soup, b, tab, lengths, width, height,
                            5 if fused else 2)
+            big = big_ops(soup, b["big_list"], b["big_n"], width, height)
             out[name].update(
                 ms=time_ms(lambda k=kernel: k(*args, **kw), 11),
+                device_ms=device_ms(lambda k=kernel: k(*args, **kw), 11),
                 ms_exit_off=time_ms(
+                    lambda k=kernel: k(*args, allow_exit=False, **kw), 11),
+                device_ms_exit_off=device_ms(
                     lambda k=kernel: k(*args, allow_exit=False, **kw), 11),
                 plain_ms=time_ms(lambda: csr5.raster_tiles5_plain(
                     *args, fused=fused, **kw), 1),
                 bound_ms=on["bound_ms"], bound_by=on["bound_by"],
                 bound_ms_exit_off=off["bound_ms"],
                 bound_ms_all_pairs=on["bound_ms_all_pairs"],
+                bound_ms_evaluated=(int(bands.sum()) * 128 * OPS_DISC5 + big)
+                / F32_OPS_PER_S * 1e3,
                 bytes_ms=on["bytes_ms"], entries=n, walked=rows,
                 live_slots=on["live_slots"],
                 live_slots_exit_off=off["live_slots"],
-                pixel_rows=on["pixel_rows"])
+                pixel_rows=on["pixel_rows"], bands=int(bands.sum()),
+                bands_exit_off=int(kept.sum()),
+                **tile_stats_runs(lengths, b["big_n"], csr6.SPLIT_ROWS5))
+            if PARENT["libs"]:
+                tiles_x, tiles_y = csr5.grid5(width, height, 32, 32)
+                for exit_on, key in ((1, "parent_ms"),
+                                     (0, "parent_ms_exit_off")):
+                    ints = (bp.shape[1], width, height, tiles_x, tiles_y, 32,
+                            32, csr5.DEFAULT_K, csr5.DEFAULT_CHECK_EVERY,
+                            exit_on) + ((int(uniform is not None),)
+                                        if fused else ())
+                    pargs = (name, args[:7], ints, width, height,
+                             "csr5_raster", fused)
+                    out[name][key] = parent_time(
+                        *pargs[:5], want, f"{name} exit "
+                        f"{'on' if exit_on else 'off'}", library="csr5_raster",
+                        rgb=fused, tail=1)
+                    out[name][key.replace("_ms", "_device_ms")] = device_ms(
+                        lambda p=pargs: parent_walk(*p, tail=1), 11)
+        if sweep:
+            split_sweep(f"{name} exit on, disc lane frame 120 in Morton "
+                        "order, device time",
+                        lambda w, wk, k=kernel: k(*args, split_rows=w,
+                                                  walked=wk, **kw),
+                        card, lengths, sweep=SPLIT_SWEEP5, timer=device_ms)
+            split_sweep(f"{name} exit off, disc lane frame 120 in Morton "
+                        "order, device time",
+                        lambda w, wk, k=kernel: k(*args, allow_exit=False,
+                                                  split_rows=w, walked=wk,
+                                                  **kw),
+                        card, sweep=SPLIT_SWEEP5, timer=device_ms)
     return out, b
+
+
+def print_v5_times(name, r, card):
+    """The [time] lines of compare_v5's numbers at the disc lane's frame
+    120 in Morton order."""
+    shape = "the disc lane's frame-120 shape in Morton order"
+    print(f"[time] {name} kernel {r['ms']:.3f} ms (median of 11; device "
+          f"{r['device_ms']:.3f}), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} (the pairs needed: {r['pixel_rows']} slot pixel "
+          f"rows of 32 pixels; bytes {r['bytes_ms']:.4f}; the pairs the cull "
+          f"kept {r['bound_ms_evaluated']:.4f}; every pair of the live slots "
+          f"{r['bound_ms_all_pairs']:.4f}) ({r['walked']} of {r['entries']} "
+          f"superrows walked before the exits, "
+          f"{r['walked'] / r['entries']:.3f}, holding {r['live_slots']} live "
+          f"slots); exit off {r['ms_exit_off']:.3f} ms (device "
+          f"{r['device_ms_exit_off']:.3f}), bound "
+          f"{r['bound_ms_exit_off']:.4f} ms ({r['live_slots_exit_off']} live "
+          f"slots); plain {r['plain_ms']:.1f} ms, at {shape} ({card})",
+          flush=True)
+    share = 100.0 * r["bands_exit_off"] / max(8 * r["live_slots_exit_off"],
+                                              1)
+    print(f"[time] {name} at {shape}: {stats_text(r)}; the cull keeps "
+          f"{r['bands_exit_off']} of {8 * r['live_slots_exit_off']} (live "
+          f"slot, warp block) pairs ({share:.1f}%) with every superrow "
+          f"walked, {r['bands']} with the exit ({card})", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {name} at {shape}: parent {r['parent_ms']:.3f} ms "
+              f"(device {r['parent_device_ms']:.3f}), exit off "
+              f"{r['parent_ms_exit_off']:.3f} (device "
+              f"{r['parent_device_ms_exit_off']:.3f}); change "
+              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
+              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
+              f"({card})", flush=True)
 
 
 def v5_stages(csr5, csr6, pipeline, preset, pos, fi, dev):
@@ -3736,21 +3855,11 @@ def v5_lane(card, dev, max_err, counters, seeded) -> dict:
     # Kernel == plain at frame 120, timed; and on phase 3's soups in their
     # order and in Morton order.
     timed, b = compare_v5(soups[120], cams[120], WIDTH, HEIGHT,
-                          csr5.DEFAULT_MAX_BIG, LOOK[0], timing=True)
+                          csr5.DEFAULT_MAX_BIG, LOOK[0], timing=True,
+                          card=card, sweep=True)
     for name, r in timed.items():
         max_err[name] = max(max_err[name], r["err"])
-        print(f"[time] {name} kernel {r['ms']:.3f} ms (median of 11), "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} (the pairs "
-              f"needed: {r['pixel_rows']} slot pixel rows of 32 pixels; "
-              f"bytes {r['bytes_ms']:.4f}; every pair of the live slots "
-              f"{r['bound_ms_all_pairs']:.4f}) ({r['walked']}"
-              f" of {r['entries']} superrows walked before the exits, "
-              f"{r['walked'] / r['entries']:.3f}, holding {r['live_slots']} "
-              f"live slots); exit off {r['ms_exit_off']:.3f} ms, bound "
-              f"{r['bound_ms_exit_off']:.4f} ms ({r['live_slots_exit_off']} "
-              f"live slots); plain {r['plain_ms']:.1f} "
-              f"ms, at the disc lane's frame-120 shape in Morton order "
-              f"({card})", flush=True)
+        print_v5_times(name, r, card)
     cam = soup_camera(dev)
     morton_soup = torch_soups().morton_soup
     for name, soup in seeded.items():
@@ -3864,7 +3973,7 @@ def run() -> dict:
                 csr5.raster_tiles5_shaded)
 
     # Phase 2: build from the checkout's sources, one nvcc per source (and
-    # the parent's csr6_raster.cu and csr2_raster.cu under --parent), all
+    # the parent's csr6_raster.cu and csr5_raster.cu under --parent), all
     # started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:

@@ -1,11 +1,11 @@
 // v6, v4 and v3 tile rasterizers for Hopper (sm_90a) over 32x32 pixel
-// tiles.  Seven kernels share the walk: csr6_raster (16-float binned
+// tiles.  Seven kernels share the split walk: csr6_raster (16-float binned
 // rows at span 2, 4 or 8; with bin_triangles, binned triangles too),
 // csr6_cap10 (the same walk over 10-float capsule rows), csr6_disc8
 // (8-float disc rows), csr6_disc8_uv (disc rows, with the winner's
 // lambert plane coordinates carried through the merge), csr6_rows9
 // (kind-split 9-float disc and capsule rows, any span), csr4_raster (the
-// v4 walk over per-tile entries with the z-bucket early exit) and
+// v4 walk over per-tile entry runs with the z-bucket early exit) and
 // csr3_raster (the v3 disc fast path: stable runs, a strict-< merge on
 // the entry index, the z-bucket early exit).
 //
@@ -83,17 +83,28 @@
 //
 // csr4_raster replaces pallas_csr4._make_kernel4 (v4): every binned prim
 // is expanded into the up-to-four (tile, z-bucket) entries its 2x2 tile
-// bbox covers, so a tile's rows are one contiguous entry range
+// bbox covers, so a tile's rows are one contiguous entry run
 // [starts[t], starts[t+1]) of prim ids, ascending in the bucket of their
-// depth lower bound zlb (lane 14).  After the big list, the CTA stages
-// its range in chunks of 256 rows; after each chunk it takes dmax, the
-// largest running minimum depth over all 1024 pixels of the tile (edge
-// tiles included, as the TPU block), and stops when
-// zmin + max(floor((zlb_last - zmin) * s) - 1, 0) * thr_scale > dmax,
-// zlb_last being the chunk's last real entry's: every later entry's depth
-// is at least its zlb, which is past that floor, so none can change a
-// winner (strict >: at equality a later entry with a lower id could).
-// The exit is the TPU kernel's rule, per CTA instead of per grid step.
+// depth lower bound zlb (lane 14).  What bounds it: per-pair arithmetic
+// (below) over 1024 pixels x the entries its tiles walk before their
+// exits, and how evenly that is spread: one CTA per tile left a dense
+// tile's whole run on one SM (traj_ball's cloud projects to a few tiles
+// at the frame's centre) and gathered each chunk synchronously, the big
+// list again in every tile.  Design: the split walk (csr4_walk_kernel;
+// the run is a unit of split_plan_kernel, a tile of more than split_rows
+// rows is cut into work items on persistent CTAs), rows gathered by id
+// through a cp.async ring (the big list the same way; TMA does not serve
+// scattered records found through entries[]), a split tile's items merged
+// by csr6_merge_kernel.  The exit: after each chunk an item stops when
+// zmin + max(floor((zlb_last - zmin) * s) - 1, 0) * thr_scale is strictly
+// greater than every in-image pixel's depth (its own, or the tile's
+// shared `front`), zlb_last being the chunk's last entry's: every later
+// entry's depth is at least its zlb, which is past that floor, so none
+// can change a winner (strict: at equality a later entry with a lower id
+// could).  The TPU kernel decides it per grid step over all 1024 pixels
+// of the block; both are sound.  With the exit the items go out in waves
+// and an item whose first entry already lies past the shared depths
+// skips its slice (the first-row test of csr2_raster).
 //
 // csr3_raster replaces pallas_csr3._make_kernel3 (v3, the disc fast
 // path): the binned entries are 2x2-span discs only, sorted STABLY by
@@ -175,8 +186,9 @@
 // all 1024 pixels, so the work is 1024 x (binned entries) + pixels x (big
 // rows) pairs; row bytes (64 B per row, read once per tile it touches;
 // 40 B under cap_rows10) are small beside that.  Design: rows are staged
-// through shared memory in chunks (one row per thread, gathered by sorted
-// id; by cp.async in the split walks), every thread keeps the
+// through shared memory in chunks (one row per thread, gathered by id
+// through a cp.async ring, or contiguous runs by bulk copies), every
+// thread keeps the
 // (depth, id) minima of its 4 pixels in registers, and all threads read
 // the same staged row (a shared-memory broadcast).  A disc pair must
 // execute 4 operations (dy, dy * dy, + dx * dx, <= r * r; dx and dx * dx
@@ -195,12 +207,12 @@
 // passes) + pixels x (big rows), or the bytes if larger (with an exit,
 // scaled by the share of rows walked); the (row, band) pairs their warps
 // evaluate are reported through `bands`.
-// The split walk: csr6_raster, csr6_cap10 and csr6_rows9 (cp.async ring)
-// and csr6_disc8, csr6_disc8_uv, csr3_raster (bulk copies, warp-band
-// cull) here, csr2_raster and csr2_disc8 (bulk copies; csr2_disc8 with a
-// warp cull) in csr2_raster.cu.  Not done yet: the split and asynchronous
-// staging in v4 here and in csr1_raster there; a warp cull in
-// csr5_raster.cu's disc walks.
+// The split walk: csr6_raster, csr6_cap10, csr6_rows9 and csr4_raster
+// (cp.async ring) and csr6_disc8, csr6_disc8_uv, csr3_raster (bulk copies,
+// warp-band cull) here, csr2_raster and csr2_disc8 (bulk copies;
+// csr2_disc8 with a warp cull) in csr2_raster.cu, csr5_raster and
+// csr5_shaded (bulk copies, warp cull) in csr5_raster.cu.  Not done yet:
+// csr1_raster there (one CTA per strip, synchronous staging).
 
 #include <cuda_runtime.h>
 
@@ -215,16 +227,6 @@ constexpr int kPix = kTile * kTile / kThreads;  // pixels per thread
 constexpr int kChunk = 256;                      // rows per staged chunk
 constexpr int kRowF = 16;
 constexpr float kEmpty = 16777216.0f;           // 2^24 > every prim id
-
-// Stage table row `id` into shared slot `slot` (4 x float4).
-__device__ __forceinline__ void stage_row(float4* sh, int slot,
-                                          const float* __restrict__ table,
-                                          int id) {
-  const float4* src = reinterpret_cast<const float4*>(table) +
-                      static_cast<long long>(id) * (kRowF / 4);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sh[slot * 4 + j] = src[j];
-}
 
 // One pair of a staged 16-float row (a, b, c, e = its four float4s): the
 // triangle dual when kTri and the row's kind flag (lane 15) is set, else
@@ -248,11 +250,10 @@ __device__ __forceinline__ bool pair16(const float4& a, const float4& b,
 // bin_triangles, for binned rows; otherwise binned rows are
 // discs/capsules and take the capsule body alone, as on the TPU.  kUV
 // also keeps the winner's (u, v): a big-list disc (no triangle, lane 13
-// > 0) gives dx * flag and -dy * flag, any other row +inf.  kLazy (the
-// split walks) divides a triangle's 1 / iz only at covered pairs: nothing
-// else reads it, and iz > 0 there, so the depth is tri_pair's.  The other
-// walks keep the eager division, with which their kernels were measured.
-template <bool kTri, bool kUV, bool kLazy = false>
+// > 0) gives dx * flag and -dy * flag, any other row +inf.  A triangle's
+// 1 / iz is divided only at covered pairs: nothing else reads it, and iz >
+// 0 there, so the depth is tri_pair's.
+template <bool kTri, bool kUV>
 __device__ __forceinline__ void eval_rows(const float4* sh, int count,
                                           float qx, const float* qy,
                                           float* d, float* di, float* u,
@@ -267,7 +268,7 @@ __device__ __forceinline__ void eval_rows(const float4* sh, int count,
     // The row's kind is the same for every thread (a broadcast row), so
     // the branch does not diverge: a big-list capsule skips the triangle
     // body and its division.
-    if (kLazy && kTri && e.w > 0.0f) {
+    if (kTri && e.w > 0.0f) {
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
         float iz;
@@ -844,13 +845,13 @@ csr6_walk_kernel(const float* __restrict__ table,
       const int r0 = min(max(skip - c_start, 0), c_cnt);
       const float4* sh4 = reinterpret_cast<const float4*>(sh);
       if (c_start < big_n) {
-        eval_rows<true, false, true>(sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di,
+        eval_rows<true, false>(sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di,
                                      nullptr, nullptr);
       } else {
         if (kMode == kRows10)
           eval_rows10(sh + r0 * kRowF10, c_cnt - r0, qx, qy, d, di);
         else
-          eval_rows<kMode == kRows16Tri, false, true>(
+          eval_rows<kMode == kRows16Tri, false>(
               sh4 + r0 * 4, c_cnt - r0, qx, qy, d, di, nullptr, nullptr);
         done += c_cnt - r0;
         if (kMode != kRows10 && segs && r0 < c_cnt) {
@@ -1013,7 +1014,7 @@ csr6_rows9_walk_kernel(const float* __restrict__ rows9,
       stage(slot ^ 1, n_start, n_cnt);
       const float* sh = ring + slot * kSlotF;
       if (c_start < big_n)
-        eval_rows<true, false, true>(reinterpret_cast<const float4*>(sh),
+        eval_rows<true, false>(reinterpret_cast<const float4*>(sh),
                                      c_cnt, qx, qy, d, di, nullptr, nullptr);
       else if (c_start < disc_end)
         eval_rows9<false>(sh, c_cnt, qx, qy, d, di);
@@ -1064,72 +1065,192 @@ int launch_split_walk(const float* table, const float* big_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The v4 walk: big list first, then the tile's entry range in chunks of
-// kChunk rows gathered by prim id, with the z-bucket early exit when the
-// keys carry buckets (zq_bits > 0).  zmeta = (zmin, s, thr_scale).
+// The split walk of csr4_raster (v4; see the header).  A unit is one
+// tile; its flat rows are its live big rows (table rows by big_ids), then
+// its entry run [starts[t], starts[t+1]) (table rows by entries[]), sized
+// by the plan as one run (StripRows with one pass).  Persistent CTAs take
+// work items from the plan, as csr6_walk_kernel; an item is the slice
+// [lo, hi) of its tile's flat rows, gathered by id in chunks of kChunk
+// 64 B rows (thread t copies row t of a chunk by four 16-byte cp.async
+// copies) through a ring of two shared-memory slots, the next chunk in
+// flight and the id of this thread's row in the chunk after it loaded
+// while a chunk is evaluated.  Chunks never straddle the big/entry
+// boundary.  The exit (exit_on: the keys carry z-buckets): a tile's run
+// ascends in the bucket of its rows' zlb (lane 14), so after each chunk
+// of entries the item folds its depths into the tile's `front` (a split
+// tile's; the plan resets it) and stops when every in-image pixel lies
+// strictly nearer than zmin + max(floor((zlb_last - zmin) * s) - 1, 0) *
+// thr_scale (exit_step): no later entry of the run can win.  Strict: the
+// front may hold a depth that a later item met, and an entry of this item
+// at that depth with a lower id would win.  With the exit the plan hands
+// the items out in waves (every tile's first item, then every tile's
+// second, ...), so that a split tile's deep items start after its front
+// ones have filled `front`, and an item whose first entry's floor already
+// lies past the shared depths skips its slice.  A tile of one item writes
+// the image; the items of a split tile write their (depth, id) minima to
+// `partial` (csr6_merge_kernel).  walked (null or (T)) sums the entries
+// each tile's items evaluated.
 template <bool kTri>
-__global__ void __launch_bounds__(kThreads)
-csr4_tile_kernel(const float* __restrict__ table,
+__global__ void __launch_bounds__(kThreads, 2)
+csr4_walk_kernel(const float* __restrict__ table,
                  const int* __restrict__ entries,
                  const int* __restrict__ starts,
                  const int* __restrict__ big_ids,
-                 const int* __restrict__ big_n_ptr,
-                 const float* __restrict__ zmeta,
-                 float* __restrict__ depth_out, int* __restrict__ index_out,
-                 int* __restrict__ walked, int width, int height, int tiles_x,
-                 int zq_bits) {
-  __shared__ float4 sh[kChunk * 4];
-  __shared__ float warp_max[kThreads / 32];
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
+                 const int* __restrict__ big_n_ptr, int big_cap,
+                 const float* __restrict__ zmeta, int* __restrict__ plan,
+                 float* __restrict__ partial, float* __restrict__ depth_out,
+                 int* __restrict__ index_out, int* __restrict__ walked,
+                 int* __restrict__ front, int width, int height,
+                 int tiles_x, int num_tiles, int max_items, int exit_on) {
+  extern __shared__ __align__(16) float ring[];  // kRing x kSlotF floats
+  __shared__ int s_item;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  float qy[kPix], d[kPix], di[kPix];
-  const float qx = init_pixels(tx, ty, qy, d, di);
-
-  const int big_n = *big_n_ptr;
-  for (int base = 0; base < big_n; base += kChunk) {
-    const int cnt = min(kChunk, big_n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh, tid, table, big_ids[base + tid]);
-    __syncthreads();
-    eval_rows<true, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
-  }
-
+  const int* items_cum = plan;
+  const int* item_tile = plan + num_tiles;
+  int* sched = plan + num_tiles + max_items;
+  const int n_items = sched[0];
+  const int big_n = min(*big_n_ptr, big_cap);
   const float zmin = zmeta[0], zs = zmeta[1], thr_scale = zmeta[2];
-  const int s = starts[tile];
-  const int n = starts[tile + 1] - s;
-  int done = n;  // entries evaluated before the exit
-  for (int base = 0; base < n; base += kChunk) {
-    const int cnt = min(kChunk, n - base);
-    __syncthreads();
-    if (tid < cnt) stage_row(sh, tid, table, entries[s + base + tid]);
-    __syncthreads();
-    eval_rows<kTri, false>(sh, cnt, qx, qy, d, di, nullptr, nullptr);
-    if (zq_bits > 0) {
-      // dmax over the tile's 1024 pixels (depths are never NaN: a NaN
-      // depth fails both merge compares).
-      float m = fmaxf(fmaxf(d[0], d[1]), fmaxf(d[2], d[3]));
+  const float inf = __int_as_float(0x7f800000);
+
+  for (;;) {
+    const int ticket = next_item(sched, &s_item);
+    if (ticket >= n_items) break;
+    // With the exit the plan hands the items out in waves (ticket_item).
+    const int item = exit_on ? sched[3 + ticket] : ticket;
+    const int tile = item_tile[item];
+    const int first = tile > 0 ? items_cum[tile - 1] : 0;
+    const int n = items_cum[tile] - first;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int* run = entries + starts[tile];
+    int lo, hi;
+    item_slice(static_cast<long long>(big_n) + starts[tile + 1] -
+                   starts[tile],
+               item, first, n, &lo, &hi);
+    float qy[kPix], d[kPix], di[kPix], bound_d[kPix];
+    bool in_image[kPix];
+    const float qx = init_pixels(tx, ty, qy, d, di);
+    const int px = tx * kTile + (tid & (kTile - 1));
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane == 0) warp_max[warp] = m;
-      __syncthreads();
-      float dmax = warp_max[0];
-#pragma unroll
-      for (int w = 1; w < kThreads / 32; ++w) dmax = fmaxf(dmax, warp_max[w]);
-      const float zlb_last = sh[(cnt - 1) * 4 + 3].z;
-      float qz = floorf((zlb_last - zmin) * zs) - 1.0f;
-      qz = qz < 0.0f ? 0.0f : qz;  // NaN stays NaN (jnp.maximum), no exit
-      if (zmin + qz * thr_scale > dmax) {  // the same for every thread
-        done = base + cnt;
-        break;
-      }
+    for (int k = 0; k < kPix; ++k) {
+      in_image[k] = px < width && ty * kTile + (tid >> 5) + 8 * k < height;
+      // The depths the exit tests besides this item's: the tile's shared
+      // ones when it is split (+inf until then); -inf off the image.
+      bound_d[k] = in_image[k] ? inf : -inf;
     }
+    int* tile_front = exit_on && n > 1
+                          ? front + static_cast<long long>(tile) * kTilePix
+                          : nullptr;
+    if (tile_front != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        if (in_image[k])
+          bound_d[k] = key_depth(__ldcg(&tile_front[tid + kThreads * k]));
+      if (lo >= big_n && lo < hi &&
+          exit_past(d, bound_d,
+                    bucket_floor(__ldg(&table[static_cast<long long>(__ldg(
+                                                  &run[lo - big_n])) *
+                                                  kRowF + 14]),
+                                 zmin, zs, thr_scale)))
+        hi = lo;
+    }
+    // The table row of flat row f.
+    auto row_id = [&](int f) {
+      return __ldg(f < big_n ? &big_ids[f] : &run[f - big_n]);
+    };
+
+    int issue = lo;     // the next flat row to stage
+    bool stop = false;  // the exit was taken: stage and evaluate no more
+    int done = 0;       // entries evaluated
+    auto next_chunk = [&](int* start, int* cnt) {
+      *start = issue;
+      const int end = stop ? issue : issue < big_n ? min(big_n, hi) : hi;
+      *cnt = min(kChunk, max(end - issue, 0));
+      issue += *cnt;
+    };
+    int pf = -1, pf_id = 0;  // this thread's row of the next chunk, its id
+    auto stage = [&](int slot, int start, int cnt) {
+      if (tid < cnt) {
+        const int f = start + tid;
+        const float* src =
+            table + static_cast<long long>(f == pf ? pf_id : row_id(f)) *
+                        kRowF;
+        float* dst = ring + slot * kSlotF + tid * kRowF;
+#pragma unroll
+        for (int j = 0; j < kRowF; j += 4) cp_async16(dst + j, src + j);
+      }
+      cp_async_commit();
+      // The id of this thread's row in the chunk after, loaded now so that
+      // its latency hides behind the evaluation.
+      pf = issue + tid;
+      if (pf < hi)
+        pf_id = row_id(pf);
+      else
+        pf = -1;
+    };
+
+    int slot = 0, n_start, n_cnt;
+    next_chunk(&n_start, &n_cnt);
+    stage(0, n_start, n_cnt);
+    for (;;) {
+      const int c_start = n_start, c_cnt = n_cnt;
+      if (c_cnt == 0) break;  // the same in every thread
+      cp_async_wait_all();
+      __syncthreads();  // chunk staged and visible; the other slot is free
+      next_chunk(&n_start, &n_cnt);
+      stage(slot ^ 1, n_start, n_cnt);
+      const float* sh = ring + slot * kSlotF;
+      slot ^= 1;
+      if (stop) continue;  // a chunk staged before the exit
+      const float4* sh4 = reinterpret_cast<const float4*>(sh);
+      if (c_start < big_n) {
+        eval_rows<true, false>(sh4, c_cnt, qx, qy, d, di, nullptr, nullptr);
+        continue;
+      }
+      eval_rows<kTri, false>(sh4, c_cnt, qx, qy, d, di, nullptr, nullptr);
+      done += c_cnt;
+      // The chunk's last zlb bounds every later entry of the run.
+      if (exit_on)
+        stop = exit_step(tile_front, tid, kThreads, in_image, d, bound_d,
+                         c_start + c_cnt < hi,  // entries of the item left
+                         bucket_floor(sh[(c_cnt - 1) * kRowF + 14], zmin, zs,
+                                      thr_scale));
+    }
+
+    if (n == 1)
+      write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+    else
+      write_partial(partial, item, d, di);
+    if (walked != nullptr && tid == 0 && done > 0)
+      atomicAdd(&walked[tile], done);
   }
-  if (walked != nullptr && tid == 0) walked[tile] = done;
-  write_tile(d, di, tx, ty, width, height, depth_out, index_out);
+}
+
+// Plan, walk and merge of the v4 walk on `st`; returns the first launch
+// error.
+template <bool kTri>
+int walk4(const float* table, const int* entries, const int* starts,
+          const int* big_ids, const int* big_n, int big_cap,
+          const float* zmeta, int* front, int* walked, float* depth,
+          int* index, int* plan, float* partial, int width, int height,
+          int tiles_x, int num_tiles, int exit_on, int split_rows,
+          int max_items, cudaStream_t st) {
+  split_plan_kernel<StripRows><<<1, kPlanThreads, 0, st>>>(
+      StripRows{starts, 1}, big_n, big_cap, num_tiles, split_rows, max_items,
+      plan, walked, num_tiles, exit_on ? front : nullptr, exit_on);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int ctas = persistent_ctas(csr4_walk_kernel<kTri>, kRingBytes);
+  csr4_walk_kernel<kTri><<<min(ctas, max_items), kThreads, kRingBytes, st>>>(
+      table, entries, starts, big_ids, big_n, big_cap, zmeta, plan, partial,
+      depth, index, walked, front, width, height, tiles_x, num_tiles,
+      max_items, exit_on);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr6_merge_kernel<false><<<num_tiles, kThreads, 0, st>>>(
+      plan, partial, depth, index, nullptr, nullptr, width, height, tiles_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The split walk of csr6_disc8 and csr6_disc8_uv (8-float disc rows in
@@ -1314,7 +1435,7 @@ csr6_disc_walk_kernel(const float* __restrict__ rows8,
       const int r0 = min(max(skip - c_start, 0), c_cnt);
       if (c_start < big_n) {
         if (band_in)
-          eval_rows<true, kUV, true>(
+          eval_rows<true, kUV>(
               reinterpret_cast<const float4*>(sh) + r0 * 4, c_cnt - r0, qx,
               qy, d, di, u, v);
       } else {
@@ -1820,31 +1941,36 @@ extern "C" int csr3_raster(const float* rows8, const float* big_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The v4 walk.  table (P+1, 16) f32 with row P all zero; entries (>=
-// starts[T]) i32 prim ids in (tile, z-bucket) key order; starts (T+1) i32
-// per-tile entry ranges; big_ids (>= *big_n) i32; big_n one i32 on the
-// device; zmeta (3) f32 (zmin, s, thr_scale); depth (H, W) f32; index
-// (H, W) i32; walked null or (T) i32, each tile's count of entries
-// evaluated before its exit.  zq_bits > 0 turns the z-bucket early exit
-// on; bin_triangles != 0 evaluates the entries through the dual.
+// The v4 walk (split).  table (P+1, 16) f32 with row P all zero, 16-byte
+// aligned; entries (>= starts[T]) i32 prim ids in (tile, z-bucket) key
+// order; starts (T+1) i32 per-tile entry runs; big_ids (big_cap) i32, the
+// first min(*big_n, big_cap) live; big_n one i32 on the device; zmeta (3)
+// f32 (zmin, s, thr_scale); front, with zq_bits > 0, (T, 1024) i32
+// scratch (the plan resets it); walked null or (T) i32, each tile's count
+// of entries evaluated before its exit (the plan zeroes it); depth (H, W)
+// f32; index (H, W) i32; plan (T + 3 max_items + 3) i32 and partial
+// (max_items, 2, 1024) f32 scratch.  zq_bits > 0 turns the z-bucket early
+// exit on; bin_triangles != 0 evaluates the entries through the dual; a
+// tile of more than split_rows rows is cut into items (max_items >= T in
+// all).
 extern "C" int csr4_raster(const float* table, const int* entries,
                            const int* starts, const int* big_ids,
-                           const int* big_n, const float* zmeta, float* depth,
-                           int* index, int* walked, int width, int height,
-                           int tiles_x, int tiles_y, int zq_bits,
-                           int bin_triangles, void* stream) {
+                           const int* big_n, const float* zmeta, int* front,
+                           int* walked, float* depth, int* index, int* plan,
+                           float* partial, int big_cap, int width,
+                           int height, int tiles_x, int tiles_y, int zq_bits,
+                           int bin_triangles, int split_rows, int max_items,
+                           void* stream) {
   const int num_tiles = tiles_x * tiles_y;
+  const int exit_on = zq_bits > 0;
+  if (split_rows < 1 || max_items < num_tiles || (exit_on && !front))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bin_triangles)
-    csr4_tile_kernel<true><<<num_tiles, kThreads, 0, st>>>(
-        table, entries, starts, big_ids, big_n, zmeta, depth, index, walked,
-        width, height, tiles_x, zq_bits);
-  else
-    csr4_tile_kernel<false><<<num_tiles, kThreads, 0, st>>>(
-        table, entries, starts, big_ids, big_n, zmeta, depth, index, walked,
-        width, height, tiles_x, zq_bits);
-  return static_cast<int>(cudaGetLastError());
+  return (bin_triangles ? walk4<true> : walk4<false>)(
+      table, entries, starts, big_ids, big_n, big_cap, zmeta, front, walked,
+      depth, index, plan, partial, width, height, tiles_x, num_tiles,
+      exit_on, split_rows, max_items, st);
 }
 
 // The discs_only walk (split, culled).  rows8 (>= starts[-1], 8) f32 disc

@@ -1,6 +1,7 @@
 // Pieces shared by the port's split walks (csr6_raster.cu: csr6_raster,
-// csr6_cap10, csr6_rows9, csr6_disc8, csr6_disc8_uv, csr3_raster;
-// csr2_raster.cu: csr2_raster, csr2_disc8).  A split walk
+// csr6_cap10, csr6_rows9, csr6_disc8, csr6_disc8_uv, csr4_raster,
+// csr3_raster; csr2_raster.cu: csr2_raster, csr2_disc8; csr5_raster.cu:
+// csr5_raster, csr5_shaded).  A split walk
 // runs in three launches:
 //   (1) split_plan_kernel sizes every unit of pixels (a 32x32 tile, or a
 //       1024-pixel pass of a strip) in rows, its live big rows included,
@@ -319,9 +320,11 @@ __device__ __forceinline__ void item_slice(long long rows, int item,
 
 // Fold the (depth, id) minima of items [first, first + n) of `partial`
 // ((items, kPlanes, kUnitPix) floats) into this thread's pixels tid + 256
-// k.  With kPlanes 4 the items also carry the winner's (u, v), which are
-// taken where merge_pair takes the item's minimum (they change only under
-// the predicate that changes depth and id).
+// k.  With kPlanes 3 the items also carry one more plane of the winner
+// (u: csr5_shaded's winner location), with kPlanes 4 two (u, v: the
+// winner's lambert coordinates); they are taken where merge_pair takes
+// the item's minimum (they change only under the predicate that changes
+// depth and id).
 template <int kPlanes = 2>
 __device__ __forceinline__ void fold_partials(const float* __restrict__
                                                   partial,
@@ -338,16 +341,16 @@ __device__ __forceinline__ void fold_partials(const float* __restrict__
       merge_pair(true, p[o], p[kUnitPix + o], &d[k], &di[k]);
       // merge_pair took the item's minimum exactly when (d, di) changed:
       // a strictly smaller depth, or the same depth and a smaller id.
-      if (kPlanes == 4 && (d[k] != d0 || di[k] != di0)) {
+      if (kPlanes >= 3 && (d[k] != d0 || di[k] != di0)) {
         u[k] = p[2 * kUnitPix + o];
-        v[k] = p[3 * kUnitPix + o];
+        if (kPlanes == 4) v[k] = p[3 * kUnitPix + o];
       }
     }
   }
 }
 
-// This thread's minima (and with kPlanes 4 its (u, v)) as item `item`'s
-// partial; its pixel k is p0 + dp * k of the unit.
+// This thread's minima (and with kPlanes 3 its u, with 4 its (u, v)) as
+// item `item`'s partial; its pixel k is p0 + dp * k of the unit.
 template <int kPlanes = 2>
 __device__ __forceinline__ void write_partial(
     float* __restrict__ partial, int item, const float* d, const float* di,
@@ -359,20 +362,20 @@ __device__ __forceinline__ void write_partial(
     const int o = p0 + dp * k;
     out[o] = d[k];
     out[kUnitPix + o] = di[k];
-    if (kPlanes == 4) {
-      out[2 * kUnitPix + o] = u[k];
-      out[3 * kUnitPix + o] = v[k];
-    }
+    if (kPlanes >= 3) out[2 * kUnitPix + o] = u[k];
+    if (kPlanes == 4) out[3 * kUnitPix + o] = v[k];
   }
 }
 
 // ---- the early exit --------------------------------------------------------
 
-// Whether every pixel of the CTA lies nearer than `bound`, at this item's
-// minimum d or at the depths the unit's other items shared (bound_d: +inf
-// in a unit of one item, -inf off the image, so those pixels never hold
-// the exit).  Strict: at equality a later row with a lower id could win.
-// A barrier of the whole CTA.
+// Whether every pixel of the CTA (kWarp: of the warp) lies nearer than
+// `bound`, at this item's minimum d or at the depths the unit's other
+// items shared (bound_d: +inf in a unit of one item, -inf off the image,
+// so those pixels never hold the exit).  Strict: at equality a later row
+// with a lower id could win.  A barrier of the whole CTA (kWarp: a vote
+// of the warp, for walks whose warps leave an item one by one).
+template <bool kWarp = false>
 __device__ __forceinline__ bool exit_past(const float* d,
                                           const float* bound_d,
                                           float bound) {
@@ -380,6 +383,7 @@ __device__ __forceinline__ bool exit_past(const float* d,
 #pragma unroll
   for (int k = 0; k < kUnitPixPerThread; ++k)
     past = past && fminf(d[k], bound_d[k]) < bound;
+  if (kWarp) return __all_sync(0xffffffffu, past) != 0;
   return __syncthreads_and(past) != 0;
 }
 
@@ -387,8 +391,10 @@ __device__ __forceinline__ bool exit_past(const float* d,
 // thread's minima into the unit's shared depths (unit_front, null in a
 // unit of one item; pixel k at p0 + dp * k, in-image ones only) and
 // lower bound_d to the result, then, where rows past the chunk could be
-// left (`goes_on`, the same in every thread), whether they may be:
-// exit_past against `bound`, the least depth any of them can have.
+// left (`goes_on`, the same in every thread of the CTA, kWarp: of the
+// warp), whether they may be: exit_past against `bound`, the least depth
+// any of them can have.
+template <bool kWarp = false>
 __device__ __forceinline__ bool exit_step(int* unit_front, int p0, int dp,
                                           const bool* in_image,
                                           const float* d, float* bound_d,
@@ -402,7 +408,7 @@ __device__ __forceinline__ bool exit_step(int* unit_front, int p0, int dp,
       bound_d[k] = key_depth(min(old, key));
     }
   }
-  return goes_on && exit_past(d, bound_d, bound);
+  return goes_on && exit_past<kWarp>(d, bound_d, bound);
 }
 
 // One resident CTA per free slot of every SM: the grid of a persistent

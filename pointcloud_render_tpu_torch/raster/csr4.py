@@ -16,8 +16,8 @@ changes a winner, so the plain version walks every entry.
    order, and ``zmeta`` = (zmin, s, thr_scale) over the binned prims' zlb;
 2. ``csr6.build_table16`` — the shared 16-float rows (lane 14 = zlb);
 3. ``raster_tiles4`` — the ``csr4_raster`` kernel of
-   ``csrc/csr6_raster.cu`` on CUDA tensors, :func:`raster_tiles4_plain`
-   on CPU tensors;
+   ``csrc/csr6_raster.cu`` (a split walk, as the v6 walk's) on CUDA
+   tensors, :func:`raster_tiles4_plain` on CPU tensors;
 4. ``csr6.shade_by_id`` — the ``pallas_csr4._shade_by_id`` epilogue.
 
 ``entry_capacity`` is semantic: entries past it are dropped, and the
@@ -184,26 +184,26 @@ def _check_inputs4(table, entries, starts, big_ids, big_n, zmeta, width,
 
 def raster_tiles4(table, entries, starts, big_ids, big_n, zmeta, width: int,
                   height: int, zq: int, bin_triangles: bool = False,
-                  walked=None):
+                  walked=None, split_rows: int = csr6.SPLIT_ROWS4):
     """The v4 walk -> (depth (H, W) f32 +inf-empty, index (H, W) i32
     -1-empty): per tile, the live big rows ``table[big_ids[:big_n]]``
     through the dual evaluation, then the entries ``table[entries[i]]``,
     i in [starts[t], starts[t+1]) (through the dual under
     ``bin_triangles``, else the capsule body), with the z-bucket early
     exit of ``zmeta`` when ``zq`` > 0.  CUDA tensors launch the
-    ``csr4_raster`` kernel of ``csrc/csr6_raster.cu``; CPU tensors take
+    ``csr4_raster`` kernel of ``csrc/csr6_raster.cu`` (a split walk: a
+    tile of more than ``split_rows`` rows, at least 1, is walked by
+    several CTAs whose minima are merged; the kernel may take larger
+    items, and the result does not depend on it); CPU tensors take
     :func:`raster_tiles4_plain`.  ``walked``, a (T,) int32 tensor, takes
     each tile's count of entries evaluated before its exit (the whole
-    range on the plain walk, which has none).  ``.launches`` counts
-    launches."""
+    range on the plain walk, which has none; with the exit on, a split
+    tile's items share their depths as they run, so it may differ between
+    runs, the images do not).  ``.launches`` counts calls."""
     tiles_x, tiles_y = _check_inputs4(table, entries, starts, big_ids, big_n,
                                       zmeta, width, height)
-    if walked is not None and (walked.dtype != torch.int32
-                               or walked.shape != (tiles_x * tiles_y,)
-                               or walked.device != table.device
-                               or not walked.is_contiguous()):
-        raise ValueError("walked must be a contiguous (T,) int32 tensor on "
-                         "the table's device")
+    csr6._check_exit_walk(None, walked, split_rows, table.device,
+                          tiles_x * tiles_y, csr6.SPAN)
     if table.device.type == "cpu":
         if walked is not None:
             walked.copy_(starts[1:] - starts[:-1])
@@ -215,14 +215,15 @@ def raster_tiles4(table, entries, starts, big_ids, big_n, zmeta, width: int,
         t.contiguous() for t in (table, entries, starts, big_ids, big_n,
                                  zmeta))
     dev = table.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    csr6._launch("csr4_raster", (table, entries, starts, big_ids, big_n,
-                                 zmeta, depth, index, walked),
-                 (width, height, tiles_x, tiles_y, zq, int(bin_triangles)),
-                 dev)
-    raster_tiles4.launches += 1
-    return depth, index
+    # The exit's depths shared by a split tile's items (the kernel's plan
+    # resets those it reads).
+    front = torch.empty((tiles_x * tiles_y, TILE * TILE), dtype=torch.int32,
+                        device=dev) if zq > 0 else None
+    return csr6._launch_walk(
+        "csr4_raster", raster_tiles4,
+        (table, entries, starts, big_ids, big_n, zmeta, front, walked),
+        ((table, 4 * csr6.ROW_F),), big_ids.shape[0], width, height, tiles_x,
+        tiles_y, (zq, int(bin_triangles)), split_rows, dev)
 
 
 raster_tiles4.launches = 0
@@ -230,13 +231,18 @@ raster_tiles4.launches = 0
 
 def raster_tiles4_plain(table, entries, starts, big_ids, big_n, zmeta,
                         width: int, height: int, zq: int,
-                        bin_triangles: bool = False):
+                        bin_triangles: bool = False,
+                        split_rows: int = csr6.SPLIT_ROWS4):
     """Plain PyTorch version of :func:`raster_tiles4`, on any device: every
     entry over its tile's pixels (no early exit: the exit never changes a
     winner) and the live big rows over the image, each clipped to the
-    row's window, merged by the two-step lexicographic min."""
+    row's window, merged by the two-step lexicographic min.
+    ``split_rows`` (at least 1) cuts nothing here: the result is the
+    kernel's at every split."""
     _check_inputs4(table, entries, starts, big_ids, big_n, zmeta, width,
                    height)
+    if split_rows < 1:
+        raise ValueError("split_rows must be >= 1")
     tiles_x, _ = csr6.grid_shape(width, height)
     n = int(starts[-1])
     pos = torch.arange(n, dtype=torch.int64, device=table.device)

@@ -26,8 +26,9 @@ the chunks).
    rflag) and their kinds; ``meta5`` the (16,) meta vector of zmeta and
    :func:`look5`; :func:`tables5` builds the three for one frame;
 4. ``raster_tiles5`` / ``raster_tiles5_shaded`` — the ``csr5_raster`` /
-   ``csr5_shaded`` kernels of ``csrc/csr5_raster.cu`` on CUDA tensors,
-   :func:`raster_tiles5_plain` on CPU tensors.
+   ``csr5_shaded`` kernels of ``csrc/csr5_raster.cu`` (a split walk with
+   a warp cull; :func:`block_slots5` counts the pairs its cull keeps) on
+   CUDA tensors, :func:`raster_tiles5_plain` on CPU tensors.
 
 Knobs: ``k``, ``max_span``, ``max_spill``, ``max_big``, ``entry_capacity``
 (the sorted entries past it are dropped), ``tile_h``/``tile_w`` (a tile of
@@ -82,7 +83,7 @@ PAD8 = np.array([0.0, 0.0, np.inf, 0.0, F_EMPTY, 0.0, 0.0, 0.0],
                 np.float32)
 BIG_F = 17  # 12 params, id, rgb, rflag
 META_F = 16  # zmin, s, thr_scale, light (3), ambient, diffuse, bg (3), uc (3)
-# The kernel stages superrows of k * 8 floats in 17 KB of shared memory.
+# The kernels stage superrows of k * 8 floats in 16 KB ring slots.
 MAX_KERNEL_K = 512
 TILE_WIDTHS = (16, 32, 64, 128)
 
@@ -397,7 +398,8 @@ def tables5(prims: ScreenPrimitives, binned: dict, shade_rgb, look,
 # ---------------------------------------------------------------------------
 
 def _check_inputs5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
-                   width, height, tile_h, tile_w, k, check_every, walked):
+                   width, height, tile_h, tile_w, k, check_every,
+                   split_rows, walked=None, bands=None):
     check_tile_shape(tile_h, tile_w)
     if check_every < 1:
         raise ValueError("check_every must be >= 1")
@@ -420,12 +422,8 @@ def _check_inputs5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
         raise ValueError("big_n must hold one element")
     if meta.dtype != torch.float32 or meta.shape != (META_F,):
         raise ValueError("meta must be (16,) float32")
-    if walked is not None and (walked.dtype != torch.int32
-                               or walked.shape != (tiles_x * tiles_y,)
-                               or walked.device != tab.device
-                               or not walked.is_contiguous()):
-        raise ValueError("walked must be a contiguous (T,) int32 tensor on "
-                         "the table's device")
+    csr6._check_exit_walk(None, walked, split_rows, tab.device,
+                          tiles_x * tiles_y, csr6.SPAN, bands)
     csr6._check_one_device(tab, chunks, starts, big_params, big_kinds, big_n,
                            meta)
     return tiles_x, tiles_y
@@ -433,13 +431,17 @@ def _check_inputs5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
 
 def _raster5(wrapper, fused, uniform, tab, chunks, starts, big_params,
              big_kinds, big_n, meta, width, height, tile_h, tile_w, k,
-             check_every, allow_exit, walked):
+             check_every, allow_exit, walked, bands, split_rows):
     tiles_x, tiles_y = _check_inputs5(tab, chunks, starts, big_params,
                                       big_kinds, big_n, meta, width, height,
-                                      tile_h, tile_w, k, check_every, walked)
+                                      tile_h, tile_w, k, check_every,
+                                      split_rows, walked, bands)
     if tab.device.type == "cpu":
         if walked is not None:
             walked.copy_(starts[1:] - starts[:-1])
+        if bands is not None:
+            bands.copy_(block_slots5(tab, chunks, starts, width, height,
+                                     tile_h, tile_w, k))
         return raster_tiles5_plain(tab, chunks, starts, big_params,
                                    big_kinds, big_n, meta, width, height,
                                    tile_h, tile_w, k, fused, uniform)
@@ -450,31 +452,39 @@ def _raster5(wrapper, fused, uniform, tab, chunks, starts, big_params,
     tab, chunks, starts, big_params, big_kinds, big_n, meta = (
         t.contiguous() for t in (tab, chunks, starts, big_params, big_kinds,
                                  big_n, meta))
+    csr6.check_aligned(((tab, 4 * k * ROW_F),))
     dev = tab.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
+    num_tiles = tiles_x * tiles_y
+    if bands is not None:
+        bands.zero_()
+    # The exit's depths shared by a split tile's items (the kernel's plan
+    # resets those it reads).
+    front = torch.empty((num_tiles, csr6.TILE * csr6.TILE),
+                        dtype=torch.int32, device=dev) if allow_exit else None
+    outs = [torch.empty((height, width), dtype=torch.float32, device=dev),
+            torch.empty((height, width), dtype=torch.int32, device=dev)]
+    if fused:
+        outs.append(torch.empty((height, width, 3), dtype=torch.float32,
+                                device=dev))
+    plan, partial, max_items = csr6.split_scratch(num_tiles, 3 if fused else 2,
+                                                  dev)
     ints = (big_kinds.shape[0], width, height, tiles_x, tiles_y, tile_h,
             tile_w, k, check_every, int(allow_exit))
-    ptrs = (tab, chunks, starts, big_params, big_kinds, big_n, meta, depth,
-            index)
-    if fused:
-        rgb = torch.empty((height, width, 3), dtype=torch.float32,
-                          device=dev)
-        csr6._launch("csr5_shaded", ptrs + (rgb, walked),
-                     ints + (int(uniform),), dev, library="csr5_raster")
-        wrapper.launches += 1
-        return depth, index, rgb
-    csr6._launch("csr5_raster", ptrs + (walked,), ints, dev,
-                 library="csr5_raster")
+    csr6._launch("csr5_shaded" if fused else "csr5_raster",
+                 (tab, chunks, starts, big_params, big_kinds, big_n, meta,
+                  front, walked, bands, *outs, plan, partial),
+                 ints + ((int(uniform),) if fused else ())
+                 + (split_rows, max_items), dev, library="csr5_raster")
     wrapper.launches += 1
-    return depth, index
+    return tuple(outs)
 
 
 def raster_tiles5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
                   width: int, height: int, tile_h: int = 32,
                   tile_w: int = 32, k: int = DEFAULT_K,
                   check_every: int = DEFAULT_CHECK_EVERY,
-                  allow_exit: bool = True, walked=None):
+                  allow_exit: bool = True, walked=None, bands=None,
+                  split_rows: int = csr6.SPLIT_ROWS5):
     """The v5 walk -> (depth (H, W) f32 +inf-empty, index (H, W) i32
     -1-empty): per tile, the live big rows (``big_params[:, :big_n]``,
     triangle or capsule by ``big_kinds``) with the full (depth, id)
@@ -485,13 +495,20 @@ def raster_tiles5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
     the last superrow's bucket passes the tile's deepest winner, checked
     every ``check_every`` superrows (the exit never changes a winner).
     CUDA tensors launch the ``csr5_raster`` kernel of
-    ``csrc/csr5_raster.cu``; CPU tensors take :func:`raster_tiles5_plain`.
-    ``walked``, a (T,) int32 tensor, takes each tile's count of superrows
-    evaluated before its exit (the whole run on the plain walk).
-    ``.launches`` counts launches."""
+    ``csrc/csr5_raster.cu`` (a split walk: a tile of more than
+    ``split_rows`` rows, at least 1, is walked by several CTAs whose
+    minima are merged, each warp skipping the slots that miss its block of
+    pixels); CPU tensors take :func:`raster_tiles5_plain`.  ``walked``, a
+    (T,) int32 tensor, takes each tile's count of superrows passed before
+    its exit (the whole run on the plain walk; with the exit on, a split
+    tile's items share their depths as they run, so it may differ between
+    runs, the images do not), ``bands`` its count of (live slot, warp
+    block) pairs the cull kept (:func:`block_slots5` on the plain walk).
+    ``.launches`` counts calls."""
     return _raster5(raster_tiles5, False, False, tab, chunks, starts,
                     big_params, big_kinds, big_n, meta, width, height,
-                    tile_h, tile_w, k, check_every, allow_exit, walked)
+                    tile_h, tile_w, k, check_every, allow_exit, walked,
+                    bands, split_rows)
 
 
 raster_tiles5.launches = 0
@@ -502,19 +519,73 @@ def raster_tiles5_shaded(tab, chunks, starts, big_params, big_kinds, big_n,
                          tile_w: int = 32, k: int = DEFAULT_K,
                          check_every: int = DEFAULT_CHECK_EVERY,
                          uniform: bool = False, allow_exit: bool = True,
-                         walked=None):
+                         walked=None, bands=None,
+                         split_rows: int = csr6.SPLIT_ROWS5):
     """:func:`raster_tiles5` with the shade fused -> (depth, index, rgb
-    (H, W, 3)): the merge carries the winner's px, py, rflag and rgb (the
-    uniform color of ``meta`` for binned winners under ``uniform``), and
-    the tile's epilogue evaluates :func:`shade5`.  CUDA tensors launch the
-    ``csr5_shaded`` kernel; CPU tensors take the plain walk.
-    ``.launches`` counts launches."""
+    (H, W, 3)): the walk carries the winner's location, and the epilogue
+    reads its px, py, rflag and rgb there (the uniform color of ``meta``
+    for binned winners under ``uniform``) and evaluates :func:`shade5`.
+    CUDA tensors launch the ``csr5_shaded`` kernel; CPU tensors take the
+    plain walk.  ``.launches`` counts calls."""
     return _raster5(raster_tiles5_shaded, True, uniform, tab, chunks, starts,
                     big_params, big_kinds, big_n, meta, width, height,
-                    tile_h, tile_w, k, check_every, allow_exit, walked)
+                    tile_h, tile_w, k, check_every, allow_exit, walked,
+                    bands, split_rows)
 
 
 raster_tiles5_shaded.launches = 0
+
+
+def _warp_blocks5(width: int, height: int, tile_h: int, tile_w: int,
+                 device=None):
+    """((T, 8, 4) float32 boxes (xlo, xhi, ylo, yhi) of pixel centres,
+    (T, 8) bool: the box holds an image pixel) of the v5 kernels' warp
+    blocks: warp w of a tile holds 32 columns x 4 rows (block row w // S,
+    column block w % S, S = tile_w // 32), or 16 columns x 8 rows (rows
+    8 w ..) where ``tile_w`` is 16; its box is its pixels inside the
+    image."""
+    tiles_x, tiles_y = grid5(width, height, tile_h, tile_w)
+    t = torch.arange(tiles_x * tiles_y, device=device)
+    w = torch.arange(8, device=device)
+    if tile_w == 16:
+        bw, bh, c0, r0 = 16, 8, torch.zeros_like(w), 8 * w
+    else:
+        s = tile_w // 32
+        bw, bh, c0, r0 = 32, 4, (w % s) * 32, (w // s) * 4
+    x0 = (t % tiles_x)[:, None] * tile_w + c0[None]
+    y0 = (t // tiles_x)[:, None] * tile_h + r0[None]
+    x1 = torch.clamp(x0 + bw - 1, max=width - 1)
+    y1 = torch.clamp(y0 + bh - 1, max=height - 1)
+    box = torch.stack([x0, x1, y0, y1], dim=-1).to(torch.float32) + 0.5
+    return box, (x0 <= x1) & (y0 <= y1)
+
+
+def block_slots5(tab, chunks, starts, width: int, height: int,
+                 tile_h: int = 32, tile_w: int = 32,
+                 k: int = DEFAULT_K) -> torch.Tensor:
+    """(T,) int32: the (live slot, warp block) pairs of each tile that the
+    v5 kernels' cull keeps with every superrow walked: each slot of each
+    entry of the tile's run whose depth is below +inf, at each warp block
+    of the tile holding an image pixel (:func:`_warp_blocks5`) where
+    ``csr.box_keeps`` keeps it (r * r its squared radius): exactly the
+    pairs where some pixel of the block could be covered."""
+    from pointcloud_render_tpu_torch.raster import csr  # noqa: PLC0415
+
+    dev = tab.device
+    n = int(starts[-1])
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(starts.to(torch.int64), pos, right=True) - 1
+    rows = tab[chunks[:n].long()].reshape(n, k, ROW_F)
+    px, py, r = rows[..., 0], rows[..., 1], rows[..., 3]
+    live = rows[..., 2] < float("inf")
+    box, box_live = _warp_blocks5(width, height, tile_h, tile_w, dev)
+    kept = torch.zeros(n, dtype=torch.int64, device=dev)
+    for b in range(box.shape[1]):
+        keep = csr.box_keeps(px, py, r * r, box[tile, b][:, None, :])
+        kept += (keep & live & box_live[tile, b][:, None]).sum(dim=1)
+    counts = torch.zeros(starts.shape[0] - 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, tile, kept)
+    return counts.to(torch.int32)
 
 
 def _eval_slots(rows, rid, qx, qy, with_attr):
@@ -575,16 +646,19 @@ def shade5(depth, attrs, meta):
 def raster_tiles5_plain(tab, chunks, starts, big_params, big_kinds, big_n,
                         meta, width: int, height: int, tile_h: int = 32,
                         tile_w: int = 32, k: int = DEFAULT_K,
-                        fused: bool = False, uniform: bool = False):
+                        fused: bool = False, uniform: bool = False,
+                        split_rows: int = csr6.SPLIT_ROWS5):
     """Plain PyTorch version of :func:`raster_tiles5` (``fused``:
     :func:`raster_tiles5_shaded`), on any device: every binned slot that
     can win over its tile's pixels, every live big row over the image,
     each clipped to a window that provably holds every covered pixel,
     merged by the two-step lexicographic min (no early exit: it never
     changes a winner); under ``fused`` the winner's attributes are taken
-    at its one winning pair and shaded by :func:`shade5`."""
+    at its one winning pair and shaded by :func:`shade5`.  ``split_rows``
+    (at least 1) cuts nothing here: the result is the kernel's at every
+    split."""
     _check_inputs5(tab, chunks, starts, big_params, big_kinds, big_n, meta,
-                   width, height, tile_h, tile_w, k, 1, None)
+                   width, height, tile_h, tile_w, k, 1, split_rows)
     dev = tab.device
     slots, rect = _binned_slots(tab, chunks, starts, width, height, tile_h,
                                 tile_w, k)

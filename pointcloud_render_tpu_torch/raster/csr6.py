@@ -97,6 +97,17 @@ ZQ = 8
 # would need more).
 SPLIT_ROWS = 2048
 ITEMS_PER_TILE = 4
+# Rows (big rows and entries) a work item of the v4 walk (csr4.py) takes
+# at least: 512-2,048 were within 1% of each other at traj_ball frame 120
+# on an H100, exit on and off, one item per tile 1.15-1.4x slower
+# (PERF.md §6, PR 12).
+SPLIT_ROWS4 = 2048
+# Rows (big rows and superrows of k slots) a work item of the v5 walks
+# (csr5.py) takes at least: with the exit on (the default) 1,024 and one
+# item per tile were the fastest on the disc lane in Morton order on an
+# H100 (split items walk more before the exit), with it off 128-256
+# (PERF.md §6, PR 12).
+SPLIT_ROWS5 = 1024
 # Rows a work item of the disc walks (csr6_disc8, csr6_disc8_uv) takes at
 # least: a disc row costs about a quarter of a capsule row.
 SPLIT_ROWS_DISC = 1024
@@ -660,6 +671,32 @@ def _check_exit_walk(zmeta, walked, split_rows, device, num_tiles, span,
         raise ValueError("split_rows must be >= 1")
 
 
+def check_aligned(aligned):
+    """Raise unless each (row tensor, row bytes) pair of ``aligned`` starts
+    at the alignment of the kernel's asynchronous copies of such rows:
+    16 B for rows of a multiple of 16 bytes, else 8 B or 4 B."""
+    for t, row_bytes in aligned:
+        need = next(n for n in (16, 8, 4) if row_bytes % n == 0)
+        if t.data_ptr() % need:
+            raise ValueError(f"rows of {row_bytes} B must start {need}-byte "
+                             "aligned: the kernel copies them "
+                             "asynchronously")
+
+
+def split_scratch(units: int, planes: int, device):
+    """(plan, partial, max_items) of a split walk over ``units`` units of
+    1024 pixels (csrc/split_walk.cuh): ITEMS_PER_TILE items per unit at
+    most, the plan with room for its ticket order, ``planes`` float planes
+    per item's pixel.  The kernels' plan fills both: the caller fills
+    neither."""
+    max_items = ITEMS_PER_TILE * units
+    plan = torch.empty(units + 3 * max_items + 3, dtype=torch.int32,
+                       device=device)
+    partial = torch.empty((max_items, planes, TILE * TILE),
+                          dtype=torch.float32, device=device)
+    return plan, partial, max_items
+
+
 def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
                  tiles_x, tiles_y, flags, split_rows, device, units=None,
                  library="csr6_raster", uv=False):
@@ -669,26 +706,14 @@ def _launch_walk(symbol, wrapper, ptrs, aligned, big_cap, width, height,
     outputs, ``aligned`` the (row tensor, row bytes) pairs that the kernel
     copies asynchronously, ``units`` the 1024-pixel units of the plan (the
     tiles by default); the wrapper's count goes up once per call."""
-    for t, row_bytes in aligned:
-        # The copy sizes: 16 B for 64 B and 32 B rows, 8 B for 40 B, 4 B
-        # for 36 B.
-        need = next(n for n in (16, 8, 4) if row_bytes % n == 0)
-        if t.data_ptr() % need:
-            raise ValueError(f"rows of {row_bytes} B must start {need}-byte "
-                             "aligned: the kernel copies them "
-                             "asynchronously")
-    units = units or tiles_x * tiles_y
-    max_items = ITEMS_PER_TILE * units
+    check_aligned(aligned)
     outs = [torch.empty((height, width), dtype=torch.float32, device=device),
             torch.empty((height, width), dtype=torch.int32, device=device)]
     if uv:
         outs += [torch.empty((height, width), dtype=torch.float32,
                              device=device) for _ in range(2)]
-    # The plan, with room for its ticket order (split_plan_kernel).
-    plan = torch.empty(units + 3 * max_items + 3, dtype=torch.int32,
-                       device=device)
-    partial = torch.empty((max_items, 4 if uv else 2, TILE * TILE),
-                          dtype=torch.float32, device=device)
+    plan, partial, max_items = split_scratch(units or tiles_x * tiles_y,
+                                             4 if uv else 2, device)
     _launch(symbol, (*ptrs, *outs, plan, partial),
             (big_cap, width, height, tiles_x, tiles_y, *flags, split_rows,
              max_items), device, library)

@@ -9,7 +9,10 @@ the disc rows at spans 4 and 8; the 16-, 10-, 9- and 8-float walks, the
 v2 strip walks and the v3 walk with their tiles split into work items,
 the 16-float walk and the disc walk with their z-bucket exit, the disc
 walks', v3's and v2's disc cull on discs tangent to their bands and
-column segments, v3's exact ties across work items)
+column segments, v3's exact ties across work items; the v4 walk's split
+with and without its exit and binned triangles; the v5 walks' split and
+warp cull at every tile shape, fused and not, on discs tangent to the
+warp blocks' edges, with ties across work items)
 against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
 lane, traj's history trails, the pallas backend) rendered on the card
 against the same on the CPU.  Every test here needs a card (marker
@@ -51,6 +54,7 @@ from torch_soups import (
     H,
     W,
     band_soup,
+    block_soup,
     cloud,
     cross_class_soup,
     disc_soup,
@@ -1056,3 +1060,129 @@ def test_v2_disc8_split_cull_matches_plain_on_card(cuda_device, case, strip):
                 assert torch.equal(walked, lengths)
                 assert torch.equal(bands, kept)
     assert bool((want[1] >= 0).any())
+
+
+# csr4_raster's split walk: items of 1, 7 and 64 rows (many items per
+# dense tile, ties across them) and the default.
+V4_SPLITS = (1, 7, 64, csr6.SPLIT_ROWS4)
+
+
+def _v4_soup(case):
+    return {"mesh": lambda: mesh_soup(tcam()), "split": split_soup,
+            "disc_ties": lambda: disc_soup(tcam()),
+            "tie_tile": tie_tile_soup}.get(case, lambda: make_soup(case))()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_triangles", [False, True])
+@pytest.mark.parametrize("case", CASES + ["mesh", "split", "disc_ties",
+                                          "tie_tile"])
+def test_v4_split_walk_matches_plain_on_card(cuda_device, case,
+                                             bin_triangles):
+    """csr4_raster's split walk (both instances) at items of 1, 7 and 64
+    rows and the default, with its z-bucket exit on and off, on the whole
+    entries and on entries cut to 2/3 by an entry capacity ==
+    raster_tiles4_plain bit for bit; one launch a call; ``walked`` every
+    tile's entries with the exit off, at most those with it on.  On the
+    tie soup the lowest of 48 identical discs, their entries cut across
+    many items, wins its pixels."""
+    soup = _v4_soup(case).to(cuda_device)
+    zeros = torch.zeros((soup.count, 3), device=cuda_device)
+    table = csr6.build_table16(soup, zeros, zeros[:, 0],
+                               bin_triangles=bin_triangles)
+    b = csr4.bin_csr4(soup, W, H, 1 << 14, bin_triangles)
+    true = int(b["starts"][-1])
+    for cap in (None, true * 2 // 3):
+        entries, starts = b["entries"], b["starts"]
+        if cap is not None:
+            entries, starts = entries[:cap], torch.clamp(starts, max=cap)
+        lengths = starts[1:] - starts[:-1]
+        for zq in (b["zq_bits"], 0):  # the early exit on, then off
+            args = (table, entries, starts, b["big_ids"], b["big_n"],
+                    b["zmeta"], W, H, zq, bin_triangles)
+            want = csr4.raster_tiles4_plain(*args)
+            for split_rows in V4_SPLITS:
+                walked = torch.full_like(lengths, -1)
+                before = csr4.raster_tiles4.launches
+                got = csr4.raster_tiles4(*args, walked=walked,
+                                         split_rows=split_rows)
+                torch.cuda.synchronize()
+                assert csr4.raster_tiles4.launches == before + 1
+                for a, w in zip(got, want, strict=True):
+                    np.testing.assert_array_equal(_bits(a), _bits(w))
+                if zq:
+                    assert bool(((walked >= 0) & (walked <= lengths)).all())
+                else:
+                    assert torch.equal(walked, lengths)
+            assert bool((want[1] >= 0).any())
+            if case == "tie_tile" and cap is None:
+                assert int(want[1][41, 40]) == 0
+                assert float(want[0][41, 40]) == 0.5
+
+
+# The v5 walks' split: items of 1, 7 and 64 rows and the default; every
+# tile shape the kernels admit.
+V5_SPLITS = (1, 7, 64, csr6.SPLIT_ROWS5)
+V5_TILES = ((64, 16), (32, 32), (16, 64), (8, 128))
+
+
+def _v5_split_soup(case, device):
+    if case.startswith("v5_"):
+        return v5_soups(device)[case[3:]]
+    return {"block": lambda: block_soup().to(device),
+            "block_morton": lambda: morton_soup(block_soup().to(device)),
+            "band_morton": lambda: morton_soup(band_soup().to(device)),
+            "tie_tile": lambda: tie_tile_soup().to(device)}[case]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", V5_TILES)
+@pytest.mark.parametrize("case", ["v5_sorted", "v5_mixed", "block",
+                                  "block_morton", "band_morton", "tie_tile"])
+def test_v5_split_cull_matches_plain_on_card(cuda_device, case, tile):
+    """csr5_raster and csr5_shaded (with and without uniform) at items of
+    1, 7 and 64 rows and the default, with the exit on and off, at every
+    tile shape == raster_tiles5_plain bit for bit (depth, index, rgb); one
+    launch a call; ``walked`` every tile's run and ``bands`` block_slots5
+    with the exit off, at most those with it on: the warp cull on discs
+    tangent to the warp blocks' edges (block_soup), in singleton rows and
+    in chunk superrows, and ties across items (48 identical discs in
+    three superrows: the lowest id wins)."""
+    th, tw = tile
+    soup = _v5_split_soup(case, cuda_device)
+    cam = tcam(device=cuda_device)
+    b = csr5.bin_chunks5(soup, W, H, th, tw)
+    assert int(b["diag"]["big_overflow"]) == 0
+    rgb_p, _ = csr6.preshade(soup, cam, ShadingConfig())
+    tab, bp, kinds, meta = csr5.tables5(
+        soup, b, rgb_p, csr5.look5(soup, cam, ShadingConfig(),
+                                   (0.3, 0.3, 0.3)))
+    args = (tab, b["chunks"], b["starts"], bp, kinds, b["big_n"], meta, W, H,
+            th, tw)
+    lengths = b["starts"][1:] - b["starts"][:-1]
+    kept = csr5.block_slots5(tab, b["chunks"], b["starts"], W, H, th, tw)
+    for fn, kw in ((csr5.raster_tiles5, {}),
+                   (csr5.raster_tiles5_shaded, {}),
+                   (csr5.raster_tiles5_shaded, {"uniform": True})):
+        want = csr5.raster_tiles5_plain(
+            *args, fused=fn is csr5.raster_tiles5_shaded, **kw)
+        for split_rows in V5_SPLITS:
+            for exit_on in (True, False):
+                walked = torch.full_like(lengths, -1)
+                bands = torch.full_like(lengths, -1)
+                before = fn.launches
+                got = fn(*args, allow_exit=exit_on, walked=walked,
+                         bands=bands, split_rows=split_rows, **kw)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                for a, w in zip(got, want, strict=True):
+                    np.testing.assert_array_equal(_bits(a), _bits(w))
+                if exit_on:
+                    assert bool(((walked >= 0) & (walked <= lengths)).all())
+                    assert bool(((bands >= 0) & (bands <= kept)).all())
+                else:
+                    assert torch.equal(walked, lengths)
+                    assert torch.equal(bands, kept)
+        assert bool((want[1] >= 0).any())
+    if case == "tie_tile" and tile == (32, 32):
+        assert int(want[1][41, 40]) == 0

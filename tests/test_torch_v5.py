@@ -19,6 +19,9 @@ package on the CPU.
   within RGB_ATOL; ``uniform_color`` keeps the winners.
 * The slice: a 160x96 disc-lane frame against the JAX soup's oracle
   frame, and the port's v5 frame against its pallas6 frame.
+* The kernels' warp cull, counted on the CPU (``block_slots5``), against
+  a brute force over each warp block's pixels at tile widths 16, 32 and
+  128, on discs tangent to the blocks' edges.
 The CUDA kernels themselves run only on a card: ``test_torch_cuda.py``.
 """
 
@@ -55,7 +58,15 @@ from pointcloud_render_tpu_torch.shading.shade import (
 )
 from tests.torch_jax import jax_soup, jcam, numpy_soup
 from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
-from tests.torch_soups import H, W, _v5_cloud, tcam, v5_soups
+from tests.torch_soups import (
+    H,
+    W,
+    _v5_cloud,
+    block_soup,
+    morton_soup,
+    tcam,
+    v5_soups,
+)
 
 GRAY = (0.3, 0.3, 0.3)
 # Triangle depth against the NumPy oracle, relative (the JAX package's
@@ -398,3 +409,51 @@ def test_refusals_and_wrapper_dispatch():
         csr5.raster_tiles5(*args, k=8)
     with pytest.raises(ValueError, match="walked"):
         csr5.raster_tiles5(*args, walked=walked[:-1])
+
+
+@pytest.mark.parametrize("tile_w", [16, 32, 128])
+def test_v5_cull_counter_matches_brute_force(tile_w):
+    """csr5.block_slots5 (the v5 kernels' warp cull, counted on the CPU)
+    keeps a (live slot, warp block) pair exactly when a pixel of the block
+    inside the image passes the disc test (blocks of 16 columns x 8 rows
+    at tile width 16, of 32 x 4 at the others), on discs tangent to the
+    blocks' column and row boundaries and over the ragged edge tiles, in
+    their own order (singleton rows) and in Morton order (chunk
+    superrows).  The CPU wrappers report it as ``bands``."""
+    th = 1024 // tile_w
+    tiles_x, _ = csr5.grid5(W, H, th, tile_w)
+    bw, bh = (16, 8) if tile_w == 16 else (32, 4)
+    for soup in (block_soup(), morton_soup(block_soup())):
+        b = csr5.bin_chunks5(soup, W, H, th, tile_w)
+        tab, bp, kinds, meta = csr5.tables5(
+            soup, b, torch.zeros((soup.count, 3)), csr5.look5(soup))
+        starts = b["starts"].numpy().astype(np.int64)
+        n = int(starts[-1])
+        t = np.searchsorted(starts, np.arange(n), side="right") - 1
+        slots = tab[b["chunks"][:n].long()].numpy().reshape(n, -1, 8)
+        live = slots[..., 2] < np.inf  # the slots that can win a pixel
+        t = np.broadcast_to(t[:, None], live.shape)[live]
+        px, py, r = (slots[..., c][live] for c in (0, 1, 3))
+        r2 = (r * r)[:, None, None]
+        want = np.zeros(len(starts) - 1, np.int64)
+        for c0 in range(0, tile_w, bw):
+            for r0 in range(0, th, bh):
+                col = (t % tiles_x)[:, None] * tile_w + c0 + np.arange(bw)
+                row = (t // tiles_x)[:, None] * th + r0 + np.arange(bh)
+                ok = (col < W)[:, :, None] & (row < H)[:, None, :]
+                dx = (col.astype(np.float32) + np.float32(0.5)) - px[:, None]
+                dy = (row.astype(np.float32) + np.float32(0.5)) - py[:, None]
+                hit = ((dx[:, :, None] * dx[:, :, None]
+                        + dy[:, None, :] * dy[:, None, :] <= r2)
+                       & ok).any(axis=(1, 2))
+                np.add.at(want, t, hit)
+        got = csr5.block_slots5(tab, b["chunks"], b["starts"], W, H, th,
+                                tile_w)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert int(got.sum()) > 0
+        args = (tab, b["chunks"], b["starts"], bp, kinds, b["big_n"], meta,
+                W, H, th, tile_w)
+        for fn in (csr5.raster_tiles5, csr5.raster_tiles5_shaded):
+            bands = torch.full((len(starts) - 1,), -1, dtype=torch.int32)
+            fn(*args, bands=bands)
+            np.testing.assert_array_equal(bands.numpy(), want)

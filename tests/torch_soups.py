@@ -223,6 +223,47 @@ def segment_soup(seed=29, n=60):
         [ground_plane(cam, 10.0, (0, 0, -0.5)), wide, discs, discs, discs])
 
 
+def block_soup(seed=37, n=40, col=16, row=4):
+    """Screen-space discs on the W x H film against the v5 kernels' cull
+    by warp blocks (32 columns x 4 rows of a tile, 16 columns x 8 rows
+    where the tile is 16 wide): ``n`` discs tangent to the nearest pixel
+    centre beyond a multiple of ``col`` columns (r * r == fl(dx * dx)
+    there, on a pixel row where dy = 0: covered at equality), ``n`` whose
+    radius is one float below that, ``n`` centred on such boundaries; the
+    same across multiples of ``row`` pixel rows; ``n`` discs over the
+    ragged right and bottom tiles; each three times at the same depth
+    (exact ties), over the white ground and one wide disc on the big
+    list."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for axis, step, extent, other in ((0, col, W, H), (1, row, H, W)):
+        across = (rng.integers(4, other - 4, n) + 0.5).astype(np.float32)
+        edge = (rng.integers(1, (extent - 1) // step + 1, n)
+                * step).astype(np.float32)
+        off = rng.uniform(0.05, 3.45, n).astype(np.float32)
+        before = rng.random(n) < 0.5
+        # A disc before the boundary reaches the centre edge + 0.5 past it;
+        # one past it reaches edge - 0.5.
+        along = np.where(before, edge - off, edge + off).astype(np.float32)
+        near = np.where(before, edge + np.float32(0.5),
+                        edge - np.float32(0.5))
+        tangent = np.abs(near.astype(np.float32) - along).astype(np.float32)
+        for a, r in ((along, tangent),
+                     (along, np.nextafter(tangent, np.float32(0))),
+                     (edge, rng.uniform(0.4, 3.0, n).astype(np.float32))):
+            cols.append((a, across, r) if axis == 0 else (across, a, r))
+    cols.append((rng.uniform(W - 30.0, W + 2.0, n).astype(np.float32),
+                 rng.uniform(H - 30.0, H + 2.0, n).astype(np.float32),
+                 rng.uniform(0.5, 3.0, n).astype(np.float32)))
+    px, py, r = (np.concatenate(c) for c in zip(*cols))
+    z = np.round(rng.uniform(1.0, 3.0, px.shape[0]), 1)
+    discs = _screen_discs(px, py, z, r)
+    wide = _screen_discs([70.0], [40.0], [2.0], [60.0])
+    cam = tcam()
+    return ScreenPrimitives.concatenate(
+        [ground_plane(cam, 10.0, (0, 0, -0.5)), wide, discs, discs, discs])
+
+
 def tie_tile_soup(copies=48):
     """Screen-space discs in tile (1, 1) of the W x H film for the v3
     walk's split: ``copies`` identical discs (the same centre, radius and
