@@ -6,11 +6,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR (a checkout of another commit, e.g. the parent) builds DIR's
-csr6_raster.cu and csr5_raster.cu beside this tree's and times its
-csr4_raster, csr5_raster and csr5_shaded (their C interfaces before the
-split walk: one CTA per tile, synchronous staging) with the exit on and
-off on the same inputs wherever this run times those kernels, after
-holding them against the plain version.
+csr2_raster.cu beside this tree's and times its csr1_raster (its C
+interface before the split walk: one CTA per strip, synchronous staging)
+with the exit on and off on the same inputs where this run times
+csr1_raster, after holding it against the plain version.
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -114,9 +113,9 @@ Phases (any failure exits non-zero and prints no result line):
      device and its bound with the exit on (the bound counts the entries
      its tiles' items walked before their exits, which the kernel
      reports) and off, its plain time, tile rows and work items, at frames
-     120 and 205, the split sweep at frame 120 and, under --parent, the
-     parent's kernel, and a mesh-LOD soup of 13,026
-     droplets (one past the 2^24-row id limit) must raise ValueError;
+     120 and 205, the split sweep at frame 120, and a mesh-LOD soup of
+     13,026 droplets (one past the 2^24-row id limit) must raise
+     ValueError;
  10. the history-trail slice: (a) csr6_cap10 (the 10-float cap_rows10
      walk) at spans 2, 4 and 8 and csr6_raster at spans 4 and 8 against
      their plain versions on phase 3's soups, and the cap_rows10
@@ -153,20 +152,23 @@ Phases (any failure exits non-zero and prints no result line):
      the 220-frame pallas3 scan (certificate 0, one csr3_raster launch
      per frame, frames equal to the pallas6 scan's), and the example CLI
      with --backend pallas3 (PNGs byte-equal to pallas6's);
- 11. the strip-tiled backends: (a) csr1_raster (v1), csr2_raster (v2,
-     16-float rows, with and without no_triangles) and csr2_disc8 (v2's
-     8-float disc rows), each with its saturation exit on and off
-     (csr2_raster also with its passes cut into work items of
-     SPLIT_FORCED rows), against the plain strip walk bit for bit on
-     phase 3's seeded soups
+ 11. the strip-tiled backends, one split walk: (a) csr1_raster (v1) and
+     csr2_raster (v2, 16-float rows, each with and without
+     no_triangles) and csr2_disc8 (v2's 8-float disc rows), each with
+     its saturation exit on and off and its passes cut into work items
+     of the default and of SPLIT_FORCED rows, against the plain strip
+     walk bit for bit on phase 3's seeded soups
      and the disc scene with ties, on 1,500 wide discs (v1 at max_big
      2048 takes them all, v2 drops those past its 1024), on entries cut
      to 2/3 of true_entries, and on strips of 16x256 and 4x32;
-     csr2_disc8 (a split walk with a warp cull) also with its passes cut
-     into items of 64 rows, bands equal to csr.segment_rows with the
-     exit off, and on the tests' band, segment (discs tangent to the
-     warps' column boundaries), dense-tile and tie soups at strips of
-     8x128, 16x256 and 4x32 with items of 1, 7 and 64 rows; (b) the
+     csr2_disc8 (with a warp cull) also with bands equal to
+     csr.segment_rows with the exit off, and on the tests' band, segment
+     (discs tangent to the warps' column boundaries), dense-tile and tie
+     soups at strips of 8x128, 16x256 and 4x32 with items of 1, 7 and
+     64 rows; csr1_raster on the tests' dense-tile, mixed, tie and
+     tie_tile soups at strips of 8x128 and 16x256, no_triangles off and
+     on, items of 1, 7 and 64 rows (tie_tile: 48 identical discs cut
+     across items, id 0 wins); (b) the
      traj_ball CLI with --backend pallas on phase 5's PLYs at frames 10
      and 120 (records ok, PNGs byte-equal to phase 5's pallas6 PNGs, one
      csr2_raster launch per frame), frame 205 decided by v2's big list
@@ -174,8 +176,9 @@ Phases (any failure exits non-zero and prints no result line):
      package's RuntimeError after its retries: printed), csr2_raster and
      csr1_raster timed at frame 120 with their exits on and off, their
      plain time and bounds, and equal to each other, csr2_raster also at
-     frame 205's shape, both times with its strip rows and work items,
-     and the split sweep; (c) bench.py's disc lane through pallas
+     frame 205's shape, each time with its strip rows and work items and
+     the split sweep, and under --parent the parent's one-CTA csr1_raster
+     on the same inputs; (c) bench.py's disc lane through pallas
      (max_tiles_per_prim 4, no_triangles, discs_only, entry_capacity by
      bench.py:427-445's rule): csr2_disc8 == plain at frames 0, 120 and
      219 (as in (a)), pallas frames == pallas6 frames there; at frame
@@ -200,12 +203,26 @@ Phases (any failure exits non-zero and prints no result line):
      soups in their own and in Morton order, timed at frame 120 per call
      and on the device with the superrows walked before the exits (the
      bound counts their live slots), the cull's kept share, the tile rows
-     and work items, the split sweep and, under --parent, the parent's
-     kernels; the stages of one warm frame and its ms; csr6_disc8 and
+     and work items and the split sweep; the stages of one warm frame
+     and its ms; csr6_disc8 and
      csr6_disc8_uv at spans 4 and 8 == plain and timed on frame 120's
      soup as in phase 7, and their entry point
      render_shaded_csr6(discs_only, uniform_look) at each span: one
-     csr6_disc8_uv launch, == its plain walk bit for bit.
+     csr6_disc8_uv launch, == its plain walk bit for bit;
+ 13. the fidelity certificate of the two geometry knobs (trail segments
+     and rows9) at the JAX records' scene
+     (benchmarks/results/fidelity_trail_segments.json: 6,000 points,
+     480x270, frames 120 and 199, a 20-segment reference polyline, seed
+     0): utils/fidelity.trail_segments_flip_rate on the card for
+     traj_ball and traj_vel at segments 4 and 8, exact (csr6_raster) and
+     with the rows9 candidate at span 4 (csr6_rows9; candidate_diff: its
+     pixels whose surface differs from the exact candidate's), each
+     "[fidelity]" line beside the JAX record; the traj_vel flip
+     decomposition at segments 4; both kernels launched in the phase.
+     It fails on a trail_rate past max(0.005, rate(8) + 0.002) of its
+     preset (benchmarks/pick_tuned.py's rule), or on a segments or rows9
+     knob of tuned_defaults.json's trail (traj_ball) or droplet
+     (traj_vel) section past that limit.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path, time beside its plain version and its bound (the pairs
@@ -231,9 +248,8 @@ walks (csr6_disc8, csr6_disc8_uv, csr3_raster, csr2_disc8, the v5
 kernels) add bound_ms_evaluated (the pairs their cull evaluates) and
 device_ms (device_ms_exit_off for csr3_raster, csr2_disc8 and the v5
 kernels); csr6_disc8 adds ms_exit and bound_ms_exit (the exit forced
-on); under --parent csr4_raster, csr5_raster and csr5_shaded add
-parent_ms, parent_device_ms, parent_ms_exit_off and
-parent_device_ms_exit_off.  "[split]" lines time a split walk by
+on); under --parent csr1_raster adds parent_ms and parent_ms_exit_off
+(the parent's one-CTA walk).  "[split]" lines time a split walk by
 split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
@@ -339,10 +355,18 @@ V3_BLOCKS = (64, 128, 256, 512, 1024)
 # times the walk at SPLIT_SWEEP (the last: one item per tile).
 SPLIT_FORCED = 64
 SPLIT_SWEEP = (512, 1024, 2048, 4096, 8192, 1 << 30)
-# --parent DIR: the parent commit's tree, whose csr6_raster.cu and
-# csr5_raster.cu are built beside this one's and whose csr4_raster,
-# csr5_raster and csr5_shaded are timed on the same inputs.
+# --parent DIR: the parent commit's tree, whose csr2_raster.cu is built
+# beside this one's and whose csr1_raster is timed on the same inputs.
 PARENT = {"tree": None, "libs": {}}
+# The fidelity certificate (phase 13): the JAX records' scene, the
+# segment counts certified, and the rows9 candidate's span.
+FIDELITY_RECORDS = "benchmarks/results/fidelity_trail_segments.json"
+FIDELITY_SCENE = dict(n_points=6000, frames=(120, 199), width=480,
+                      height=270, reference_segments=20, seed=0)
+FIDELITY_SEGMENTS = (4, 8)
+FIDELITY_SPAN = 4
+# The tuned lanes whose geometry knobs the certificate holds, by preset.
+FIDELITY_LANES = {"trail": "traj_ball", "droplet": "traj_vel"}
 # The disc walks' split sweep (rows per work item; the last: one item per
 # tile).
 SPLIT_SWEEP_DISC = (256, 512, 1024, 2048, 4096, 8192, 1 << 30)
@@ -704,17 +728,14 @@ def nvcc_build(kernels, src, out):
 
 
 def build_parent(kernels):
-    """Under --parent, build the parent tree's csr6_raster.cu and
-    csr5_raster.cu (PARENT["libs"]), beside this tree's build: their
-    csr4_raster, csr5_raster and csr5_shaded are timed on the same inputs
-    as this tree's."""
+    """Under --parent, build the parent tree's csr2_raster.cu
+    (PARENT["libs"]) beside this tree's build: its csr1_raster is timed on
+    the same inputs as this tree's."""
     if PARENT["tree"] is None:
         return
-    for name, src in (("csr6_raster", KERNEL_SOURCE),
-                      ("csr5_raster", V5_SOURCE)):
-        PARENT["libs"][name] = nvcc_build(
-            kernels, os.path.join(PARENT["tree"], src),
-            os.path.join(REPO, "build", "parent", f"lib{name}_parent.so"))
+    PARENT["libs"]["csr2_raster"] = nvcc_build(
+        kernels, os.path.join(PARENT["tree"], STRIP_SOURCE),
+        os.path.join(REPO, "build", "parent", "libcsr2_raster_parent.so"))
 
 
 def c_call(lib, symbol, ptrs, ints, what):
@@ -733,39 +754,31 @@ def c_call(lib, symbol, ptrs, ints, what):
     check(err == 0, f"{what} failed to launch: {err}")
 
 
-def parent_walk(symbol, ptrs, ints, width, height, library="csr6_raster",
-                rgb=False, tail=0):
-    """One call of the parent's ``symbol`` in ``library`` (its C interface:
-    inputs, depth, index, with ``rgb`` an (H, W, 3) float32 image, ``tail``
-    null pointers, ints, stream) -> (depth, index[, rgb]): csr4_raster,
-    csr5_raster and csr5_shaded (``tail`` 1: a null walked) before their
-    split walks, one CTA per tile."""
+def parent_walk(ptrs, ints, width, height):
+    """One call of the parent's csr1_raster before its split walk (one CTA
+    per strip; C interface: rows, starts, big_rows, big_n, depth, index, a
+    null walked, ints, stream) -> (depth, index)."""
     import torch
 
     dev = ptrs[0].device
     outs = [torch.empty((height, width), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32)]
-    if rgb:
-        outs.append(torch.empty((height, width, 3), dtype=torch.float32,
-                                device=dev))
-    c_call(PARENT["libs"][library], symbol, (*ptrs, *outs, *[None] * tail),
-           ints, f"the parent's {symbol}")
+    c_call(PARENT["libs"]["csr2_raster"], "csr1_raster", (*ptrs, *outs, None),
+           ints, "the parent's csr1_raster")
     return tuple(outs)
 
 
-def parent_time(symbol, ptrs, ints, width, height, want, what,
-                library="csr6_raster", rgb=False, tail=0):
-    """The parent's walk == ``want`` bit for bit, then its median time of
-    11 (None without --parent)."""
+def parent_time(ptrs, ints, width, height, want, what):
+    """The parent's csr1_raster == ``want`` bit for bit, then its median
+    time of 11 (None without --parent)."""
     import torch
 
     if not PARENT["libs"]:
         return None
-    got = parent_walk(symbol, ptrs, ints, width, height, library, rgb, tail)
+    got = parent_walk(ptrs, ints, width, height)
     torch.cuda.synchronize()
     check_equal_bits(got, want, f"the parent's {what}")
-    return time_ms(lambda: parent_walk(symbol, ptrs, ints, width, height,
-                                       library, rgb, tail), 11)
+    return time_ms(lambda: parent_walk(ptrs, ints, width, height), 11)
 
 
 def compare(soup, width, height, csr6, csr4, max_big, bin_triangles=False,
@@ -896,9 +909,8 @@ def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
     tiles' items evaluated before their exits, as the kernel reports
     them; triangles under ``bin_triangles`` in the share of all entries),
     ``ms_exit_off`` / ``device_ms_exit_off`` and ``bound_ms_exit_off``
-    the walk of every entry, the tile rows and work items, and under
-    --parent the parent's kernel on the same inputs; with ``sweep`` the
-    split sweep."""
+    the walk of every entry, the tile rows and work items; with ``sweep``
+    the split sweep."""
     import torch
 
     b = csr4.bin_csr4(soup, width, height, max_big, bin_triangles)
@@ -956,17 +968,6 @@ def compare_v4(soup, width, height, csr6, csr4, max_big, bin_triangles,
                    bound_ms_exit_off=bounds[1][0], entries=n,
                    walked=n_walked,
                    **tile_stats_runs(lengths, b["big_n"], csr6.SPLIT_ROWS4))
-        if PARENT["libs"]:
-            tiles_x, tiles_y = csr6.grid_shape(width, height)
-            for a, key, label in ((args, "parent_ms", "exit on"),
-                                  (off, "parent_ms_exit_off", "exit off")):
-                pargs = ("csr4_raster", a[:6],
-                         (width, height, tiles_x, tiles_y, a[8],
-                          int(bin_triangles)), width, height)
-                out[key] = parent_time(*pargs, want, f"{what} {label}",
-                                       tail=1)
-                out[key.replace("_ms", "_device_ms")] = device_ms(
-                    lambda p=pargs: parent_walk(*p, tail=1), 11)
     if sweep:
         split_sweep(f"{what} exit off", lambda w, wk: csr4.raster_tiles4(
             *off, split_rows=w, walked=wk), card)
@@ -987,14 +988,6 @@ def print_v4_times(what, r, shape, card):
           f"{r['plain_ms']:.1f} ms, at the {shape} shape ({card})",
           flush=True)
     print(f"[time] {what} at the {shape} shape: {stats_text(r)}", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {what} at the {shape} shape: parent "
-              f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}),"
-              f" exit off {r['parent_ms_exit_off']:.3f} (device "
-              f"{r['parent_device_ms_exit_off']:.3f}); change "
-              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
-              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
-              f"({card})", flush=True)
 
 
 def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
@@ -1030,7 +1023,7 @@ def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
 # the exit-off walk of the walks with an exit; the disc-row walks' bound
 # over every pair (the bound of their history) and over the pairs their
 # cull evaluates, bytes' time, device time (exit on and off), forced exit
-# and the parent's time (exit on and off, per call and on the device).
+# and the parent's time (exit on and off).
 # csr4_raster also gives frame 205's walk (FRAME205_KEYS, suffixed
 # _frame205).
 FRAME205_KEYS = ("ms", "device_ms", "bound_ms", "bound_by", "ms_exit_off",
@@ -1038,8 +1031,7 @@ FRAME205_KEYS = ("ms", "device_ms", "bound_ms", "bound_by", "ms_exit_off",
 EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "bound_ms_evaluated", "bytes_ms", "device_ms",
               "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
-              "parent_device_ms", "parent_ms_exit_off",
-              "parent_device_ms_exit_off",
+              "parent_ms_exit_off",
               *(f"{k}_frame205" for k in FRAME205_KEYS))
 
 
@@ -3096,15 +3088,15 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
     and off vs the plain strip walk (which never exits) on one soup,
     entries past ``cap`` and big prims past ``max_big`` dropped ->
     (dict(err, big_count, entries, and with ``timing``: ms, ms_exit_off,
-    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked; for the split
-    walks also the strip rows and work items; for csr2_disc8 also
-    device_ms, device_ms_exit_off, bound_ms_all_pairs, bound_ms_evaluated,
-    bytes_ms, bands and pixel_rows),
-    (depth, index)).  The split walks (csr2_raster, csr2_disc8) also run
-    with their passes cut into work items of SPLIT_FORCED rows (or of each
-    of ``splits``); csr2_disc8's ``bands`` must be csr.segment_rows with
-    the exit off and at most that with it on.  ``mtp`` defaults to the
-    kernel's JAX default (v1 8, v2 4).  csr2_disc8's bound is the pairs
+    plain_ms, bound_ms, bound_ms_exit_off, bound_by, walked, the strip
+    rows and work items; for csr2_disc8 also device_ms,
+    device_ms_exit_off, bound_ms_all_pairs, bound_ms_evaluated, bytes_ms,
+    bands and pixel_rows; for csr1_raster under --parent parent_ms and
+    parent_ms_exit_off), (depth, index)).  Each runs at its default split
+    and with its passes cut into work items of SPLIT_FORCED rows (or of
+    each of ``splits``); csr2_disc8's ``bands`` must be csr.segment_rows
+    with the exit off and at most that with it on.  ``mtp`` defaults to
+    the kernel's JAX default (v1 8, v2 4).  csr2_disc8's bound is the pairs
     its function needs (csr.segment_rows with segments of one pixel row,
     32 pixels each; exit on: scaled by the share of rows walked) or the
     bytes; bound_ms_all_pairs every pair of the rows walked (the old
@@ -3114,7 +3106,6 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
     from pointcloud_render_tpu_torch.raster import csr, csr2, csr6
 
     disc = kernel == "csr2_disc8"
-    split = kernel != "csr1_raster"
     mtp = mtp or (8 if kernel == "csr1_raster" else 4)
     th, tw = tile
     b = csr.bin_csr(soup, width, height, th, tw, mtp, max_big,
@@ -3144,8 +3135,7 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
             + (f" entry_capacity {cap}" if cap is not None else ""))
     errs = []
     for exit_on in (False, True):
-        for items in ((None, *(splits or (SPLIT_FORCED,))) if split
-                      else (None,)):
+        for items in (None, *(splits or (SPLIT_FORCED,))):
             extra = {} if items is None else dict(split_rows=items)
             bands = torch.full_like(lengths, -1)
             if disc:
@@ -3169,8 +3159,7 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                entries=int(starts[-1]))
     if timing:
         check(th * tw == 1024, "timed strips must hold 1024 pixels")
-        if split:  # the walked counts of the default walk
-            wrapper(*args, walked=walked, **kw)
+        wrapper(*args, walked=walked, **kw)  # the default walk's counts
         n = int(starts[-1])
         s64 = starts.long()
         pos = torch.arange(n, device=soup.device)
@@ -3191,6 +3180,13 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                        *args, no_triangles=no_triangles), 2),
                    bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
                    walked=int(keep.sum()))
+        if kernel == "csr1_raster" and PARENT["libs"]:
+            tiles_x, tiles_y = csr.strip_grid(width, height, th, tw)
+            for exit_on, key in ((1, "parent_ms"), (0, "parent_ms_exit_off")):
+                out[key] = parent_time(
+                    args[:4], (width, height, tiles_x, tiles_y, th, tw,
+                               int(no_triangles), exit_on), width, height,
+                    want, f"{what} exit {'on' if exit_on else 'off'}")
         if disc:
             n_walked = int(keep.sum())
             bands = torch.empty_like(lengths)
@@ -3213,7 +3209,7 @@ def compare_strips(soup, kernel, width=WIDTH, height=HEIGHT, cap=None,
                     *args, allow_exit=False, **kw), 11),
                 bands=int(bands.sum()), bands_exit_off=int(kept.sum()),
                 pixel_rows=pixel_rows)
-    if timing and split:
+    if timing:
         out.update(tile_stats_runs(starts[1:] - starts[:-1], b["big_n"],
                                    csr2.SPLIT_ROWS_DISC if disc
                                    else csr6.SPLIT_ROWS))
@@ -3238,9 +3234,14 @@ def print_strip_times(kernel, r, shape, card):
           f"{r['entries']} rows walked); exit off {r['ms_exit_off']:.3f} ms, "
           f"bound {r['bound_ms_exit_off']:.4f} ms; plain {r['plain_ms']:.1f} "
           f"ms (median of 2), at the {shape} shape ({card})", flush=True)
-    if "items" in r:
-        print(f"[time] {kernel} at the {shape} shape: "
-              f"{stats_text(r, 'strip')} ({card})", flush=True)
+    print(f"[time] {kernel} at the {shape} shape: {stats_text(r, 'strip')} "
+          f"({card})", flush=True)
+    if r.get("parent_ms") is not None:
+        print(f"[time] {kernel} at the {shape} shape: parent (one CTA per "
+              f"strip) {r['parent_ms']:.3f} ms, exit off "
+              f"{r['parent_ms_exit_off']:.3f}; change {r['ms']:.3f} ms, exit "
+              f"off {r['ms_exit_off']:.3f} (medians of 11) ({card})",
+              flush=True)
 
 
 STRIP_KERNELS = ("csr1_raster", "csr2_raster", "csr2_disc8")
@@ -3263,13 +3264,13 @@ def strip_kernels_vs_plain(dev, max_err):
     seeded["disc_ties_wide"] = disc_lane_soup(dev)
     for name, soup in seeded.items():
         for kernel in STRIP_KERNELS:
-            for no_tri in ((False, True) if kernel == "csr2_raster"
-                           else (False,)):
+            for no_tri in ((False,) if kernel == "csr2_disc8"
+                           else (False, True)):
                 r, _ = compare_strips(soup, kernel, no_triangles=no_tri)
                 max_err[kernel] = max(max_err[kernel], r["err"])
         print(f"[kernel==plain] csr1_raster, csr2_raster (no_triangles off "
-              f"and on; items of {csr6.SPLIT_ROWS} and {SPLIT_FORCED} rows), "
-              f"csr2_disc8 exit on and off {name}: {soup.count} prims ok",
+              f"and on), csr2_disc8 exit on and off {name}: {soup.count} "
+              f"prims ok (items of the default and of {SPLIT_FORCED} rows)",
               flush=True)
     # 1,500 wide discs: v1 takes them all (max_big 2048); v2's fixed big
     # list drops those past 1024, as does its plain version.
@@ -3328,6 +3329,32 @@ def strip_kernels_vs_plain(dev, max_err):
               f"({ts.W}x{ts.H}): {small.count} prims, strips of 8x128, "
               f"16x256 and 4x32, items of 1, 7 and {SPLIT_FORCED} rows ok",
               flush=True)
+    # csr1_raster's forced splits on the tests' film, with binned triangles
+    # and without: a dense tile, exact ties, and 48 identical discs in one
+    # strip's run, cut across items in front of a cover that lets the exit
+    # leave the deep rows (the first copy, id 0, must win their pixels).
+    forced = {"dense_tile": ts.make_soup("dense_tile"),
+              "mixed": ts.make_soup("mixed"),
+              "disc_ties": ts.disc_soup(ts.tcam()),
+              "tie_tile": ts.tie_tile_soup()}
+    for name, small in forced.items():
+        small = small.to(dev)
+        for tile in ((8, 128), (16, 256)):
+            for no_tri in (False, True):
+                r, got = compare_strips(small, "csr1_raster", ts.W, ts.H,
+                                        tile=tile, no_triangles=no_tri,
+                                        splits=(1, 7, SPLIT_FORCED))
+                max_err["csr1_raster"] = max(max_err["csr1_raster"],
+                                             r["err"])
+                if name == "tie_tile":
+                    check(int(got[1][41, 40]) == 0
+                          and float(got[0][41, 40]) == 0.5,
+                          f"csr1_raster tie_tile {tile}: id "
+                          f"{int(got[1][41, 40])} wins the tied pixel")
+        print(f"[kernel==plain] csr1_raster exit on and off {name} "
+              f"({ts.W}x{ts.H}): {small.count} prims, strips of 8x128 and "
+              f"16x256, no_triangles off and on, items of 1, 7 and "
+              f"{SPLIT_FORCED} rows ok", flush=True)
 
 
 def v2_flagship(card, dev, inp, out_default, out_v2, counters, max_err):
@@ -3578,8 +3605,8 @@ def compare_v5(soup, cam, width, height, max_big, uniform=None,
     bounds of v5_bound over the superrows walked (exit on) and over all
     (exit off), bound_ms_evaluated (the (slot, warp block) pairs the cull
     kept with the exit on, 128 pixels each), the cull's kept share with
-    the exit off, the tile rows and work items and, under --parent, the
-    parent's kernel on the same inputs; with ``sweep`` the split sweep."""
+    the exit off and the tile rows and work items; with ``sweep`` the
+    split sweep."""
     import torch
 
     from pointcloud_render_tpu_torch.raster import csr5, csr6
@@ -3651,22 +3678,6 @@ def compare_v5(soup, cam, width, height, max_big, uniform=None,
                 pixel_rows=on["pixel_rows"], bands=int(bands.sum()),
                 bands_exit_off=int(kept.sum()),
                 **tile_stats_runs(lengths, b["big_n"], csr6.SPLIT_ROWS5))
-            if PARENT["libs"]:
-                tiles_x, tiles_y = csr5.grid5(width, height, 32, 32)
-                for exit_on, key in ((1, "parent_ms"),
-                                     (0, "parent_ms_exit_off")):
-                    ints = (bp.shape[1], width, height, tiles_x, tiles_y, 32,
-                            32, csr5.DEFAULT_K, csr5.DEFAULT_CHECK_EVERY,
-                            exit_on) + ((int(uniform is not None),)
-                                        if fused else ())
-                    pargs = (name, args[:7], ints, width, height,
-                             "csr5_raster", fused)
-                    out[name][key] = parent_time(
-                        *pargs[:5], want, f"{name} exit "
-                        f"{'on' if exit_on else 'off'}", library="csr5_raster",
-                        rgb=fused, tail=1)
-                    out[name][key.replace("_ms", "_device_ms")] = device_ms(
-                        lambda p=pargs: parent_walk(*p, tail=1), 11)
         if sweep:
             split_sweep(f"{name} exit on, disc lane frame 120 in Morton "
                         "order, device time",
@@ -3705,14 +3716,6 @@ def print_v5_times(name, r, card):
           f"{r['bands_exit_off']} of {8 * r['live_slots_exit_off']} (live "
           f"slot, warp block) pairs ({share:.1f}%) with every superrow "
           f"walked, {r['bands']} with the exit ({card})", flush=True)
-    if r.get("parent_ms") is not None:
-        print(f"[time] {name} at {shape}: parent {r['parent_ms']:.3f} ms "
-              f"(device {r['parent_device_ms']:.3f}), exit off "
-              f"{r['parent_ms_exit_off']:.3f} (device "
-              f"{r['parent_device_ms_exit_off']:.3f}); change "
-              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), exit off "
-              f"{r['ms_exit_off']:.3f} (device {r['device_ms_exit_off']:.3f}) "
-              f"({card})", flush=True)
 
 
 def v5_stages(csr5, csr6, pipeline, preset, pos, fi, dev):
@@ -3932,6 +3935,87 @@ def v5_lane(card, dev, max_err, counters, seeded) -> dict:
                                  launches=counts["raster_tiles5_shaded"]))
 
 
+def fidelity_phase(card, dev, counters):
+    """Phase 13: the fidelity certificate of trail segments and rows9 on
+    the card (see the module docstring)."""
+    import torch
+
+    from pointcloud_render_tpu_torch.utils import fidelity, tuned
+
+    with open(os.path.join(REPO, FIDELITY_RECORDS)) as f:
+        records = json.load(f)
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    rates = {}
+    for preset in FIDELITY_LANES.values():
+        for segs in FIDELITY_SEGMENTS:
+            for rows9 in (False, True):
+                rates[preset, segs, rows9] = fidelity.trail_segments_flip_rate(
+                    segs, preset_name=preset,
+                    capsule_eval="cap8" if rows9 else "cap10",
+                    capsule_span=FIDELITY_SPAN, device=dev, **FIDELITY_SCENE)
+    decomp = fidelity.trail_flip_decomposition(
+        4, preset_name="traj_vel", device=dev, **FIDELITY_SCENE)
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    check(set(counts) == {"raster_tiles", "raster_tiles_rows9"},
+          f"fidelity certificate: launches {counts}, want csr6_raster and "
+          "csr6_rows9")
+    print(f"[fidelity] {len(rates)} certificate runs and a decomposition at "
+          f"{FIDELITY_SCENE['n_points']} points, "
+          f"{FIDELITY_SCENE['width']}x{FIDELITY_SCENE['height']}, frames "
+          f"{FIDELITY_SCENE['frames']} in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts} ({card})", flush=True)
+    limits = {}
+    for preset in FIDELITY_LANES.values():
+        limits[preset] = fidelity.flip_limit(
+            rates[preset, fidelity.DEFAULT_SEGMENTS, False]["trail_rate"])
+        jax_rates = records["scenes"][preset]["rates"]
+        for (p, segs, rows9), r in rates.items():
+            if p != preset:
+                continue
+            key = f"{segs}+rows8" if rows9 else str(segs)
+            jr = jax_rates[key]
+            mode = f"rows9 span {FIDELITY_SPAN}" if rows9 else "exact"
+            print(f"[fidelity] {preset} segments {segs} {mode}: frame_rate "
+                  f"{r['frame_rate']:.6g} trail_rate {r['trail_rate']:.6g} "
+                  f"kind_rate {r['kind_rate']:.6g} candidate_diff "
+                  f"{r['candidate_diff']} (limit {limits[preset]:.6g}); JAX "
+                  f"record '{key}': frame_rate {jr['frame_rate']:.6g} "
+                  f"trail_rate {jr['trail_rate']:.6g} kind_rate "
+                  f"{jr['kind_rate']:.6g}", flush=True)
+            check(r["trail_rate"] <= limits[preset],
+                  f"{preset} segments {segs} {mode}: trail_rate "
+                  f"{r['trail_rate']} past {limits[preset]}")
+    moves = ", ".join(f"{k} {v:.6g}" for k, v in decomp["transitions"].items())
+    print(f"[fidelity] traj_vel decomposition, segments 4, frame "
+          f"{decomp.get('frame')}: trail_rate {decomp['trail_rate']:.6g} of "
+          f"{decomp['denom']} trail pixels; owner swaps "
+          f"{decomp['trail_owner_swap']:.6g}; transitions {moves or 'none'}",
+          flush=True)
+    # The tuned knobs: a lane's segments (exact) and rows9 (at its
+    # segments) must stay within its preset's limit.
+    knobs = tuned.load_tuned()
+    for lane, preset in FIDELITY_LANES.items():
+        section = knobs.get(lane, {})
+        segs = tuned.fill(None, section, "segments",
+                          fidelity.DEFAULT_SEGMENTS)
+        for rows9 in (False, True) if section.get("rows9") else (False,):
+            if (preset, segs, rows9) not in rates:
+                rates[preset, segs, rows9] = fidelity.trail_segments_flip_rate(
+                    segs, preset_name=preset,
+                    capsule_eval="cap8" if rows9 else "cap10",
+                    capsule_span=FIDELITY_SPAN, device=dev, **FIDELITY_SCENE)
+            rate = rates[preset, segs, rows9]["trail_rate"]
+            what = (f"tuned {lane}: segments {segs}"
+                    + (f" with rows9 (span {FIDELITY_SPAN})" if rows9 else ""))
+            check(rate <= limits[preset],
+                  f"{what} is not certified on {preset}: trail_rate {rate} "
+                  f"past {limits[preset]}")
+            print(f"[fidelity] {what} certified on {preset}: trail_rate "
+                  f"{rate:.6g} <= {limits[preset]:.6g}", flush=True)
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -3973,8 +4057,7 @@ def run() -> dict:
                 csr5.raster_tiles5_shaded)
 
     # Phase 2: build from the checkout's sources, one nvcc per source (and
-    # the parent's csr6_raster.cu and csr5_raster.cu under --parent), all
-    # started together.
+    # the parent's csr2_raster.cu under --parent), all started together.
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         extra = pool.submit(build_parent, kernels)
@@ -4294,6 +4377,8 @@ def run() -> dict:
     # Phase 12: the v5 slice (and B4's disc rows at spans 4 and 8).
     v5_seeded["disc_ties_wide"] = disc_lane_soup(dev)
     v5 = v5_lane(card, dev, max_err, counters, v5_seeded)
+    # Phase 13: the fidelity certificate of segments and rows9.
+    fidelity_phase(card, dev, counters)
     numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
                "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,

@@ -209,10 +209,10 @@
 // evaluate are reported through `bands`.
 // The split walk: csr6_raster, csr6_cap10, csr6_rows9 and csr4_raster
 // (cp.async ring) and csr6_disc8, csr6_disc8_uv, csr3_raster (bulk copies,
-// warp-band cull) here, csr2_raster and csr2_disc8 (bulk copies;
-// csr2_disc8 with a warp cull) in csr2_raster.cu, csr5_raster and
-// csr5_shaded (bulk copies, warp cull) in csr5_raster.cu.  Not done yet:
-// csr1_raster there (one CTA per strip, synchronous staging).
+// warp-band cull) here, csr2_raster, csr1_raster and csr2_disc8 (bulk
+// copies; csr2_disc8 with a warp cull) in csr2_raster.cu, csr5_raster and
+// csr5_shaded (bulk copies, warp cull) in csr5_raster.cu.  Every kernel
+// of the port walks its tiles this way.
 
 #include <cuda_runtime.h>
 

@@ -17,9 +17,10 @@ torch ops here:
    id, kind, bucket_low, 0] per sorted entry, built for the binned entries
    only (the TPU padded and gathered the sentinels too);
 3. :func:`raster_tiles1` — the ``csr1_raster`` kernel of
-   ``csrc/csr2_raster.cu`` on CUDA tensors (the big list first, then the
-   tile's rows with the saturation early exit), :func:`raster_strips_plain`
-   (shared with v2) on CPU tensors.
+   ``csrc/csr2_raster.cu`` on CUDA tensors (v2's split walk: the big list
+   first, then the tile's rows with the saturation early exit, dense
+   strips cut into work items), :func:`raster_strips_plain` (shared with
+   v2) on CPU tensors.
 
 :func:`bin_diagnostics` and :func:`true_entry_count` (in
 ``raster/csr2.py``) are the certificates; v1 is out of the JAX package's
@@ -262,12 +263,11 @@ def check_walk_inputs(rows, starts, big_rows, big_n, width, height, tile_h,
 def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
                   height, tile_h, tile_w, no_triangles, walked, allow_exit,
                   split_rows=csr6.SPLIT_ROWS, bands=None):
-    """Launch ``symbol`` of ``csrc/csr2_raster.cu`` on CUDA tensors (the
-    plain walk on CPU tensors) and count the call on ``wrapper``:
-    ``csr2_raster`` and ``csr2_disc8`` take the split walk
-    (``csr6._launch_walk``; ``csr2_disc8`` also reports ``bands``, which
-    CPU tensors take from :func:`segment_rows`), ``csr1_raster`` one CTA
-    per strip."""
+    """Launch ``symbol`` of ``csrc/csr2_raster.cu`` (``csr1_raster``,
+    ``csr2_raster`` or ``csr2_disc8``, one split walk: plan, walk, merge
+    through ``csr6._launch_walk``) on CUDA tensors, the plain walk on CPU
+    tensors, and count the call on ``wrapper``.  ``csr2_disc8`` also
+    reports ``bands``, which CPU tensors take from :func:`segment_rows`."""
     disc = symbol == "csr2_disc8"
     row_widths = (ROW_F_DISC,) if disc else (ROW_F,)
     tiles_x, tiles_y = check_walk_inputs(rows, starts, big_rows, big_n,
@@ -295,33 +295,23 @@ def launch_strips(wrapper, symbol, rows, starts, big_rows, big_n, width,
     rows, starts, big_rows, big_n = (
         t.contiguous() for t in (rows, starts, big_rows, big_n))
     dev = rows.device
-    if symbol != "csr1_raster":
-        # The split walk: a unit is one pass of 1024 pixels of a strip.
-        # The exit's depths shared by a split unit's items (the kernel's
-        # plan resets those it reads).
-        units = tiles_x * tiles_y * -(-tile_h * tile_w // 1024)
-        front = torch.empty((units, 1024), dtype=torch.int32,
-                            device=dev) if allow_exit else None
-        ptrs = (rows, starts, big_rows, big_n, front, walked)
-        if disc:
-            if bands is not None:
-                bands.zero_()
-            ptrs += (bands,)
-        return csr6._launch_walk(
-            symbol, wrapper, ptrs,
-            ((rows, 4 * rows.shape[1]), (big_rows, 4 * ROW_F)),
-            big_rows.shape[0], width, height, tiles_x, tiles_y,
-            (tile_h, tile_w, int(no_triangles), int(allow_exit)),
-            split_rows, dev, units, library="csr2_raster")
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    index = torch.empty((height, width), dtype=torch.int32, device=dev)
-    csr6._launch(symbol, (rows, starts, big_rows, big_n, depth, index,
-                          walked),
-                 (width, height, tiles_x, tiles_y, tile_h, tile_w,
-                  int(no_triangles), int(allow_exit)), dev,
-                 library="csr2_raster")
-    wrapper.launches += 1
-    return depth, index
+    # A unit is one pass of 1024 pixels of a strip.  The exit's depths
+    # shared by a split unit's items (the kernel's plan resets those it
+    # reads).
+    units = tiles_x * tiles_y * -(-tile_h * tile_w // UNIT_PIX)
+    front = torch.empty((units, UNIT_PIX), dtype=torch.int32,
+                        device=dev) if allow_exit else None
+    ptrs = (rows, starts, big_rows, big_n, front, walked)
+    if disc:
+        if bands is not None:
+            bands.zero_()
+        ptrs += (bands,)
+    return csr6._launch_walk(
+        symbol, wrapper, ptrs,
+        ((rows, 4 * rows.shape[1]), (big_rows, 4 * ROW_F)),
+        big_rows.shape[0], width, height, tiles_x, tiles_y,
+        (tile_h, tile_w, int(no_triangles), int(allow_exit)),
+        split_rows, dev, units, library="csr2_raster")
 
 
 # Pixels of a unit of the strip walks (a pass of a strip), and a warp's
@@ -432,20 +422,25 @@ def segment_rows(rows, starts, width: int, height: int,
 def raster_tiles1(rows, starts, big_rows, big_n, width: int, height: int,
                   tile_h: int = TILE_H, tile_w: int = TILE_W,
                   no_triangles: bool = False, walked=None,
-                  allow_exit: bool = True):
+                  allow_exit: bool = True, split_rows: int = csr6.SPLIT_ROWS):
     """The v1 walk -> (depth (H, W) f32 +inf-empty, index (H, W) i32
     -1-empty): per tile, the live big rows ``big_rows[:big_n]`` through
     the triangle-aware body, then its sorted 16-float rows [starts[t],
     starts[t+1]) (the capsule body alone under ``no_triangles``) with the
     saturation early exit.  CUDA tensors launch the ``csr1_raster`` kernel
-    of ``csrc/csr2_raster.cu``; CPU tensors take
+    of ``csrc/csr2_raster.cu``, v2's split walk; CPU tensors take
     :func:`raster_strips_plain`.  ``walked``, a (T,) int32 tensor, takes
-    each tile's count of rows evaluated before its exit (the whole range
-    on the plain walk, which has none); ``allow_exit=False`` walks every
-    row (the same images).  ``.launches`` counts launches."""
+    each tile's count of rows evaluated before its exit, summed over its
+    passes of 1024 pixels (every row once per pass on the plain walk,
+    which has no exit); ``allow_exit=False`` walks every row (the same
+    images).  A pass of a tile with more than ``split_rows`` rows (big
+    rows included) is walked by several CTAs whose minima are merged;
+    with the exit on they share their depths as they run, so ``walked``
+    may differ between runs, the images do not.  ``.launches`` counts
+    calls."""
     return launch_strips(raster_tiles1, "csr1_raster", rows, starts,
                          big_rows, big_n, width, height, tile_h, tile_w,
-                         no_triangles, walked, allow_exit)
+                         no_triangles, walked, allow_exit, split_rows)
 
 
 raster_tiles1.launches = 0

@@ -6,7 +6,8 @@ v3 disc fast path with and without its exit; the v1 and v2 strip walks,
 16-float and 8-float disc rows, with their saturation exit; the v5
 chunk-binned disc walk, with and without its exit and its fused shade;
 the disc rows at spans 4 and 8; the 16-, 10-, 9- and 8-float walks, the
-v2 strip walks and the v3 walk with their tiles split into work items,
+v1 and v2 strip walks and the v3 walk with their tiles split into work
+items (v1 also with ties across them),
 the 16-float walk and the disc walk with their z-bucket exit, the disc
 walks', v3's and v2's disc cull on discs tangent to their bands and
 column segments, v3's exact ties across work items; the v4 walk's split
@@ -479,36 +480,41 @@ SPLIT_STRIPS = {"v2_split_8x128": (8, 128), "v2_split_16x256": (16, 256),
                 "v2_split_4x32": (4, 32), "v2_split_4x24": (4, 24)}
 
 
-def _check_split_strips(soup, tile_h, tile_w):
-    """csr2_raster with its exit off and on, at csr6.SPLIT_ROWS and at 64
-    rows per work item, == the plain strip walk; one launch a call;
-    ``walked`` is every row times the passes with the exit off, at most
-    that with it on."""
-    b = csr.bin_csr(soup, W, H, tile_h, tile_w, max_tiles_per_prim=8)
+def _check_split_strips(soup, tile_h, tile_w, wrapper=csr2.raster_tiles2,
+                        splits=(csr6.SPLIT_ROWS, 64), no_triangles=False):
+    """A 16-float strip walk (csr2_raster, or csr1_raster through
+    ``wrapper``; max_tiles_per_prim 8, triangles forced onto the big list
+    under ``no_triangles``) with its exit off and on, at each of
+    ``splits`` rows per work item, == the plain strip walk; one launch a
+    call; ``walked`` is every row times the passes with the exit off, at
+    most that with it on -> (the plain walk's (depth, index), the
+    binning)."""
+    b = csr.bin_csr(soup, W, H, tile_h, tile_w, max_tiles_per_prim=8,
+                    force_tri_big=no_triangles)
     n = int(b["starts"][-1])
     args = (csr.pack_rows_generic(soup, b["prims"][:n], b["keys"][:n],
                                   b["zmin"], b["span"]),
             b["starts"], csr.pack_big_rows(soup, b["big_ids"]), b["big_n"],
-            W, H, tile_h, tile_w)
+            W, H, tile_h, tile_w, no_triangles)
     want = csr.raster_strips_plain(*args)
     lengths = (b["starts"][1:] - b["starts"][:-1]) * -(-tile_h * tile_w
                                                        // 1024)
     for allow_exit in (False, True):
-        for split_rows in (csr6.SPLIT_ROWS, 64):
+        for split_rows in splits:
             walked = torch.full_like(lengths, -1)
-            before = csr2.raster_tiles2.launches
-            got = csr2.raster_tiles2(*args, walked=walked,
-                                     allow_exit=allow_exit,
-                                     split_rows=split_rows)
+            before = wrapper.launches
+            got = wrapper(*args, walked=walked, allow_exit=allow_exit,
+                          split_rows=split_rows)
             torch.cuda.synchronize()
-            assert csr2.raster_tiles2.launches == before + 1
-            for a, w in zip(got, want):
+            assert wrapper.launches == before + 1
+            for a, w in zip(got, want, strict=True):
                 np.testing.assert_array_equal(_bits(a), _bits(w))
             if allow_exit:
                 assert bool(((walked >= 0) & (walked <= lengths)).all())
             else:
                 assert torch.equal(walked, lengths)
     assert bool((want[1] >= 0).any())
+    return want, b
 
 
 @pytest.mark.cuda
@@ -536,6 +542,39 @@ def test_strip_kernels_match_plain_on_card(cuda_device, case, walk):
     for a, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(_bits(a), _bits(w))
     assert bool((got[1] >= 0).any())
+
+
+# csr1_raster's split walk (v1, max_tiles_per_prim 8): items of 1, 7 and
+# 64 rows (many items per dense strip, ties across them) and the default;
+# strips of 8x128 (one pass) and 16x256 (four passes of 1024 pixels).
+V1_SPLITS = (1, 7, 64, csr6.SPLIT_ROWS)
+V1_STRIPS = {"8x128": (8, 128), "16x256": (16, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip", sorted(V1_STRIPS))
+@pytest.mark.parametrize("no_triangles", [False, True])
+@pytest.mark.parametrize("case", CASES + ["disc_ties", "tie_tile"])
+def test_v1_split_matches_plain_on_card(cuda_device, case, no_triangles,
+                                        strip):
+    """csr1_raster on the split walk, with binned triangles and without,
+    its exit off and on, at items of 1, 7, 64 rows and the default ==
+    the plain strip walk bit for bit; ``walked`` every strip's rows times
+    its passes with the exit off, at most that with it on.  On the tie
+    soup 48 identical discs share one strip's run, cut across many items
+    and in front of a cover that lets the exit leave the deep rows: the
+    first copy (id 0) wins their pixels."""
+    soup = {"disc_ties": lambda: disc_soup(tcam()),
+            "tie_tile": tie_tile_soup}.get(case, lambda: make_soup(case))()
+    th, tw = V1_STRIPS[strip]
+    want, b = _check_split_strips(soup.to(cuda_device), th, tw,
+                                  csr.raster_tiles1, V1_SPLITS,
+                                  no_triangles)
+    if case == "tie_tile":
+        tiles_x, _ = csr.strip_grid(W, H, th, tw)
+        tile = (41 // th) * tiles_x + 40 // tw
+        assert int(b["starts"][tile + 1] - b["starts"][tile]) > 48
+        assert int(want[1][41, 40]) == 0 and float(want[0][41, 40]) == 0.5
 
 
 @pytest.mark.cuda

@@ -246,6 +246,8 @@ def test_package_imports_without_jax():
             "import pointcloud_render_tpu_torch.run.trajectory\n"
             "import pointcloud_render_tpu_torch.utils.convert\n"
             "import pointcloud_render_tpu_torch.utils.kernels\n"
+            "import pointcloud_render_tpu_torch.utils.fidelity\n"
+            "import pointcloud_render_tpu_torch.utils.tuned\n"
             "import pointcloud_render_tpu_torch.raster.csr5\n"
             "import pointcloud_render_tpu_torch.scene.spatial\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "

@@ -1,7 +1,8 @@
 """The ``split_rows`` argument of the kind-split walk
 (``csr6.raster_tiles_rows9``), of the disc walks
-(``csr6.raster_tiles_disc8``, ``raster_tiles_disc8_uv``), of the v2
-strip walks (``csr2.raster_tiles2``, ``raster_tiles2_disc8``), of the
+(``csr6.raster_tiles_disc8``, ``raster_tiles_disc8_uv``), of the v1 and
+v2 strip walks (``csr.raster_tiles1``, ``csr2.raster_tiles2``,
+``raster_tiles2_disc8``), of the
 v3 walk (``csr3.raster_tiles3``), of the v4 walk (``csr4.raster_tiles4``
 with and without ``bin_triangles``, and its plain version) and of the v5
 walks (``csr5.raster_tiles5``, ``raster_tiles5_shaded`` and their plain
@@ -63,8 +64,8 @@ def _droplet_oracle():
 
 @functools.cache
 def _strip_case():
-    """(walk arguments, oracle depth, oracle index) of the same soup on v2's
-    8x128 strips."""
+    """(walk arguments, oracle depth, oracle index) of the same soup on
+    8x128 strips (v1 and v2 walk the same rows)."""
     soup, d_o, i_o = _droplet_oracle()
     b = csr.bin_csr(soup, W, H, max_tiles_per_prim=4)
     n = int(b["starts"][-1])
@@ -166,6 +167,7 @@ def _v3_ids(out):
 
 # walk: (wrapper, case, (depth, index) of its output).
 WALKS = {"rows9": (csr6.raster_tiles_rows9, _rows9_case, _ids),
+         "v1": (csr.raster_tiles1, _strip_case, _ids),
          "v2": (csr2.raster_tiles2, _strip_case, _ids),
          "disc8": (csr6.raster_tiles_disc8, _disc_case, _ids),
          "disc8_uv": (csr6.raster_tiles_disc8_uv, _disc_case, _ids),
