@@ -223,11 +223,36 @@ Phases (any failure exits non-zero and prints no result line):
      preset (benchmarks/pick_tuned.py's rule), or on a segments or rows9
      knob of tuned_defaults.json's trail (traj_ball) or droplet
      (traj_vel) section past that limit.
+ 14. the look passes (ROADMAP A13) on phase 5's PLYs: (a) the traj_ball
+     CLI with --shadows --ground-spec 0.5 --gi 0.25 --supersample 2 at
+     frames 10, 120 and 205 (the camera raster at 3840x2160, the shadow
+     map at 1024x1024): records ok, PNGs written, csr6_raster launched
+     and csr1_raster once per frame; (b) at frame 120 through
+     FramePipeline at ss 1 and 2: the look frame's depth and index ==
+     the plain frame's (at ss 2 the 3840x2160 render sliced [::2, ::2]),
+     csr1_raster over the light view's capped strips
+     (tiles.bin_primitives at 1,024 per 8x128 strip, 16 strips per prim,
+     64 big prims) == the plain strip walk with its exit on and off at
+     the default split and items of SPLIT_FORCED rows, the look rgb ==
+     the same frame shaded over the plain walk's shadow map, the entries
+     the caps drop (tiles.tile_overflow, mirrored from the JAX package);
+     at ss 2, csr6_raster at 3840x2160 and span 4 == its plain version
+     (items of csr6.SPLIT_ROWS and SPLIT_FORCED rows), and its depth and
+     index == the span-2 3840x2160 frame's, which the look frame walks;
+     (c) "[look]" lines: warm ms per look frame at ss 1 and 2 beside the
+     plain frame at the same film, the look frame's stages (camera soup
+     and raster, light-view soup build, capped binning, csr1_raster,
+     shadow_factor, shade_framebuffer, downsample), the ss 2 frame at
+     span 4 (== the span-2 frame; its big list and time), csr1_raster on the
+     shadow map timed per call and on the device beside its plain version
+     and its bound (the rows walked, OPS_* per pixel), and
+     raster/alpha.composite_tiled at 1M splats and 1920x1080.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
-on its main path, time beside its plain version and its bound (the pairs
-the walk must evaluate times the float32 operations per pair, over the
-card's float32 rate without multiply-add fusion; or its bytes over the
+on its main path (csr1_raster's: rasterize_csr's, the look CLI's shadow
+maps under shadow_launches), time beside its plain version and its
+bound (the pairs the walk must evaluate times the float32 operations
+per pair, over the card's float32 rate without multiply-add fusion; or its bytes over the
 memory rate if that is larger); csr6_raster's (ms: the default walk,
 with the exit), csr6_raster[bin_triangles]'s, csr4_raster's,
 csr3_raster's and the strip kernels' and the v5 kernels' entries add
@@ -249,7 +274,11 @@ kernels) add bound_ms_evaluated (the pairs their cull evaluates) and
 device_ms (device_ms_exit_off for csr3_raster, csr2_disc8 and the v5
 kernels); csr6_disc8 adds ms_exit and bound_ms_exit (the exit forced
 on); under --parent csr1_raster adds parent_ms and parent_ms_exit_off
-(the parent's one-CTA walk).  "[split]" lines time a split walk by
+(the parent's one-CTA walk); csr1_raster also adds its shadow-map walk
+at traj_ball frame 120 (phase 14) as shadow_launches, shadow_ms,
+shadow_device_ms, shadow_plain_ms, shadow_bound_ms, shadow_bound_by,
+shadow_ms_exit_off, shadow_bound_ms_exit_off, shadow_entries,
+shadow_walked and shadow_dropped.  "[split]" lines time a split walk by
 split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
@@ -1028,11 +1057,19 @@ def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
 # _frame205).
 FRAME205_KEYS = ("ms", "device_ms", "bound_ms", "bound_by", "ms_exit_off",
                  "device_ms_exit_off", "bound_ms_exit_off")
+# Phase 14: the look passes on the traj_ball CLI.
+LOOK_FLAGS = ("--shadows", "--ground-spec", "0.5", "--gi", "0.25",
+              "--supersample", "2")
+# csr1_raster's shadow-map walk (phase 14), under shadow_ in its entry.
+SHADOW_KEYS = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
+               "bound_by", "ms_exit_off", "bound_ms_exit_off", "entries",
+               "walked", "dropped")
 EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "bound_ms_evaluated", "bytes_ms", "device_ms",
               "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
               "parent_ms_exit_off",
-              *(f"{k}_frame205" for k in FRAME205_KEYS))
+              *(f"{k}_frame205" for k in FRAME205_KEYS),
+              *(f"shadow_{k}" for k in SHADOW_KEYS))
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
@@ -4016,6 +4053,324 @@ def fidelity_phase(card, dev, counters):
                   f"{rate:.6g} <= {limits[preset]:.6g}", flush=True)
 
 
+def compare_capped(soup, size, card, timing=False):
+    """csr1_raster over the shadow map's capped strips (the light view's
+    ``tiles.bin_primitives`` at 1,024 per 8x128 strip, 16 strips per
+    prim, 64 big prims; ``tiles.strip_rows``) with its exit on and off, at
+    its default split and at items of SPLIT_FORCED rows, == the plain
+    strip walk bit for bit -> dict(err, entries, dropped, depth (the plain
+    walk's shadow map), and with
+    ``timing``: ms, device_ms, ms_exit_off, plain_ms, bound_ms, bound_by,
+    bound_ms_exit_off, walked).  The bound counts the rows walked (the
+    first walked[t] rows of each strip) at 16 or 18 operations per pixel
+    and every live big row at every pixel, or the bytes."""
+    import torch
+
+    from pointcloud_render_tpu_torch.raster import csr, tiles
+    from pointcloud_render_tpu_torch.shading import shadow
+
+    bins = tiles.bin_primitives(soup, size, size,
+                                max_per_tile=shadow.SHADOW_MAX_PER_TILE)
+    args = (*tiles.strip_rows(soup, bins), size, size)
+    rows, starts = args[0], args[1]
+    want = csr.raster_strips_plain(*args)
+    lengths = starts[1:] - starts[:-1]
+    walked = torch.empty_like(lengths)
+    errs = []
+    for exit_on in (False, True):
+        for items in (None, SPLIT_FORCED):
+            extra = {} if items is None else dict(split_rows=items)
+            got = csr.raster_tiles1(*args, walked=walked, allow_exit=exit_on,
+                                    **extra)
+            torch.cuda.synchronize()
+            on = (f"csr1_raster shadow map {size}x{size} exit "
+                  f"{'on' if exit_on else 'off'}"
+                  + (f", items of {items} rows" if items else ""))
+            errs.append(check_equal_bits(got, want, on))
+            check(bool((walked <= lengths).all()) and (
+                exit_on or torch.equal(walked, lengths)),
+                f"{on}: walked {int(walked.sum())} of {int(lengths.sum())}")
+    n = int(starts[-1])
+    out = dict(err=max(errs), entries=n, dropped=int(bins.overflowed),
+               depth=want[0])
+    if timing:
+        csr.raster_tiles1(*args, walked=walked)  # the default walk's counts
+        s64 = starts.long()
+        pos = torch.arange(n, device=soup.device)
+        tile = torch.searchsorted(s64, pos, right=True) - 1
+        keep = (pos - s64[tile]) < walked.long()[tile]
+        ids = rows[:n, 12].long()
+        big_ids, big_n = bins.big_list, args[3]
+        on, off = (strip_bound(soup, e, 16, 1024, big_ids, big_n,
+                               starts.numel(), size, size, False)
+                   for e in (ids[keep], ids))
+        out.update(
+            ms=time_ms(lambda: csr.raster_tiles1(*args), 11),
+            device_ms=device_ms(lambda: csr.raster_tiles1(*args), 11),
+            ms_exit_off=time_ms(lambda: csr.raster_tiles1(
+                *args, allow_exit=False), 11),
+            plain_ms=time_ms(lambda: csr.raster_strips_plain(*args), 2),
+            bound_ms=on[0], bound_by=on[1], bound_ms_exit_off=off[0],
+            walked=int(keep.sum()))
+    return out
+
+
+def look_stages(pipe, preset, pcl, fi, dev, ss):
+    """The stages of one look frame at supersample ``ss``, in the order
+    FramePipeline.render_array runs them."""
+    from pointcloud_render_tpu_torch.raster import csr, tiles
+    from pointcloud_render_tpu_torch.run import pipeline
+    from pointcloud_render_tpu_torch.shading import aa, shadow
+    from pointcloud_render_tpu_torch.shading.shade import shade_framebuffer
+
+    shading = pipe.raster_config.shading
+    size = shading.shadow_size
+
+    def build(f):
+        f["cam"] = pipeline.frame_camera(preset, fi, WIDTH * ss,
+                                         HEIGHT * ss, dev)
+        f["soup"] = pipeline.build_primitives(preset, f["cam"], pcl[:, :3],
+                                              pcl[:, 3:], fi)
+
+    def camera_raster(f):
+        f["fb"] = pipe._render_certified(f["soup"], f["cam"], fi)
+
+    def light_build(f):
+        f["light"] = shadow.light_camera(size=size, device=dev)
+        f["lsoup"] = pipeline.build_primitives(preset, f["light"],
+                                               pcl[:, :3], pcl[:, 3:], fi)
+
+    def binning(f):
+        bins = tiles.bin_primitives(f["lsoup"], size, size,
+                                    max_per_tile=shadow.SHADOW_MAX_PER_TILE)
+        f["strips"] = tiles.strip_rows(f["lsoup"], bins)
+
+    def kernel(f):
+        f["sdepth"], _ = csr.raster_tiles1(*f["strips"], size, size)
+
+    def factor(f):
+        f["sf"] = shadow.shadow_factor(f["cam"], f["fb"].depth,
+                                       f["fb"].index, f["light"],
+                                       f["sdepth"])
+
+    def shade(f):
+        f["rgb"] = shade_framebuffer(f["soup"], f["cam"], f["fb"].depth,
+                                     f["fb"].index, shading, shadow=f["sf"])
+
+    stages = [("camera+soup build", build),
+              ("camera raster (render, certificate read-back)",
+               camera_raster),
+              ("light-view soup build", light_build),
+              ("capped binning (bin_primitives, strip_rows)", binning),
+              ("csr1_raster shadow map", kernel),
+              ("shadow_factor", factor), ("shade_framebuffer", shade)]
+    if ss > 1:
+        stages.append(("downsample", lambda f: aa.downsample(f["rgb"], ss)))
+    return stages
+
+
+def look_phase(card, dev, inp, out, counters, max_err) -> dict:
+    """Phase 14: the look passes (see the module docstring) -> csr1_raster's
+    shadow-map numbers, each key prefixed shadow_."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.cli import traj_ball_renderer
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.raster import alpha, csr4, csr6, tiles
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline
+    from pointcloud_render_tpu_torch.shading import aa, shadow
+    from pointcloud_render_tpu_torch.shading.shade import (
+        ShadingConfig,
+        shade_framebuffer,
+    )
+
+    # (a) The traj_ball CLI with the four look flags.
+    reset_counts(counters)
+    sink = traj_ball_renderer.main(
+        ["--input-folder", inp, "--output-folder", out, "--frames",
+         ",".join(map(str, FRAMES)), "--device", "cuda", *LOOK_FLAGS])
+    torch.cuda.synchronize()
+    counts = launch_counts(counters)
+    statuses = [(r.frame_index, r.status, r.error) for r in sink.records]
+    check(len(statuses) == 3 and all(s == "ok" for _, s, _ in statuses),
+          f"look frame records not all ok: {statuses}")
+    for fi in FRAMES:
+        check(os.path.getsize(os.path.join(out, f"frame_{fi:04d}_b0.png"))
+              > 1000, f"look frame {fi}: PNG missing")
+    check(counts.get("raster_tiles", 0) >= 3
+          and counts.get("raster_tiles1") == 3,
+          f"look CLI: launches {counts}, want csr6_raster per frame and "
+          "csr1_raster once per frame (the shadow map)")
+    for r in sink.records:
+        t = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in r.timings_s.items())
+        print(f"[look cli] frame {r.frame_index}: {r.points} points {t} "
+              f"({card})", flush=True)
+    print(f"[look cli] traj_ball {' '.join(LOOK_FLAGS)} frames 10, 120, "
+          f"205: records ok, PNGs written; launches {counts}", flush=True)
+
+    # (b) Frame 120 through FramePipeline at ss 1 and 2.
+    preset = PRESETS["traj_ball"]
+    look = ShadingConfig(shadows=True, ground_spec=0.5, gi=0.25)
+    size = look.shadow_size
+    fi = 120
+    pcl = pipeline.FramePipeline(preset, device=dev).load_and_prepare(
+        os.path.join(inp, "frame_0120_b0.ply"))
+    light = shadow.light_camera(size=size, device=dev)
+    lsoup = pipeline.build_primitives(preset, light, pcl[:, :3], pcl[:, 3:],
+                                      fi)
+    dropped = int(tiles.tile_overflow(
+        lsoup, size, size, max_per_tile=shadow.SHADOW_MAX_PER_TILE))
+    print(f"[look] traj_ball frame {fi} light view ({size}x{size}, "
+          f"{lsoup.count} prims): the capped strips drop {dropped} entries "
+          "(tile_overflow at 1,024 per 8x128 strip, 16 strips per prim, 64 "
+          "big prims; mirrored from the JAX package's tiled backend)",
+          flush=True)
+    shadow_nums = compare_capped(lsoup, size, card, timing=True)
+    max_err["csr1_raster"] = max(max_err["csr1_raster"], shadow_nums["err"])
+    check(shadow_nums["dropped"] == dropped,
+          f"TileBins.overflowed {shadow_nums['dropped']} != tile_overflow "
+          f"{dropped}")
+    print(f"[kernel==plain] csr1_raster shadow map traj_ball frame {fi}: "
+          f"{shadow_nums['entries']} kept entries ok (exit off and on, "
+          f"items of the default and of {SPLIT_FORCED} rows)", flush=True)
+    print(f"[time] csr1_raster shadow map kernel {shadow_nums['ms']:.3f} ms "
+          f"(median of 11), device {shadow_nums['device_ms']:.3f} ms, bound "
+          f"{shadow_nums['bound_ms']:.4f} ms by {shadow_nums['bound_by']} "
+          f"({shadow_nums['walked']} of {shadow_nums['entries']} rows "
+          f"walked); exit off {shadow_nums['ms_exit_off']:.3f} ms, bound "
+          f"{shadow_nums['bound_ms_exit_off']:.4f} ms; plain "
+          f"{shadow_nums['plain_ms']:.1f} ms (median of 2), at the traj_ball "
+          f"frame-{fi} light view ({card})", flush=True)
+    sd_plain = shadow_nums.pop("depth")
+    timed = {}
+    for ss in (1, 2):
+        w, h = WIDTH * ss, HEIGHT * ss
+        plain_pipe = pipeline.FramePipeline(preset, width=w, height=h,
+                                            device=dev)
+        look_pipe = pipeline.FramePipeline(
+            preset, RasterConfig(supersample=ss, shading=look), width=WIDTH,
+            height=HEIGHT, device=dev)
+        base = plain_pipe.render_array(pcl, fi)
+        fb = look_pipe.render_array(pcl, fi)
+        for field in ("depth", "index"):
+            a = getattr(base, field)[::ss, ::ss].contiguous()
+            check(torch.equal(a.view(torch.int32),
+                              getattr(fb, field).view(torch.int32)),
+                  f"ss {ss}: the look frame's {field} differs from the "
+                  f"plain {w}x{h} frame's")
+        check(fb.rgb.shape == (HEIGHT, WIDTH, 3)
+              and bool(((fb.rgb >= 0) & (fb.rgb <= 1)).all()),
+              f"ss {ss}: look rgb malformed")
+        # The same frame with the shadow map from the plain walk.
+        cam = pipeline.frame_camera(preset, fi, w, h, dev)
+        soup = pipeline.build_primitives(preset, cam, pcl[:, :3],
+                                         pcl[:, 3:], fi)
+        max_big = look_pipe.raster_config.max_big
+        b = csr6.bin_csr6(soup, w, h, max_big, with_z=True)
+        check(soup.count < (1 << 24) and int(b["diag"]["big_overflow"]) == 0,
+              f"ss {ss}: {soup.count} prims, big list {int(b['big_count'])}"
+              f" past max_big {max_big}")
+        print(f"[look] traj_ball frame {fi} camera film {w}x{h}: "
+              f"{soup.count} prims (< 2^24), {int(b['starts'][-1])} "
+              f"binned rows, true_entries {int(b['diag']['true_entries'])}, "
+              f"big list {int(b['big_count'])} (max_big {max_big}), "
+              f"{b['keys'].dtype} exit keys", flush=True)
+        del b
+        sf = shadow.shadow_factor(cam, base.depth, base.index, light,
+                                  sd_plain)
+        rgb = aa.downsample(shade_framebuffer(
+            soup, cam, base.depth, base.index, look, shadow=sf), ss)
+        check(torch.equal(rgb.view(torch.int32), fb.rgb.view(torch.int32)),
+              f"ss {ss}: the look rgb differs from the plain shadow map's")
+        dark = float((sf < 1).float().mean())
+        print(f"[look] traj_ball frame {fi} ss {ss} ({w}x{h} camera film): "
+              "depth and index == the plain frame's"
+              f"{' sliced [::2, ::2]' if ss == 2 else ''}, rgb == the same "
+              "frame shaded over the plain walk's shadow map (bit for bit); "
+              f"{dark:.4f} of the camera's pixels shadowed", flush=True)
+        times = {}
+        for name, p in (("look", look_pipe), ("plain", plain_pipe)):
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                p.render_array(pcl, fi)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            q1, med, q3 = statistics.quantiles(runs, n=4)
+            times[name] = (med, q1, q3)
+        timed[ss] = times
+        print(f"[look] frame {fi} ss {ss} render_array warm: look "
+              f"{times['look'][0]:.2f} ms (quartiles {times['look'][1]:.2f}-"
+              f"{times['look'][2]:.2f}), plain frame at the same film "
+              f"{times['plain'][0]:.2f} ms ({times['plain'][1]:.2f}-"
+              f"{times['plain'][2]:.2f}), medians of 5 ({card})", flush=True)
+        for stage, ms in stage_times(look_stages(
+                look_pipe, preset, pcl, fi, dev, ss)).items():
+            print(f"[look] stage ss {ss} {stage}: {ms:.2f} ms ({card})",
+                  flush=True)
+        if ss == 2:
+            # At span 2 the 3840x2160 film sends the long trail capsules
+            # to the big list; span 4 bins them (the same winners).
+            wide = pipeline.FramePipeline(
+                preset, RasterConfig(supersample=2, span=4, shading=look),
+                width=WIDTH, height=HEIGHT, device=dev)
+            equal_buffers(wide.render_array(pcl, fi), fb,
+                          "ss 2: the span-4 look frame vs span 2")
+            # csr6_raster at this film against its plain version: at span
+            # 4 (a big list of a few rows, so the plain walk is cheap),
+            # and through it the span-2 film that the look frame walks.
+            r4, got = compare(soup, w, h, csr6, csr4,
+                              wide.raster_config.max_big, span=4)
+            max_err["csr6_raster"] = max(max_err["csr6_raster"], r4["err"])
+            for k, field in enumerate(("depth", "index")):
+                check(torch.equal(got[k].view(torch.int32),
+                                  getattr(base, field).view(torch.int32)),
+                      f"ss 2: the span-4 walk's {field} differs from the "
+                      f"span-2 {w}x{h} frame's")
+            print(f"[kernel==plain] csr6_raster span 4 traj_ball frame {fi} "
+                  f"{w}x{h}: {soup.count} prims ok (items of "
+                  f"{csr6.SPLIT_ROWS} and {SPLIT_FORCED} rows), and == the "
+                  "span-2 frame's depth and index", flush=True)
+            del got
+            b4 = csr6.bin_csr6(soup, w, h, wide.raster_config.max_big,
+                               span=4)
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                wide.render_array(pcl, fi)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            print(f"[look] frame {fi} ss 2 with span 4: the same frame (rgb, "
+                  f"depth, index), big list {int(b4['big_count'])}, "
+                  f"render_array warm {statistics.median(runs):.2f} ms "
+                  f"(median of 3; {min(runs):.2f}-{max(runs):.2f}) "
+                  f"({card})", flush=True)
+            del wide, b4
+        del base, fb, soup, sf, rgb
+    # composite_tiled at 1M splats (BASELINE config 3), traj_ball frame 120.
+    cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+    n = pcl.shape[0]
+    rng = np.random.default_rng(31)
+    splats = alpha.splat_gaussians(
+        torch.as_tensor(pcl[:, :3], device=dev), cam,
+        torch.full((n,), preset.point_radius, device=dev),
+        torch.as_tensor(rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+                        device=dev), torch.full((n,), 0.5, device=dev))
+    img = alpha.composite_tiled(splats, WIDTH, HEIGHT)
+    check(img.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all())
+          and bool((img < 1).any()), "composite_tiled output malformed")
+    ms = time_ms(lambda: alpha.composite_tiled(splats, WIDTH, HEIGHT), 5)
+    cut = int(tiles.tile_overflow(alpha.splat_prims(splats), WIDTH, HEIGHT,
+                                  max_per_tile=1024))
+    print(f"[look] composite_tiled {n} splats at {WIDTH}x{HEIGHT}: {ms:.2f} "
+          f"ms (median of 5), {int(splats['valid'].sum())} valid, {cut} "
+          f"entries dropped at 1,024 per strip ({card})", flush=True)
+    return {"launches": counts.get("raster_tiles1", 0), **{
+        k: shadow_nums[k] for k in SHADOW_KEYS if k in shadow_nums}}
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -4358,6 +4713,10 @@ def run() -> dict:
         # Phase 11 (b): the same PLYs through --backend pallas.
         strips = v2_flagship(card, dev, inp, out,
                              os.path.join(tmp, "out_v2"), counters, max_err)
+        # Phase 14: the look passes on the same PLYs.
+        shadow_nums = look_phase(card, dev, inp,
+                                 os.path.join(tmp, "out_look"), counters,
+                                 max_err)
     # Phase 7: bench.py's disc lane and the flythrough loop.
     disc = disc_lane(card, dev, max_err, counters)
     # Phase 8 (c): bench.py's droplet lane.
@@ -4379,6 +4738,12 @@ def run() -> dict:
     v5 = v5_lane(card, dev, max_err, counters, v5_seeded)
     # Phase 13: the fidelity certificate of segments and rows9.
     fidelity_phase(card, dev, counters)
+    # csr1_raster's entry stays rasterize_csr's walk at traj_ball frame 120
+    # (phase 11 (b)); the shadow map's numbers (phase 14, its launches the
+    # look CLI's) ride under shadow_.
+    strips["csr1_raster"] = dict(
+        strips["csr1_raster"],
+        **{f"shadow_{k}": v for k, v in shadow_nums.items()})
     numbers = {"csr6_raster": dict(timed[120], launches=launches), **disc,
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
                "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,

@@ -79,6 +79,15 @@ def depth_buckets(hint, valid):
     return torch.clamp(q, 0, N_BUCKETS - 1), (zmin, span)
 
 
+def depth_hint(prims: ScreenPrimitives) -> torch.Tensor:
+    """(P,) the bucket map's depth hint: a disc's z, a capsule's nearer
+    endpoint z (both at most every depth the prim takes); 0 for triangles,
+    which thus sort first in their tile (bucket 0)."""
+    hint = prims.params[:, 2] + torch.clamp(prims.params[:, 6], max=0.0)
+    return torch.where(prims.kind == KIND_TRIANGLE, torch.zeros_like(hint),
+                       hint)
+
+
 def bucket_low(bucket, zmin, span):
     """A conservative lower bound of every depth in ``bucket``:
     ``zmin + bucket * (span / N_BUCKETS) - 1e-3 * span`` (the margin
@@ -141,11 +150,8 @@ def bin_csr(prims: ScreenPrimitives, width: int, height: int,
     ey = torch.div(slot, ntx_safe, rounding_mode="floor")
     slot_ok = (slot < span[:, None]) & is_small[:, None]
     tile_id = (ty0[:, None] + ey) * tiles_x + (tx0[:, None] + ex)
-    # Depth hint: disc z, capsule min endpoint z; triangles bucket 0.
-    hint = prims.params[:, 2] + torch.clamp(prims.params[:, 6], max=0.0)
-    hint = torch.where(prims.kind == KIND_TRIANGLE,
-                       torch.zeros_like(hint), hint)
-    bucket, (zmin, zspan) = depth_buckets(hint, is_small | is_big)
+    bucket, (zmin, zspan) = depth_buckets(depth_hint(prims),
+                                          is_small | is_big)
     sentinel = num_tiles * N_BUCKETS
     key = torch.where(slot_ok & (tile_id < num_tiles),
                       tile_id * N_BUCKETS + bucket[:, None],

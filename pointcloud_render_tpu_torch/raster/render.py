@@ -25,7 +25,12 @@ The PyTorch twin of ``pointcloud_render_tpu.raster.render``.  Backends:
 
 As in the JAX package, ``pallas`` and the three plain backends rasterize
 and then shade through ``shading.shade.shade_framebuffer`` (no
-``uniform_look`` or ``three_tone`` epilogue); the plain backends ignore
+``uniform_look`` or ``three_tone`` epilogue; the GGX lobe and the GI fill
+when they are on); the fused epilogues of ``auto``/``pallas6``,
+``pallas4`` and ``pallas3`` raise for the look knobs, which the JAX
+package's fused kernels drop (``FramePipeline`` re-shades a look frame
+through ``shade_framebuffer`` whatever the backend, and applies
+``supersample``, which ``render`` leaves to it); the plain backends ignore
 the walk's knobs (``rows9``, ``rows8``, ``cap_rows10``, ``discs_only``,
 ``span``, ``bin_triangles``) and report ``true_entries`` 0.
 
@@ -57,8 +62,7 @@ segment-frame evaluation; one kernel serves both) and ``cap_rows10`` the
 ``span`` 2, 4 or 8 as the default 16-float walk; ``three_tone`` shades
 per-kind-constant soups from three or four representative colors.  The
 v6 backends reject what ``pallas_csr6`` rejects; the others only what
-their JAX functions reject.  Semantic knobs outside the ported slices
-raise ``NotImplementedError`` naming their ROADMAP item.
+their JAX functions reject.
 """
 
 from __future__ import annotations
@@ -82,6 +86,8 @@ from pointcloud_render_tpu_torch.utils.consts import const
 
 V6_BACKENDS = ("auto", "pallas6")
 KERNEL_BACKENDS = V6_BACKENDS + ("pallas4", "pallas3", "pallas")
+# The backends whose render() shades in a fused epilogue (no look passes).
+FUSED_BACKENDS = V6_BACKENDS + ("pallas4", "pallas3")
 PLAIN_BACKENDS = ("cpu", "tiled", "bruteforce")
 
 
@@ -125,15 +131,14 @@ class RasterConfig:
 
 
 def check_config(config: RasterConfig) -> None:
-    """Raise for unknown backends and semantic knobs the port does not have
-    yet, and (ValueError) for the combinations the configured backend's
-    JAX function rejects: ``pallas_csr6``'s under ``auto``/``pallas6``."""
+    """Raise (ValueError) for an unknown backend, a ``supersample`` that is
+    not a positive int, and the combinations the configured backend's JAX
+    function rejects: ``pallas_csr6``'s under ``auto``/``pallas6``."""
     if config.backend not in KERNEL_BACKENDS + PLAIN_BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}")
-    if config.supersample != 1:
-        raise NotImplementedError(
-            f"supersample={config.supersample} is not ported yet: ROADMAP "
-            "queue A item 13 (shading/aa.py)")
+    if config.supersample < 1 or int(config.supersample) != config.supersample:
+        raise ValueError(f"supersample must be an int >= 1, got "
+                         f"{config.supersample!r}")
     if config.backend not in V6_BACKENDS:
         return
     if config.three_tone is not None and config.uniform_look is not None:

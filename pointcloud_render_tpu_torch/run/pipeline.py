@@ -12,8 +12,10 @@ seeded random rotations when the cloud has no velocities) and mesh LOD
 fixed-segment velocity trails and the Catmull-Rom history-fit trails
 (every preset: traj_ball, traj_vel, traj with its history window, the
 other sphere + velocity presets and the example preset's static cloud,
-whose 3-D stacks ``process`` iterates).  The adaptive trail segmentation
-raises ``NotImplementedError`` naming its ROADMAP entry.
+whose 3-D stacks ``process`` iterates), and the look passes: the shadow
+map, the GGX ground lobe, the GI fill and supersampled antialiasing
+(``render_array``).  The adaptive trail segmentation raises
+``NotImplementedError`` naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -52,7 +54,13 @@ from pointcloud_render_tpu_torch.scene.camera import (
     Camera,
     camera_origin_torch,
 )
-from pointcloud_render_tpu_torch.shading.shade import check_supported
+from pointcloud_render_tpu_torch.shading import aa, shadow
+from pointcloud_render_tpu_torch.shading.shade import (
+    check_mode,
+    has_look,
+    shade_framebuffer,
+    without_look,
+)
 from pointcloud_render_tpu_torch.utils.consts import const
 
 # Straight velocity trails render as this many collinear capsules (the
@@ -220,7 +228,7 @@ class FramePipeline:
         if preset.splat == "droplet":
             check_droplet_lod(droplet_lod)
         self.droplet_lod = droplet_lod
-        check_supported(self.raster_config.shading)
+        check_mode(self.raster_config.shading)
         self.film = (width or IMAGE_WIDTH, height or IMAGE_HEIGHT)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -265,6 +273,16 @@ class FramePipeline:
         ``auto`` bin their triangles).  Droplets of a history preset
         without velocities take the reference's seeded random rotations
         (traj_renderer.py:566-568, a host loop over the points).
+
+        The look branch (the JAX package's ``_make_step``): with
+        ``supersample`` ss the camera's film is ss times the frame's; with
+        a look pass on (``shadows``, ``ground_spec``, ``gi``) the camera
+        raster runs the configured backend and its certificate with the
+        look passes off, and the frame is re-shaded through
+        ``shade_framebuffer``, with ``shadows`` under the factor of a
+        shadow map rasterized from the emitter (:meth:`_shadow_map`); with
+        ss > 1 the rgb is filtered down (``shading/aa.downsample``) and
+        depth and index keep every ss-th sample.
         """
         pcl = np.asarray(pcl, np.float32)
         has_vel = pcl.shape[1] == 6
@@ -284,16 +302,61 @@ class FramePipeline:
                 np.asarray(history, np.float32)[:, :, :3], device=self.device)
         else:
             history = None
+        scene = (positions, velocities, frame_index, history, rotations)
         w, h = self.film
-        camera = frame_camera(self.preset, frame_index, w, h, self.device)
-        prims = build_primitives(self.preset, camera, positions, velocities,
-                                 frame_index, history, rotations=rotations,
+        ss = self.raster_config.supersample
+        camera = frame_camera(self.preset, frame_index, w * ss, h * ss,
+                              self.device)
+        prims = build_primitives(self.preset, camera, *scene[:4],
+                                 rotations=rotations,
                                  droplet_lod=self.droplet_lod)
+        fb = self._render_certified(prims, camera, frame_index)
+        shading = self.raster_config.shading
+        if has_look(shading):
+            sf = (self._shadow_map(camera, fb, *scene) if shading.shadows
+                  else None)
+            fb = FrameBuffers(rgb=shade_framebuffer(
+                prims, camera, fb.depth, fb.index, shading, shadow=sf),
+                depth=fb.depth, index=fb.index)
+        if ss != 1:
+            fb = FrameBuffers(rgb=aa.downsample(fb.rgb, ss),
+                              depth=fb.depth[::ss, ::ss],
+                              index=fb.index[::ss, ::ss])
+        return fb
+
+    def _shadow_map(self, camera, fb: FrameBuffers, positions, velocities,
+                   frame_index, history, rotations) -> torch.Tensor:
+        """The (H, W) shadow factor of a camera frame ``fb``: the soup
+        rebuilt from ``shadow.light_camera(size=shadow_size)`` with the
+        same points, velocities, history and rotations, its capped tiled
+        z-buffer (``shadow.render_shadow_depth``: ``csr1_raster`` on the
+        card) and ``shadow.shadow_factor`` with the config's knobs."""
+        shading = self.raster_config.shading
+        light_cam = shadow.light_camera(size=shading.shadow_size,
+                                        device=self.device)
+        prims_light = build_primitives(
+            self.preset, light_cam, positions, velocities, frame_index,
+            history, rotations=rotations, droplet_lod=self.droplet_lod)
+        sdepth = shadow.render_shadow_depth(prims_light, light_cam)
+        return shadow.shadow_factor(
+            camera, fb.depth, fb.index, light_cam, sdepth,
+            bias=shading.shadow_bias, min_light=shading.shadow_min_light,
+            taps=shading.shadow_taps,
+            emitter_half=shading.shadow_emitter_half,
+            max_radius_px=shading.shadow_max_radius_px)
+
+    def _render_certified(self, prims, camera, frame_index) -> FrameBuffers:
+        """``render`` with the certificate read back: the big list grows
+        and the frame renders again on overflow (at most
+        MAX_RENDER_ATTEMPTS times); binned entries past a finite
+        ``entry_capacity`` raise.  The look passes are off here (the
+        caller re-shades)."""
         for _attempt in range(MAX_RENDER_ATTEMPTS):
-            fb, diag = render(prims, camera,
-                              scene_config(self.preset, self.raster_config,
-                                           self.droplet_lod),
-                              return_diag=True)
+            config = scene_config(self.preset, self.raster_config,
+                                  self.droplet_lod)
+            config = dataclasses.replace(
+                config, shading=without_look(config.shading))
+            fb, diag = render(prims, camera, config, return_diag=True)
             ovf = int(diag["big_overflow"])
             if ovf == 0:
                 self._check_capacity(int(diag["true_entries"]), frame_index)

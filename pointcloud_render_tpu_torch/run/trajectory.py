@@ -28,6 +28,12 @@ grow as real history accumulates; after each frame the positions it
 rendered are pushed in.  The JAX scan pads a short last chunk with
 frozen steps; the eager loop renders only real frames, so the state
 never advances past the last of them.
+
+The look passes: the GGX lobe and the GI fill apply under the backends that
+shade through ``shade_framebuffer`` (``pallas`` and the plain ones), as in
+the JAX scan; the fused backends raise for them, and every backend raises
+for ``shadows`` and ``supersample``, which the JAX scan drops (ROADMAP
+queue C).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from pointcloud_render_tpu_torch.configs import ScenePreset
 from pointcloud_render_tpu_torch.geometry.trails import HISTORY_WINDOW
 from pointcloud_render_tpu_torch.raster import csr6
 from pointcloud_render_tpu_torch.raster.render import (
+    FUSED_BACKENDS,
     RasterConfig,
     check_config,
     render,
@@ -53,7 +60,10 @@ from pointcloud_render_tpu_torch.run.pipeline import (
 )
 from pointcloud_render_tpu_torch.scene import dynamics
 from pointcloud_render_tpu_torch.scene.camera import IMAGE_HEIGHT, IMAGE_WIDTH
-from pointcloud_render_tpu_torch.shading.shade import check_supported
+from pointcloud_render_tpu_torch.shading.shade import (
+    check_mode,
+    check_supported,
+)
 
 
 def srgb_encode_u8(rgb: torch.Tensor) -> torch.Tensor:
@@ -81,7 +91,17 @@ class TrajectoryScanRenderer:
         self.preset = preset
         self.raster_config = raster_config or RasterConfig()
         check_config(self.raster_config)
-        check_supported(self.raster_config.shading)
+        check_mode(self.raster_config.shading)
+        if (self.raster_config.shading.shadows
+                or self.raster_config.supersample != 1):
+            raise NotImplementedError(
+                "shadows and supersample are not part of the scan: the JAX "
+                "scan renders each frame through render() with neither the "
+                "shadow map nor supersampling (run/trajectory.py:128) and "
+                "drops them without a word (ROADMAP queue C); render them "
+                "through FramePipeline")
+        if self.raster_config.backend in FUSED_BACKENDS:
+            check_supported(self.raster_config.shading)
         self.dt = float(dt)
         self.motion_color = motion_color
         self.droplet_lod = droplet_lod

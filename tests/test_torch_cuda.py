@@ -13,10 +13,11 @@ walks', v3's and v2's disc cull on discs tangent to their bands and
 column segments, v3's exact ties across work items; the v4 walk's split
 with and without its exit and binned triangles; the v5 walks' split and
 warp cull at every tile shape, fused and not, on discs tangent to the
-warp blocks' edges, with ties across work items)
-against their plain PyTorch versions, and frames and flythroughs (traj_ball, the disc
-lane, traj's history trails, the pallas backend) rendered on the card
-against the same on the CPU.  Every test here needs a card (marker
+warp blocks' edges, with ties across work items; the v1 walk over the
+shadow map's capped strips) against their plain PyTorch versions, and
+frames and flythroughs (traj_ball, the disc lane, traj's history trails,
+the pallas backend, the look passes) rendered on the card against the
+same on the CPU.  Every test here needs a card (marker
 ``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -40,10 +41,12 @@ from pointcloud_render_tpu_torch.raster import (
     csr4,
     csr5,
     csr6,
+    tiles,
 )
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
+from pointcloud_render_tpu_torch.shading import shadow
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 # By file name (pytest puts this directory on sys.path): an installed
 # regular package named ``tests`` would shadow ``tests.torch_soups``.
@@ -1225,3 +1228,77 @@ def test_v5_split_cull_matches_plain_on_card(cuda_device, case, tile):
         assert bool((want[1] >= 0).any())
     if case == "tie_tile" and tile == (32, 32):
         assert int(want[1][41, 40]) == 0
+
+
+def _capped_soups(device):
+    """Soups for the shadow map's capped strips: the traj_ball light view
+    of 1,500 points at 64x64 (thousands of entries past 1,024 per strip)
+    and of 300 points at 128x128, and the tests' mixed soup cut at 32 per
+    strip and 1 big prim, with the strip grid of each."""
+    light = shadow.light_camera(size=64, device=device)
+    pos, vel = cloud(n=1500, seed=3)
+    dense = pipeline.build_primitives(PRESETS["traj_ball"], light, pos, vel,
+                                      120)
+    light128 = shadow.light_camera(size=128, device=device)
+    pos, vel = cloud()
+    sparse = pipeline.build_primitives(PRESETS["traj_ball"], light128, pos,
+                                       vel, 120)
+    return {"light64": (dense, 64, 64, 1024, 64),
+            "light128": (sparse, 128, 128, 1024, 64),
+            "mixed_cut": (make_soup("mixed").to(device), W, H, 32, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["light64", "light128", "mixed_cut"])
+def test_capped_strips_v1_matches_plain_on_card(cuda_device, case):
+    """csr1_raster over tiles.bin_primitives' capped strips (the shadow
+    map's raster), its exit off and on, at items of 1, 7, 64 rows and the
+    default == the plain strip walk bit for bit; rasterize_tiled launches
+    it once and equals its CPU run (depth bits, index, dropped entries)."""
+    soup, w, h, cap, big = _capped_soups(cuda_device)[case]
+    bins = tiles.bin_primitives(soup, w, h, max_per_tile=cap, max_big=big)
+    args = tiles.strip_rows(soup, bins)
+    want = csr.raster_strips_plain(*args, w, h)
+    for allow_exit in (False, True):
+        for split_rows in V1_SPLITS:
+            before = csr.raster_tiles1.launches
+            got = csr.raster_tiles1(*args, w, h, allow_exit=allow_exit,
+                                    split_rows=split_rows)
+            torch.cuda.synchronize()
+            assert csr.raster_tiles1.launches == before + 1
+            for a, b in zip(got, want, strict=True):
+                np.testing.assert_array_equal(_bits(a), _bits(b))
+    before = csr.raster_tiles1.launches
+    on_card = tiles.rasterize_tiled(soup, w, h, max_per_tile=cap,
+                                    max_big=big)
+    on_cpu = tiles.rasterize_tiled(soup.to(torch.device("cpu")), w, h,
+                                   max_per_tile=cap, max_big=big)
+    assert csr.raster_tiles1.launches == before + 1
+    for a, b in zip(on_card[:2], on_cpu[:2], strict=True):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(on_card[2]["dropped"]) == int(on_cpu[2]["dropped"])
+    assert (int(on_cpu[2]["dropped"]) > 0) == (case != "light128")
+    assert bool((want[1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_look_frame_on_card_equals_cpu(cuda_device):
+    """traj_ball at 160x96 with every look pass (ss 2, the shadow map at
+    128, ground_spec 0.5, gi 0.25): the card's frame == the CPU's bit for
+    bit (rgb, depth, index), one csr1_raster launch per frame (the shadow
+    map)."""
+    pcl = np.concatenate(cloud(), axis=1)
+    cfg = RasterConfig(supersample=2, shading=ShadingConfig(
+        shadows=True, shadow_size=128, ground_spec=0.5, gi=0.25))
+    pipes = [pipeline.FramePipeline(PRESETS["traj_ball"], cfg, width=160,
+                                    height=96, device=dev)
+             for dev in ("cpu", cuda_device)]
+    for fi in (10, 120, 205):
+        before = csr.raster_tiles1.launches
+        fbs = [p.render_array(pcl, fi) for p in pipes]
+        torch.cuda.synchronize()
+        assert csr.raster_tiles1.launches == before + 1
+        for field in ("index", "depth", "rgb"):
+            np.testing.assert_array_equal(
+                getattr(fbs[0], field).numpy().view(np.int32),
+                getattr(fbs[1], field).cpu().numpy().view(np.int32))

@@ -36,8 +36,8 @@ from pointcloud_render_tpu.shading.shade import shade_framebuffer
 from pointcloud_render_tpu_torch.cli import traj_ball_renderer
 from pointcloud_render_tpu_torch.configs import PRESETS
 from pointcloud_render_tpu_torch.io import ply
-from pointcloud_render_tpu_torch.raster.render import RasterConfig
-from pointcloud_render_tpu_torch.run import pipeline
+from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
+from pointcloud_render_tpu_torch.run import pipeline, trajectory
 from pointcloud_render_tpu_torch.run.metrics import profiler_trace
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from pointcloud_render_tpu_torch.utils import convert
@@ -217,10 +217,23 @@ def test_unported_paths_raise():
     for cfg in (RasterConfig(backend="pallas3"), RasterConfig(cap_rows10=True),
                 RasterConfig(span=4), RasterConfig(span=8, cap_rows10=True)):
         pipeline.FramePipeline(PRESETS["traj_ball"], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.FramePipeline(
-            PRESETS["traj_ball"],
-            RasterConfig(shading=ShadingConfig(shadows=True)), device="cpu")
+    # Ported since: FramePipeline takes the look knobs.  The scan raises
+    # for shadows and supersample (the JAX scan drops them), and a fused
+    # kernel backend's render() for the look passes it does not evaluate.
+    look = RasterConfig(supersample=2, shading=ShadingConfig(
+        shadows=True, ground_spec=0.5, gi=0.25))
+    pipeline.FramePipeline(PRESETS["traj_ball"], look, device="cpu")
+    for cfg in (look, RasterConfig(supersample=2),
+                RasterConfig(shading=ShadingConfig(shadows=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue C"):
+            trajectory.TrajectoryScanRenderer(PRESETS["traj_ball"], cfg,
+                                              device="cpu")
+    cam = pipeline.frame_camera(PRESETS["traj_ball"], 120, 64, 48, "cpu")
+    soup = pipeline.build_primitives(PRESETS["traj_ball"], cam, pos, vel,
+                                     120)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue C"):
+        render(soup, cam, RasterConfig(shading=ShadingConfig(
+            ground_spec=0.5)))
     with pytest.raises(ValueError, match="unknown droplet_lod"):
         pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
@@ -250,6 +263,11 @@ def test_package_imports_without_jax():
             "import pointcloud_render_tpu_torch.utils.tuned\n"
             "import pointcloud_render_tpu_torch.raster.csr5\n"
             "import pointcloud_render_tpu_torch.scene.spatial\n"
+            "import pointcloud_render_tpu_torch.shading.shadow\n"
+            "import pointcloud_render_tpu_torch.shading.aa\n"
+            "import pointcloud_render_tpu_torch.raster.tiles\n"
+            "import pointcloud_render_tpu_torch.raster.alpha\n"
+            "import pointcloud_render_tpu_torch.raster.coverage\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pointcloud_render_tpu.') for m in sys.modules "
             "if sys.modules[m] is not None)\n")
