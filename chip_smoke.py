@@ -246,7 +246,33 @@ Phases (any failure exits non-zero and prints no result line):
      span 4 (== the span-2 frame; its big list and time), csr1_raster on the
      shadow map timed per call and on the device beside its plain version
      and its bound (the rows walked, OPS_* per pixel), and
-     raster/alpha.composite_tiled at 1M splats and 1920x1080.
+     raster/alpha.composite_tiled at 1M splats and 1920x1080;
+ 15. the stream (ROADMAP A14; BASELINE.json config 5 as
+     benchmarks/stream_10m.py runs it: camera (2, 2, 2) -> (0, 0, -0.05)
+     at 3840x2160, 10M points uniform in [-0.5, 0.5)^3 from
+     default_rng(0) in chunks of 1M, splat radius 0.0015) through
+     parallel/streaming.StreamingRasterizer: (a) the disc scene
+     (pallas6, discs_only, max_big 1024): one csr6_disc8 launch per
+     chunk, the stream == the monolithic csr6.rasterize_csr6 render of
+     the whole 10M-disc soup bit for bit (ids below 2^24), both disc
+     kernels == plain on chunk 0's soup (timed); (b) the trail scene
+     (discs + 4-segment velocity trails at frame 120, span 4, cap_rows10,
+     max_big 20480): one csr6_cap10 launch per chunk, chunks 0-1 as a
+     stream == the monolithic render of their concatenated 10M-row soup,
+     csr6_cap10 == plain on chunk 0's soup (timed); (c) the v4 ("pallas")
+     and capped "tiled" streams on the disc scene's first 2 chunks: v4 ==
+     the pallas6 stream bit for bit, csr4_raster and csr1_raster over
+     chunk 0's capped strips == plain, the entries the caps drop
+     (mirrored from the JAX package); (d) a traj_vel droplet stream (1M
+     points, chunks of 250,000, 1920x1080, default config: csr6_raster
+     per chunk): chunk 0 alone == its monolithic render, the ground's
+     winners from chunk 0 only; (e) "[stream]" lines for (a) and (b):
+     warm ms per chunk end to end with the host generation apart, the
+     device-side step on a resident chunk, points/s, the stages of a
+     chunk, the device idle share of a traced stream, the host
+     synchronisations torch flags (set_sync_debug_mode) in a 3-chunk
+     stream (the chunk loop itself may make one: the certificate
+     read-back), torch.cuda.max_memory_allocated.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path (csr1_raster's: rasterize_csr's, the look CLI's shadow
@@ -278,7 +304,12 @@ on); under --parent csr1_raster adds parent_ms and parent_ms_exit_off
 at traj_ball frame 120 (phase 14) as shadow_launches, shadow_ms,
 shadow_device_ms, shadow_plain_ms, shadow_bound_ms, shadow_bound_by,
 shadow_ms_exit_off, shadow_bound_ms_exit_off, shadow_entries,
-shadow_walked and shadow_dropped.  "[split]" lines time a split walk by
+shadow_walked and shadow_dropped; the five kernels of phase 15 add
+stream_launches (their launches in its streams: csr6_disc8 and
+csr6_cap10 10, csr4_raster and csr1_raster 2, csr6_raster 4), and
+csr6_disc8 and csr6_cap10 their walk of the stream's chunk 0 as
+stream_ms, stream_plain_ms, stream_bound_ms and stream_bound_by
+(csr6_disc8 also stream_device_ms).  "[split]" lines time a split walk by
 split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
@@ -1048,6 +1079,24 @@ def disc_bounds(b, soup, width, height, images, span, bands, pixel_rows):
             evaluated / F32_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3)
 
 
+# Phase 15: BASELINE.json config 5 as benchmarks/stream_10m.py runs it.
+STREAM_FILM = (3840, 2160)  # stream_10m.py:50-52
+STREAM_POINTS = 10_000_000
+STREAM_CHUNK = 1_000_000
+STREAM_RADIUS = 0.0015
+STREAM_TRAIL_RADIUS = 0.0007
+STREAM_SEGMENTS = 4
+STREAM_TRAIL_MAX_BIG = 20480
+# (c): the v4 and tiled streams on the disc scene's first chunks.
+STREAM_SHORT_CHUNKS = 2
+# (d): a traj_vel droplet stream at 1080p.
+STREAM_DROPLETS = 1_000_000
+STREAM_DROPLET_CHUNK = 250_000
+# The stream's kernels: their launches in phase 15 under stream_, and
+# csr6_disc8's and csr6_cap10's walk of chunk 0's soup.
+STREAM_KEYS = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
+               "bound_by")
+
 # Keys of the kernels line beyond the contract's, where a kernel has them:
 # the exit-off walk of the walks with an exit; the disc-row walks' bound
 # over every pair (the bound of their history) and over the pairs their
@@ -1069,7 +1118,8 @@ EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
               "parent_ms_exit_off",
               *(f"{k}_frame205" for k in FRAME205_KEYS),
-              *(f"shadow_{k}" for k in SHADOW_KEYS))
+              *(f"shadow_{k}" for k in SHADOW_KEYS),
+              *(f"stream_{k}" for k in STREAM_KEYS))
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
@@ -4053,13 +4103,14 @@ def fidelity_phase(card, dev, counters):
                   f"{rate:.6g} <= {limits[preset]:.6g}", flush=True)
 
 
-def compare_capped(soup, size, card, timing=False):
-    """csr1_raster over the shadow map's capped strips (the light view's
-    ``tiles.bin_primitives`` at 1,024 per 8x128 strip, 16 strips per
-    prim, 64 big prims; ``tiles.strip_rows``) with its exit on and off, at
-    its default split and at items of SPLIT_FORCED rows, == the plain
-    strip walk bit for bit -> dict(err, entries, dropped, depth (the plain
-    walk's shadow map), and with
+def compare_capped(soup, width, height, card, timing=False,
+                   max_per_tile=None, what="shadow map"):
+    """csr1_raster over capped strips (``tiles.bin_primitives`` at
+    ``max_per_tile`` per 8x128 strip, by default the shadow map's 1,024;
+    16 strips per prim, 64 big prims; ``tiles.strip_rows``) with its exit
+    on and off, at its default split and at items of SPLIT_FORCED rows,
+    == the plain strip walk bit for bit -> dict(err, entries, dropped,
+    depth (the plain walk's depth), and with
     ``timing``: ms, device_ms, ms_exit_off, plain_ms, bound_ms, bound_by,
     bound_ms_exit_off, walked).  The bound counts the rows walked (the
     first walked[t] rows of each strip) at 16 or 18 operations per pixel
@@ -4069,9 +4120,11 @@ def compare_capped(soup, size, card, timing=False):
     from pointcloud_render_tpu_torch.raster import csr, tiles
     from pointcloud_render_tpu_torch.shading import shadow
 
-    bins = tiles.bin_primitives(soup, size, size,
-                                max_per_tile=shadow.SHADOW_MAX_PER_TILE)
-    args = (*tiles.strip_rows(soup, bins), size, size)
+    if max_per_tile is None:
+        max_per_tile = shadow.SHADOW_MAX_PER_TILE
+    bins = tiles.bin_primitives(soup, width, height,
+                                max_per_tile=max_per_tile)
+    args = (*tiles.strip_rows(soup, bins), width, height)
     rows, starts = args[0], args[1]
     want = csr.raster_strips_plain(*args)
     lengths = starts[1:] - starts[:-1]
@@ -4083,7 +4136,7 @@ def compare_capped(soup, size, card, timing=False):
             got = csr.raster_tiles1(*args, walked=walked, allow_exit=exit_on,
                                     **extra)
             torch.cuda.synchronize()
-            on = (f"csr1_raster shadow map {size}x{size} exit "
+            on = (f"csr1_raster {what} {width}x{height} exit "
                   f"{'on' if exit_on else 'off'}"
                   + (f", items of {items} rows" if items else ""))
             errs.append(check_equal_bits(got, want, on))
@@ -4102,7 +4155,7 @@ def compare_capped(soup, size, card, timing=False):
         ids = rows[:n, 12].long()
         big_ids, big_n = bins.big_list, args[3]
         on, off = (strip_bound(soup, e, 16, 1024, big_ids, big_n,
-                               starts.numel(), size, size, False)
+                               starts.numel(), width, height, False)
                    for e in (ids[keep], ids))
         out.update(
             ms=time_ms(lambda: csr.raster_tiles1(*args), 11),
@@ -4227,7 +4280,7 @@ def look_phase(card, dev, inp, out, counters, max_err) -> dict:
           "(tile_overflow at 1,024 per 8x128 strip, 16 strips per prim, 64 "
           "big prims; mirrored from the JAX package's tiled backend)",
           flush=True)
-    shadow_nums = compare_capped(lsoup, size, card, timing=True)
+    shadow_nums = compare_capped(lsoup, size, size, card, timing=True)
     max_err["csr1_raster"] = max(max_err["csr1_raster"], shadow_nums["err"])
     check(shadow_nums["dropped"] == dropped,
           f"TileBins.overflowed {shadow_nums['dropped']} != tile_overflow "
@@ -4369,6 +4422,365 @@ def look_phase(card, dev, inp, out, counters, max_err) -> dict:
           f"entries dropped at 1,024 per strip ({card})", flush=True)
     return {"launches": counts.get("raster_tiles1", 0), **{
         k: shadow_nums[k] for k in SHADOW_KEYS if k in shadow_nums}}
+
+
+def stream_camera(device):
+    """stream_10m.py's camera: origin (2, 2, 2), target (0, 0, -0.05), 4K."""
+    import torch
+
+    from pointcloud_render_tpu_torch.scene.camera import Camera
+
+    w, h = STREAM_FILM
+    return Camera(origin=torch.tensor([2.0, 2.0, 2.0], device=device),
+                  target=torch.tensor([0.0, 0.0, -0.05], device=device),
+                  width=w, height=h)
+
+
+def stream_chunks(scene, n_chunks, seed, log=None):
+    """stream_10m.py's host feed: chunks of STREAM_CHUNK points uniform in
+    [-0.5, 0.5)^3; the trail scene adds gray colours and velocities
+    normal(0, 2).  ``log`` sums the generation time under "gen_s" and
+    keeps the chunks under "chunks"."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gray = np.broadcast_to(np.array([0.3, 0.3, 0.3], np.float32),
+                           (STREAM_CHUNK, 3))
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        pts = rng.uniform(-0.5, 0.5, (STREAM_CHUNK, 3)).astype(np.float32)
+        chunk = pts if scene == "disc" else (
+            pts, gray, rng.normal(0, 2, pts.shape).astype(np.float32))
+        if log is not None:
+            log["gen_s"] += time.perf_counter() - t0
+            log["chunks"].append(chunk)
+        yield chunk
+
+
+def device_chunk(chunk, device):
+    """A host chunk as the stream's device arguments (positions, colours,
+    extras); bare positions take the gray default colour."""
+    import numpy as np
+    import torch
+
+    if not isinstance(chunk, tuple):
+        chunk = (chunk, np.broadcast_to(np.float32(0.3), chunk.shape))
+    pos, colors, *extras = (torch.tensor(np.ascontiguousarray(a),
+                                         device=device) for a in chunk)
+    return pos, colors, tuple(extras)
+
+
+def host_syncs(fn):
+    """(fn's result, {file:line: count}) of the synchronising CUDA calls
+    torch flags while ``fn`` runs (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, where
+
+
+def stream_stages(sr, chunk):
+    """The stages of one chunk's step: soup build, raster (binning, rows,
+    kernel), the attribute gather and merge."""
+    import torch
+
+    h, w = sr.camera.height, sr.camera.width
+    dev = sr.device
+    state = (torch.full((h, w), float("inf"), device=dev),
+             torch.full((h, w), 2147483647, dtype=torch.int32, device=dev),
+             torch.zeros((h, w, 6), device=dev))
+
+    def build(f):
+        f["prims"] = sr.build_soup(*chunk)[0]
+
+    def raster(f):
+        f["d"], f["i"], _, _ = sr.raster_soup(f["prims"])
+
+    return [("soup build", build), ("binning, rows and kernel", raster),
+            ("attribute gather and merge",
+             lambda f: sr.fold(f["prims"], f["d"], f["i"], 0, *state))]
+
+
+def stream_scene(card, dev, counters, sr, scene, want, tmp):
+    """Phase 15 (e) on one full-width scene: the STREAM_POINTS stream
+    (launches checked against ``want``), warm, timed end to end with the
+    host generation apart, the resident step, a trace, the host syncs
+    and the peak memory -> (depth, index, attrs, launches, chunks)."""
+    import torch
+
+    n_chunks = STREAM_POINTS // STREAM_CHUNK
+    sr.rasterize(stream_chunks(scene, 1, seed=1))  # first use
+    torch.cuda.synchronize()
+    log = dict(gen_s=0.0, chunks=[])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    depth, index, attrs = sr.rasterize(stream_chunks(scene, n_chunks, 0, log),
+                                       return_attrs=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == {want: n_chunks},
+          f"{scene} stream: launches {counts}, want {want} {n_chunks}")
+    hit = index >= 0
+    check(bool(torch.isfinite(depth[hit]).all()) and bool(hit.any())
+          and int(index.max()) < n_chunks * sr.prims_per_chunk,
+          f"{scene} stream: malformed output")
+    gen = log["gen_s"]
+    print(f"[stream] {scene} scene: {STREAM_POINTS} points in {n_chunks} "
+          f"chunks at {STREAM_FILM[0]}x{STREAM_FILM[1]}, warm: "
+          f"{wall / n_chunks * 1e3:.2f} ms per chunk end to end, of which "
+          f"host generation {gen / n_chunks * 1e3:.2f} ms; "
+          f"{STREAM_POINTS / wall / 1e6:.2f}M points/s end to end, "
+          f"{STREAM_POINTS / (wall - gen) / 1e6:.2f}M points/s without the "
+          f"generation; hit share {float(hit.float().mean()):.4f}, max id "
+          f"{int(index.max())}; peak memory allocated {peak / 2**30:.3f} GiB "
+          f"({card})", flush=True)
+    chunk = device_chunk(log["chunks"][0], dev)
+    h, w = sr.camera.height, sr.camera.width
+    d0 = torch.full((h, w), float("inf"), device=dev)
+    i0 = torch.full((h, w), 2147483647, dtype=torch.int32, device=dev)
+    a0 = torch.zeros((h, w, 6), device=dev)
+    step_ms = time_ms(lambda: sr.step(*chunk, 0, d0, i0, a0), 10)
+    print(f"[stream] {scene} scene: device-side step on a resident chunk "
+          f"{step_ms:.3f} ms (median of 10) = "
+          f"{STREAM_CHUNK / step_ms / 1e3:.2f}M points/s ({card})",
+          flush=True)
+    for stage, ms in stage_times(stream_stages(sr, chunk)).items():
+        print(f"[stage] stream {scene} chunk {stage}: {ms:.2f} ms ({card})",
+              flush=True)
+    busy, twall, top, calls = device_profile(
+        lambda: sr.rasterize(stream_chunks(scene, n_chunks, 0)), 1, tmp)
+    if top:
+        print(f"[stream] {scene} scene: traced stream of {n_chunks} chunks: "
+              f"device busy {busy / 1e3:.2f} of {twall / 1e3:.2f} ms wall, "
+              f"idle share {1 - busy / twall:.3f} ({card})", flush=True)
+        for name, us in top[:6]:
+            print(f"[trace] stream {scene} {us / n_chunks / 1e3:9.3f} "
+                  f"ms/chunk  {name[:90]}", flush=True)
+    else:
+        print(f"[stream] {scene} scene: the profiler saw no device activity; "
+              "idle share not measured", flush=True)
+    _, where = host_syncs(lambda: sr.rasterize(stream_chunks(scene, 3, 0)))
+    total = sum(where.values())
+    print(f"[stream] {scene} scene: host synchronisations in a 3-chunk "
+          f"stream: {total} ({(total - 1) / 3:.2f} per chunk besides the "
+          f"one certificate read-back), by place {where}; staging waits "
+          f"{sr.staging_waits} ({card})", flush=True)
+    own = sum(c for k, c in where.items() if "parallel/streaming.py" in k)
+    check(own <= 1, f"{scene} stream: the chunk loop synchronises {own} "
+          "times, want only the certificate read-back")
+    return depth, index, attrs, counts.get(want, 0), log["chunks"]
+
+
+def stream_phase(card, dev, counters, max_err, tmp) -> dict:
+    """Phase 15: the stream (see the module docstring) -> the stream_
+    numbers of the five kernels it launches."""
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.parallel.streaming import (
+        StreamingRasterizer,
+    )
+    from pointcloud_render_tpu_torch.raster import csr4, csr6, tiles
+    from pointcloud_render_tpu_torch.raster.primitives import (
+        ScreenPrimitives,
+        discs_from_points,
+    )
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline
+    from pointcloud_render_tpu_torch.scene import normalize
+    from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
+
+    w, h = STREAM_FILM
+    cam = stream_camera(dev)
+    nums = {}
+
+    # (a) The disc scene: csr6_disc8 once per chunk; == the monolithic
+    # render of the whole 10M-disc soup.
+    disc_cfg = RasterConfig(backend="pallas6", discs_only=True)
+    sr = StreamingRasterizer(cam, STREAM_CHUNK, STREAM_RADIUS,
+                             backend="pallas6", config=disc_cfg,
+                             max_big=1024, device=dev)
+    depth, index, _, launches, chunks = stream_scene(
+        card, dev, counters, sr, "disc", "raster_tiles_disc8", tmp)
+    pos = torch.tensor(np.concatenate(chunks), device=dev)
+    n = pos.shape[0]
+    soup = discs_from_points(pos, cam, torch.full((n,), STREAM_RADIUS,
+                                                  device=dev),
+                             np.array([0.3, 0.3, 0.3], np.float32))
+    d1, i1, diag = csr6.rasterize_csr6(soup, w, h, max_big=1024,
+                                       discs_only=True)
+    check(int(diag["big_overflow"]) == 0, "monolithic disc render overflowed")
+    check_equal_bits((depth, index), (d1, i1),
+                     "the 10M-disc stream vs the monolithic render")
+    check(int(index.max()) < 1 << 24, "disc stream ids past 2^24")
+    print(f"[stream] disc scene: the {STREAM_POINTS // STREAM_CHUNK}-chunk "
+          f"stream == the monolithic csr6.rasterize_csr6(discs_only) render "
+          f"of the {n}-disc soup bit for bit (depth, index); csr6_disc8 "
+          f"launches {launches} ({card})", flush=True)
+    del pos, soup, d1, i1, depth, index
+    soup0 = sr.build_soup(*device_chunk(chunks[0], dev))[0]
+    _, flag = csr6.preshade(soup0, cam, ShadingConfig())
+    res, b = compare_disc(soup0, flag, w, h, csr6, 1024, timing=True)
+    for name, r in res.items():
+        max_err[name] = max(max_err[name], r["err"])
+    print_disc_times("csr6_disc8", res["csr6_disc8"], "stream chunk-0 (4K)",
+                     card)
+    nums["csr6_disc8"] = dict(res["csr6_disc8"], launches=launches)
+    print(f"[kernel==plain] csr6_disc8, csr6_disc8_uv stream chunk 0 "
+          f"({w}x{h}): {soup0.count} prims, big list {int(b['big_count'])} "
+          "ok", flush=True)
+    short = chunks[:STREAM_SHORT_CHUNKS]
+    del chunks
+
+    # (b) The trail scene: csr6_cap10 once per chunk; chunks 0-1 == the
+    # monolithic render of their concatenated soups.
+    trail_cfg = RasterConfig(backend="pallas6", span=4, cap_rows10=True)
+    sr_t = StreamingRasterizer(cam, STREAM_CHUNK, STREAM_RADIUS,
+                               backend="pallas6", config=trail_cfg,
+                               soup_fn=torch_soups().trail_soup_fn(
+                                   cam, STREAM_RADIUS, STREAM_SEGMENTS,
+                                   STREAM_TRAIL_RADIUS),
+                               max_big=STREAM_TRAIL_MAX_BIG, device=dev)
+    _, _, attrs, launches, chunks = stream_scene(
+        card, dev, counters, sr_t, "trail", "raster_tiles_cap10", tmp)
+    check(bool((attrs[..., 2] < 0).any()), "trail stream: no capsule winner")
+    del attrs
+    two = chunks[:2]
+    del chunks
+    d2, i2 = sr_t.rasterize(two)
+    soups = [sr_t.build_soup(*device_chunk(c, dev))[0] for c in two]
+    soup = ScreenPrimitives.concatenate(soups)
+    d1, i1, diag = csr6.rasterize_csr6(soup, w, h, max_big=1 << 16, span=4,
+                                       cap_rows10=True)
+    check(int(diag["big_overflow"]) == 0, "monolithic trail render overflowed")
+    check_equal_bits((d2, i2), (d1, i1),
+                     "the 2-chunk trail stream vs the monolithic render")
+    print(f"[stream] trail scene: chunks 0-1 as a stream == the monolithic "
+          f"cap_rows10 span-4 render of their {soup.count}-row soup bit for "
+          f"bit (depth, index) ({card})", flush=True)
+    del soup, d1, i1, d2, i2
+    res, _ = compare_cap10(soups[0], w, h, csr6, STREAM_TRAIL_MAX_BIG, 4,
+                           timing=True)
+    max_err["csr6_cap10"] = max(max_err["csr6_cap10"], res["err"])
+    nums["csr6_cap10"] = dict(res, launches=launches)
+    print(f"[kernel==plain] csr6_cap10 span 4 stream chunk 0 ({w}x{h}): "
+          f"{soups[0].count} prims, {res['binned']} binned, big list "
+          f"{res['big']} ok", flush=True)
+    print(f"[time] csr6_cap10 span 4 at the stream chunk-0 (4K) shape: "
+          f"kernel {res['ms']:.3f} ms (median of 11), plain "
+          f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.3f} ms by "
+          f"{res['bound_by']}; {stats_text(res)} ({card})", flush=True)
+    del soups
+
+    # (c) The v4 and tiled streams on the disc scene's first chunks.
+    want = StreamingRasterizer(cam, STREAM_CHUNK, STREAM_RADIUS,
+                               backend="pallas6", config=disc_cfg,
+                               device=dev).rasterize(short)
+    got = {}
+    for backend, kernel in (("pallas", "raster_tiles4"),
+                            ("tiled", "raster_tiles1")):
+        reset_counts(counters)
+        got[backend] = StreamingRasterizer(
+            cam, STREAM_CHUNK, STREAM_RADIUS, backend=backend, max_big=1024,
+            device=dev).rasterize(short)
+        torch.cuda.synchronize()
+        counts = launch_counts(counters)
+        check(counts == {kernel: len(short)},
+              f"{backend} stream: launches {counts}")
+        nums[{"raster_tiles4": "csr4_raster",
+              "raster_tiles1": "csr1_raster"}[kernel]] = dict(
+                  launches=len(short))
+    check_equal_bits(got["pallas"], want, "the v4 stream vs pallas6")
+    soup0 = sr.build_soup(*device_chunk(short[0], dev))[0]
+    dropped = int(tiles.tile_overflow(soup0, w, h))
+    differ = int((got["tiled"][1] != want[1]).sum())
+    print(f"[stream] v4 stream of {len(short)} chunks == the pallas6 stream "
+          f"bit for bit; the tiled stream's caps (512 per 8x128 strip, 64 "
+          f"big prims; mirrored from the JAX package) drop {dropped} entries "
+          f"of chunk 0 and change {differ} winners of the "
+          f"{len(short)}-chunk stream ({card})", flush=True)
+    r4, _ = compare_v4(soup0, w, h, csr6, csr4, 1024, False,
+                       what="stream chunk 0")
+    max_err["csr4_raster"] = max(max_err["csr4_raster"], r4["err"])
+    r1 = compare_capped(soup0, w, h, card, max_per_tile=tiles.MAX_PER_TILE,
+                        what="stream chunk 0")
+    max_err["csr1_raster"] = max(max_err["csr1_raster"], r1["err"])
+    check(r1["dropped"] == dropped, "TileBins.overflowed != tile_overflow")
+    print(f"[kernel==plain] csr4_raster (exit on and off) and csr1_raster "
+          f"over the capped strips ({r1['entries']} kept entries, exit off "
+          f"and on) on stream chunk 0 ({w}x{h}) ok", flush=True)
+    del want, got, soup0, short
+
+    # (d) A traj_vel droplet stream at 1080p (the default config).
+    preset = PRESETS["traj_vel"]
+    pos, vel = flagship_cloud(STREAM_DROPLETS, seed=29)
+    pcl = normalize.transform_coordinates(normalize.standardize_point_cloud(
+        np.concatenate([pos, vel], axis=1)), flip_x=preset.flip_x)
+    pcl = pcl.astype(np.float32)
+    cam_d = pipeline.frame_camera(preset, 120, WIDTH, HEIGHT, dev)
+
+    def droplet_soup(p, colors, v):
+        return pipeline.build_primitives(preset, cam_d, p, v, 120,
+                                         return_layout=True)
+    c = STREAM_DROPLET_CHUNK
+    gray = np.full((c, 3), 0.3, np.float32)
+    chunks = [(pcl[k:k + c, :3], gray, pcl[k:k + c, 3:])
+              for k in range(0, STREAM_DROPLETS, c)]
+    sr_d = StreamingRasterizer(cam_d, c, preset.point_radius,
+                               soup_fn=droplet_soup, max_big=1 << 14,
+                               device=dev)
+    d0, i0 = sr_d.rasterize(chunks[:1])
+    soup0, layout = sr_d.build_soup(*device_chunk(chunks[0], dev))
+    d1, i1, diag = csr6.rasterize_csr6(soup0, WIDTH, HEIGHT, max_big=1 << 14)
+    check(int(diag["big_overflow"]) == 0, "droplet chunk 0 overflowed")
+    check_equal_bits((d0, i0), (d1, i1),
+                     "the droplet stream's chunk 0 vs its monolithic render")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    d, i = sr_d.rasterize(chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(counters)
+    check(counts == {"raster_tiles": len(chunks)},
+          f"droplet stream: launches {counts}")
+    ground_rows = layout[0][0]
+    check(layout[0][1] == 0, "the droplet soup's first part is not the ground")
+    hit = i >= 0
+    ground = hit & (torch.remainder(i, sr_d.prims_per_chunk) < ground_rows)
+    check(bool(ground.any()) and bool((i[ground] < ground_rows).all()),
+          "droplet stream: ground winners from a chunk after the first")
+    nums["csr6_raster"] = dict(launches=len(chunks))
+    _, where = host_syncs(lambda: sr_d.rasterize(chunks))
+    print(f"[stream] droplet scene: host synchronisations in the "
+          f"{len(chunks)}-chunk stream: {sum(where.values())}, by place "
+          f"{where} ({card})", flush=True)
+    print(f"[stream] droplet scene (traj_vel, frame 120, {STREAM_DROPLETS} "
+          f"points in {len(chunks)} chunks, {WIDTH}x{HEIGHT}, default "
+          f"config): chunk 0 alone == its monolithic render bit for bit; the "
+          f"ground's {int(ground.sum())} winners from chunk 0 only; "
+          f"{wall / len(chunks) * 1e3:.2f} ms per chunk warm "
+          f"({sr_d.prims_per_chunk} prims per chunk); csr6_raster launches "
+          f"{counts.get('raster_tiles', 0)} ({card})", flush=True)
+    return {name: {f"stream_{k}": v for k, v in r.items() if k in STREAM_KEYS}
+            for name, r in nums.items()}
 
 
 def run() -> dict:
@@ -4738,6 +5150,9 @@ def run() -> dict:
     v5 = v5_lane(card, dev, max_err, counters, v5_seeded)
     # Phase 13: the fidelity certificate of segments and rows9.
     fidelity_phase(card, dev, counters)
+    # Phase 15: the stream (BASELINE.json config 5).
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        stream = stream_phase(card, dev, counters, max_err, tmp)
     # csr1_raster's entry stays rasterize_csr's walk at traj_ball frame 120
     # (phase 11 (b)); the shadow map's numbers (phase 14, its launches the
     # look CLI's) ride under shadow_.
@@ -4748,6 +5163,8 @@ def run() -> dict:
                "csr6_rows9": droplet, "csr6_raster[bin_triangles]": mesh,
                "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,
                **strips, "csr2_disc8": disc2, **v5}
+    for name, extra in stream.items():
+        numbers[name] = dict(numbers[name], **extra)
     return dict(card=card, kernels=[dict(
         name=name, route="cuda",
         source=(STRIP_SOURCE if name in STRIP_KERNELS else V5_SOURCE

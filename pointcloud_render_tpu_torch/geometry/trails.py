@@ -11,8 +11,10 @@ Three length-scale schedules exist across the reference scripts:
 
 ``velocity_trail_points`` is the exact host float64 replay of one trail
 (the golden 21-point state layer); ``velocity_trails`` the batched float32
-tensor build; ``velocity_trail_vertex_columns`` the production build that
-computes only the vertices the renderer samples.  ``catmull_rom_trails``
+tensor build; ``velocity_trails_sampled`` the same at the sampled
+vertices only, as an (N, K, 3) polyline (the streamed trail soup's
+build), and ``velocity_trail_vertex_columns`` the production build that
+computes only those vertices as packed columns.  ``catmull_rom_trails``
 fits the traj preset's trails through the last frames' positions
 (traj_renderer.py:204-396).  The float32 builds keep
 the JAX expression order with explicit component sums (no
@@ -112,6 +114,29 @@ def velocity_trails(positions, velocities, frame_index, schedule: str = "ball"):
     ts = as_f32(_ts_full(), p.device)
     offsets = direction[:, None, :] * (trail_length[:, None] * ts[None, :])[..., None]
     pts = torch.cat([p[:, None, :] + offsets, p[:, None, :]], dim=1)
+    valid = valid & torch.isfinite(pts.reshape(pts.shape[0], -1)).all(dim=1)
+    return pts, valid
+
+
+def velocity_trails_sampled(positions, velocities, frame_index, indices,
+                            schedule: str = "ball"):
+    """``velocity_trails`` evaluated only at vertex ``indices``: points
+    (N, K, 3) and valid (N,), bit for bit ``velocity_trails(...)[0][:,
+    indices]`` and its mask (the same float32 expression at the same t;
+    index 20 is the position itself; the mask keeps the full build's
+    21-vertex finiteness rule, since non-finite values can only come from
+    non-finite inputs, which poison every vertex)."""
+    p, direction, trail_length, valid = _trail_terms(
+        positions, velocities, frame_index, schedule)
+    idx = np.asarray(indices, np.int64)
+    ts = _ts_full()[np.minimum(idx, N_TRAIL_POINTS - 1)]
+    ts[idx >= N_TRAIL_POINTS] = 0.0
+    offsets = direction[:, None, :] * (
+        trail_length[:, None] * as_f32(ts, p.device)[None, :])[..., None]
+    pts = p[:, None, :] + offsets
+    is_pos = const(idx >= N_TRAIL_POINTS, np.bool_, p.device)
+    pts = torch.where(is_pos[None, :, None], p[:, None, :].expand_as(pts),
+                      pts)
     valid = valid & torch.isfinite(pts.reshape(pts.shape[0], -1)).all(dim=1)
     return pts, valid
 

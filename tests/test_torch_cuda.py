@@ -16,9 +16,11 @@ warp cull at every tile shape, fused and not, on discs tangent to the
 warp blocks' edges, with ties across work items; the v1 walk over the
 shadow map's capped strips) against their plain PyTorch versions, and
 frames and flythroughs (traj_ball, the disc lane, traj's history trails,
-the pallas backend, the look passes) rendered on the card against the
-same on the CPU.  Every test here needs a card (marker
-``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
+the pallas backend, the look passes, the stream's pallas6, pallas (v4)
+and tiled backends on disc and trail chunks) rendered on the card against
+the same on the CPU, and a stream fed by a generator that holds the card
+against its monolithic render (the staging slots' reuse).  Every test
+here needs a card (marker ``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -34,6 +36,7 @@ import pytest
 import torch
 
 from pointcloud_render_tpu_torch.configs import PRESETS
+from pointcloud_render_tpu_torch.parallel.streaming import StreamingRasterizer
 from pointcloud_render_tpu_torch.raster import (
     csr,
     csr2,
@@ -43,6 +46,7 @@ from pointcloud_render_tpu_torch.raster import (
     csr6,
     tiles,
 )
+from pointcloud_render_tpu_torch.raster.primitives import discs_from_points
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -70,6 +74,7 @@ from torch_soups import (
     split_soup,
     tcam,
     tie_tile_soup,
+    trail_soup_fn,
     v5_soups,
     wide_disc_soup,
 )
@@ -1302,3 +1307,84 @@ def test_look_frame_on_card_equals_cpu(cuda_device):
             np.testing.assert_array_equal(
                 getattr(fbs[0], field).numpy().view(np.int32),
                 getattr(fbs[1], field).cpu().numpy().view(np.int32))
+
+
+STREAM_FILM = (256, 64)
+STREAM_KERNELS = {"pallas6": csr6.raster_tiles, "pallas": csr4.raster_tiles4,
+                  "tiled": csr.raster_tiles1}
+
+
+def _stream(device, backend, scene):
+    w, h = STREAM_FILM
+    cam = tcam(w, h, device=device)
+    rng = np.random.default_rng(17)
+    pos = rng.uniform(-0.4, 0.4, (600, 3)).astype(np.float32)
+    colors = rng.uniform(0.1, 0.9, (600, 3)).astype(np.float32)
+    vel = (rng.normal(size=(600, 3)) * 2).astype(np.float32)
+    kw = dict(chunk_points=256, radius_world=0.02, backend=backend,
+              entry_capacity=1 << 16, device=device)
+    if scene == "trail":
+        kw.update(soup_fn=trail_soup_fn(cam, 0.01), max_big=4096)
+        chunks = [(pos[k:k + 256], colors[k:k + 256], vel[k:k + 256])
+                  for k in range(0, 600, 256)]
+    else:
+        chunks = [(pos[k:k + 256], colors[k:k + 256])
+                  for k in range(0, 600, 256)]
+    return StreamingRasterizer(cam, **kw).rasterize(chunks,
+                                                    return_attrs=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["disc", "trail"])
+@pytest.mark.parametrize("backend", ["pallas6", "pallas", "tiled"])
+def test_stream_on_card_equals_cpu(cuda_device, backend, scene):
+    """Each streaming backend's card stream (three chunks, the last short)
+    == its CPU stream bit for bit (depth, index, attributes), its kernel
+    launched once per chunk."""
+    kernel = STREAM_KERNELS[backend]
+    before = kernel.launches
+    on_card = _stream(cuda_device, backend, scene)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 3
+    on_cpu = _stream(torch.device("cpu"), backend, scene)
+    for a, b in zip(on_card, on_cpu, strict=True):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert bool((on_cpu[1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_stream_from_generator_equals_monolithic_on_card(cuda_device):
+    """Six chunks of distinct points from a generator that holds the card
+    (a spin of ~0.05 s before each chunk), so the host runs ahead of the
+    copies and must wait before it refills a staging slot: the stream ==
+    the monolithic render of the whole cloud bit for bit.  A slot
+    refilled before its last copy renders another chunk's points.  The
+    discs_only walk, whose chunk loop never waits for the card."""
+    w, h = STREAM_FILM
+    cam = tcam(w, h, device=cuda_device)
+    rng = np.random.default_rng(23)
+    pos = rng.uniform(-0.5, 0.5, (1200, 3)).astype(np.float32)
+    cfg = RasterConfig(discs_only=True)
+
+    def chunks():
+        for k in range(6):
+            torch.cuda._sleep(100_000_000)
+            yield pos[200 * k:200 * (k + 1)]
+    sr = StreamingRasterizer(cam, chunk_points=200, radius_world=0.02,
+                             config=cfg, device=cuda_device)
+    depth, index = sr.rasterize(chunks())
+    soup = discs_from_points(torch.tensor(pos, device=cuda_device), cam,
+                             torch.full((1200,), 0.02, device=cuda_device),
+                             np.array([0.3, 0.3, 0.3], np.float32))
+    want = csr6.rasterize_csr6(soup, w, h, discs_only=True)
+    np.testing.assert_array_equal(_bits(depth), _bits(want[0]))
+    np.testing.assert_array_equal(_bits(index), _bits(want[1]))
+    assert int(index.max()) >= 1000
+    assert sr.staging_waits > 0  # the host waited for a slot's copy
+
+
+@pytest.mark.cuda
+def test_stream_camera_on_another_device_raises(cuda_device):
+    with pytest.raises(ValueError, match="stream's device"):
+        StreamingRasterizer(tcam(), chunk_points=10, radius_world=0.01,
+                            device=cuda_device)

@@ -36,6 +36,7 @@ from pointcloud_render_tpu.shading.shade import shade_framebuffer
 from pointcloud_render_tpu_torch.cli import traj_ball_renderer
 from pointcloud_render_tpu_torch.configs import PRESETS
 from pointcloud_render_tpu_torch.io import ply
+from pointcloud_render_tpu_torch.parallel.streaming import StreamingRasterizer
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline, trajectory
 from pointcloud_render_tpu_torch.run.metrics import profiler_trace
@@ -242,6 +243,10 @@ def test_unported_paths_raise():
             PRESETS["traj_ball"], pipeline.frame_camera(
                 PRESETS["traj_ball"], 10, 64, 48, "cpu"), pos, vel, 10,
             trail_segments="adaptive")
+    # The stream's device mesh is A15's point-sharded merge.
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        StreamingRasterizer(cam, chunk_points=10, radius_world=0.01,
+                            mesh=object(), device="cpu")
 
 
 def test_cuda_device_without_card_raises():
@@ -268,6 +273,7 @@ def test_package_imports_without_jax():
             "import pointcloud_render_tpu_torch.raster.tiles\n"
             "import pointcloud_render_tpu_torch.raster.alpha\n"
             "import pointcloud_render_tpu_torch.raster.coverage\n"
+            "import pointcloud_render_tpu_torch.parallel.streaming\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pointcloud_render_tpu.') for m in sys.modules "
             "if sys.modules[m] is not None)\n")

@@ -10,8 +10,10 @@ import types
 import numpy as np
 import torch
 
+from pointcloud_render_tpu_torch.geometry import trails
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
+    capsules_from_polylines,
     capsules_from_vertex_columns,
     discs_from_points,
     triangles_from_mesh,
@@ -24,6 +26,8 @@ W, H = 150, 90  # not multiples of 32: partial edge tiles on both axes
 ORIGIN = (2.0, 2.0, 2.0)
 TARGET = (0.0, 0.0, -0.05)
 
+
+TRAIL_COLOR = (0.2, 1.0, 0.4)
 
 NEAR_ORIGIN = (1.2, 1.2, 1.0)  # long capsules span 2-4 tiles
 # 10x8 tiles: from NEAR_ORIGIN some long capsules of droplet_soup reach 5-8
@@ -527,3 +531,26 @@ def morton_soup(soup):
     order = torch.as_tensor(spatial.spatial_order(key), device=soup.device)
     return ScreenPrimitives(**{f: getattr(soup, f)[order] for f in (
         "kind", "params", "color", "valid", "bbox", "normal")})
+
+
+def trail_soup_fn(cam, radius, segments=4, trail_radius=0.0007):
+    """``benchmarks/stream_10m.py``'s streamed trail soup as a
+    ``StreamingRasterizer`` soup_fn: (positions, colors, velocities) ->
+    (discs of ``radius`` and ``segments``-capsule velocity trails
+    through ``trails.velocity_trails_sampled`` at frame 120 under the
+    "ball" schedule, layout)."""
+    sub = np.round(np.linspace(0, trails.N_TRAIL_POINTS,
+                               segments + 1)).astype(np.int32)
+
+    def trail_soup(pos, colors, vel):
+        n = pos.shape[0]
+        discs = discs_from_points(pos, cam, torch.full(
+            (n,), radius, device=pos.device), colors)
+        ends, valid = trails.velocity_trails_sampled(pos, vel, 120, sub,
+                                                     "ball")
+        caps = capsules_from_polylines(
+            ends, valid[:, None].expand(ends.shape[:2]), cam, trail_radius,
+            np.asarray(TRAIL_COLOR, np.float32))
+        return ScreenPrimitives.concatenate([discs, caps]), [
+            (n, 1), (caps.count, segments)]
+    return trail_soup
