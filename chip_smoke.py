@@ -272,7 +272,24 @@ Phases (any failure exits non-zero and prints no result line):
      chunk, the device idle share of a traced stream, the host
      synchronisations torch flags (set_sync_debug_mode) in a 3-chunk
      stream (the chunk loop itself may make one: the certificate
-     read-back), torch.cuda.max_memory_allocated.
+     read-back), torch.cuda.max_memory_allocated;
+ 16. the sharded renders (ROADMAP A15) at traj_ball frame 120 on phase
+     5's 1M-point cloud, 1920x1080: (a) a world of one rank in this
+     process (NCCL where present, a HashStore): render_scene_point_sharded
+     under pallas6, pallas4 and tiled (max_big 16384; tiled at the
+     frame's largest strip count), one csr6_raster, csr4_raster and
+     csr1_raster launch, each == FramePipeline's frame on its backend bit
+     for bit (rgb, depth, index; tiled: where the capped walk's 64-prim
+     big list overflows, == the capped single-device render instead);
+     (b) two ranks sharing the card (spawned, gloo, the collectives
+     copied through the host): the point-sharded pallas6 and pallas4
+     frames == (a)'s, render_scene_batch_sharded of 4 frames on a (2, 1)
+     and a (1, 2) mesh == each frame's FramePipeline frame; (c) the mesh
+     stream on the two ranks: phase 15's disc scene cut to 2 chunks and
+     its trail scene's chunk 0 == the one-rank stream bit for bit (depth,
+     index, attributes); (d) "[sharded]" lines: warm ms per sharded
+     frame beside FramePipeline's for world 1 and 2, the ms of the
+     merge's four all-reduces, the mesh stream's ms per chunk.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path (csr1_raster's: rasterize_csr's, the look CLI's shadow
@@ -309,7 +326,9 @@ stream_launches (their launches in its streams: csr6_disc8 and
 csr6_cap10 10, csr4_raster and csr1_raster 2, csr6_raster 4), and
 csr6_disc8 and csr6_cap10 their walk of the stream's chunk 0 as
 stream_ms, stream_plain_ms, stream_bound_ms and stream_bound_by
-(csr6_disc8 also stream_device_ms).  "[split]" lines time a split walk by
+(csr6_disc8 also stream_device_ms).  The three kernels of phase 16 (a)
+add sharded_launches (csr6_raster, csr4_raster and csr1_raster: 1
+each).  "[split]" lines time a split walk by
 split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
@@ -318,6 +337,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -1119,7 +1139,24 @@ EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "parent_ms_exit_off",
               *(f"{k}_frame205" for k in FRAME205_KEYS),
               *(f"shadow_{k}" for k in SHADOW_KEYS),
-              *(f"stream_{k}" for k in STREAM_KEYS))
+              *(f"stream_{k}" for k in STREAM_KEYS), "sharded_launches")
+
+# Phase 16: the sharded renders (ROADMAP A15) at traj_ball frame 120 on
+# phase 5's 1M-point cloud, 1920x1080.  Each backend's kernel wrapper, and
+# its kernel in the kernels line.
+SHARDED_FRAME = 120
+SHARDED_BACKENDS = {"pallas6": "raster_tiles", "pallas4": "raster_tiles4",
+                    "tiled": "raster_tiles1"}
+SHARDED_KERNELS = {"raster_tiles": "csr6_raster",
+                   "raster_tiles4": "csr4_raster",
+                   "raster_tiles1": "csr1_raster"}
+# The big list of every sharded walk: frame 120's v6 list holds 3,769
+# prims at span 2, past the default 1024 that FramePipeline heals.
+SHARDED_MAX_BIG = 1 << 14
+SHARDED_RANKS = 2  # the ranks sharing the one card (gloo)
+SHARDED_BATCH = (10, 60, 120, 180)  # the batch's frame indices
+SHARDED_REPS = 3
+SHARDED_TIMEOUT_S = 300
 
 
 def compare_disc(soup, flag, width, height, csr6, max_big, timing=False,
@@ -4783,6 +4820,340 @@ def stream_phase(card, dev, counters, max_err, tmp) -> dict:
             for name, r in nums.items()}
 
 
+def kernel_counters():
+    """Every kernel wrapper, in the kernels line's order of their counts."""
+    from pointcloud_render_tpu_torch.raster import (
+        csr,
+        csr2,
+        csr3,
+        csr4,
+        csr5,
+        csr6,
+    )
+
+    return (csr6.raster_tiles, csr6.raster_tiles_tri,
+            csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_uv,
+            csr6.raster_tiles_rows9, csr4.raster_tiles4,
+            csr6.raster_tiles_cap10, csr3.raster_tiles3,
+            csr.raster_tiles1, csr2.raster_tiles2,
+            csr2.raster_tiles2_disc8, csr5.raster_tiles5,
+            csr5.raster_tiles5_shaded)
+
+
+def sharded_config(backend, max_per_tile=512):
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+
+    return RasterConfig(backend=backend, max_big=SHARDED_MAX_BIG,
+                        max_per_tile=max_per_tile)
+
+
+def sharded_frame(preset, pcl, config, mesh, frame_index=SHARDED_FRAME):
+    """One point-sharded traj_ball frame at 1920x1080 (every rank)."""
+    from pointcloud_render_tpu_torch.parallel import render_parallel as rp
+
+    return rp.render_scene_point_sharded(
+        preset, pcl[:, :3], config, mesh, velocities=pcl[:, 3:],
+        frame_index=frame_index, width=WIDTH, height=HEIGHT)
+
+
+def frame_tensors(fb):
+    """(depth, index, rgb) of a FrameBuffers or ShardedFrame."""
+    return fb.depth, fb.index, fb.rgb
+
+
+def wall_ms(fn, reps=SHARDED_REPS, barrier=None):
+    """Median host time of ``reps`` calls of ``fn`` after a warm-up, each
+    ended by a synchronise (and started after ``barrier``, if given)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def merge_ms(group, dev):
+    """Host ms of the sharded merge's four all-reduces on 1920x1080
+    buffers (depth MIN, id MIN, rgb SUM, overflow SUM) over ``group``."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloud_render_tpu_torch.parallel import render_parallel as rp
+
+    bufs = [(torch.zeros((HEIGHT, WIDTH), device=dev), dist.ReduceOp.MIN),
+            (torch.zeros((HEIGHT, WIDTH), dtype=torch.int32, device=dev),
+             dist.ReduceOp.MIN),
+            (torch.zeros((HEIGHT, WIDTH, 3), device=dev), dist.ReduceOp.SUM),
+            (torch.zeros((1,), dtype=torch.int32, device=dev),
+             dist.ReduceOp.SUM)]
+    return wall_ms(lambda: [rp.all_reduce(t, op, group) for t, op in bufs],
+                   reps=5, barrier=lambda: dist.barrier(group))
+
+
+def sharded_rank(rank, port, tmp):
+    """Phase 16 (b) and (c) on one of SHARDED_RANKS ranks sharing the card
+    through gloo; writes its numbers to ``tmp/rank{rank}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.parallel import multihost
+    from pointcloud_render_tpu_torch.parallel import render_parallel as rp
+    from pointcloud_render_tpu_torch.parallel.streaming import (
+        StreamingRasterizer,
+    )
+    from pointcloud_render_tpu_torch.raster.render import RasterConfig
+    from pointcloud_render_tpu_torch.run import pipeline
+
+    multihost.initialize(f"127.0.0.1:{port}", SHARDED_RANKS, rank,
+                         backend="gloo")
+    try:
+        dev = torch.device("cuda")
+        counters = kernel_counters()
+        preset = PRESETS["traj_ball"]
+        pcl = np.load(os.path.join(tmp, "pcl.npy"))
+        m12 = rp.make_render_mesh(1, SHARDED_RANKS)
+        m21 = rp.make_render_mesh(SHARDED_RANKS, 1)
+        group = m12.get_group("points")
+        nums = {"backend": dist.get_backend(group),
+                "host_copies": rp.host_copies(group, dev), "launches": {}}
+        # (b) The frame point-sharded over both ranks == phase (a)'s.
+        for b in ("pallas6", "pallas4"):
+            reset_counts(counters)
+            fr = sharded_frame(preset, pcl, sharded_config(b), m12)
+            torch.cuda.synchronize()
+            nums["launches"][b] = launch_counts(counters)
+            check(int(fr.overflow) == 0, f"2-rank {b} frame overflowed")
+            want = torch.load(os.path.join(tmp, f"a_{b}.pt"))
+            check_equal_bits(frame_tensors(fr), want,
+                             f"the 2-rank {b} frame vs the world of one")
+        nums["frame_ms"] = wall_ms(
+            lambda: sharded_frame(preset, pcl, sharded_config("pallas6"),
+                                  m12), barrier=dist.barrier)
+        nums["merge_ms"] = merge_ms(group, dev)
+        # The batch on a (2, 1) and a (1, 2) mesh == each frame alone.
+        frames = np.stack([pcl] * len(SHARDED_BATCH))
+        batch = {name: rp.render_scene_batch_sharded(
+            preset, frames[..., :3], frames[..., 3:], SHARDED_BATCH,
+            sharded_config("pallas6"), mesh, width=WIDTH, height=HEIGHT)
+            for name, mesh in (("2x1", m21), ("1x2", m12))}
+        pipe = pipeline.FramePipeline(preset, sharded_config("pallas6"),
+                                      device=dev)
+        for j, fi in enumerate(SHARDED_BATCH):
+            want = frame_tensors(pipe.render_array(pcl, fi))
+            for name, out in batch.items():
+                check(int(out.overflow[j]) == 0, f"batch {name} overflowed")
+                check_equal_bits(
+                    (out.depth[j], out.index[j], out.rgb[j]), want,
+                    f"the {name} batch's frame {fi} vs its single-device "
+                    "frame")
+        del batch, frames
+        # (c) The mesh stream == the one-rank stream.
+        cam = stream_camera(dev)
+        soups = torch_soups()
+        scenes = {
+            "disc": (2, dict(config=RasterConfig(backend="pallas6",
+                                                 discs_only=True),
+                             max_big=1024)),
+            "trail": (1, dict(
+                config=RasterConfig(backend="pallas6", span=4,
+                                    cap_rows10=True),
+                soup_fn=soups.trail_soup_fn(cam, STREAM_RADIUS,
+                                            STREAM_SEGMENTS,
+                                            STREAM_TRAIL_RADIUS),
+                max_big=STREAM_TRAIL_MAX_BIG))}
+        nums["stream"] = {}
+        for scene, (n_chunks, kw) in scenes.items():
+            chunks = list(stream_chunks(scene, n_chunks, 0))
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            sr = StreamingRasterizer(cam, STREAM_CHUNK, STREAM_RADIUS,
+                                     backend="pallas6", device=dev,
+                                     mesh=m12, **kw)
+            got = sr.rasterize(chunks, return_attrs=True)
+            torch.cuda.synchronize()
+            nums["stream"][scene] = dict(
+                ms=(time.perf_counter() - t0) * 1e3 / n_chunks,
+                launches=launch_counts(counters),
+                staging_waits=sr.staging_waits)
+            if rank == 0:
+                want = StreamingRasterizer(
+                    cam, STREAM_CHUNK, STREAM_RADIUS, backend="pallas6",
+                    device=dev, **kw).rasterize(chunks, return_attrs=True)
+                check_equal_bits(got, want, f"the 2-rank {scene} stream vs "
+                                 "the one-rank stream")
+            del got, chunks
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(nums, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(card, dev, counters, tmp) -> dict:
+    """Phase 16: the sharded renders (see the module docstring) -> the
+    sharded_launches of the three kernels they launch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.io import ply
+    from pointcloud_render_tpu_torch.parallel import multihost
+    from pointcloud_render_tpu_torch.parallel import render_parallel as rp
+    from pointcloud_render_tpu_torch.raster import tiles
+    from pointcloud_render_tpu_torch.run import pipeline
+    from pointcloud_render_tpu_torch.shading.shade import shade_framebuffer
+
+    t_phase = time.perf_counter()
+    preset = PRESETS["traj_ball"]
+    # Phase 5's frame-120 PLY (seed 11, the second drift), loaded as the
+    # CLI loads it.
+    pos, vel = flagship_cloud(1_000_000, seed=11)
+    path = os.path.join(tmp, "frame_0120_b0.ply")
+    ply.write_ply(path, pos + (0.01 * vel).astype(np.float32),
+                  velocities=vel)
+    pcl = pipeline.FramePipeline(preset, device=dev).load_and_prepare(path)
+    pcl = np.ascontiguousarray(pcl, np.float32)
+    np.save(os.path.join(tmp, "pcl.npy"), pcl)
+    print(f"[sharded] torch.distributed: nccl {dist.is_nccl_available()}, "
+          f"gloo {dist.is_gloo_available()} ({card})", flush=True)
+
+    # (a) A world of one on the card.
+    multihost.initialize()
+    nums = {}
+    try:
+        mesh = rp.make_render_mesh(1, 1)
+        group = mesh.get_group("points")
+        backend = dist.get_backend(group)
+        cam = pipeline.frame_camera(preset, SHARDED_FRAME, WIDTH, HEIGHT, dev)
+        soup = pipeline.build_primitives(preset, cam, pcl[:, :3],
+                                         pcl[:, 3:], SHARDED_FRAME)
+        bins = tiles.bin_primitives(soup, WIDTH, HEIGHT, max_per_tile=1)
+        cap = int(bins.counts.max())
+        for b, kernel in SHARDED_BACKENDS.items():
+            cfg = sharded_config(b, cap)
+            reset_counts(counters)
+            fr = sharded_frame(preset, pcl, cfg, mesh)
+            torch.cuda.synchronize()
+            counts = launch_counts(counters)
+            check(counts == {kernel: 1},
+                  f"world-of-one {b} frame: launches {counts}")
+            nums[SHARDED_KERNELS[kernel]] = dict(sharded_launches=1)
+            pipe = pipeline.FramePipeline(preset, cfg, device=dev)
+            want = frame_tensors(pipe.render_array(pcl, SHARDED_FRAME))
+            got = frame_tensors(fr)
+            ovf = int(fr.overflow)
+            note = ""
+            if b == "tiled" and ovf:
+                # The capped walk (mirrored from the JAX package) drops
+                # what passes its 64-prim big list: the frame is the
+                # capped single-device render, not the exact one.
+                d, i, _ = tiles.rasterize_tiled(soup, WIDTH, HEIGHT,
+                                                max_per_tile=cap)
+                capped = (d, i, shade_framebuffer(soup, cam, d, i,
+                                                  cfg.shading))
+                check_equal_bits(got, capped, "the world-of-one tiled frame "
+                                 "vs the capped single-device render")
+                differ = int((got[1] != want[1]).sum())
+                note = (f"; the big list's cap of {tiles.MAX_BIG} drops "
+                        f"{ovf} of {int(bins.big_count)} big prims: == the "
+                        f"capped single-device render bit for bit, "
+                        f"{differ} winners differ from FramePipeline's exact "
+                        "frame")
+            else:
+                check(ovf == 0, f"world-of-one {b} frame overflowed ({ovf})")
+                check_equal_bits(got, want, f"the world-of-one {b} frame vs "
+                                 "FramePipeline's")
+                note = "; == FramePipeline's frame bit for bit (rgb, depth, " \
+                       "index)"
+            if b != "tiled":
+                torch.save(got, os.path.join(tmp, f"a_{b}.pt"))
+            ms = wall_ms(lambda: sharded_frame(preset, pcl, cfg, mesh))
+            single = wall_ms(lambda: pipe.render_array(pcl, SHARDED_FRAME))
+            caps = f" (max_per_tile {cap})" if b == "tiled" else ""
+            print(f"[sharded] world 1 ({backend}, host copies "
+                  f"{rp.host_copies(group, dev)}) {b}: traj_ball frame "
+                  f"{SHARDED_FRAME}, {pcl.shape[0]} points, {WIDTH}x{HEIGHT}"
+                  f"{caps}: {ms:.2f} ms per sharded frame warm, FramePipeline "
+                  f"{single:.2f} ms; {SHARDED_KERNELS[kernel]} launches "
+                  f"{counts[kernel]}{note} ({card})", flush=True)
+        print(f"[sharded] world 1 ({backend}): the merge's four all-reduces "
+              f"at {WIDTH}x{HEIGHT}: {merge_ms(group, dev):.3f} ms "
+              f"({card})", flush=True)
+        del soup, bins
+    finally:
+        dist.destroy_process_group()
+
+    # (b), (c): two ranks on the one card.  The kernels are built (phase
+    # 2), so the ranks only load them.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.spawn(sharded_rank, args=(port, tmp), nprocs=SHARDED_RANKS,
+                   join=False)
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"the {SHARDED_RANKS}-rank world did not finish in "
+                  f"{SHARDED_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SmokeFailure(f"a rank of the {SHARDED_RANKS}-rank world "
+                           f"failed:\n{e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    ranks = []
+    for r in range(SHARDED_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        for b, counts in res["launches"].items():
+            kernel = SHARDED_BACKENDS[b]
+            check(counts == {kernel: 1},
+                  f"rank {r}'s 2-rank {b} frame: launches {counts}")
+        for scene, st in res["stream"].items():
+            kernel = {"disc": "raster_tiles_disc8",
+                      "trail": "raster_tiles_cap10"}[scene]
+            n = {"disc": 2, "trail": 1}[scene]
+            check(st["launches"] == {kernel: n},
+                  f"rank {r}'s {scene} mesh stream: launches "
+                  f"{st['launches']}")
+    r0 = ranks[0]
+    print(f"[sharded] world {SHARDED_RANKS} ({r0['backend']} on one card, "
+          f"host copies {r0['host_copies']}): the point-sharded pallas6 and "
+          f"pallas4 frames == the world of one's bit for bit, one launch per "
+          f"rank; {r0['frame_ms']:.2f} ms per sharded pallas6 frame warm "
+          f"(rank 0; rank 1 {ranks[1]['frame_ms']:.2f}); the merge's four "
+          f"all-reduces {r0['merge_ms']:.3f} ms ({card})", flush=True)
+    print(f"[sharded] render_scene_batch_sharded of frames {SHARDED_BATCH} "
+          f"on a (2, 1) and a (1, 2) mesh: each frame == its single-device "
+          f"FramePipeline frame bit for bit ({card})", flush=True)
+    for scene, st in r0["stream"].items():
+        print(f"[sharded] mesh stream, {scene} scene ({STREAM_CHUNK} points "
+              f"a chunk, {STREAM_FILM[0]}x{STREAM_FILM[1]}): the 2-rank "
+              f"stream == the one-rank stream bit for bit (depth, index, "
+              f"attributes); {st['ms']:.2f} ms per chunk on rank 0; "
+              f"launches per rank {st['launches']}; staging waits "
+              f"{[r['stream'][scene]['staging_waits'] for r in ranks]} "
+              f"({card})", flush=True)
+    print(f"[sharded] phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return nums
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -4815,13 +5186,7 @@ def run() -> dict:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}", flush=True)
 
-    counters = (csr6.raster_tiles, csr6.raster_tiles_tri,
-                csr6.raster_tiles_disc8, csr6.raster_tiles_disc8_uv,
-                csr6.raster_tiles_rows9, csr4.raster_tiles4,
-                csr6.raster_tiles_cap10, csr3.raster_tiles3,
-                csr.raster_tiles1, csr2.raster_tiles2,
-                csr2.raster_tiles2_disc8, csr5.raster_tiles5,
-                csr5.raster_tiles5_shaded)
+    counters = kernel_counters()
 
     # Phase 2: build from the checkout's sources, one nvcc per source (and
     # the parent's csr2_raster.cu under --parent), all started together.
@@ -5153,6 +5518,9 @@ def run() -> dict:
     # Phase 15: the stream (BASELINE.json config 5).
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         stream = stream_phase(card, dev, counters, max_err, tmp)
+    # Phase 16: the sharded renders (ROADMAP A15).
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        sharded = sharded_phase(card, dev, counters, tmp)
     # csr1_raster's entry stays rasterize_csr's walk at traj_ball frame 120
     # (phase 11 (b)); the shadow map's numbers (phase 14, its launches the
     # look CLI's) ride under shadow_.
@@ -5164,6 +5532,8 @@ def run() -> dict:
                "csr4_raster": v4, "csr6_cap10": traj, "csr3_raster": v3,
                **strips, "csr2_disc8": disc2, **v5}
     for name, extra in stream.items():
+        numbers[name] = dict(numbers[name], **extra)
+    for name, extra in sharded.items():
         numbers[name] = dict(numbers[name], **extra)
     return dict(card=card, kernels=[dict(
         name=name, route="cuda",

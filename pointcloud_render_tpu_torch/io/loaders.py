@@ -10,8 +10,9 @@ Dispatch mirrors reference behavior exactly (traj_ball_renderer.py:223-279):
   traj_ball_renderer.py:253-273; the normals are used as-is, NOT negated);
 * anything else raises ValueError (reference: traj_ball_renderer.py:279).
 
-The pure-NumPy twin of ``pointcloud_render_tpu.io.loaders``; the native
-PLY reader binding is not part of the port yet.
+The twin of ``pointcloud_render_tpu.io.loaders``: PLY files go through
+the native reader (``io/native.py``) where the library loads, else (and
+where it rejects a file) through the NumPy parser.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import os
 
 import numpy as np
 
+from pointcloud_render_tpu_torch.io import native
 from pointcloud_render_tpu_torch.io import ply as plyio
 
 NPZ_PAYLOAD_KEY = "pred"
@@ -48,6 +50,12 @@ def load_point_cloud(file_path: str, positions_only: bool = False) -> np.ndarray
 
 
 def _load_ply(file_path: str, positions_only: bool = False) -> np.ndarray:
+    reader = _native_ply_reader()
+    if reader is not None:
+        try:
+            return reader(file_path, positions_only)
+        except OSError:
+            pass  # the NumPy parser below reads or rejects it
     vertex = plyio.read_ply(file_path)["vertex"]
     base = [vertex["x"], vertex["y"], vertex["z"]]
     if not positions_only:
@@ -56,3 +64,8 @@ def _load_ply(file_path: str, positions_only: bool = False) -> np.ndarray:
         if all(k in vertex for k in ("nx", "ny", "nz")):
             return np.column_stack(base + [vertex["nx"], vertex["ny"], vertex["nz"]])
     return np.column_stack(base)
+
+
+def _native_ply_reader():
+    """``native.read_ply_array`` where the library loads, else None."""
+    return native.read_ply_array if native.available() else None

@@ -3,8 +3,9 @@
 The reference writes frames through ``mi.util.write_bitmap(path.png)``
 (reference: traj_ball_renderer.py:361-363).  Here frames are float RGB in
 [0, 1]; they are gamma-encoded (sRGB) and written as 8-bit RGB PNG through
-PIL when it is installed, else a pure-Python zlib encoder.  The twin of
-``pointcloud_render_tpu.io.png`` without the native encoder.
+the native encoder (``io/native.py``) where its library loads, else PIL
+when it is installed, else a pure-Python zlib encoder, as
+``pointcloud_render_tpu.io.png`` writes them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from pointcloud_render_tpu_torch.io import native
 
 
 def to_srgb_u8(image: np.ndarray) -> np.ndarray:
@@ -31,6 +34,8 @@ def write_png(path: str, image: np.ndarray, srgb: bool = True) -> None:
             np.clip(image, 0, 1) * 255 + 0.5).astype(np.uint8)
     if image.ndim == 2:
         image = np.repeat(image[:, :, None], 3, axis=2)
+    if native.available() and native.write_png(path, image):
+        return
     try:
         from PIL import Image  # noqa: PLC0415
     except ImportError:

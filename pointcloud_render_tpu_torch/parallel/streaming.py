@@ -22,23 +22,41 @@ Backends (``backend``): ``"pallas6"`` (the default) is the v6 walk
 the v4 walk (``csr4.rasterize_csr4``; not v2, as in ``render()``), any
 other the capped ``tiled`` backend (``tiles.rasterize_tiled`` at its
 defaults, which reports nothing).  CUDA tensors launch the kernels, CPU
-tensors take their plain versions.  The JAX package's ``mesh=`` (each
-chunk point-sharded across devices) is ROADMAP A15.
+tensors take their plain versions.
+
+With ``mesh`` (a ``DeviceMesh`` with a ``"points"`` axis, as
+``render_parallel.make_render_mesh`` makes) each chunk is also
+point-sharded across the ranks, SPMD as in ``parallel.render_parallel``:
+every rank consumes the same chunks, stages only its ``1/n`` share of each
+through its own pinned slots and copy stream, builds its share's soup,
+maps the rows to their ids in the full chunk's soup through the soup's
+part layout, and the ranks merge the chunk's winners (all_reduce MIN on
+depth, MIN on the id, SUM of the winner's attributes) before the fold.
+Fixed furniture is drawn by rank 0 of the first chunk only.  So the
+sharded stream is the one-rank stream, winner for winner; the
+certificates are reduced with MAX once, after the last chunk.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from pointcloud_render_tpu_torch.parallel.render_parallel import (
+    all_reduce,
+    drop_furniture,
+    full_rows,
+    global_ids,
+    merge_winners,
+    mesh_axis,
+)
 from pointcloud_render_tpu_torch.raster import csr4, csr6, tiles
 from pointcloud_render_tpu_torch.raster.primitives import (
     KIND_DISC,
     KIND_TRIANGLE,
-    ScreenPrimitives,
     discs_from_points,
 )
 from pointcloud_render_tpu_torch.shading.shade import (
@@ -51,23 +69,6 @@ from pointcloud_render_tpu_torch.utils.consts import const, device_key
 IMAX = 2147483647
 PAD_POSITION = 1e30  # a padded point: behind every far plane, culled
 STAGING_SLOTS = 2
-
-
-def drop_furniture(prims: ScreenPrimitives, layout) -> ScreenPrimitives:
-    """``prims`` with its fixed parts (``rows_per_point == 0`` in the part
-    layout, e.g. the ground) marked invalid: a chunk after the first
-    renders none of them, so they win once across the stream."""
-    valid = prims.valid
-    loc = 0
-    for rows, c in layout:
-        if (c[1] if isinstance(c, tuple) else c) == 0:
-            if valid is prims.valid:
-                valid = valid.clone()
-            valid[loc:loc + rows] = False
-        loc += rows
-    if valid is prims.valid:
-        return prims
-    return dataclasses.replace(prims, valid=valid)
 
 
 def _fill_chunk(bufs, arrays):
@@ -142,7 +143,10 @@ class StreamingRasterizer:
       backend: "pallas6" (None) | "pallas" (v4) | anything else: the
         capped ``tiled`` backend (see the module docstring).
       color: (3,) colour of chunks given without per-point colours.
-      mesh: not ported; raises NotImplementedError (ROADMAP A15).
+      mesh: an optional ``DeviceMesh`` with a ``"points"`` axis: each
+        chunk is point-sharded over it (see the module docstring);
+        ``chunk_points`` must divide by the axis, and a ``soup_fn`` must
+        return ``(prims, layout)``.
       entry_capacity: v4's entry capacity (``"pallas"``).
       soup_fn: optional ``(positions, colors, *extras) -> prims`` or
         ``(prims, layout)`` per-chunk soup builder (device tensors in);
@@ -167,10 +171,6 @@ class StreamingRasterizer:
                  mesh=None, entry_capacity: Optional[int] = None,
                  soup_fn=None, shading: ShadingConfig = ShadingConfig(),
                  max_big: int = 1024, config=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded streaming (each chunk point-sharded over "
-                "torch.distributed) is not ported yet: ROADMAP A15")
         if torch.device(device).type == "cuda" and \
                 not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
@@ -186,6 +186,14 @@ class StreamingRasterizer:
                                  "camera on the stream's device")
         self.camera = camera
         self.chunk_points = int(chunk_points)
+        self.mesh = mesh
+        self.shards, self.shard, self.group = 1, 0, None
+        if mesh is not None:
+            self.shards, self.shard, self.group = mesh_axis(mesh, "points")
+            if self.chunk_points % self.shards:
+                raise ValueError(
+                    f"chunk_points {self.chunk_points} not divisible by "
+                    f"{self.shards} devices")
         self.radius = float(radius_world)
         self.color = np.asarray(color, np.float32)
         self.backend = backend or "pallas6"
@@ -196,7 +204,7 @@ class StreamingRasterizer:
         self.config = config
         self._max_entries = 0
         # The last stream's soup rows per chunk (its id stride), and the
-        # chunks that found their staging slot's last copy still pending.
+        # chunks that found this rank's staging slot's last copy pending.
         self.prims_per_chunk = None
         self.staging_waits = 0
 
@@ -261,29 +269,47 @@ class StreamingRasterizer:
             rgb = torch.where(is_tri[:, None], rgb * lit[:, None], rgb)
         return torch.cat([params[:, 0:2], rflag[:, None], rgb], dim=1)
 
-    def fold(self, prims, d, i, offset: int, depth, index, attrs):
+    def fold(self, prims, d, i, offset: int, depth, index, attrs,
+             layout=None):
         """Fold one soup's render (ids offset by ``offset``) into the
         running buffers -> (depth, index, attrs): the winners' attributes
-        gathered, then the lexicographic (depth, id) minimum."""
+        gathered, then the lexicographic (depth, id) minimum.  With a
+        mesh, the rows of this rank's share map to their chunk-soup ids
+        through ``layout``, and the ranks merge the chunk's winners
+        first (MIN depth, MIN id, SUM of the winner's attributes)."""
         h, w = i.shape
         attr = self.attribute_table(prims).index_select(
             0, torch.clamp(i, min=0).reshape(-1).long()).reshape(h, w, 6)
         hit = i >= 0
+        if self.mesh is not None:
+            i = global_ids(i, layout, self.shard, self.shards)
         gi = torch.where(hit, i + offset, IMAX)
         d = torch.where(hit, d, float("inf"))
+        if self.mesh is not None:
+            d, gi, mine = merge_winners(d, gi, self.group)
+            # -0.0 is the exact additive identity: a winner's -0.0
+            # attribute (a ground triangle's px) survives the sum.
+            attr = all_reduce(torch.where(mine[..., None], attr, -0.0),
+                              dist.ReduceOp.SUM, self.group)
         take = (d < depth) | ((d == depth) & (gi < index))
         return (torch.where(take, d, depth), torch.where(take, gi, index),
                 torch.where(take[..., None], attr, attrs))
 
     def step_soup(self, prims, layout, offset: int, depth, index, attrs):
-        """One chunk's soup through raster and fold -> (depth, index,
-        attrs, entries, overflow); a chunk after the first drops the
-        soup's fixed parts."""
-        if offset != 0 and layout is not None:
+        """One chunk's soup (this rank's share of it, with a mesh) through
+        raster and fold -> (depth, index, attrs, entries, overflow); the
+        soup's fixed parts are drawn by the first chunk's rank 0 only."""
+        if self.mesh is not None and layout is None:
+            raise ValueError(
+                "mesh-sharded streaming of a multi-primitive soup needs "
+                "the soup's part layout: make soup_fn return (prims, "
+                "layout) — run.pipeline.build_primitives(..., "
+                "return_layout=True) does exactly that")
+        if (offset != 0 or self.shard != 0) and layout is not None:
             prims = drop_furniture(prims, layout)
         d, i, entries, overflow = self.raster_soup(prims)
-        return (*self.fold(prims, d, i, offset, depth, index, attrs),
-                entries, overflow)
+        return (*self.fold(prims, d, i, offset, depth, index, attrs,
+                           layout), entries, overflow)
 
     def step(self, chunk, colors, extras, offset: int, depth, index, attrs):
         """One chunk of device tensors through soup, raster and merge ->
@@ -311,13 +337,12 @@ class StreamingRasterizer:
                              f"chunk_points {self.chunk_points}")
         return arrays
 
-    def _default_colors(self, n: int) -> torch.Tensor:
-        """(chunk_points, 3) of the default colour, zero past ``n``."""
-        col = const(self.color, np.float32, self.device).expand(
-            self.chunk_points, 3)
-        if n == self.chunk_points:
+    def _default_colors(self, rows: int, n: int) -> torch.Tensor:
+        """(rows, 3) of the default colour, zero past ``n``."""
+        col = const(self.color, np.float32, self.device).expand(rows, 3)
+        if n == rows:
             return col
-        live = torch.arange(self.chunk_points, device=self.device) < n
+        live = torch.arange(rows, device=self.device) < n
         return torch.where(live[:, None], col, torch.zeros_like(col))
 
     def rasterize(self, chunks: Iterable, return_attrs: bool = False):
@@ -325,10 +350,12 @@ class StreamingRasterizer:
         colors[, *extras]) tuples (host arrays; every chunk of one form;
         the last may be short).  Returns (depth, index) with global
         primitive ids (-1 empty), plus the (H, W, 6) attribute buffer when
-        ``return_attrs`` (``resolve_rgb`` shades it)."""
+        ``return_attrs`` (``resolve_rgb`` shades it).  With a mesh, every
+        rank consumes the same chunks and returns the same buffers."""
         cam = self.camera
         dev = self.device
-        rows = self.chunk_points
+        rows = self.chunk_points // self.shards
+        lo = self.shard * rows
         depth = torch.full((cam.height, cam.width), float("inf"),
                            dtype=torch.float32, device=dev)
         index = torch.full((cam.height, cam.width), IMAX, dtype=torch.int32,
@@ -342,7 +369,8 @@ class StreamingRasterizer:
         staging = None
         for chunk in chunks:
             arrays = self._host_chunk(chunk)
-            n = arrays[0].shape[0]
+            n = min(max(arrays[0].shape[0] - lo, 0), rows)
+            arrays = [a[lo:lo + rows] for a in arrays]
             shape = [a.shape[1:] for a in arrays]
             if form is None:
                 form = shape
@@ -359,15 +387,18 @@ class StreamingRasterizer:
                 _fill_chunk(bufs, arrays)
                 staged = [torch.from_numpy(b) for b in bufs]
             if len(staged) == 1:
-                pos, colors, extras = staged[0], self._default_colors(n), ()
+                pos, extras = staged[0], ()
+                colors = self._default_colors(rows, n)
             else:
                 pos, colors, extras = staged[0], staged[1], tuple(staged[2:])
             prims, layout = self.build_soup(pos, colors, extras)
+            count = prims.count if layout is None else \
+                full_rows(layout, self.shards)
             if prims_per_chunk is None:
-                prims_per_chunk = prims.count
-            elif prims.count != prims_per_chunk:
+                prims_per_chunk = count
+            elif count != prims_per_chunk:
                 raise ValueError(
-                    f"a chunk's soup holds {prims.count} primitives, the "
+                    f"a chunk's soup holds {count} primitives, the "
                     f"first chunk's {prims_per_chunk}: global ids need a "
                     "fixed soup size per chunk")
             if offset + prims_per_chunk > IMAX:
@@ -389,7 +420,10 @@ class StreamingRasterizer:
         certs = [c for c in (entries_max, overflow_max) if c is not None]
         if certs:
             # One read-back for the whole stream.
-            values = torch.stack(certs).tolist()
+            values = torch.stack(certs)
+            if self.mesh is not None:
+                values = all_reduce(values, dist.ReduceOp.MAX, self.group)
+            values = values.tolist()
             worst = values[0] if entries_max is not None else 0
             ovf = values[-1] if overflow_max is not None else 0
             self._max_entries = worst

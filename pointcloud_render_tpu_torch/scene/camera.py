@@ -186,3 +186,17 @@ class Camera:
         self.__dict__["_w2c"] = w2c
         return w2c
 
+    @staticmethod
+    def from_preset(preset: str, frame_index: int = 0,
+                    total_frames: int = TOTAL_FRAMES,
+                    device="cuda") -> "Camera":
+        """The preset's camera at a frame on ``device``: the exact host
+        origin schedule rounded to float32, the preset's target, and the
+        field of view of the example or trajectory presets."""
+        origin = torch.tensor(camera_origin(preset, frame_index,
+                                            total_frames),
+                              dtype=torch.float32, device=device)
+        target = torch.tensor(TARGETS[preset], dtype=torch.float32,
+                              device=device)
+        fov = FOV_EXAMPLE if preset == "example" else FOV_TRAJ
+        return Camera(origin=origin, target=target, fov_x_degrees=fov)

@@ -14,6 +14,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -61,11 +62,22 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library path.  The nvcc log is kept beside the library as ``.log``."""
+    library path.  The nvcc log is kept beside the library as ``.log``.
+    Processes that build one library at once (the ranks of a world) take
+    turns on a lock file: the first compiles, the others find its
+    library."""
     out = library_path(name)
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.isfile(out):
+            _compile(name, out)
+    return out
+
+
+def _compile(name: str, out: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -82,7 +94,6 @@ def build(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
 
 
 def build_all(names=LIBRARIES) -> list:

@@ -18,8 +18,10 @@ shadow map's capped strips) against their plain PyTorch versions, and
 frames and flythroughs (traj_ball, the disc lane, traj's history trails,
 the pallas backend, the look passes, the stream's pallas6, pallas (v4)
 and tiled backends on disc and trail chunks) rendered on the card against
-the same on the CPU, and a stream fed by a generator that holds the card
-against its monolithic render (the staging slots' reuse).  Every test
+the same on the CPU, a stream fed by a generator that holds the card
+against its monolithic render (the staging slots' reuse; the discs_only,
+default v6, cap_rows10, v4 and tiled walks), and the sharded frame on a
+world of one rank against the card's single-device frame.  Every test
 here needs a card (marker ``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -46,7 +48,7 @@ from pointcloud_render_tpu_torch.raster import (
     csr6,
     tiles,
 )
-from pointcloud_render_tpu_torch.raster.primitives import discs_from_points
+from pointcloud_render_tpu_torch.raster.primitives import ScreenPrimitives
 from pointcloud_render_tpu_torch.raster.render import RasterConfig, render
 from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.run.trajectory import TrajectoryScanRenderer
@@ -1352,35 +1354,140 @@ def test_stream_on_card_equals_cpu(cuda_device, backend, scene):
     assert bool((on_cpu[1] >= 0).any())
 
 
+# The walks held to their monolithic render while the host waits for a
+# staging slot (ROADMAP C7): the discs_only walk on disc chunks, and the
+# default v6 walk, cap_rows10, v4 and the capped tiled walk on trail chunks.
+C7_WALKS = {
+    "discs_only": dict(config=RasterConfig(discs_only=True)),
+    "trail": dict(config=RasterConfig()),
+    "cap_rows10": dict(config=RasterConfig(span=4, cap_rows10=True)),
+    "pallas": dict(backend="pallas"),
+    "tiled": dict(backend="tiled"),
+}
+# The walks whose chunk loop never lets the host run two chunks ahead of
+# the card, which a staging wait needs: a trail chunk queues hundreds of
+# small kernels (the soup build alone), CUDA's launch queue fills behind
+# the spin and the next launch holds the host (a 0.5 s spin per chunk
+# changes nothing); the tiled walk also synchronises in its binning.
+# Their staging_waits stay 0, and their streams still equal the
+# monolithic renders.
+C7_HOST_HELD = {"trail", "cap_rows10", "pallas", "tiled"}
+
+
+def _c7_monolithic(walk, soup, w, h):
+    """The whole stream's soup through the stream's walk.  The tiled
+    walk's caps are per soup, so the monolithic soup takes a table large
+    enough to drop nothing (each chunk's soup drops nothing at the
+    defaults, which the test checks)."""
+    if walk == "pallas":
+        d, i, diag = csr4.rasterize_csr4(soup, w, h, max_big=1 << 14)
+        assert int(diag["big_overflow"]) == 0
+    elif walk == "tiled":
+        d, i, diag = tiles.rasterize_tiled(soup, w, h, max_per_tile=1 << 14,
+                                           max_big=1 << 14)
+        assert int(diag["dropped"]) == 0
+    else:
+        cfg = C7_WALKS[walk]["config"]
+        d, i, diag = csr6.rasterize_csr6(
+            soup, w, h, max_big=1 << 14, discs_only=cfg.discs_only,
+            span=cfg.span, cap_rows10=cfg.cap_rows10)
+        assert int(diag["big_overflow"]) == 0
+    return d, i
+
+
 @pytest.mark.cuda
-def test_stream_from_generator_equals_monolithic_on_card(cuda_device):
+@pytest.mark.parametrize("walk", list(C7_WALKS))
+def test_stream_from_generator_equals_monolithic_on_card(cuda_device, walk):
     """Six chunks of distinct points from a generator that holds the card
-    (a spin of ~0.05 s before each chunk), so the host runs ahead of the
-    copies and must wait before it refills a staging slot: the stream ==
-    the monolithic render of the whole cloud bit for bit.  A slot
-    refilled before its last copy renders another chunk's points.  The
-    discs_only walk, whose chunk loop never waits for the card."""
+    (a spin of ~0.05 s before each chunk), so that the host may run ahead
+    of the copies and wait before it refills a staging slot: the stream
+    == the monolithic render of the six chunk soups, concatenated, bit
+    for bit.  A slot refilled before its last copy, or read after its
+    next one, renders another chunk's points.  Disc chunks through the
+    discs_only walk, where the host waits for a slot; trail chunks
+    (``trail_soup_fn``) through the default v6 walk, cap_rows10, v4 and
+    the capped tiled walk, where it never does (C7_HOST_HELD)."""
     w, h = STREAM_FILM
     cam = tcam(w, h, device=cuda_device)
     rng = np.random.default_rng(23)
     pos = rng.uniform(-0.5, 0.5, (1200, 3)).astype(np.float32)
-    cfg = RasterConfig(discs_only=True)
+    colors = rng.uniform(0.1, 0.9, (1200, 3)).astype(np.float32)
+    vel = (rng.normal(size=(1200, 3)) * 2).astype(np.float32)
+    discs = walk == "discs_only"
+    kw = dict(C7_WALKS[walk], max_big=4096)
+    if not discs:
+        kw["soup_fn"] = trail_soup_fn(cam, 0.01)
+
+    def part(k):
+        s = slice(200 * k, 200 * (k + 1))
+        return pos[s] if discs else (pos[s], colors[s], vel[s])
 
     def chunks():
         for k in range(6):
             torch.cuda._sleep(100_000_000)
-            yield pos[200 * k:200 * (k + 1)]
+            yield part(k)
     sr = StreamingRasterizer(cam, chunk_points=200, radius_world=0.02,
-                             config=cfg, device=cuda_device)
+                             device=cuda_device, **kw)
     depth, index = sr.rasterize(chunks())
-    soup = discs_from_points(torch.tensor(pos, device=cuda_device), cam,
-                             torch.full((1200,), 0.02, device=cuda_device),
-                             np.array([0.3, 0.3, 0.3], np.float32))
-    want = csr6.rasterize_csr6(soup, w, h, discs_only=True)
+    soups = []
+    for k in range(6):
+        c = part(k)
+        if discs:
+            c = (c, np.broadcast_to(sr.color, (200, 3)))
+        soup, _ = sr.build_soup(*(torch.tensor(np.asarray(a),
+                                               device=cuda_device)
+                                  for a in (c[0], c[1])),
+                                tuple(torch.tensor(e, device=cuda_device)
+                                      for e in c[2:]))
+        if walk == "tiled":
+            assert int(tiles.tile_overflow(soup, w, h)) == 0
+        soups.append(soup)
+    want = _c7_monolithic(walk, ScreenPrimitives.concatenate(soups), w, h)
+    print(f"[C7] walk {walk}: staging_waits {sr.staging_waits} of 6 chunks")
     np.testing.assert_array_equal(_bits(depth), _bits(want[0]))
     np.testing.assert_array_equal(_bits(index), _bits(want[1]))
-    assert int(index.max()) >= 1000
-    assert sr.staging_waits > 0  # the host waited for a slot's copy
+    assert int(index.max()) >= 5 * sr.prims_per_chunk
+    assert (sr.staging_waits == 0) == (walk in C7_HOST_HELD), (
+        f"staging_waits {sr.staging_waits} on the {walk} walk: C7_HOST_HELD "
+        "lists the walks whose chunk loop never lets the host run ahead of "
+        "the copies")
+
+
+SHARDED_KERNELS = {"pallas6": csr6.raster_tiles, "pallas4": csr4.raster_tiles4,
+                   "tiled": csr.raster_tiles1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", list(SHARDED_KERNELS))
+def test_sharded_world_of_one_equals_frame_on_card(cuda_device, backend):
+    """render_scene_point_sharded on a world of one rank on the card (NCCL
+    where present) == FramePipeline's frame on the same backend bit for
+    bit (rgb, depth, index), one launch of the backend's kernel."""
+    import torch.distributed as dist
+
+    from pointcloud_render_tpu_torch.parallel import multihost
+    from pointcloud_render_tpu_torch.parallel import render_parallel as rp
+
+    pos, vel = cloud()
+    cfg = RasterConfig(backend=backend)
+    kernel = SHARDED_KERNELS[backend]
+    multihost.initialize()
+    try:
+        before = kernel.launches
+        out = rp.render_scene_point_sharded(
+            PRESETS["traj_ball"], pos, cfg, rp.make_render_mesh(1, 1),
+            velocities=vel, frame_index=120, width=160, height=96)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    assert int(out.overflow) == 0
+    fb = pipeline.FramePipeline(PRESETS["traj_ball"], cfg, width=160,
+                                height=96, device=cuda_device).render_array(
+        np.concatenate([pos, vel], axis=1), 120)
+    for field in ("index", "depth", "rgb"):
+        np.testing.assert_array_equal(_bits(getattr(out, field)),
+                                      _bits(getattr(fb, field)))
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ from pointcloud_render_tpu.configs import PRESETS as JAX_PRESETS
 from pointcloud_render_tpu.geometry import trails as jtrails
 from pointcloud_render_tpu.io import loaders as jloaders
 from pointcloud_render_tpu.io import ply as jply
+from pointcloud_render_tpu.run import video as jvideo
 from pointcloud_render_tpu.raster.render import RasterConfig as JRasterConfig
 from pointcloud_render_tpu.scene import camera as jcamera
 from pointcloud_render_tpu.scene import normalize as jnormalize
@@ -30,6 +31,7 @@ from pointcloud_render_tpu.shading.shade import ShadingConfig as JShadingConfig
 from pointcloud_render_tpu_torch.configs import PRESETS
 from pointcloud_render_tpu_torch.geometry import trails
 from pointcloud_render_tpu_torch.io import loaders, ply, png
+from pointcloud_render_tpu_torch.run import video
 from pointcloud_render_tpu_torch.scene import camera, normalize
 from pointcloud_render_tpu_torch.utils import convert
 from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
@@ -87,6 +89,33 @@ class TestIO:
                                       png.to_srgb_u8(img))
         png.write_png(str(tmp_path / "b.png"), img)
         assert os.path.getsize(tmp_path / "b.png") > 0
+
+
+class TestVideo:
+    def test_gif_and_png_sequence_equal_jax(self, tmp_path):
+        from PIL import Image, ImageSequence
+
+        frames = [(RNG.uniform(size=(24, 40, 3)) * 255).astype(np.uint8)
+                  for _ in range(3)]
+        gifs = [str(tmp_path / f"{k}.gif") for k in ("port", "jax")]
+        video.write_gif(gifs[0], frames, fps=12)
+        jvideo.write_gif(gifs[1], frames, fps=12)
+        decoded = [[np.asarray(f.convert("RGB")) for f in
+                    ImageSequence.Iterator(Image.open(g))] for g in gifs]
+        assert len(decoded[0]) == len(frames)
+        for a, b in zip(*decoded, strict=True):
+            np.testing.assert_array_equal(a, b)
+        with pytest.raises(ValueError, match="no frames"):
+            video.write_gif(gifs[0], [])
+        ours = video.write_frame_sequence(str(tmp_path / "port"), frames)
+        theirs = jvideo.write_frame_sequence(str(tmp_path / "jax"), frames)
+        assert [os.path.basename(p) for p in ours] == \
+            [os.path.basename(p) for p in theirs]
+        for a, b in zip(ours, theirs, strict=True):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read()
+            np.testing.assert_array_equal(
+                np.asarray(Image.open(a)), frames[ours.index(a)])
 
 
 class TestNormalize:
@@ -161,6 +190,22 @@ class TestCamera:
         r, u, fw = camera.look_at_axes((2.0, 2.0, 2.0), (0.0, 0.0, -0.05))
         assert abs(float((r * fw).sum())) < 1e-6
         assert abs(float((u * fw).sum())) < 1e-6
+
+    @pytest.mark.parametrize("preset", ["traj", "traj_ball", "traj_b1",
+                                        "traj_original", "example"])
+    def test_from_preset_equals_jax(self, preset):
+        for f in (0, 120, 205):
+            ours = camera.Camera.from_preset(preset, f, device="cpu")
+            theirs = jcamera.Camera.from_preset(preset, f)
+            np.testing.assert_array_equal(ours.origin.numpy(),
+                                          np.asarray(theirs.origin))
+            np.testing.assert_array_equal(ours.target.numpy(),
+                                          np.asarray(theirs.target))
+            for field in ("up", "fov_x_degrees", "width", "height", "near",
+                          "far"):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(ours, field), np.float32),
+                    np.asarray(getattr(theirs, field), np.float32))
 
 
 class TestTrails:
