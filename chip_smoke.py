@@ -214,7 +214,8 @@ Phases (any failure exits non-zero and prints no result line):
      (benchmarks/results/fidelity_trail_segments.json: 6,000 points,
      480x270, frames 120 and 199, a 20-segment reference polyline, seed
      0): utils/fidelity.trail_segments_flip_rate on the card for
-     traj_ball and traj_vel at segments 4 and 8, exact (csr6_raster) and
+     traj_ball and traj_vel at segments 4, 8 and "adaptive" (the JAX
+     records' "adaptive" and "adaptive+rows8"), exact (csr6_raster) and
      with the rows9 candidate at span 4 (csr6_rows9; candidate_diff: its
      pixels whose surface differs from the exact candidate's), each
      "[fidelity]" line beside the JAX record; the traj_vel flip
@@ -289,7 +290,32 @@ Phases (any failure exits non-zero and prints no result line):
      its trail scene's chunk 0 == the one-rank stream bit for bit (depth,
      index, attributes); (d) "[sharded]" lines: warm ms per sharded
      frame beside FramePipeline's for world 1 and 2, the ms of the
-     merge's four all-reduces, the mesh stream's ms per chunk.
+     merge's four all-reduces, the mesh stream's ms per chunk;
+ 17. the adaptive velocity trails (trail_segments="adaptive") and the v6
+     row_budget: bench.py's trail lane with --trail-segments adaptive
+     (1M traj_ball points, positions uniform from seed 0, velocities
+     normal(0, 2) from seed 1, 1920x1080, frames linspace(20, 219, 40),
+     its tuned knobs rows9 and three_tone; span and max_big by
+     bench.py's probe of 4 frames, row_budget by its rule
+     ceil((1.1 x the largest binned prefix + 8,192) / 4,096) x 4,096),
+     beside the same lane at segments 4: (a) at frames 120 and 219,
+     csr6_raster (span 2, exit on and off; span 4), csr6_cap10 and
+     csr6_rows9 (span 4) == plain bit for bit with each span's sized
+     budget and with half the binned rows (row_overflow > 0, the cut
+     frame differs), the lane's frame == the frame without a budget;
+     csr6_disc8 on the disc lane's frame 120 with its binned count and
+     half of it; (b) the main path, the 40 frames through
+     build_primitives + render: one csr6_rows9 launch each, big_overflow
+     and row_overflow 0 on every frame, the soup build without a host
+     synchronisation (set_sync_debug_mode); (c) "[adaptive]" lines per
+     frame (rows, binned rows, tile rows, big list, the share of trails
+     at each k, beside segments 4), each kernel's time, plain time and
+     bound at frame 120 at both, the lane loop's warm ms per frame in
+     turns, the stages of a frame (the heuristic's projection and argmin
+     apart) and the traced idle share; (d) traj_vel's droplet lane
+     (1M droplets) at frames 20, 120 and 219 with adaptive trails:
+     certificates 0, one csr6_rows9 launch each, csr6_rows9 == plain with
+     the sized and the half budget at frame 120.
 The last two lines are the card line and {"ok": true, "device": {...}};
 before them a {"kernels": [...]} line with each kernel's numbers: launches
 on its main path (csr1_raster's: rasterize_csr's, the look CLI's shadow
@@ -328,7 +354,13 @@ csr6_disc8 and csr6_cap10 their walk of the stream's chunk 0 as
 stream_ms, stream_plain_ms, stream_bound_ms and stream_bound_by
 (csr6_disc8 also stream_device_ms).  The three kernels of phase 16 (a)
 add sharded_launches (csr6_raster, csr4_raster and csr1_raster: 1
-each).  "[split]" lines time a split walk by
+each).  Phase 17 adds adaptive_check_launches (csr6_raster, csr6_cap10,
+csr6_rows9, csr6_disc8: the launches of its checks), csr6_rows9's
+adaptive_launches (its main path), and for csr6_raster, csr6_cap10 and
+csr6_rows9 at the adaptive lane's frame 120 adaptive_ms,
+adaptive_plain_ms, adaptive_bound_ms, adaptive_bound_by,
+adaptive_fixed4_ms and adaptive_fixed4_bound_ms (the same frame at
+segments 4).  "[split]" lines time a split walk by
 split_rows (SPLIT_SWEEP, SPLIT_SWEEP_DISC, SPLIT_SWEEP5).
 """
 
@@ -443,7 +475,7 @@ PARENT = {"tree": None, "libs": {}}
 FIDELITY_RECORDS = "benchmarks/results/fidelity_trail_segments.json"
 FIDELITY_SCENE = dict(n_points=6000, frames=(120, 199), width=480,
                       height=270, reference_segments=20, seed=0)
-FIDELITY_SEGMENTS = (4, 8)
+FIDELITY_SEGMENTS = (4, 8, "adaptive")
 FIDELITY_SPAN = 4
 # The tuned lanes whose geometry knobs the certificate holds, by preset.
 FIDELITY_LANES = {"trail": "traj_ball", "droplet": "traj_vel"}
@@ -1133,13 +1165,19 @@ LOOK_FLAGS = ("--shadows", "--ground-spec", "0.5", "--gi", "0.25",
 SHADOW_KEYS = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
                "bound_by", "ms_exit_off", "bound_ms_exit_off", "entries",
                "walked", "dropped")
+# Phase 17 (the adaptive trail lane), under adaptive_: the launches of its
+# checks (rows 1, 1c, 1e, 1f), csr6_rows9's on its main path, and rows 1,
+# 1e and 1f on its frame 120 beside the same frame at segments 4.
+ADAPTIVE_KEYS = ("check_launches", "launches", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "fixed4_ms", "fixed4_bound_ms")
 EXTRA_KEYS = ("ms_exit_off", "bound_ms_exit_off", "bound_ms_all_pairs",
               "bound_ms_evaluated", "bytes_ms", "device_ms",
               "device_ms_exit_off", "ms_exit", "bound_ms_exit", "parent_ms",
               "parent_ms_exit_off",
               *(f"{k}_frame205" for k in FRAME205_KEYS),
               *(f"shadow_{k}" for k in SHADOW_KEYS),
-              *(f"stream_{k}" for k in STREAM_KEYS), "sharded_launches")
+              *(f"stream_{k}" for k in STREAM_KEYS), "sharded_launches",
+              *(f"adaptive_{k}" for k in ADAPTIVE_KEYS))
 
 # Phase 16: the sharded renders (ROADMAP A15) at traj_ball frame 120 on
 # phase 5's 1M-point cloud, 1920x1080.  Each backend's kernel wrapper, and
@@ -1766,24 +1804,11 @@ def droplet_lane(card, dev, max_err, counters, tmp) -> dict:
             preset, cam, pos, vel, fi,
             trail_segments=DROPLET_SEGMENTS), cam
 
-    # Span and max_big by bench.py's rules (:727-760): the big count at
-    # each span over the probe frames; the smallest span whose worst
-    # frame has at most 2048 big rows; 1.5x that plus 64, rounded.
-    probe = list(dict.fromkeys([frames[0], frames[len(frames) // 2],
-                                frames[-2], frames[-1]]))
-    bigs = {s: [] for s in csr6.SPANS}
-    for fi in probe:
-        soup, _ = soup_fn(fi)
-        for s in csr6.SPANS:
-            bigs[s].append(int(csr6.bin_csr6(soup, WIDTH, HEIGHT,
-                                             span=s)["big_count"]))
-    span = next((s for s in csr6.SPANS if max(bigs[s]) <= 2048), 8)
-    need = int(max(bigs[span]) * 1.5) + 64
-    max_big = 384 if need <= 384 else ((need + 255) // 256) * 256
-    check(max_big <= 65536, f"droplet lane: probed big list {bigs}")
+    span, max_big, _, bigs, probe = lane_probe(csr6, soup_fn, frames)
     print(f"[droplet] {n} droplets, {DROPLET_SEGMENTS}-segment trails, "
-          f"{soup.count} prims; big list at probe frames {probe} by span "
-          f"{bigs}: span {span}, max_big {max_big}", flush=True)
+          f"{soup_fn(frames[0])[0].count} prims; big list at probe frames "
+          f"{probe} by span {bigs}: span {span}, max_big {max_big}",
+          flush=True)
     # The four-tone reps of frame 20 and their certificate (:780-804).
     soup, cam = soup_fn(frames[0])
     reps3, ok3 = csr6.derive_three_tone(soup)
@@ -5154,6 +5179,518 @@ def sharded_phase(card, dev, counters, tmp) -> dict:
     return nums
 
 
+# Phase 17: bench.py's trail lane with --trail-segments adaptive (its
+# tuned knobs: rows9, three_tone, span and max_big by its probe, the
+# row_budget by :808-820) on 1M points, 1920x1080, over linspace(20, 219,
+# ADAPTIVE_FRAMES) (bench.py:705), beside the same lane at segments 4;
+# the droplet lane's adaptive frames.
+ADAPTIVE_POINTS = 1_000_000
+ADAPTIVE_FRAMES = 40
+ADAPTIVE_CHECK_FRAMES = (120, 219)
+ADAPTIVE_DROPLET_FRAMES = (20, 120, 219)
+# The walks held against their plain versions on the adaptive soup, each
+# with the sized row_budget and with half the binned rows: (kernel, knobs).
+ADAPTIVE_WALKS = (
+    ("csr6_raster", dict(span=2)),
+    ("csr6_raster", dict(span=2, allow_exit=False)),
+    ("csr6_raster", dict(span=4)),
+    ("csr6_cap10", dict(span=4, cap_rows10=True)),
+    ("csr6_rows9", dict(span=4, rows9=True)),
+)
+
+
+def row_budget_for(binned):
+    """bench.py:816-817's row_budget over the probed binned prefixes: 10%
+    and 8,192 rows over the largest, in multiples of 4,096."""
+    need = int(max(binned) * 1.10) + 8192
+    return -(-need // 4096) * 4096
+
+
+def lane_probe(csr6, soup_fn, frames):
+    """bench.py:722-760's probe of a lane: the big count and the binned
+    prefix at every span over 4 of ``frames`` -> (span, max_big, {span:
+    [binned per probe frame]}, {span: [big per probe frame]}, the probe
+    frames).  The span is the smallest whose worst frame has at most
+    2,048 big rows; max_big 1.5x that plus 64, rounded up to 256 (384 at
+    least)."""
+    probe = list(dict.fromkeys([frames[0], frames[len(frames) // 2],
+                                frames[-2], frames[-1]]))
+    bigs = {s: [] for s in csr6.SPANS}
+    binned = {s: [] for s in csr6.SPANS}
+    for fi in probe:
+        soup, _ = soup_fn(fi)
+        for s in csr6.SPANS:
+            big, n_small = csr6.bin_diagnostics6(
+                soup, WIDTH, HEIGHT, max_big=0, span=s, return_binned=True)
+            bigs[s].append(int(big))
+            binned[s].append(int(n_small))
+    span = next((s for s in csr6.SPANS if max(bigs[s]) <= 2048), 8)
+    need = int(max(bigs[span]) * 1.5) + 64
+    max_big = 384 if need <= 384 else ((need + 255) // 256) * 256
+    check(max_big <= 65536, f"probed big list {bigs}")
+    return span, max_big, binned, bigs, probe
+
+
+def lane_tones(csr6, soup):
+    """bench.py:780-804: the three-tone reps of a soup, else its four-tone
+    reps, else None."""
+    reps3, ok3 = csr6.derive_three_tone(soup)
+    if bool(ok3):
+        return tuple(int(r) for r in reps3.cpu())
+    reps4, ok4 = csr6.derive_four_tone(soup)
+    return tuple(int(r) for r in reps4.cpu()) if bool(ok4) else None
+
+
+def cut_checks(csr6, soup, fi, sized, max_big, max_err, what,
+               walks=ADAPTIVE_WALKS):
+    """Each walk of ``walks`` == its plain version bit for bit on
+    ``soup``, with its span's sized row_budget (every exact walk's uncut
+    frame is one plain frame, rows9's another) and with half its binned
+    rows (row_overflow > 0, the cut frame != the uncut one) -> [(kernel,
+    knobs, budget, binned, row_overflow)]."""
+    import torch
+
+    plain_full = {}
+
+    def full(key, span):
+        if key not in plain_full:
+            plain_full[key] = csr6.rasterize_csr6(
+                soup, WIDTH, HEIGHT, max_big=max_big, plain=True, span=span,
+                rows9=key == "rows9")
+        return plain_full[key]
+
+    out = []
+    for name, kw in walks:
+        span = kw["span"]
+        _, n_small = csr6.bin_diagnostics6(soup, WIDTH, HEIGHT, max_big=0,
+                                           span=span, return_binned=True)
+        n_small = int(n_small)
+        for budget in (sized[span], n_small // 2):
+            got = csr6.rasterize_csr6(soup, WIDTH, HEIGHT, max_big=max_big,
+                                      row_budget=budget, **kw)
+            cut = budget < n_small
+            key = "rows9" if kw.get("rows9") else "exact"
+            want = (csr6.rasterize_csr6(soup, WIDTH, HEIGHT, max_big=max_big,
+                                        row_budget=budget, plain=True, **kw)
+                    if cut else full(key, span))
+            torch.cuda.synchronize()
+            label = (f"{what} frame {fi} {name} {kw} row_budget {budget} "
+                     f"({n_small} binned)")
+            check(int(got[2]["big_overflow"]) == 0, f"{label}: big list "
+                  "overflowed")
+            ovf = int(got[2]["row_overflow"])
+            check(ovf == max(n_small - budget, 0)
+                  and ovf == int(want[2]["row_overflow"]),
+                  f"{label}: row_overflow {ovf}")
+            err = check_equal_bits(got[:2], want[:2], label)
+            max_err[name] = max(max_err[name], err)
+            if cut:
+                check(not torch.equal(got[1], full(key, span)[1]),
+                      f"{label}: the cut changed nothing")
+            out.append((name, kw, budget, n_small, ovf))
+    return out
+
+
+def time_walk16(csr6, soup, max_big, span):
+    """csr6_raster at ``span`` (no exit) on ``soup``: == its plain version
+    bit for bit -> dict(err, ms, plain_ms, bound_ms, bound_by, the tile
+    rows and work items); the bound counts 17 operations per pair of the
+    tile rows and every pixel x every live big row (walk_bound)."""
+    import torch
+
+    b = csr6.bin_csr6(soup, WIDTH, HEIGHT, max_big, span=span)
+    check(int(b["diag"]["big_overflow"]) == 0, "big list overflowed")
+    zeros = torch.zeros((soup.count, 3), device=soup.device)
+    args = (csr6.build_table16(soup, zeros, zeros[:, 0]), b["order"],
+            b["starts"], b["big_ids"], b["big_n"], WIDTH, HEIGHT, False,
+            span)
+    want = csr6.raster_tiles_plain(*args)
+    err = check_equal_bits(csr6.raster_tiles(*args), want,
+                           f"csr6_raster span {span}")
+    bound_ms, bound_by = walk_bound(b, soup, WIDTH, HEIGHT, 64,
+                                    OPS_CAPSULE16, 2, span=span)
+    return dict(err=err, ms=time_ms(lambda: csr6.raster_tiles(*args), 11),
+                plain_ms=time_ms(lambda: csr6.raster_tiles_plain(*args), 1),
+                bound_ms=bound_ms, bound_by=bound_by,
+                **tile_stats(csr6, b, WIDTH, HEIGHT, span,
+                             int(b["big_n"][0])))
+
+
+def adaptive_stages(csr6, pipeline, trails_mod, prims_mod, render_mod,
+                    trajectory, preset, cam, pos, vel, fi, cfg, segs):
+    """The stages of one lane frame: the soup build's parts (at
+    ``segs="adaptive"`` the trail terms, the endpoints' projection, the
+    cost argmin, the vertices and the capsules apart), then the render
+    under rows9 (binning, rows, kernel, the tone shade), as
+    build_primitives and render_shaded_csr6 run them."""
+    import numpy as np
+    import torch
+
+    w, h, span = WIDTH, HEIGHT, cfg.span
+    color = np.asarray(preset.trail_color, np.float32)
+
+    def furniture(f):
+        n = pos.shape[0]
+        f["parts"] = [
+            render_mod.ground_plane(cam, preset.ground_half_extent,
+                                    preset.ground_center),
+            prims_mod.discs_from_points(
+                pos, cam, torch.full((n,), preset.point_radius,
+                                     device=pos.device),
+                np.asarray(preset.point_color, np.float32))]
+
+    def terms(f):
+        f["dir"], f["len"], _ = trails_mod.velocity_trail_lengths(
+            pos, vel, fi, preset.trail_schedule)
+
+    def extents(f):
+        f["ext"] = pipeline._trail_extents(pos, f["dir"], f["len"], cam,
+                                           preset.trail_radius)
+
+    def argmin(f):
+        f["k"] = pipeline._cheapest_segment_counts(*f["ext"])
+
+    def vertices(f):
+        f["pts"], f["vv"] = trails_mod.velocity_trails_adaptive(
+            pos, vel, fi, f["k"], pipeline.TRAIL_ADAPTIVE_BUDGET,
+            preset.trail_schedule)
+
+    def capsules(f):
+        f["parts"].append(prims_mod.capsules_from_polylines(
+            f["pts"], f["vv"], cam, preset.trail_radius, color))
+
+    def columns(f):
+        sub = np.round(np.linspace(0, trails_mod.N_TRAIL_POINTS,
+                                   segs + 1)).astype(np.int32)
+        f["cols"], f["valid"] = trails_mod.velocity_trail_vertex_columns(
+            pos, vel, fi, sub, preset.trail_schedule)
+
+    def capsules_cols(f):
+        f["parts"].append(prims_mod.capsules_from_vertex_columns(
+            f["cols"], [f["valid"]] * len(f["cols"]), cam,
+            preset.trail_radius, color))
+
+    def concat(f):
+        f["soup"] = prims_mod.ScreenPrimitives.concatenate(f["parts"])
+
+    def binning(f):
+        f["b"] = csr6.bin_csr6(f["soup"], w, h, cfg.max_big, span=span,
+                               kind_split=True)
+        f["order"], _ = csr6.cut_order(f["b"]["order"], f["b"]["starts"][-1],
+                                       cfg.row_budget)
+
+    def tables(f):
+        soup, b = f["soup"], f["b"]
+        f["zeros"] = torch.zeros((soup.count, 3), device=soup.device)
+        f["rows9"] = csr6.build_table9(soup, f["order"], b["starts"][-1])
+        f["big"] = csr6.build_table16_rows(soup, f["zeros"],
+                                           f["zeros"][:, 0], b["big_ids"])
+
+    def kernel(f):
+        b = f["b"]
+        f["depth"], f["index"] = csr6.raster_tiles_rows9(
+            f["rows9"], f["big"], b["starts"], b["big_n"], w, h, span)
+
+    def shade(f):
+        f["rgb"] = csr6.shade_by_id(f["soup"], cam, cfg.shading, f["depth"],
+                                    f["index"], f["zeros"], f["zeros"][:, 0],
+                                    three_tone=cfg.three_tone)
+
+    if segs == "adaptive":
+        trail = [("trail terms", terms), ("endpoint projection", extents),
+                 ("cost argmin", argmin), ("adaptive vertices", vertices),
+                 ("trail capsules", capsules)]
+    else:
+        trail = [("trail vertex columns", columns),
+                 ("trail capsules", capsules_cols)]
+    return ([("ground + discs", furniture)] + trail
+            + [("concatenate", concat), ("binning (kind split)", binning),
+               ("table9 + big rows", tables), ("csr6_rows9 kernel", kernel),
+               ("shade_by_id (tones)", shade),
+               ("srgb_encode_u8",
+                lambda f: trajectory.srgb_encode_u8(f["rgb"])),
+               ("certificate read-back",
+                lambda f: int(f["b"]["diag"]["big_overflow"]))])
+
+
+def adaptive_lane(card, dev, max_err, counters, tmp) -> dict:
+    """Phase 17 (see the module docstring) -> {kernel: its adaptive_
+    numbers}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pointcloud_render_tpu_torch.configs import PRESETS
+    from pointcloud_render_tpu_torch.geometry import trails as trails_mod
+    from pointcloud_render_tpu_torch.raster import csr6
+    from pointcloud_render_tpu_torch.raster import primitives as prims_mod
+    from pointcloud_render_tpu_torch.raster import render as render_mod
+    from pointcloud_render_tpu_torch.raster.render import (
+        RasterConfig,
+        render,
+    )
+    from pointcloud_render_tpu_torch.run import pipeline, trajectory
+
+    t_phase = time.perf_counter()
+    n = ADAPTIVE_POINTS
+    budget_k = pipeline.TRAIL_ADAPTIVE_BUDGET
+    # bench.py:383-384, :698-699: positions uniform in [-0.5, 0.5)^3 from
+    # seed 0, velocities normal(0, 2) from seed 1.
+    pos = torch.tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (n, 3)).astype(np.float32), device=dev)
+    vel = torch.tensor(np.random.default_rng(1).normal(
+        0, 2, (n, 3)).astype(np.float32), device=dev)
+    frames = np.linspace(20, 219, ADAPTIVE_FRAMES).astype(np.int32).tolist()
+
+    def lane(preset_name, segs):
+        preset = PRESETS[preset_name]
+
+        def soup_fn(fi):
+            cam = pipeline.frame_camera(preset, fi, WIDTH, HEIGHT, dev)
+            return pipeline.build_primitives(preset, cam, pos, vel, fi,
+                                             trail_segments=segs), cam
+
+        span, max_big, binned, bigs, probe = lane_probe(csr6, soup_fn,
+                                                        frames)
+        sized = {s: row_budget_for(binned[s]) for s in csr6.SPANS}
+        cfg = RasterConfig(
+            rows9=True, span=span, max_big=max_big,
+            row_budget=sized[span] if segs == "adaptive" else None,
+            three_tone=lane_tones(csr6, soup_fn(frames[0])[0]))
+        print(f"[adaptive] {preset_name} segments {segs}: probe frames "
+              f"{probe}: big list by span {bigs}, binned by span {binned}; "
+              f"span {span}, max_big {max_big}, row_budget "
+              f"{cfg.row_budget}, tones {cfg.three_tone}", flush=True)
+        return preset, soup_fn, cfg, sized
+
+    preset, soup_a, cfg_a, sized = lane("traj_ball", "adaptive")
+    _, soup_f, cfg_f, _ = lane("traj_ball", budget_k)
+
+    # Kernels against their plain versions on the adaptive soup, with the
+    # sized budgets and with half the binned rows.
+    reset_counts(counters)
+    for fi in ADAPTIVE_CHECK_FRAMES:
+        soup, cam = soup_a(fi)
+        big = max(int(csr6.bin_diagnostics6(soup, WIDTH, HEIGHT, max_big=0,
+                                            span=s)) for s in (2, 4))
+        runs = cut_checks(csr6, soup, fi, sized, max(big, 1), max_err,
+                          "adaptive")
+        print(f"[adaptive] frame {fi}: csr6_raster (span 2 exit on and off, "
+              f"span 4), csr6_cap10 and csr6_rows9 (span 4) == plain bit "
+              f"for bit with the sized budget (row_overflow 0) and half the "
+              f"binned rows (row_overflow "
+              f"{sorted({r[4] for r in runs if r[4]})}); big list up to "
+              f"{big}", flush=True)
+        # A budget that cuts nothing changes nothing: the lane's frame ==
+        # the frame with no budget.
+        a = render(soup, cam, cfg_a)
+        b = render(soup, cam, dataclasses.replace(cfg_a, row_budget=None))
+        for field in ("rgb", "depth", "index"):
+            check(torch.equal(getattr(a, field).view(torch.int32),
+                              getattr(b, field).view(torch.int32)),
+                  f"adaptive frame {fi}: {field} with the sized budget != "
+                  "without one")
+    # csr6_disc8 on the disc lane's frame 120 with half its binned rows.
+    disc_preset = dataclasses.replace(PRESETS["traj_ball"],
+                                      point_radius=0.002, point_color=LOOK[0])
+    cam = pipeline.frame_camera(disc_preset, 120, WIDTH, HEIGHT, dev)
+    discs = pipeline.build_primitives(disc_preset, cam, pos, None, 120)
+    _, n_disc = csr6.bin_diagnostics6(discs, WIDTH, HEIGHT, discs_only=True,
+                                      return_binned=True)
+    n_disc = int(n_disc)
+    uncut = csr6.rasterize_csr6(discs, WIDTH, HEIGHT, max_big=256,
+                                discs_only=True)
+    for budget in (n_disc, n_disc // 2):
+        got = csr6.rasterize_csr6(discs, WIDTH, HEIGHT, max_big=256,
+                                  discs_only=True, row_budget=budget)
+        want = csr6.rasterize_csr6(discs, WIDTH, HEIGHT, max_big=256,
+                                   discs_only=True, row_budget=budget,
+                                   plain=True)
+        torch.cuda.synchronize()
+        label = f"csr6_disc8 disc lane frame 120 row_budget {budget}"
+        max_err["csr6_disc8"] = max(max_err["csr6_disc8"], check_equal_bits(
+            got[:2], want[:2], label))
+        ovf = int(got[2]["row_overflow"])
+        check(ovf == n_disc - budget, f"{label}: row_overflow {ovf}")
+        check(torch.equal(got[1], uncut[1]) == (ovf == 0),
+              f"{label}: the frame against the uncut one")
+    print(f"[adaptive] csr6_disc8 on the disc lane's frame 120 ({n_disc} "
+          f"binned discs) == plain bit for bit with row_budget {n_disc} "
+          f"(== the uncut frame) and {n_disc // 2} (row_overflow "
+          f"{n_disc - n_disc // 2})", flush=True)
+    check_launches = launch_counts(counters)
+
+    # The main path: the lane's frames through build_primitives + render,
+    # both certificates read once at the end.
+    reset_counts(counters)
+    certs, cover = [], []
+    for fi in frames:
+        soup, cam = soup_a(fi)
+        fb, diag = render(soup, cam, cfg_a, return_diag=True)
+        certs.append(torch.stack([diag["big_overflow"],
+                                  diag["row_overflow"]]))
+        cover.append((fb.index >= 0).float().mean())
+    torch.cuda.synchronize()
+    launches = csr6.raster_tiles_rows9.launches
+    check(launches == len(frames)
+          and set(launch_counts(counters)) == {"raster_tiles_rows9"},
+          f"adaptive lane: csr6_rows9 launched {launches} times over "
+          f"{len(frames)} frames; launches {launch_counts(counters)}")
+    certs = torch.stack(certs).cpu().numpy()
+    cover = torch.stack(cover).cpu().tolist()
+    check(not certs.any(), f"adaptive lane certificates (big_overflow, "
+          f"row_overflow) per frame: {certs.tolist()}")
+    check(min(cover) > 0.05, f"adaptive lane frames look empty: {cover}")
+    print(f"[adaptive] lane: {len(frames)} frames {frames[0]}..{frames[-1]}, "
+          f"big_overflow 0 and row_overflow 0 on every frame, csr6_rows9 "
+          f"launches {launches}, covered share {min(cover):.3f}.."
+          f"{max(cover):.3f}", flush=True)
+    cam = pipeline.frame_camera(preset, frames[1], WIDTH, HEIGHT, dev)
+    fi_dev = torch.tensor(float(frames[1]), device=dev)
+    _, syncs = host_syncs(lambda: pipeline.build_primitives(
+        preset, cam, pos, vel, fi_dev, trail_segments="adaptive"))
+    check(not syncs, f"the adaptive soup build synchronises: {syncs}")
+    print("[adaptive] soup build (heuristic included) under "
+          "set_sync_debug_mode: 0 host synchronisations", flush=True)
+
+    # Per frame: binned rows, tile rows (true_entries), big list and the
+    # share of trails at each k, beside segments 4.
+    tot = {"adaptive": [0, 0], budget_k: [0, 0]}
+    for fi in frames:
+        line = []
+        for segs, soup_fn, cfg in (("adaptive", soup_a, cfg_a),
+                                   (budget_k, soup_f, cfg_f)):
+            soup, cam = soup_fn(fi)
+            b = csr6.bin_csr6(soup, WIDTH, HEIGHT, cfg.max_big,
+                              span=cfg.span, kind_split=True)
+            nb, te = int(b["starts"][-1]), int(b["diag"]["true_entries"])
+            tot[segs][0] += nb
+            tot[segs][1] += te
+            line.append(f"segments {segs}: {soup.count} rows, {nb} binned, "
+                        f"tile rows {te}, big list {int(b['big_count'])}")
+        d, tl, _ = trails_mod.velocity_trail_lengths(
+            pos, vel, fi, preset.trail_schedule)
+        k = pipeline._adaptive_trail_segment_counts(pos, d, tl, cam,
+                                                    preset.trail_radius)
+        share = (torch.bincount(k, minlength=budget_k + 1)[1:].double()
+                 / n).cpu().tolist()
+        print(f"[adaptive] frame {fi}: " + "; ".join(line) + "; trails at k "
+              "1-4: " + ", ".join(f"{s:.4f}" for s in share), flush=True)
+    print(f"[adaptive] over the {len(frames)} frames: binned rows "
+          f"{tot['adaptive'][0]} against {tot[budget_k][0]} at segments 4 "
+          f"({tot['adaptive'][0] / tot[budget_k][0]:.3f}), tile rows "
+          f"{tot['adaptive'][1]} against {tot[budget_k][1]} "
+          f"({tot['adaptive'][1] / tot[budget_k][1]:.3f})", flush=True)
+
+    # Each kernel's time at frame 120, adaptive beside segments 4.
+    nums = {}
+    for segs, soup_fn, cfg in (("adaptive", soup_a, cfg_a),
+                               (budget_k, soup_f, cfg_f)):
+        soup, _ = soup_fn(120)
+        big = max(int(csr6.bin_diagnostics6(soup, WIDTH, HEIGHT, max_big=0,
+                                            span=4)), 1)
+        r16 = time_walk16(csr6, soup, big, 4)
+        r10, _ = compare_cap10(soup, WIDTH, HEIGHT, csr6, big, 4,
+                               timing=True)
+        r9, _ = compare_rows9(soup, WIDTH, HEIGHT, csr6, cfg.max_big,
+                              cfg.span, timing=True, card=card)
+        for name, r, span in (("csr6_raster", r16, 4),
+                              ("csr6_cap10", r10, 4),
+                              ("csr6_rows9", r9, cfg.span)):
+            max_err[name] = max(max_err[name], r["err"])
+            nums[name, segs] = r
+            print(f"[adaptive] {name} span {span} segments {segs}, frame "
+                  f"120: kernel "
+                  f"{r['ms']:.3f} ms (median of 11), plain "
+                  f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} ms by "
+                  f"{r['bound_by']}; {stats_text(r)} ({card})", flush=True)
+
+    # Warm ms per frame of the lane's loop, adaptive and segments 4 in
+    # turns (one synchronisation per pass).
+    times = {"adaptive": [], budget_k: []}
+    for segs in ("adaptive", budget_k, budget_k, "adaptive"):
+        soup_fn, cfg = ((soup_a, cfg_a) if segs == "adaptive"
+                        else (soup_f, cfg_f))
+        t0 = time.perf_counter()
+        for fi in frames:
+            soup, cam = soup_fn(fi)
+            render(soup, cam, cfg)
+        torch.cuda.synchronize()
+        times[segs].append((time.perf_counter() - t0) * 1e3 / len(frames))
+    for segs, ts in times.items():
+        print(f"[adaptive] lane loop segments {segs}: warm ms/frame over "
+              f"{len(frames)} frames (build_primitives + render, one "
+              f"synchronisation a pass): "
+              + ", ".join(f"{t:.3f}" for t in ts) + f" ({card})", flush=True)
+    for segs, soup_fn, cfg in (("adaptive", soup_a, cfg_a),
+                               (budget_k, soup_f, cfg_f)):
+        _, cam = soup_fn(120)
+        stages = adaptive_stages(csr6, pipeline, trails_mod, prims_mod,
+                                 render_mod, trajectory, preset, cam, pos,
+                                 vel, 120, cfg, segs)
+        for stage, ms in stage_times(stages).items():
+            print(f"[stage] adaptive lane segments {segs} frame 120 "
+                  f"{stage}: {ms:.3f} ms ({card})", flush=True)
+        busy, wall_us, top, _ = device_profile(
+            lambda soup_fn=soup_fn, cfg=cfg: render(*soup_fn(120), cfg), 3,
+            tmp)
+        if top:
+            print(f"[trace] adaptive lane segments {segs}, frame 120, 3 "
+                  f"warm frames: device busy {busy / 1e3:.2f} of "
+                  f"{wall_us / 1e3:.2f} ms wall, idle share "
+                  f"{1 - busy / wall_us:.3f} ({card})", flush=True)
+            for name, us in top[:5]:
+                print(f"[trace] adaptive segments {segs} {us / 3e3:9.3f} "
+                      f"ms/frame  {name[:90]}", flush=True)
+        else:
+            print("[trace] adaptive lane: the profiler saw no device "
+                  "activity; device busy share not measured", flush=True)
+
+    # The droplet lane's frames with adaptive trails (traj_vel, 1M
+    # droplets, its config by the same probe and the four-tone reps).
+    reset_counts(counters)
+    dpreset, dsoup, dcfg, dsized = lane("traj_vel", "adaptive")
+    for fi in ADAPTIVE_DROPLET_FRAMES:
+        soup, cam = dsoup(fi)
+        fb, diag = render(soup, cam, dcfg, return_diag=True)
+        big, rows = int(diag["big_overflow"]), int(diag["row_overflow"])
+        check(big == 0 and rows == 0, f"adaptive droplet frame {fi}: "
+              f"big_overflow {big}, row_overflow {rows}")
+        print(f"[adaptive] droplet lane frame {fi}: {soup.count} rows, "
+              f"big_overflow 0, row_overflow 0", flush=True)
+    d_launches = csr6.raster_tiles_rows9.launches
+    check(d_launches == len(ADAPTIVE_DROPLET_FRAMES),
+          f"adaptive droplet lane: csr6_rows9 launched {d_launches} times")
+    soup, _ = dsoup(120)
+    runs = cut_checks(csr6, soup, 120, dsized, dcfg.max_big, max_err,
+                      "adaptive droplet",
+                      walks=(("csr6_rows9", dict(span=dcfg.span,
+                                                 rows9=True)),))
+    print(f"[adaptive] droplet lane frame 120: csr6_rows9 (span "
+          f"{dcfg.span}) == plain bit for bit with row_budget "
+          f"{runs[0][2]} (row_overflow 0) and {runs[1][2]} (row_overflow "
+          f"{runs[1][4]}); csr6_rows9 launches on the lane's frames "
+          f"{d_launches}", flush=True)
+    print(f"[adaptive] phase 17 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    out = {name: {"adaptive_check_launches": check_launches.get(wrapper, 0)}
+           for name, wrapper in (("csr6_raster", "raster_tiles"),
+                                 ("csr6_cap10", "raster_tiles_cap10"),
+                                 ("csr6_rows9", "raster_tiles_rows9"),
+                                 ("csr6_disc8", "raster_tiles_disc8"))}
+    for name in ("csr6_raster", "csr6_cap10", "csr6_rows9"):
+        r, f = nums[name, "adaptive"], nums[name, budget_k]
+        out[name].update(adaptive_ms=r["ms"], adaptive_plain_ms=r["plain_ms"],
+                         adaptive_bound_ms=r["bound_ms"],
+                         adaptive_bound_by=r["bound_by"],
+                         adaptive_fixed4_ms=f["ms"],
+                         adaptive_fixed4_bound_ms=f["bound_ms"])
+    out["csr6_rows9"]["adaptive_launches"] = launches
+    return out
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -5521,6 +6058,9 @@ def run() -> dict:
     # Phase 16: the sharded renders (ROADMAP A15).
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         sharded = sharded_phase(card, dev, counters, tmp)
+    # Phase 17: the adaptive trail lane and row_budget.
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        adaptive = adaptive_lane(card, dev, max_err, counters, tmp)
     # csr1_raster's entry stays rasterize_csr's walk at traj_ball frame 120
     # (phase 11 (b)); the shadow map's numbers (phase 14, its launches the
     # look CLI's) ride under shadow_.
@@ -5533,7 +6073,7 @@ def run() -> dict:
                **strips, "csr2_disc8": disc2, **v5}
     for name, extra in stream.items():
         numbers[name] = dict(numbers[name], **extra)
-    for name, extra in sharded.items():
+    for name, extra in (*sharded.items(), *adaptive.items()):
         numbers[name] = dict(numbers[name], **extra)
     return dict(card=card, kernels=[dict(
         name=name, route="cuda",

@@ -8,8 +8,11 @@ device side is float32 torch ops around hand-written CUDA kernels under
 JAX package stays the reference the port is tested against; this package
 never imports jax.
 
-Ported so far: the traj_ball frame path — ground + sphere splats +
-velocity trails through the v6 tile rasterizer (``raster/csr6.py``).
+Public names here: ``PointCloud`` (``scene/pointcloud.py``) and
+``Camera`` (``scene/camera.py``), as the JAX package exports them.
 """
 
 __version__ = "0.1.0"
+
+from pointcloud_render_tpu_torch.scene.pointcloud import PointCloud  # noqa: F401,E402
+from pointcloud_render_tpu_torch.scene.camera import Camera  # noqa: F401,E402

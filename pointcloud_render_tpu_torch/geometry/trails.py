@@ -14,7 +14,10 @@ Three length-scale schedules exist across the reference scripts:
 tensor build; ``velocity_trails_sampled`` the same at the sampled
 vertices only, as an (N, K, 3) polyline (the streamed trail soup's
 build), and ``velocity_trail_vertex_columns`` the production build that
-computes only those vertices as packed columns.  ``catmull_rom_trails``
+computes only those vertices as packed columns;
+``velocity_trails_adaptive`` samples each trail at its own segment count
+k (``trail_segments="adaptive"``), from the terms that
+``velocity_trail_lengths`` exposes.  ``catmull_rom_trails``
 fits the traj preset's trails through the last frames' positions
 (traj_renderer.py:204-396).  The float32 builds keep
 the JAX expression order with explicit component sums (no
@@ -97,9 +100,35 @@ def _trail_terms(positions, velocities, frame_index, schedule):
     return p, direction, trail_length, valid
 
 
+def velocity_trail_lengths(positions, velocities, frame_index,
+                           schedule: str = "ball"):
+    """(direction (N, 3), trail_length (N,), valid (N,)): the float32 terms
+    every straight-trail build shares (the same tensors the sampled and
+    column builds use), exposed so that the adaptive segment count can
+    project trail endpoints without building vertices."""
+    return _trail_terms(positions, velocities, frame_index, schedule)[1:]
+
+
 def _ts_full() -> np.ndarray:
     return (N_TRAIL_POINTS - 1
             - np.arange(N_TRAIL_POINTS, dtype=np.float32)) / (N_TRAIL_POINTS - 1)
+
+
+def sampled_ts_table(budget: int) -> np.ndarray:
+    """(budget, budget + 1) float32: row ``k - 1`` holds the t values of
+    the k-segment sampled build, 0 (the position) past vertex k.  The
+    vertex indices are the fixed-k build's ``round(linspace(0, 20, k +
+    1))`` (``run.pipeline.build_primitives``), so a trail that the
+    adaptive build samples at k segments has the k-segment build's
+    vertices bit for bit."""
+    ttab = np.zeros((budget, budget + 1), np.float32)
+    ts_full = _ts_full()
+    for kk in range(1, budget + 1):
+        idx = np.round(np.linspace(0, N_TRAIL_POINTS, kk + 1)).astype(np.int64)
+        tr = ts_full[np.minimum(idx, N_TRAIL_POINTS - 1)]
+        tr[idx >= N_TRAIL_POINTS] = 0.0
+        ttab[kk - 1, :kk + 1] = tr
+    return ttab
 
 
 def velocity_trails(positions, velocities, frame_index, schedule: str = "ball"):
@@ -139,6 +168,33 @@ def velocity_trails_sampled(positions, velocities, frame_index, indices,
                       pts)
     valid = valid & torch.isfinite(pts.reshape(pts.shape[0], -1)).all(dim=1)
     return pts, valid
+
+
+def velocity_trails_adaptive(positions, velocities, frame_index, k,
+                             budget: int = 4, schedule: str = "ball"):
+    """Each trail sampled at its own segment count: ``k`` (N,) int in
+    1..budget (clipped) -> (pts (N, budget + 1, 3), vertex_valid (N,
+    budget + 1)).
+
+    Trail i's first k[i] + 1 vertices are the k[i]-segment sampled
+    build's (:func:`sampled_ts_table`: the same float32 expressions at
+    the same t, the position vertex exactly the position); the vertices
+    past k[i] repeat the position and are invalid, so their capsules are
+    dropped while the soup keeps budget capsules per trail."""
+    p, direction, trail_length, valid = _trail_terms(
+        positions, velocities, frame_index, schedule)
+    dev = p.device
+    ttab = const(sampled_ts_table(budget), np.float32, dev)
+    k = torch.clamp(torch.as_tensor(k, device=dev).to(torch.int32), 1,
+                    budget)
+    tsel = ttab[(k - 1).long()]  # (N, budget + 1)
+    offsets = direction[:, None, :] * (trail_length[:, None] * tsel)[..., None]
+    pts = p[:, None, :] + offsets
+    j = const(np.arange(budget + 1), np.int32, dev)[None, :]
+    is_pos = j >= k[:, None]
+    pts = torch.where(is_pos[..., None], p[:, None, :].expand_as(pts), pts)
+    valid = valid & torch.isfinite(pts.reshape(pts.shape[0], -1)).all(dim=1)
+    return pts, valid[:, None] & (j <= k[:, None])
 
 
 def velocity_trail_vertex_columns(positions, velocities, frame_index,

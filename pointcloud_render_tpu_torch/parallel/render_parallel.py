@@ -41,8 +41,9 @@ reduced tensor through the host explicitly (:func:`host_copies`).
 Backends (``_rasterize_shard``, as the JAX dispatch): ``pallas4``,
 ``pallas`` and ``pallas3`` -> the v4 walk, ``pallas6`` and ``auto`` -> the
 v6 walk with ``span``, ``bin_triangles``, ``discs_only``, ``allow_exit``,
-``cap_rows10``, ``rows8`` and ``max_big`` (``rows9`` and the TPU knobs are
-dropped, as the JAX package drops them: ROADMAP queue C), anything else ->
+``cap_rows10``, ``rows8`` and ``max_big`` (``rows9``, ``row_budget`` and
+the TPU knobs are dropped, as the JAX package drops them: ROADMAP queue
+C), anything else ->
 the capped ``tiles.rasterize_tiled`` with ``tile_overflow`` at the
 config's ``tile_h``, ``tile_w`` and ``max_per_tile``.  The JAX ``auto`` is
 ``tiled`` off a TPU; the port's is v6 on every device.  Every entry point

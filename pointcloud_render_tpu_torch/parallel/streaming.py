@@ -157,8 +157,11 @@ class StreamingRasterizer:
       max_big: the big-list capacity of the pallas backends.
       config: an optional RasterConfig whose v6 knobs ``"pallas6"``
         forwards: ``span``, ``cap_rows10``, ``rows8``, ``discs_only``,
-        ``bin_triangles`` and ``allow_exit``; ``rows9`` is dropped, as
-        the JAX package drops it (ROADMAP queue C).
+        ``bin_triangles``, ``allow_exit`` and ``row_budget``; ``rows9``
+        is dropped, as the JAX package drops it, and a chunk's
+        ``row_overflow`` is not read, as the JAX stream reads only
+        ``big_overflow``: binned prims past the budget vanish without
+        an error (ROADMAP queue C).
       device: "cuda" (the default) or "cpu" (the plain walks).
 
     Across chunks of a multi-part soup the parts interleave per chunk, so
@@ -234,7 +237,8 @@ class StreamingRasterizer:
                 kw = dict(span=cfg.span, cap_rows10=cfg.cap_rows10,
                           rows8=cfg.rows8, discs_only=cfg.discs_only,
                           bin_triangles=cfg.bin_triangles,
-                          allow_exit=cfg.allow_exit)
+                          allow_exit=cfg.allow_exit,
+                          row_budget=cfg.row_budget)
             d, i, diag = csr6.rasterize_csr6(prims, w, h,
                                              max_big=self.max_big, **kw)
             return d, i, None, diag["big_overflow"]

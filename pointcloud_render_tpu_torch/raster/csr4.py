@@ -298,6 +298,7 @@ def render_shaded_csr4(prims: ScreenPrimitives, camera, shading,
     (``render_shaded_csr4``): ``csr6.preshade``, the v4 walk and the
     generic ``csr6.shade_by_id`` epilogue."""
     check_supported(shading)
+    csr6.check_id_range(prims)  # before the preshade's work
     shade_rgb, shade_flag = csr6.preshade(prims, camera, shading)
     depth, index, diag = _raster_core4(
         prims, camera.width, camera.height, max_big, entry_capacity,

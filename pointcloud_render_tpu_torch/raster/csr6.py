@@ -20,7 +20,9 @@ package and are torch ops here:
    ``((anchor * span^2 + class) << ZQ) | z-bucket`` int32 keys and
    ``zmeta``); the sorted tail past the binned keys is the big list,
    truncated at ``max_big``; the range ``starts`` by ``searchsorted``;
-   ``diag`` with ``big_overflow`` and ``true_entries``;
+   ``diag`` with ``big_overflow`` and ``true_entries``; under a
+   ``row_budget``, ``cut_order`` (the walks read the pad row past the
+   budget; ``diag["row_overflow"]`` counts the binned prims dropped);
 3. ``build_table16`` — ``pallas_csr4._build_table16``: (P+1, 16) rows;
    under ``cap_rows10`` ``build_table10`` ((P+1, 10) capsule rows), under
    ``discs_only`` ``build_rows8`` ((P, 8) disc rows in sorted order:
@@ -343,16 +345,45 @@ def bin_diagnostics6(prims: ScreenPrimitives, width: int, height: int,
                      max_big: int = DEFAULT_MAX_BIG,
                      discs_only: bool = False, span: int = SPAN,
                      kind_split: bool = False,
-                     bin_triangles: bool = False) -> torch.Tensor:
+                     bin_triangles: bool = False,
+                     return_binned: bool = False):
     """Big-list overflow count under the v6 binning (0 = exact).
 
     ``discs_only``, ``span`` and ``bin_triangles`` must mirror the render
     being certified: ``discs_only`` sends every capsule to the big list, a
     narrower span sends more prims there and ``bin_triangles`` keeps small
     triangles off it, so a mismatched probe can certify a truncating run
-    as exact."""
-    return bin_csr6(prims, width, height, max_big, discs_only, span,
-                    kind_split, bin_triangles)["diag"]["big_overflow"]
+    as exact.  ``return_binned=True`` returns ``(overflow, n_small)``,
+    ``n_small`` the binned prims (the sorted order's binned prefix): the
+    probe that sizes a ``row_budget``."""
+    b = bin_csr6(prims, width, height, max_big, discs_only, span,
+                 kind_split, bin_triangles)
+    ovf = b["diag"]["big_overflow"]
+    return (ovf, b["starts"][-1]) if return_binned else ovf
+
+
+def cut_order(order, n_small, row_budget):
+    """``row_budget`` applied to a binning's sorted ``order`` ->
+    (order, row_overflow).  The JAX package gathers rows for the first
+    ``min(row_budget, P)`` sorted positions only and pads the rest with the
+    inert pad row P (``pallas_csr6._raster_core6``); here every later
+    position names prim P, whose row every table holds as its pad (zero
+    rows; NaN rows in :func:`build_table9`).  Binned prims past the budget
+    are thus dropped from the frame, and ``row_overflow`` (an int32 device
+    scalar, ``max(n_small - min(row_budget, P), 0)``) counts them: the
+    frame is exact iff it is 0.  The big list was taken from the uncut
+    order, so the cut never reaches it.  ``row_budget`` None: no cut."""
+    p = order.shape[0]
+    if row_budget is None:
+        return order, torch.zeros((), dtype=torch.int32, device=order.device)
+    if row_budget < 0:
+        raise ValueError(f"row_budget must be >= 0, got {row_budget}")
+    n_rows = min(int(row_budget), p)
+    over = torch.clamp(n_small - n_rows, min=0).to(torch.int32)
+    if n_rows == p:
+        return order, over
+    pos = torch.arange(p, dtype=torch.int32, device=order.device)
+    return torch.where(pos < n_rows, order, torch.full_like(order, p)), over
 
 
 # ---------------------------------------------------------------------------
@@ -516,20 +547,24 @@ def build_table8(prims: ScreenPrimitives, shade_flag) -> torch.Tensor:
 
 def build_rows8(prims: ScreenPrimitives, shade_flag, order) -> torch.Tensor:
     """(P, 8) float32 disc rows in sorted order, ``build_table8(...)
-    [order]`` bit for bit: row i is prim ``order[i]``'s, built from its
-    gathered inputs in one pass (the walks stage a tile's ranges as
+    [order]`` bit for bit: row i is prim ``order[i]``'s (the zero pad row
+    where ``order[i]`` is P, a position past a ``row_budget``), built from
+    its gathered inputs in one pass (the walks stage a tile's ranges as
     contiguous runs, so the kernel gathers nothing).  Positions past the
     binned prefix hold their big or invalid prims' rows, which no walk
     reads."""
+    n = prims.count
     ids = order.long()
-    p = prims.params[:, 0:4][ids]
+    safe = torch.clamp(ids, max=max(n - 1, 0))
+    p = prims.params[:, 0:4][safe]
     r = p[:, 3]
     rows = torch.cat([
         p[:, 0:3], (r * r)[:, None], order.to(torch.float32)[:, None],
-        shade_flag[ids][:, None],
+        shade_flag[safe][:, None],
         torch.zeros((ids.shape[0], 2), dtype=torch.float32,
                     device=prims.device)], dim=1)
-    return torch.where(prims.valid[ids][:, None], rows,
+    live = prims.valid[safe] & (ids < n)
+    return torch.where(live[:, None], rows,
                        torch.zeros_like(rows)).contiguous()
 
 
@@ -1519,7 +1554,7 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
                   discs_only: bool = False, fused_uv: bool = False,
                   span: int = SPAN, kind_split: bool = False,
                   bin_triangles: bool = False, cap_rows10: bool = False,
-                  allow_exit=None):
+                  allow_exit=None, row_budget=None):
     """Bin, build the rows and walk the tiles -> (depth, index, uv, diag);
     ``uv`` is None unless ``fused_uv`` (then the winner's lambert (u, v)
     images, +inf where the winner is no disc).  Under ``discs_only``,
@@ -1528,7 +1563,8 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
     big ids.  ``bin_triangles`` bins small triangles into the 16-float
     walk (mesh-LOD droplets).  ``allow_exit`` by :func:`resolve_exit`:
     the 16-float walk and, forced on, the non-fused disc walk at span 2
-    take the exit."""
+    take the exit.  ``row_budget`` cuts the sorted order of every walk
+    (:func:`cut_order`); diag gains ``row_overflow``."""
     if fused_uv and not discs_only:
         raise ValueError("fused_uv requires discs_only rows")
     if fused_uv and max_big > FUSED_MAX_BIG:
@@ -1545,7 +1581,10 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
            else None)
     binned = bin_csr6(prims, width, height, max_big, discs_only, span,
                       kind_split, bin_triangles, with_z=with_z, zlb=zlb)
-    ranges = (binned["order"], binned["starts"])
+    order, row_overflow = cut_order(binned["order"], binned["starts"][-1],
+                                    row_budget)
+    diag = dict(binned["diag"], row_overflow=row_overflow)
+    ranges = (order, binned["starts"])
     uv = None
     if cap_rows10:
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
@@ -1554,14 +1593,14 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
         depth, index = walk(build_table10(prims), big_rows, *ranges,
                             binned["big_n"], width, height, span)
     elif kind_split:
-        rows9 = build_table9(prims, binned["order"], binned["starts"][-1])
+        rows9 = build_table9(prims, order, binned["starts"][-1])
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
                                       binned["big_ids"])
         walk = raster_tiles_rows9_plain if plain else raster_tiles_rows9
         depth, index = walk(rows9, big_rows, binned["starts"],
                             binned["big_n"], width, height, span)
     elif discs_only:
-        rows8 = build_rows8(prims, shade_flag, binned["order"])
+        rows8 = build_rows8(prims, shade_flag, order)
         big_rows = build_table16_rows(prims, shade_rgb, shade_flag,
                                       binned["big_ids"])
         args = (rows8, big_rows, binned["starts"], binned["big_n"], width,
@@ -1585,7 +1624,7 @@ def _raster_core6(prims: ScreenPrimitives, width: int, height: int,
         else:
             depth, index = raster_tiles(
                 *args, zmeta=binned["zmeta"] if with_z else None)
-    return depth, index, uv, binned["diag"]
+    return depth, index, uv, diag
 
 
 def _kind_split(rows8: bool, rows9: bool, discs_only: bool,
@@ -1612,7 +1651,7 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
                    discs_only: bool = False, span: int = SPAN,
                    rows8: bool = False, rows9: bool = False,
                    bin_triangles: bool = False, cap_rows10: bool = False,
-                   allow_exit=None):
+                   allow_exit=None, row_budget=None):
     """Bin, build the rows and walk the tiles -> (depth, index, diag).
 
     ``plain=True`` runs the plain tile walk on any device (the reference
@@ -1624,7 +1663,10 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
     renormalized evaluation); ``bin_triangles`` bins small triangles
     through the dual evaluation (same winners).  ``allow_exit``: the
     z-bucket early exit of the 16-float walk (:func:`resolve_exit`; same
-    winners).
+    winners).  ``row_budget``: walk rows for the first ``row_budget``
+    sorted positions only (:func:`cut_order`); binned prims past it are
+    dropped and counted in ``diag["row_overflow"]``.  ``diag`` holds
+    ``true_entries``, ``big_overflow`` and ``row_overflow``.
     """
     if shade_rgb is None:
         shade_rgb = torch.zeros((prims.count, 3), dtype=torch.float32,
@@ -1637,7 +1679,7 @@ def rasterize_csr6(prims: ScreenPrimitives, width: int, height: int,
         kind_split=_kind_split(rows8, rows9, discs_only, allow_exit,
                                bin_triangles, cap_rows10),
         bin_triangles=bin_triangles, cap_rows10=cap_rows10,
-        allow_exit=allow_exit)
+        allow_exit=allow_exit, row_budget=row_budget)
     return depth, index, diag
 
 
@@ -1834,7 +1876,7 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
                        allow_exit=None, span: int = SPAN,
                        rows8: bool = False, rows9: bool = False,
                        three_tone=None, bin_triangles: bool = False,
-                       cap_rows10: bool = False):
+                       cap_rows10: bool = False, row_budget=None):
     """Rasterize + shade in one pass -> (rgb, depth, index, diag).
 
     Two-tone disc scenes (``uniform_look`` with ``discs_only``, lambert,
@@ -1848,7 +1890,8 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
     10-float capsule walk, ``bin_triangles`` the binned-triangle 16-float
     walk, each at ``span``.  ``allow_exit`` (:func:`resolve_exit`; None
     by the JAX package's policy) turns the z-bucket early exit of the
-    16-float walk on or off; the winners do not change."""
+    16-float walk on or off; the winners do not change.  ``row_budget``
+    cuts the sorted order as :func:`rasterize_csr6` does."""
     check_supported(shading)
     check_id_range(prims)
     if three_tone is not None and uniform_look is not None:
@@ -1870,7 +1913,8 @@ def render_shaded_csr6(prims: ScreenPrimitives, camera, shading,
         prims, camera.width, camera.height, max_big, shade_rgb, shade_flag,
         plain=plain, discs_only=discs_only, fused_uv=fused, span=span,
         kind_split=kind_split, bin_triangles=bin_triangles,
-        cap_rows10=cap_rows10, allow_exit=False if fused else allow_exit)
+        cap_rows10=cap_rows10, allow_exit=False if fused else allow_exit,
+        row_budget=row_budget)
     if fused:
         rgb = shade_uv(camera, shading, depth, uv[0], uv[1], uniform_look)
     else:

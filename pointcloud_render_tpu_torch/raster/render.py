@@ -42,7 +42,7 @@ what is dropped; its big list is fixed at 1024, as the JAX package never
 forwards ``max_big`` to v2.  The TPU performance knobs
 (``tiles_per_program``, ``dma_slots``, ``chunk_rows``, ``unroll``,
 ``starts_method``, the ``*_carry`` build variants, ``chunk``,
-``max_per_tile``, ``row_budget``) are accepted and have no effect, and so
+``max_per_tile``) are accepted and have no effect, and so
 are ``tile_h``/``tile_w``, ``max_tiles_per_prim`` and ``no_triangles``
 outside ``pallas``; ``entry_capacity`` drops entries under ``pallas4``,
 ``pallas3`` and ``pallas`` and is checked against the frame's
@@ -60,7 +60,12 @@ kind-split 9-float rows (binned capsules through the renormalized
 segment-frame evaluation; one kernel serves both) and ``cap_rows10`` the
 10-float capsule rows (the default walk's winners and depth bits), at
 ``span`` 2, 4 or 8 as the default 16-float walk; ``three_tone`` shades
-per-kind-constant soups from three or four representative colors.  The
+per-kind-constant soups from three or four representative colors;
+``row_budget`` walks rows for the first ``row_budget`` sorted positions
+only (every v6 walk, as the JAX package's row gather): binned prims past
+it are dropped from the frame and counted in the diag's
+``row_overflow``, which must be 0 for an exact frame (size the budget
+with ``csr6.bin_diagnostics6(..., return_binned=True)``).  The
 v6 backends reject what ``pallas_csr6`` rejects; the others only what
 their JAX functions reject.
 """
@@ -209,7 +214,7 @@ def rasterize(prims: ScreenPrimitives, width: int, height: int,
             discs_only=config.discs_only, span=config.span,
             rows8=config.rows8, rows9=config.rows9,
             bin_triangles=config.bin_triangles, cap_rows10=config.cap_rows10,
-            allow_exit=config.allow_exit)
+            allow_exit=config.allow_exit, row_budget=config.row_budget)
     else:
         depth, index, _ = _rasterize_diag(prims, width, height, config)
     return depth, index
@@ -221,7 +226,8 @@ def render(prims: ScreenPrimitives, camera,
     """Rasterize + shade a primitive soup through a Camera -> FrameBuffers.
 
     ``return_diag=True`` also returns ``{"true_entries", "big_overflow"}``
-    (int32 device scalars); ``big_overflow`` must be 0 for an exact frame,
+    (int32 device scalars), and under the v6 backends ``row_overflow``;
+    ``big_overflow`` and ``row_overflow`` must be 0 for an exact frame,
     and ``true_entries`` at most a finite ``entry_capacity``.
     """
     config = config or RasterConfig()
@@ -244,7 +250,7 @@ def render(prims: ScreenPrimitives, camera,
             rows8=config.rows8, rows9=config.rows9,
             three_tone=config.three_tone,
             bin_triangles=config.bin_triangles,
-            cap_rows10=config.cap_rows10)
+            cap_rows10=config.cap_rows10, row_budget=config.row_budget)
     else:
         depth, index, diag = _rasterize_diag(prims, camera.width,
                                              camera.height, config)

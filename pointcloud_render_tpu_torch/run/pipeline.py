@@ -9,20 +9,20 @@ Ported: the sphere splats, the droplets' capsule LOD (head disc and
 tapered tail capsule, velocity-aligned, or oriented by the reference's
 seeded random rotations when the cloud has no velocities) and mesh LOD
 (the reference's 16x20 teardrop instanced per point, as triangles), the
-fixed-segment velocity trails and the Catmull-Rom history-fit trails
+velocity trails at a fixed segment count or adaptive per trail
+(``trail_segments="adaptive"``), the Catmull-Rom history-fit trails
 (every preset: traj_ball, traj_vel, traj with its history window, the
 other sphere + velocity presets and the example preset's static cloud,
 whose 3-D stacks ``process`` iterates), and the look passes: the shadow
 map, the GGX ground lobe, the GI fill and supersampled antialiasing
-(``render_array``).  The adaptive trail segmentation raises
-``NotImplementedError`` naming its ROADMAP entry.
+(``render_array``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from pointcloud_render_tpu_torch.raster.primitives import (
     discs_from_points,
     triangles_from_mesh,
 )
+from pointcloud_render_tpu_torch.raster.project import project_points
 from pointcloud_render_tpu_torch.raster.render import (
     FrameBuffers,
     RasterConfig,
@@ -69,6 +70,60 @@ VEL_TRAIL_RENDER_SEGMENTS = 8
 # How many times a frame whose big list overflowed is re-rendered with a
 # larger list before the pipeline gives up.
 MAX_RENDER_ATTEMPTS = 5
+# Capsules per trail of the adaptive build (trail_segments="adaptive"):
+# its soup has trail_segments=4's shapes and layout; each trail uses k of
+# them.
+TRAIL_ADAPTIVE_BUDGET = 4
+# The tile edge the adaptive segment count assumes (a heuristic input:
+# any k renders exactly).
+_TILE = 32.0
+
+
+def _trail_extents(positions, direction, trail_length, camera,
+                   radius_world):
+    """(ex, ey): each straight trail's screen extents in pixels, from its
+    two projected endpoints and their projected radii."""
+    n = positions.shape[0]
+    far = positions + direction * trail_length[:, None]
+    both = torch.cat([positions, far])
+    pr = project_points(both, camera, radii=torch.full_like(
+        both[:, 0], float(radius_world)))
+    px, py, r = pr["px"], pr["py"], pr["r_px"]
+    ex = (px[n:] - px[:n]).abs() + r[:n] + r[n:]
+    ey = (py[n:] - py[:n]).abs() + r[:n] + r[n:]
+    return ex, ey
+
+
+def _cheapest_segment_counts(ex, ey, budget: int = TRAIL_ADAPTIVE_BUDGET):
+    """(N,) int32: the k in 1..budget of the fewest tile slots for trails
+    of screen extents (ex, ey).  A straight trail cut into k capsules
+    bins about k (ex / 32k + 1) (ey / 32k + 1) slots; a k whose capsules
+    would reach past 3 tiles (the span-4 binning) costs 1e6 more, so only
+    trails that no k fits ride the big list.  Ties take the smallest k."""
+    dev = ex.device
+    emax = torch.maximum(ex, ey)
+    penalty = const(1e6, np.float32, dev)
+    zero = const(0.0, np.float32, dev)
+    costs = []
+    for kk in range(1, budget + 1):
+        # Divisors as tensors: the CUDA kernel of x / python_scalar
+        # multiplies by the reciprocal.
+        width = const(_TILE * kk, np.float32, dev)
+        c = kk * (ex / width + 1.0) * (ey / width + 1.0)
+        over = emax / const(kk, np.float32, dev) > 3.0 * _TILE
+        costs.append(c + torch.where(over, penalty, zero))
+    return torch.stack(costs).argmin(dim=0).to(torch.int32) + 1
+
+
+def _adaptive_trail_segment_counts(positions, direction, trail_length,
+                                   camera, radius_world,
+                                   budget: int = TRAIL_ADAPTIVE_BUDGET):
+    """(N,) int32: each trail's segment count k in 1..budget, the one that
+    bins the fewest tile slots (the JAX pipeline's heuristic, float32 op
+    for op; on the device, without a host sync)."""
+    return _cheapest_segment_counts(
+        *_trail_extents(positions, direction, trail_length, camera,
+                        radius_world), budget)
 
 
 def check_droplet_lod(droplet_lod: str) -> None:
@@ -95,7 +150,7 @@ def scene_config(preset: ScenePreset, config: RasterConfig,
 def build_primitives(preset: ScenePreset, camera: Camera, positions,
                      velocities=None, frame_index=0, history=None,
                      rotations=None, droplet_lod: str = "capsule",
-                     trail_segments: Optional[int] = None,
+                     trail_segments: Optional[Union[int, str]] = None,
                      return_layout: bool = False):
     """Assemble the frame's primitive soup on the camera's device.
 
@@ -104,7 +159,12 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
     instanced teardrops' triangles), trails.  Droplets take their
     orientation from ``rotations`` ((N, 4, 4)), else from the velocities,
     else the identity.  ``trail_segments`` overrides
-    VEL_TRAIL_RENDER_SEGMENTS (1..20).  History presets fit their trails
+    VEL_TRAIL_RENDER_SEGMENTS (1..20); ``"adaptive"`` cuts each velocity
+    trail into its own k in 1..TRAIL_ADAPTIVE_BUDGET capsules
+    (``_adaptive_trail_segment_counts``), whose vertices are the k-segment
+    build's, in TRAIL_ADAPTIVE_BUDGET capsules per point (those past k
+    invalid: they sort past every binned key), so the soup has
+    ``trail_segments=4``'s layout.  History presets fit their trails
     through ``history`` ((H, N, 3) prior positions, oldest first; 20
     capsules per point) when it holds a frame.  ``return_layout=True``
     also returns the soup's part layout as a list of ``(rows,
@@ -169,20 +229,31 @@ def build_primitives(preset: ScenePreset, camera: Camera, positions,
         segs = (VEL_TRAIL_RENDER_SEGMENTS if trail_segments is None
                 else trail_segments)
         if segs == "adaptive":
-            raise NotImplementedError(
-                "adaptive trail segments are not part of the port: ROADMAP "
-                "queue A, 'Not to port'")
-        if not 1 <= segs <= trails_mod.N_TRAIL_POINTS:
-            raise ValueError(
-                f"trail_segments must be in 1..{trails_mod.N_TRAIL_POINTS}")
-        sub = np.round(np.linspace(0, trails_mod.N_TRAIL_POINTS,
-                                   segs + 1)).astype(np.int32)
-        vcols, valid = trails_mod.velocity_trail_vertex_columns(
-            positions, velocities, frame_index, sub, preset.trail_schedule)
-        parts.append(capsules_from_vertex_columns(
-            vcols, [valid] * len(vcols), camera, preset.trail_radius,
-            np.asarray(preset.trail_color, np.float32)))
-        per_point.append(len(vcols) - 1)
+            direction, tlen, _ = trails_mod.velocity_trail_lengths(
+                positions, velocities, frame_index, preset.trail_schedule)
+            k = _adaptive_trail_segment_counts(positions, direction, tlen,
+                                               camera, preset.trail_radius)
+            pts, vertex_valid = trails_mod.velocity_trails_adaptive(
+                positions, velocities, frame_index, k,
+                TRAIL_ADAPTIVE_BUDGET, preset.trail_schedule)
+            parts.append(capsules_from_polylines(
+                pts, vertex_valid, camera, preset.trail_radius,
+                np.asarray(preset.trail_color, np.float32)))
+            per_point.append(TRAIL_ADAPTIVE_BUDGET)
+        else:
+            if segs not in range(1, trails_mod.N_TRAIL_POINTS + 1):
+                raise ValueError(
+                    "trail_segments must be 'adaptive' or in 1.."
+                    f"{trails_mod.N_TRAIL_POINTS}")
+            sub = np.round(np.linspace(0, trails_mod.N_TRAIL_POINTS,
+                                       segs + 1)).astype(np.int32)
+            vcols, valid = trails_mod.velocity_trail_vertex_columns(
+                positions, velocities, frame_index, sub,
+                preset.trail_schedule)
+            parts.append(capsules_from_vertex_columns(
+                vcols, [valid] * len(vcols), camera, preset.trail_radius,
+                np.asarray(preset.trail_color, np.float32)))
+            per_point.append(len(vcols) - 1)
     elif (preset.trail == "history" and history is not None
           and history.shape[0] > 0):
         pts, valid, keep = trails_mod.catmull_rom_trails(

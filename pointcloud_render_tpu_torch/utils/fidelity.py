@@ -160,8 +160,9 @@ def trail_flip_decomposition(segments, n_points: int = 1500,
                              preset_name: str = "traj_vel",
                              reference_segments: int = 20, seed: int = 0,
                              device="cuda") -> dict:
-    """Attribute the winner-flip rate of ``segments`` against the
-    reference polyline to winning-part transitions, both renders exact.
+    """Attribute the winner-flip rate of ``segments`` (a count or
+    ``"adaptive"``) against the reference polyline to winning-part
+    transitions, both renders exact.
 
     Returns ``{"frame", "parts": [names...], "denom": trail_pixels,
     "trail_rate": total, "transitions": {"a->b": rate, ...},
@@ -209,14 +210,16 @@ def trail_flip_decomposition(segments, n_points: int = 1500,
                      "transitions": {}, "trail_owner_swap": 0.0}
 
 
-def trail_segments_flip_rate(segments: int, n_points: int = 1500,
+def trail_segments_flip_rate(segments, n_points: int = 1500,
                              frames=(60, 120, 199), width: int = 480,
                              height: int = 270,
                              preset_name: str = "traj_ball",
                              reference_segments: int = 20, seed: int = 0,
                              capsule_eval: str = "cap10",
                              capsule_span: int = 4, device="cuda") -> dict:
-    """Winner-flip rates of ``segments`` against the reference polyline.
+    """Winner-flip rates of ``segments`` (a count in 1..20 or
+    ``"adaptive"``, as ``build_primitives`` takes them) against the
+    reference polyline.
 
     Renders the preset's trail scene at ``segments`` (the candidate) and
     at ``reference_segments`` (the exact walk) and returns the max over

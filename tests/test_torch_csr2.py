@@ -58,6 +58,7 @@ from tests.torch_soups import (
     cloud,
     droplet_soup,
     make_soup,
+    pad_invalid,
     segment_soup,
     tcam,
 )
@@ -181,7 +182,10 @@ def test_bin_csr_and_diagnostics_match_jax(case):
     force flags and a non-default tile shape; the certificates too (the
     soups hold invalid rows with NaN params, ground and near-clipped
     triangles, capsules)."""
-    soup, _, _ = _case(case)
+    # Both cases at one row count (invalid rows past the smaller): the
+    # second finds the jitted JAX binnings compiled.
+    soup = pad_invalid(_case(case)[0], max(
+        _case(c)[0].count for c in ("invalid", "near_clip")))
     max_big = 6
     jb, jd = _jax_binnings(jax_soup(soup), max_big)
     for (mtp, ftri, fcap, th, tw), (keys, prims, big, count) in zip(
@@ -233,9 +237,11 @@ def test_v1_matches_pallas_interpret_with_big_overflow():
     """v1 honours max_big: 33 big prims (wide discs past 4 tiles, the
     ground) on a big list of 16 drop the same 17 in both packages."""
     soup = _case("wide_big")[0]
-    want = jcsr.rasterize_pallas_csr(jax_soup(soup), IW, IH,
-                                     max_tiles_per_prim=4, max_big=16,
-                                     interpret=True)
+    # Under one jit: the interpreted kernel contracts its multiply-adds
+    # either way, and compiles once instead of op by op.
+    want = jax.jit(lambda s: jcsr.rasterize_pallas_csr(
+        s, IW, IH, max_tiles_per_prim=4, max_big=16, interpret=True))(
+        jax_soup(soup))
     depth, index, diag = csr.rasterize_csr(soup, IW, IH,
                                            max_tiles_per_prim=4, max_big=16)
     assert int(diag["big_overflow"]) > 0
@@ -247,8 +253,9 @@ def test_v2_matches_pallas_interpret_with_capacity_cut():
     the same entries and big prims are dropped in both packages."""
     soup = _case("wide_big")[0]
     cap = 2 * int(csr2.true_entry_count(soup, IW, IH)) // 3
-    want = jcsr2.rasterize_pallas_csr2(jax_soup(soup), IW, IH, max_big=16,
-                                       entry_capacity=cap, interpret=True)
+    want = jax.jit(lambda s: jcsr2.rasterize_pallas_csr2(
+        s, IW, IH, max_big=16, entry_capacity=cap, interpret=True))(
+        jax_soup(soup))
     depth, index, diag = csr2.rasterize_csr2(soup, IW, IH, max_big=16,
                                              entry_capacity=cap)
     assert int(diag["true_entries"]) > cap and int(diag["big_overflow"]) > 0

@@ -20,8 +20,10 @@ the pallas backend, the look passes, the stream's pallas6, pallas (v4)
 and tiled backends on disc and trail chunks) rendered on the card against
 the same on the CPU, a stream fed by a generator that holds the card
 against its monolithic render (the staging slots' reuse; the discs_only,
-default v6, cap_rows10, v4 and tiled walks), and the sharded frame on a
-world of one rank against the card's single-device frame.  Every test
+default v6, cap_rows10, v4 and tiled walks), the sharded frame on a
+world of one rank against the card's single-device frame, and the v6
+walks on the adaptive trail soup with and without a row_budget that cuts
+its binned rows.  Every test
 here needs a card (marker ``cuda``) and skips without one.  The file imports no jax, so it also runs on a machine that
 has none (from the repository root, without the JAX conftest):
 
@@ -63,6 +65,7 @@ from torch_soups import (
     SPAN8_FILM,
     H,
     W,
+    adaptive_soup,
     band_soup,
     block_soup,
     cloud,
@@ -1495,3 +1498,43 @@ def test_stream_camera_on_another_device_raises(cuda_device):
     with pytest.raises(ValueError, match="stream's device"):
         StreamingRasterizer(tcam(), chunk_points=10, radius_world=0.01,
                             device=cuda_device)
+
+
+# The v6 walks on the adaptive trail soup: (kernel wrapper, knobs).
+ADAPTIVE_WALKS = {
+    "rows16_exit": (csr6.raster_tiles, dict()),
+    "rows16_exit_off": (csr6.raster_tiles, dict(allow_exit=False)),
+    "rows16_span4": (csr6.raster_tiles, dict(span=4)),
+    "cap_rows10": (csr6.raster_tiles_cap10, dict(cap_rows10=True, span=4)),
+    "rows9": (csr6.raster_tiles_rows9, dict(rows9=True, span=4)),
+    "discs_only": (csr6.raster_tiles_disc8, dict(discs_only=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("walk", sorted(ADAPTIVE_WALKS))
+def test_adaptive_and_cut_soups_match_plain_on_card(cuda_device, walk, cut):
+    """Each v6 kernel on the adaptive trail soup built on the card, without
+    a row_budget and with one at half the binned rows (the rows past it
+    read the pad row), == its plain version on the same inputs bit for
+    bit, one launch; the same row_overflow."""
+    soup, _, _ = adaptive_soup(device=cuda_device)
+    wrapper, kw = ADAPTIVE_WALKS[walk]
+    budget = None
+    if cut:
+        _, n_small = csr6.bin_diagnostics6(
+            soup, W, H, span=kw.get("span", 2),
+            discs_only=kw.get("discs_only", False),
+            kind_split=kw.get("rows9", False), return_binned=True)
+        budget = int(n_small) // 2
+    before = wrapper.launches
+    got = csr6.rasterize_csr6(soup, W, H, row_budget=budget, **kw)
+    want = csr6.rasterize_csr6(soup, W, H, row_budget=budget, plain=True,
+                               **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(got[2]["row_overflow"]) == int(want[2]["row_overflow"])
+    assert (int(got[2]["row_overflow"]) > 0) == cut

@@ -232,7 +232,7 @@ def test_plain_triangle_windows_are_sound(monkeypatch):
     triangle on its whole rectangle (binned: its tiles; big, as the
     ground and the near-clip triangles: the image) the frames are the
     same."""
-    s = mesh_soup(tcam(), n=4, ties=1, discs=0)
+    s = mesh_soup(tcam(), n=3, ties=1, near=1, discs=0)
     walks = (lambda: _v6_plain(s, True), lambda: _v4_plain(s, True)[:2])
     want = [walk() for walk in walks]
     monkeypatch.setattr(csr6, "_tri_window", lambda rows, rect: rect)

@@ -237,11 +237,12 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="unknown droplet_lod"):
         pipeline.FramePipeline(PRESETS["traj_vel"], droplet_lod="sphere",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, 'Not to port'"):
-        pipeline.build_primitives(
-            PRESETS["traj_ball"], pipeline.frame_camera(
-                PRESETS["traj_ball"], 10, 64, 48, "cpu"), pos, vel, 10,
-            trail_segments="adaptive")
+    for segs in (0, 21, "fixed"):
+        with pytest.raises(ValueError, match="'adaptive' or in 1..20"):
+            pipeline.build_primitives(
+                PRESETS["traj_ball"], pipeline.frame_camera(
+                    PRESETS["traj_ball"], 10, 64, 48, "cpu"), pos, vel, 10,
+                trail_segments=segs)
 
 
 def test_cuda_device_without_card_raises():
@@ -273,6 +274,9 @@ def test_package_imports_without_jax():
             "import pointcloud_render_tpu_torch.parallel.multihost\n"
             "import pointcloud_render_tpu_torch.io.native\n"
             "import pointcloud_render_tpu_torch.run.video\n"
+            "import pointcloud_render_tpu_torch.geometry.trails\n"
+            "import pointcloud_render_tpu_torch.scene.pointcloud\n"
+            "from pointcloud_render_tpu_torch import PointCloud\n"
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('pointcloud_render_tpu.') for m in sys.modules "
             "if sys.modules[m] is not None)\n")

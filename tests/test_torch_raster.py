@@ -158,16 +158,28 @@ def test_tables_and_shading_match_jax():
 
 def test_shaded_v6_matches_pallas_interpret():
     """The one interpret-mode run: the whole shaded v6 path at 64x64
-    against pallas_csr6.render_shaded_csr6 — index, rgb and the
-    certificate bit for bit; depth bit for bit on disc winners.  The
-    interpreted kernel body runs as XLA CPU code, which contracts the
-    capsule and triangle multiply-adds into FMAs, so their depths may
-    differ by a few ulp (measured: capsules 1, triangles 3; bound 4)."""
+    against pallas_csr6.render_shaded_csr6's stages (its default path:
+    ``_preshade``, ``_raster_core6``, ``pallas_csr4._shade_by_id``) —
+    index, rgb and the certificate bit for bit; depth bit for bit on
+    disc winners.  The interpreted kernel body runs as XLA CPU code,
+    which contracts the capsule and triangle multiply-adds into FMAs, so
+    their depths may differ by a few ulp (measured: capsules 1,
+    triangles 3; bound 4).  ``_raster_core6`` runs under one jit (it
+    contracts in interpret mode either way, and compiles once instead of
+    op by op); the shading stages run op by op, as the test above left
+    them compiled, so rgb stays the op-by-op JAX value."""
     w = h = SMALL
     jc = jcam(w, h)
     jsoup = jax_soup(small_mixed_soup())
-    jrgb, jdepth, jindex, jdiag = jcsr6.render_shaded_csr6(
-        jsoup, jc, JShading(), interpret=True, return_diag=True)
+    shading = JShading()
+    with jax.disable_jit():
+        jrgb_p, jflag = jcsr3._preshade(jsoup, jc, shading)
+    jdepth, jidf, _, _, jdiag = jax.jit(lambda s, r, f: jcsr6._raster_core6(
+        s, w, h, 32, 32, 4, jcsr6.DEFAULT_CHUNK_ROWS, True, r, f))(
+        jsoup, jrgb_p, jflag)
+    with jax.disable_jit():
+        jrgb, jindex = jcsr4._shade_by_id(jsoup, jc, shading, jdepth, jidf,
+                                          jrgb_p, jflag)
     soup = convert.soup_from_fields(jsoup)
     rgb, depth, index, diag = csr6.render_shaded_csr6(
         soup, tcam(w, h), ShadingConfig())

@@ -69,7 +69,13 @@ from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.shading.shade import ShadingConfig
 from tests.torch_jax import jax_soup, jcam, numpy_soup
 from tests.torch_jax import one_intra_op_thread  # noqa: F401 (autouse)
-from tests.torch_soups import TRAIL_COLOR, cloud, tcam, trail_soup_fn
+from tests.torch_soups import (
+    TRAIL_COLOR,
+    cloud,
+    pad_invalid,
+    tcam,
+    trail_soup_fn,
+)
 
 W, H = 256, 64
 # The jitted JAX ``tiled`` depth against the port's IEEE-per-operation
@@ -259,7 +265,10 @@ def test_attribute_table_and_resolve_rgb_match_jax(preset, mode):
     bit for bit against the JAX package op by op."""
     cam = tcam(W, H)
     pos, vel = cloud(n=300, seed=7)
-    soup = pipeline.build_primitives(PRESETS[preset], cam, pos, vel, 120)
+    # traj_ball's soup padded with invalid rows to traj_vel's 3,004: the
+    # JAX functions run op by op compile each op once per shape.
+    soup = pad_invalid(pipeline.build_primitives(PRESETS[preset], cam, pos,
+                                                 vel, 120), 3004)
     shading = ShadingConfig(mode=mode)
     sr = StreamingRasterizer(cam, chunk_points=300, radius_world=0.01,
                              backend="pallas6", shading=shading, device="cpu")

@@ -10,6 +10,7 @@ import types
 import numpy as np
 import torch
 
+from pointcloud_render_tpu_torch.configs import PRESETS
 from pointcloud_render_tpu_torch.geometry import trails
 from pointcloud_render_tpu_torch.raster.primitives import (
     ScreenPrimitives,
@@ -19,6 +20,7 @@ from pointcloud_render_tpu_torch.raster.primitives import (
     triangles_from_mesh,
 )
 from pointcloud_render_tpu_torch.raster.render import ground_plane
+from pointcloud_render_tpu_torch.run import pipeline
 from pointcloud_render_tpu_torch.scene.camera import Camera
 from pointcloud_render_tpu_torch.utils import convert
 
@@ -45,6 +47,22 @@ def _discs(cam, pos, radius, color=(0.3, 0.3, 0.3)):
     n = pos.shape[0]
     return discs_from_points(torch.tensor(pos), cam,
                              torch.full((n,), radius), np.asarray(color))
+
+
+def pad_invalid(soup, n):
+    """``soup`` followed by invalid all-zero rows up to ``n`` rows: the
+    JAX reference evaluated op by op compiles each op per input shape, so
+    cases padded to one row count share those compiles."""
+    m = n - soup.count
+    dev = soup.device
+    pad = ScreenPrimitives(
+        kind=torch.zeros(m, dtype=torch.int32, device=dev),
+        params=torch.zeros((m, soup.params.shape[1]), device=dev),
+        color=torch.zeros((m, 3), device=dev),
+        valid=torch.zeros(m, dtype=torch.bool, device=dev),
+        bbox=torch.zeros((m, 4), device=dev),
+        normal=torch.zeros((m, 3), device=dev))
+    return ScreenPrimitives.concatenate([soup, pad])
 
 
 def mixed_soup(cam, n, trails, seed, radius=0.025):
@@ -432,6 +450,35 @@ def cloud(n=300, seed=0):
     vel = rng.normal(0, 3, (n, 3)).astype(np.float32)
     vel[4] = 0.0  # below the velocity epsilon: no trail
     return pos, vel
+
+
+# The adaptive trail scene: from this close camera the trails of
+# adaptive_cloud() span up to several tiles of the W x H film, so every
+# adaptive segment count (1..4) occurs.
+ADAPTIVE_ORIGIN = (0.6, 0.6, 0.5)
+
+
+def adaptive_cloud(n=200, seed=3):
+    """A seeded (positions, velocities) cloud for the adaptive trails:
+    positions uniform in [-0.4, 0.4)^3, velocities normal(0, 10)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 10, (n, 3)).astype(np.float32)
+    return pos, vel
+
+
+def adaptive_soup(preset="traj_ball", frame=120, segments="adaptive",
+                  device=None):
+    """(soup, layout, camera) of ``adaptive_cloud()`` through
+    ``build_primitives(..., trail_segments=segments)`` from
+    ADAPTIVE_ORIGIN at W x H."""
+    cam = tcam(device=device, origin=ADAPTIVE_ORIGIN)
+    pos, vel = adaptive_cloud()
+    soup, layout = pipeline.build_primitives(
+        PRESETS[preset], cam, torch.tensor(pos, device=device),
+        torch.tensor(vel, device=device), frame, trail_segments=segments,
+        return_layout=True)
+    return soup, layout, cam
 
 
 def wide_disc_soup():
